@@ -1,0 +1,56 @@
+"""Carry tables and environment state over from the JAX package.
+
+Both functions take the JAX objects' fields as numpy arrays (``np.asarray``
+reads a JAX array without importing jax), so a test can run
+``gym_anm_tpu`` and ``gym_anm_torch`` from the same tables and the same
+state, mid-rollout.
+"""
+
+import numpy as np
+import torch
+
+from .physics.power_flow import ChordConst
+from .physics.transition import HOST_FIELDS, GridTables, tables_from_host
+from .vec.core import EnvState
+
+
+def tables_from_jax(grid_tables, device="cpu") -> GridTables:
+    """The port's :class:`GridTables` from a ``gym_anm_tpu`` ``GridTables``
+    (its numpy fields and its ``ChordConst``), at the same dtype."""
+    if len(grid_tables.gen_pos) or len(grid_tables.des_pos):
+        raise NotImplementedError(
+            "networks with non-slack generators or storage units need the set-point "
+            "projections, which gym_anm_torch does not have yet")
+    host = {name: getattr(grid_tables, name) for name in HOST_FIELDS}
+    chord = None
+    if grid_tables.chord is not None:
+        src = grid_tables.chord
+        arrays = ("Y0re", "Y0im", "invJ0", "G", "H", "C")
+        chord = ChordConst(**{f: np.asarray(getattr(src, f)) if f in arrays else getattr(src, f)
+                              for f in ChordConst._fields})
+    return tables_from_host(host, chord, np.dtype(grid_tables.dtype), device)
+
+
+def state_from_jax(env_state, device="cpu") -> EnvState:
+    """The port's :class:`EnvState` from the numeric leaves of a batched
+    ``gym_anm_tpu`` ``EnvState`` (lanes on the first axis), at their dtypes.
+    The PRNG key is dropped: the port draws from ``torch.Generator``s."""
+    if env_state.task != () or env_state.shaping != ():
+        raise NotImplementedError("task and shaping carries are not ported yet")
+
+    def leaf(name):
+        return torch.as_tensor(np.array(getattr(env_state, name)), device=device)
+
+    return EnvState(
+        soc=leaf("soc"),
+        oltc_tap=leaf("oltc_tap"),
+        dev_p=leaf("dev_p"),
+        dev_q=leaf("dev_q"),
+        p_pot=leaf("p_pot"),
+        bus_vm=leaf("bus_vm"),
+        aux=leaf("aux"),
+        task=(),
+        terminated=leaf("terminated"),
+        t=leaf("t").to(torch.int32),
+        v_guess=leaf("v_guess"),
+    )

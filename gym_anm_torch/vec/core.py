@@ -1,0 +1,275 @@
+"""Vectorized environment engine, batch-leading.
+
+Port of ``gym_anm_tpu/vec/core.py``.  The environment is a pair of plain
+functions on tensors whose leading axis is the lane:
+
+    reset(n, generator)            -> (EnvState, obs)
+    step(EnvState, action, generator) -> (EnvState, obs, reward, done, info)
+
+The MDP semantics (state layout, reward clipping, terminal handling,
+reset-retry) mirror the reference ``ANMEnv`` (anm_env.py:235-469).
+Randomness, where a task has any, comes from an explicit
+``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..errors import ObsSpaceError
+from ..physics.transition import GridTables, TransitionOut, make_tables, solution_guess, transition
+from ..specs.network import NetworkSpec, load_network
+
+
+class EnvState(NamedTuple):
+    """Per-lane carried state; every tensor has the lane on its first axis."""
+
+    soc: torch.Tensor         # [B, n_des] p.u.
+    oltc_tap: torch.Tensor    # [B, n_oltc] (persists across resets, like the ref)
+    dev_p: torch.Tensor       # [B, n_dev] p.u.
+    dev_q: torch.Tensor
+    p_pot: torch.Tensor       # [B, n_gen] p.u.
+    bus_vm: torch.Tensor      # [B, n_bus] voltage magnitudes
+    aux: torch.Tensor         # [B, K]
+    task: Any                 # task-specific carry (() when stateless)
+    terminated: torch.Tensor  # [B] bool
+    t: torch.Tensor           # [B] int32 timestep
+    # Previous solve's [θ₁.., |V|₁..] — warm start for the f32 chord solver.
+    # The solver starts flat where entries are non-finite.
+    v_guess: torch.Tensor     # [B, 2·(n_bus−1)]
+
+
+@dataclasses.dataclass(frozen=True)
+class VecTask:
+    """A task definition: a network + MDP constants + batched hooks.
+
+    init_state_fn(generator, n, task_carry) -> s0 [n, n_state + K] with the
+        reference layout [dev_p (MW), dev_q (MVAr), des_soc (MWh),
+        gen_p_max (MW), aux] (numpy or tensor; cast to the env dtype).
+    next_vars_fn(generator, s_t, task_carry, t) -> (vars, new_task_carry)
+        with vars [B, n_load + n_gen + K] = [P_load (MW), P_pot (MW), aux'].
+    init_task_fn(generator, n) -> initial task carry (() when stateless).
+    """
+
+    network: dict
+    K: int
+    delta_t: float
+    gamma: float
+    lamb: float
+    costs_clipping: tuple
+    init_state_fn: Callable
+    next_vars_fn: Callable
+    init_task_fn: Callable = lambda generator, n: ()
+    rates: Optional[np.ndarray] = None  # override the spec's branch rates
+    # Optional chord linearization point [2(n_bus-1)] for the f32 solver;
+    # None = flat start.
+    chord_x_star: Optional[np.ndarray] = None
+    name: str = "task"
+
+
+class VecEnv:
+    """Vectorized environment for one task on one device.
+
+    ``dtype`` selects the compute precision: float64 for parity work,
+    float32 for throughput (the chord solver).  ``obs="state"`` (the flat
+    MDP state vector) is the observation space; observation plans (lists of
+    ``(variable, ids[, unit])`` triples) are not ported yet.
+    """
+
+    def __init__(self, task: VecTask, dtype=torch.float32, obs="state", device="cpu"):
+        self.task = task
+        self.dtype = dtype
+        self.device = torch.device(device)
+        self.spec: NetworkSpec = load_network(task.network)
+        self.tables: GridTables = make_tables(self.spec, task.delta_t, task.lamb, dtype=dtype,
+                                              device=self.device, chord_x_star=task.chord_x_star)
+        spec = self.spec
+
+        c1 = np.inf if task.costs_clipping is None or task.costs_clipping[0] is None else task.costs_clipping[0]
+        c2 = np.inf if task.costs_clipping is None or task.costs_clipping[1] is None else task.costs_clipping[1]
+        self.costs_clipping = (float(c1), float(c2))
+
+        lo, hi = spec.action_bounds()
+        self.action_low = self._tensor(lo)
+        self.action_high = self._tensor(hi)
+        self.n_action = spec.n_action
+        self.n_state = spec.n_state + task.K
+        self._rates = self._tensor(task.rates if task.rates is not None else spec.br_rate)
+
+        # Observation bounds for the fully-observable ("state") case,
+        # including the reference's gen_p_max MW-bound quirk
+        # (simulator.py:470).
+        base = spec.baseMVA
+        lows = np.concatenate([
+            spec.p_min * base,
+            spec.q_min * base,
+            spec.soc_min[spec.des_pos] * base,
+            spec.p_min[spec.gen_nonslack_pos] * base,
+            np.full(task.K, -np.inf),
+        ])
+        highs = np.concatenate([
+            spec.p_max * base,
+            spec.q_max * base,
+            spec.soc_max[spec.des_pos] * base,
+            spec.q_max[spec.gen_nonslack_pos] * base,  # the quirk
+            np.full(task.K, np.inf),
+        ])
+        if isinstance(obs, str) and obs == "state":
+            self.n_obs = self.n_state
+            self.obs_low = self._tensor(lows)
+            self.obs_high = self._tensor(highs)
+        elif isinstance(obs, list):
+            raise NotImplementedError("observation plans (gym_anm_tpu/vec/obs.py) are not ported yet")
+        else:
+            raise ObsSpaceError(f"obs must be 'state' or a list of (var, ids, unit) triples, got {obs!r}")
+
+        sl, i = {}, 0
+        for name, k in (("P_gen", spec.n_gen), ("Q_gen", spec.n_gen), ("P_des", spec.n_des),
+                        ("Q_des", spec.n_des), ("Q_cap", spec.n_cap), ("tap", spec.n_oltc)):
+            sl[name] = slice(i, i + k)
+            i += k
+        self._action_slices = sl
+
+    def _tensor(self, a):
+        return torch.as_tensor(np.asarray(a, np.float64), device=self.device).to(self.dtype)
+
+    # ------------------------------------------------------------------
+    def split_action(self, action):
+        sl = self._action_slices
+        return (action[..., sl["P_gen"]], action[..., sl["Q_gen"]],
+                action[..., sl["P_des"]], action[..., sl["Q_des"]],
+                action[..., sl["Q_cap"]], action[..., sl["tap"]])
+
+    def _state_vector(self, dev_p, dev_q, soc, p_pot, aux):
+        """Flat MDP state [dev_p MW, dev_q MVAr, soc MWh, gen_p_max MW, aux]
+        (anm_env.py:139-147)."""
+        base = self.tables.baseMVA
+        return torch.cat([dev_p * base, dev_q * base, soc * base, p_pot * base, aux], dim=-1)
+
+    def observation(self, state_vec):
+        return torch.clamp(state_vec, self.obs_low, self.obs_high)
+
+    def _obs_from_out(self, out: TransitionOut, soc_pu, aux):
+        return self.observation(self._state_vector(out.dev_p, out.dev_q, soc_pu, out.gen_p_pot, aux))
+
+    def _run_transition(self, P_load, P_pot, P_gen, Q_gen, P_des, Q_des, Q_cap, taps, soc,
+                        x_guess=None):
+        c = lambda a: a.to(self.dtype)  # noqa: E731
+        return transition(self.tables, c(P_load), c(P_pot), c(P_gen), c(Q_gen), c(P_des),
+                          c(Q_des), c(Q_cap), c(taps), c(soc), self._rates, x_guess=x_guess)
+
+    def _decode_s0(self, s0):
+        """Split s0 [B, n] into transition inputs (simulator.py:267-301)."""
+        spec = self.spec
+        n_dev, n_des, n_gen = spec.n_dev, spec.n_des, spec.n_gen
+        P_dev = s0[:, :n_dev]
+        Q_dev = s0[:, n_dev: 2 * n_dev]
+        soc_mwh = s0[:, 2 * n_dev: 2 * n_dev + n_des]
+        P_max = s0[:, 2 * n_dev + n_des: 2 * n_dev + n_des + n_gen]
+        aux = s0[:, 2 * n_dev + n_des + n_gen:]
+
+        P_des = P_dev[:, spec.des_pos]
+        # Seed SoC to empty/full so the requested injection is feasible.
+        soc_seed = torch.where(P_des <= 0, self._tensor(spec.soc_min[spec.des_pos]),
+                               self._tensor(spec.soc_max[spec.des_pos]))
+        return (P_dev[:, spec.load_pos], P_max, P_dev[:, spec.gen_nonslack_pos],
+                Q_dev[:, spec.gen_nonslack_pos], P_des, Q_dev[:, spec.des_pos],
+                Q_dev[:, spec.cap_pos], soc_seed, soc_mwh, aux)
+
+    # ------------------------------------------------------------------
+    def reset(self, n, generator: Optional[torch.Generator] = None, oltc_tap=None):
+        """Reset ``n`` lanes: sample initial states until each lane's load
+        flow converges (≤100 tries, anm_env.py:266-289).  Returns
+        (EnvState, obs)."""
+        if oltc_tap is None:
+            oltc_tap = torch.ones(n, self.spec.n_oltc, dtype=self.dtype, device=self.device)
+        task_carry = self.task.init_task_fn(generator, n)
+
+        def attempt(lanes, taps):
+            s0 = self.task.init_state_fn(generator, lanes, task_carry)
+            if not torch.is_tensor(s0):
+                s0 = torch.tensor(np.asarray(s0))
+            s0 = s0.to(device=self.device, dtype=self.dtype)
+            (P_load, P_max, P_gen, Q_gen, P_des, Q_des, Q_cap,
+             soc_seed, soc_mwh, aux) = self._decode_s0(s0)
+            out = self._run_transition(P_load, P_max, P_gen, Q_gen, P_des, Q_des, Q_cap,
+                                       taps, soc_seed)
+            return out, soc_mwh / self.tables.baseMVA, aux
+
+        out, soc, aux = attempt(n, oltc_tap)
+        tries = 1
+        bad = ~out.stable
+        while tries < 100 and bool(bad.any()):
+            idx = torch.nonzero(bad).squeeze(1)
+            sub, sub_soc, sub_aux = attempt(idx.numel(), oltc_tap[idx])
+            for full, part in zip(out, sub):
+                full[idx] = part
+            soc[idx], aux[idx] = sub_soc, sub_aux
+            bad = ~out.stable
+            tries += 1
+
+        state = EnvState(
+            soc=soc,
+            oltc_tap=out.oltc_tap,
+            dev_p=out.dev_p,
+            dev_q=out.dev_q,
+            p_pot=out.gen_p_pot,
+            bus_vm=torch.sqrt(out.bus_v_re ** 2 + out.bus_v_im ** 2),
+            aux=aux,
+            task=task_carry,
+            terminated=~out.stable,
+            t=torch.zeros(n, dtype=torch.int32, device=self.device),
+            v_guess=solution_guess(out),
+        )
+        return state, self._obs_from_out(out, soc, aux)
+
+    # ------------------------------------------------------------------
+    def step(self, state: EnvState, action, generator: Optional[torch.Generator] = None):
+        """One MDP step of every lane (anm_env.py:333-469)."""
+        spec = self.spec
+        s_t = self._state_vector(state.dev_p, state.dev_q, state.soc, state.p_pot, state.aux)
+        vars, task_carry = self.task.next_vars_fn(generator, s_t, state.task, state.t)
+        n_load, n_gen = spec.n_load, spec.n_gen
+        P_load = vars[:, :n_load]
+        P_pot = vars[:, n_load: n_load + n_gen]
+        aux = vars[:, n_load + n_gen:].to(self.dtype)
+
+        P_gen, Q_gen, P_des, Q_des, Q_cap, taps = self.split_action(action)
+        out = self._run_transition(P_load, P_pot, P_gen, Q_gen, P_des, Q_des, Q_cap, taps,
+                                   state.soc, x_guess=state.v_guess)
+
+        terminated = ~out.stable
+        c1, c2 = self.costs_clipping
+        e_loss = torch.sign(out.e_loss) * torch.clamp(torch.abs(out.e_loss), 0.0, c1)
+        penalty = torch.clamp(out.penalty, 0.0, c2)
+        reward_ok = -(e_loss + penalty)
+        reward_terminal = torch.full_like(reward_ok, -c2 / (1.0 - self.task.gamma))
+        reward = torch.where(terminated, reward_terminal, reward_ok)
+        # Lanes already terminated absorb with 0 reward (anm_env.py:363-367).
+        reward = torch.where(state.terminated, torch.zeros_like(reward), reward)
+        now_terminated = state.terminated | terminated
+
+        was_done = state.terminated.unsqueeze(1)
+        new_state = EnvState(
+            soc=torch.where(was_done, state.soc, out.des_soc),
+            oltc_tap=torch.where(was_done, state.oltc_tap, out.oltc_tap),
+            dev_p=out.dev_p,
+            dev_q=out.dev_q,
+            p_pot=out.gen_p_pot,
+            bus_vm=torch.sqrt(out.bus_v_re ** 2 + out.bus_v_im ** 2),
+            aux=aux,
+            task=task_carry,
+            terminated=now_terminated,
+            t=state.t + 1,
+            # Keep the last STABLE solution as the next warm start: a
+            # diverged solve's iterate would poison subsequent solves.
+            v_guess=torch.where(out.stable.unsqueeze(1), solution_guess(out), state.v_guess),
+        )
+        obs = self._obs_from_out(out, out.des_soc, aux)
+        obs = torch.where(now_terminated.unsqueeze(1), torch.zeros_like(obs), obs)
+        info = {"e_loss": e_loss, "penalty": penalty, "n_iter": out.n_iter, "diff": out.diff}
+        return new_state, obs, reward, now_terminated, info
