@@ -1,7 +1,8 @@
 """Build the hand-written CUDA kernels of ``csrc/`` at first use.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
-C interface, for ``sm_90a`` (Hopper), under ``build/kernels/`` beside the
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (Hopper), one process
+per source, all started together, and links the objects into one shared
+library with a plain C interface under ``build/kernels/`` beside the
 package, keyed by a hash of the sources and flags; ``ctypes`` loads it.
 Nothing here runs at import: :func:`load_library` builds on its first call,
 so importing the package needs neither ``nvcc`` nor a card.
@@ -20,15 +21,19 @@ CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
-# C entry points: (A, b, x, B, n, stream) -> cudaError_t as int.
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points, each returning a cudaError_t as int.
 _SIGNATURES = {
-    "gj_solve_f32": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                     ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-    "gj_solve_f64": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                     ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    # (A, b, x, B, n, stream)
+    "gj_solve_f32": [_P, _P, _P, _I, _I, _P],
+    "gj_solve_f64": [_P, _P, _P, _I, _I, _P],
+    # (p, q, w_a, w_b, dtf_re, dtf_im, x0, W_pack, invJ0_T, H_T, g_col0,
+    #  g_col1, C, e_t, rs_re, rs_im, va, vb, inv_vmag, xtol, band, aa_gate,
+    #  lim_iter, x, F, diff, n_iter, accepted, B, n, stream)
+    "chord_newton_f32": [_P] * 16 + [_F] * 6 + [_I] + [_P] * 5 + [_I, _I, _P],
 }
 
 
@@ -52,6 +57,11 @@ def library_path():
     return BUILD_DIR / f"libgym_anm_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _check(cmd, stderr, returncode):
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}\n{stderr}")
+
+
 @functools.cache
 def load_library():
     """Build (if needed) and load the kernel library; returns the CDLL with
@@ -60,11 +70,25 @@ def load_library():
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC_DIR.glob("*.cu")))]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
-        os.replace(tmp, out)
+        sources = sorted(CSRC_DIR.glob("*.cu"))
+        objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+        jobs = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(sources, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for cmd in jobs]
+        try:
+            for cmd, proc in zip(jobs, procs):
+                _check(cmd, proc.communicate()[1], proc.returncode)
+            cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            _check(cmd, proc.stderr, proc.returncode)
+            os.replace(tmp, out)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            for f in objs:
+                f.unlink(missing_ok=True)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -11,16 +11,13 @@ import torch
 
 from .physics.power_flow import ChordConst
 from .physics.transition import HOST_FIELDS, GridTables, tables_from_host
-from .vec.core import EnvState
+from .vec.core import EnvState, tree_map
 
 
 def tables_from_jax(grid_tables, device="cpu") -> GridTables:
     """The port's :class:`GridTables` from a ``gym_anm_tpu`` ``GridTables``
-    (its numpy fields and its ``ChordConst``), at the same dtype."""
-    if len(grid_tables.gen_pos) or len(grid_tables.des_pos):
-        raise NotImplementedError(
-            "networks with non-slack generators or storage units need the set-point "
-            "projections, which gym_anm_torch does not have yet")
+    (its numpy fields and its ``ChordConst``), at the same dtype.  The
+    projectors are rebuilt from the generator and storage half-planes."""
     host = {name: getattr(grid_tables, name) for name in HOST_FIELDS}
     chord = None
     if grid_tables.chord is not None:
@@ -33,13 +30,12 @@ def tables_from_jax(grid_tables, device="cpu") -> GridTables:
 
 def state_from_jax(env_state, device="cpu") -> EnvState:
     """The port's :class:`EnvState` from the numeric leaves of a batched
-    ``gym_anm_tpu`` ``EnvState`` (lanes on the first axis), at their dtypes.
-    The PRNG key is dropped: the port draws from ``torch.Generator``s."""
-    if env_state.task != () or env_state.shaping != ():
-        raise NotImplementedError("task and shaping carries are not ported yet")
+    ``gym_anm_tpu`` ``EnvState`` (lanes on the first axis), at their dtypes,
+    the task and shaping carries included (tuples stay tuples).  The PRNG
+    key is dropped: the port draws from ``torch.Generator``s."""
 
     def leaf(name):
-        return torch.as_tensor(np.array(getattr(env_state, name)), device=device)
+        return tree_map(lambda x: torch.as_tensor(np.array(x), device=device), getattr(env_state, name))
 
     return EnvState(
         soc=leaf("soc"),
@@ -49,8 +45,9 @@ def state_from_jax(env_state, device="cpu") -> EnvState:
         p_pot=leaf("p_pot"),
         bus_vm=leaf("bus_vm"),
         aux=leaf("aux"),
-        task=(),
+        task=leaf("task"),
         terminated=leaf("terminated"),
         t=leaf("t").to(torch.int32),
         v_guess=leaf("v_guess"),
+        shaping=leaf("shaping"),
     )

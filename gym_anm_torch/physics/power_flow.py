@@ -12,9 +12,11 @@ Port of ``gym_anm_tpu/physics/power_flow.py``, which replaces
 
 Every tensor is batch-leading: lane b of ``p [B, n]`` is one grid.  The
 reference's vmapped ``while_loop`` runs the body on every lane and keeps the
-new carry only where the lane's condition holds; the chord loop here does
-exactly that with a per-lane mask, ending on a host-side ``any()`` of the
-mask once per iteration.  The Newton loops gather the lanes that still
+new carry only where the lane's condition holds.  On the card the chord
+phase is one CUDA kernel whose lanes iterate until their own exit
+(:mod:`.chord_cuda`); its plain version :func:`chord_solve_plain` does what
+the reference does with a per-lane mask, ending on a host-side ``any()`` of
+the mask once per iteration.  The Newton loops gather the lanes that still
 iterate, solve only those and scatter them back, which per lane is the same
 program.
 
@@ -27,6 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .chord_cuda import chord_solve_cuda
 from .complexops import cmatvec, matmul_full
 from .linsolve_cuda import batched_solve, solve_gauss_jordan  # noqa: F401  (re-export)
 
@@ -240,8 +243,8 @@ def make_chord_const(Y0re, Y0im, t_bus, dtype=np.float32, x_star=None) -> ChordC
 
 # ---------------------------------------------------------------------------
 # Chord-Newton solve (tensor side).  The reference's _chord_lane_core
-# (init, cond, body, epilogue) becomes chord_solve's prologue, masked loop
-# and epilogue, with the body in _chord_body.
+# (init, cond, body, epilogue) becomes chord_solve_plain's prologue, masked
+# loop and epilogue, with the body in _chord_body.
 # ---------------------------------------------------------------------------
 class ChordTensors(NamedTuple):
     """A :class:`ChordConst` moved to one dtype and device, with the
@@ -256,7 +259,7 @@ class ChordTensors(NamedTuple):
     H_T: torch.Tensor        # [2n, 2]  Hᵀ, float64 copy of the dtype values
     g_col0: torch.Tensor     # [2n] at dtype
     g_col1: torch.Tensor
-    c: tuple                 # (c00, c01, c10, c11) as 0-d tensors at dtype
+    c: torch.Tensor          # [4] (c00, c01, c10, c11) at dtype
     e_t: torch.Tensor        # [N] one-hot of the regulated bus
     rs_re: torch.Tensor      # [N] row sums of Y0 (the flat-start S)
     rs_im: torch.Tensor
@@ -287,7 +290,7 @@ def chord_tensors(const: ChordConst, dtype, device) -> ChordTensors:
         H_T=H.T.contiguous().double(),
         g_col0=G[:, 0].contiguous(),
         g_col1=G[:, 1].contiguous(),
-        c=(C[0, 0], C[0, 1], C[1, 0], C[1, 1]),
+        c=C.reshape(4).contiguous(),
         e_t=e_t,
         rs_re=Y0re.sum(-1),
         rs_im=Y0im.sum(-1),
@@ -368,7 +371,25 @@ def _chord_body(ct, data, carry, xtol, fast_trig):
 
 def chord_solve(p, q, w_a, w_b, dtf_re, dtf_im, const,
                 xtol=1e-5, lim_iter=48, stall_tol_factor=10.0, x0=None):
-    """Chord-Newton phase of the load-flow solve, batched over lanes.
+    """Chord-Newton phase of the load-flow solve, batched over lanes: the
+    plain version :func:`chord_solve_plain` for CPU tensors, the CUDA kernel
+    (:func:`~gym_anm_torch.physics.chord_cuda.chord_solve_cuda`, float32
+    only) for CUDA tensors, with no fallback between them.  Arguments and
+    result as :func:`chord_solve_plain`."""
+    if not p.is_cuda:
+        return chord_solve_plain(p, q, w_a, w_b, dtf_re, dtf_im, const, xtol, lim_iter,
+                                 stall_tol_factor, x0)
+    ct = const if isinstance(const, ChordTensors) else chord_tensors(const, p.dtype, p.device)
+    c = lambda t: t.contiguous()  # noqa: E731
+    return chord_solve_cuda(c(p), c(q), c(w_a), c(w_b), c(dtf_re), c(dtf_im), ct, xtol, lim_iter,
+                            stall_tol_factor, None if x0 is None else c(x0.to(p.dtype)))
+
+
+def chord_solve_plain(p, q, w_a, w_b, dtf_re, dtf_im, const,
+                      xtol=1e-5, lim_iter=48, stall_tol_factor=10.0, x0=None):
+    """Chord-Newton phase of the load-flow solve, batched over lanes, in
+    plain torch ops (any device): the CPU path and the oracle of the CUDA
+    kernel.
 
     Parameters
     ----------
@@ -392,14 +413,17 @@ def chord_solve(p, q, w_a, w_b, dtf_re, dtf_im, const,
 
     # K = W (I + C W)⁻¹ per lane in closed form, with W(a) at the
     # linearization point V* = va + j·vb and δ = w_b + j·w_a.
+    # 1/|V*| is a multiplier: dividing a tensor by a Python scalar multiplies
+    # by its float reciprocal on the card but divides on the CPU, and the
+    # kernel and both devices should round alike.
     va, vb = ct.vstar_re, ct.vstar_im
-    vmag = float(np.hypot(va, vb))
+    inv_vmag = 1.0 / float(np.hypot(va, vb))
     c00, c01, c10, c11 = ct.c
     d_i, d_r = w_a, w_b
     w00 = va * d_i - vb * d_r
-    w01 = (va * d_r + vb * d_i) / vmag
+    w01 = (va * d_r + vb * d_i) * inv_vmag
     w10 = va * d_r + vb * d_i
-    w11 = (vb * d_r - va * d_i) / vmag
+    w11 = (vb * d_r - va * d_i) * inv_vmag
     m00 = 1.0 + c00 * w00 + c01 * w10
     m01 = c00 * w01 + c01 * w11
     m10 = c10 * w00 + c11 * w10

@@ -7,9 +7,10 @@ functions on tensors whose leading axis is the lane:
     step(EnvState, action, generator) -> (EnvState, obs, reward, done, info)
 
 The MDP semantics (state layout, reward clipping, terminal handling,
-reset-retry) mirror the reference ``ANMEnv`` (anm_env.py:235-469).
+reset-retry, autoreset) mirror the reference ``ANMEnv`` (anm_env.py:235-469).
 Randomness, where a task has any, comes from an explicit
-``torch.Generator``.
+``torch.Generator``.  A task carry or a shaping carry is a tensor with the
+lane on its first axis, a tuple of such carries, or ``()``.
 """
 
 from __future__ import annotations
@@ -23,6 +24,14 @@ import torch
 from ..errors import ObsSpaceError
 from ..physics.transition import GridTables, TransitionOut, make_tables, solution_guess, transition
 from ..specs.network import NetworkSpec, load_network
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the tensors of carries of one structure (tensor, tuple of
+    carries, or ``()``)."""
+    if isinstance(trees[0], tuple):
+        return tuple(tree_map(fn, *leaves) for leaves in zip(*trees))
+    return fn(*trees)
 
 
 class EnvState(NamedTuple):
@@ -41,6 +50,10 @@ class EnvState(NamedTuple):
     # Previous solve's [θ₁.., |V|₁..] — warm start for the f32 chord solver.
     # The solver starts flat where entries are non-finite.
     v_guess: torch.Tensor     # [B, 2·(n_bus−1)]
+    # Reward-shaping carry (VecTask.shape_reward_fn); persists across
+    # autoresets, like the reference tracker (ieee33_unequal_capacitors.py:
+    # 118-125, set in __init__ and never cleared by reset()).
+    shaping: Any = ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +66,11 @@ class VecTask:
     next_vars_fn(generator, s_t, task_carry, t) -> (vars, new_task_carry)
         with vars [B, n_load + n_gen + K] = [P_load (MW), P_pot (MW), aux'].
     init_task_fn(generator, n) -> initial task carry (() when stateless).
+    shape_reward_fn(carry, action, reward) -> (new_carry, reward, extras):
+        optional post-step reward shaping with a per-lane carry, applied
+        after the terminal reward and the absorbing-lane zeroing; ``extras``
+        join the step's info dict.
+    init_shape_fn(n, dtype, device) -> initial shaping carry.
     """
 
     network: dict
@@ -65,6 +83,8 @@ class VecTask:
     next_vars_fn: Callable
     init_task_fn: Callable = lambda generator, n: ()
     rates: Optional[np.ndarray] = None  # override the spec's branch rates
+    shape_reward_fn: Optional[Callable] = None
+    init_shape_fn: Callable = lambda n, dtype, device: ()
     # Optional chord linearization point [2(n_bus-1)] for the f32 solver;
     # None = flat start.
     chord_x_star: Optional[np.ndarray] = None
@@ -187,10 +207,10 @@ class VecEnv:
         (EnvState, obs)."""
         if oltc_tap is None:
             oltc_tap = torch.ones(n, self.spec.n_oltc, dtype=self.dtype, device=self.device)
-        task_carry = self.task.init_task_fn(generator, n)
+        task_carry = tree_map(lambda a: a.to(self.device), self.task.init_task_fn(generator, n))
 
-        def attempt(lanes, taps):
-            s0 = self.task.init_state_fn(generator, lanes, task_carry)
+        def attempt(lanes, taps, carry):
+            s0 = self.task.init_state_fn(generator, lanes, carry)
             if not torch.is_tensor(s0):
                 s0 = torch.tensor(np.asarray(s0))
             s0 = s0.to(device=self.device, dtype=self.dtype)
@@ -200,12 +220,14 @@ class VecEnv:
                                        taps, soc_seed)
             return out, soc_mwh / self.tables.baseMVA, aux
 
-        out, soc, aux = attempt(n, oltc_tap)
+        out, soc, aux = attempt(n, oltc_tap, task_carry)
         tries = 1
         bad = ~out.stable
         while tries < 100 and bool(bad.any()):
+            # Each retried lane draws again under its own task carry.
             idx = torch.nonzero(bad).squeeze(1)
-            sub, sub_soc, sub_aux = attempt(idx.numel(), oltc_tap[idx])
+            sub, sub_soc, sub_aux = attempt(idx.numel(), oltc_tap[idx],
+                                            tree_map(lambda a: a[idx], task_carry))
             for full, part in zip(out, sub):
                 full[idx] = part
             soc[idx], aux[idx] = sub_soc, sub_aux
@@ -224,6 +246,7 @@ class VecEnv:
             terminated=~out.stable,
             t=torch.zeros(n, dtype=torch.int32, device=self.device),
             v_guess=solution_guess(out),
+            shaping=self.task.init_shape_fn(n, self.dtype, self.device),
         )
         return state, self._obs_from_out(out, soc, aux)
 
@@ -253,6 +276,14 @@ class VecEnv:
         reward = torch.where(state.terminated, torch.zeros_like(reward), reward)
         now_terminated = state.terminated | terminated
 
+        # Post-step reward shaping, after terminal selection, where the
+        # reference subclass adjusts the returned reward
+        # (ieee33_unequal_capacitors.py:144-169).
+        extras = {}
+        shaping = state.shaping
+        if self.task.shape_reward_fn is not None:
+            shaping, reward, extras = self.task.shape_reward_fn(state.shaping, action, reward)
+
         was_done = state.terminated.unsqueeze(1)
         new_state = EnvState(
             soc=torch.where(was_done, state.soc, out.des_soc),
@@ -268,8 +299,56 @@ class VecEnv:
             # Keep the last STABLE solution as the next warm start: a
             # diverged solve's iterate would poison subsequent solves.
             v_guess=torch.where(out.stable.unsqueeze(1), solution_guess(out), state.v_guess),
+            shaping=shaping,
         )
         obs = self._obs_from_out(out, out.des_soc, aux)
         obs = torch.where(now_terminated.unsqueeze(1), torch.zeros_like(obs), obs)
-        info = {"e_loss": e_loss, "penalty": penalty, "n_iter": out.n_iter, "diff": out.diff}
+        info = {"e_loss": e_loss, "penalty": penalty, "n_iter": out.n_iter, "diff": out.diff, **extras}
         return new_state, obs, reward, now_terminated, info
+
+    def step_autoreset_batch(self, state: EnvState, action, generator: Optional[torch.Generator] = None):
+        """Step; every lane that is done afterwards is reset in place
+        (gym_anm_tpu ``VecEnv.step_autoreset_batch``).  One host check per
+        step (``done.any()``) skips the reset on steps where no lane is done;
+        otherwise only the done lanes are reset.  Reset lanes keep their
+        ``oltc_tap``; the shaping carry persists.  ``done`` is the step's."""
+        new_state, obs, reward, done, info = self.step(state, action, generator)
+        if bool(done.any()):
+            idx = torch.nonzero(done).squeeze(1)
+            fresh, fresh_obs = self.reset(idx.numel(), generator, oltc_tap=new_state.oltc_tap[idx])
+            put = lambda full, part: full.index_copy(0, idx, part)  # noqa: E731
+            new_state = EnvState(**{name: tree_map(put, getattr(new_state, name), getattr(fresh, name))
+                                    for name in EnvState._fields if name != "shaping"},
+                                 shaping=new_state.shaping)
+            obs = put(obs, fresh_obs)
+        return new_state, obs, reward, done, info
+
+    # ------------------------------------------------------------------
+    def rollout(self, state: EnvState, policy_fn, n_steps: int, autoreset=True, obs0=None,
+                generator: Optional[torch.Generator] = None):
+        """Run ``n_steps`` steps.  ``policy_fn(generator, obs, t) -> action``.
+        Returns ``(final_state, (obs, action, reward, done))`` with time on the
+        first axis of each trajectory tensor; ``obs0`` defaults to the
+        observation of the carried state (0 for terminated lanes)."""
+        step = self.step_autoreset_batch if autoreset else self.step
+        if obs0 is None:
+            s_vec = self._state_vector(state.dev_p, state.dev_q, state.soc, state.p_pot, state.aux)
+            obs0 = torch.where(state.terminated.unsqueeze(1), torch.zeros_like(s_vec), self.observation(s_vec))
+        obs, traj = obs0, []
+        for t in range(n_steps):
+            action = policy_fn(generator, obs, t)
+            state, obs2, r, d, _ = step(state, action, generator)
+            traj.append((obs, action, r, d))
+            obs = obs2
+        return state, tuple(torch.stack(x) for x in zip(*traj))
+
+    def random_policy(self):
+        """Uniform random policy over the action box."""
+        lo, hi = self.action_low, self.action_high
+
+        def policy(generator, obs, t):
+            u = torch.rand(obs.shape[0], self.n_action, generator=generator, dtype=self.dtype,
+                           device=self.device if generator is None else generator.device)
+            return lo + u.to(self.device) * (hi - lo)
+
+        return policy

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from gym_anm_torch.physics import power_flow as tpf
+from gym_anm_torch.physics.chord_cuda import chord_solve_cuda
 from gym_anm_torch.physics.linsolve_cuda import batched_solve, solve_gauss_jordan, solve_gauss_jordan_cuda
 from gym_anm_torch.physics.transition import make_tables
 from gym_anm_torch.physics.ybus import build_ybus as t_build_ybus
@@ -218,6 +219,21 @@ def test_chord_solve_f32_matches_jax(jtb32, ttb32):
     assert float(dt.max()) <= 1e-4
     np.testing.assert_allclose(xt.numpy(), np.asarray(xj), rtol=0, atol=5e-6)
     assert int(it.max()) > int(it.median()), "no straggler spread"
+
+
+def test_chord_solve_on_cpu_takes_plain_version(ttb32):
+    """chord_solve on CPU tensors is the plain version; the kernel's wrapper
+    refuses CPU tensors and never launches."""
+    args = _bench_like_problem(ttb32, 16)
+    before = chord_solve_cuda.launch_count
+    got = _t_chord(ttb32, args)
+    p, q, wa, wb, dr, di, x0 = (torch.as_tensor(a) for a in args)
+    ref = tpf.chord_solve_plain(p, q, wa, wb, dr, di, ttb32.chord_t, x0=x0)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        chord_solve_cuda(p, q, wa, wb, dr, di, ttb32.chord_t, x0=x0)
+    assert chord_solve_cuda.launch_count == before
 
 
 def test_chord_acceptance_rate_is_total(ttb32):
