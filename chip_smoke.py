@@ -11,9 +11,11 @@ non-zero at the first failure:
    card: f32 and f64, n = 64 at B = 8192 and n = 10 at a ragged B = 1001,
    and a zero-pivot lane that must stay non-finite in both;
 1b. the chord-Newton kernel (K2) against its plain version at B = 8192 on
-   three input sets: base IEEE33 constants from flat and from warm starts,
+   these input sets: base IEEE33 constants from flat and from warm starts,
    the multicap constants at their nominal-load point under diurnal loads,
-   and the bad-basin guesses; times of both;
+   the bad-basin guesses, and ANM6Easy (n = 5) at the injections of a real
+   step from the flat start, from the step's warm starts (collapsing lanes
+   among them) and from the bad-basin guesses; times of both;
 2. the base path: the base IEEE33 ``VecEnv`` at float32, reset at B = 8192
    and 128 steps of uniform-random actions, then one step from warm starts
    in a bad basin (a restored state whose guesses are far off), which sends
@@ -34,7 +36,30 @@ non-zero at the first failure:
    CPU;
 6. times: env-steps/s of the base path at B = 8192 and 32768 and of the
    multicap17 path at B = 8192 (128 steps, median of 5 reps, CUDA events),
-   chord iterations per step.
+   chord iterations per step;
+7. the L0-L5 collection path (``bench.py`` workload 3): the block collector
+   over ``make_suite`` on multicap17 at float32, B = 8192, 64 steps, every
+   controller's ``act`` under ``torch.cuda.set_sync_debug_mode("error")``:
+   trajectories [64, 8192, ...] finite, actions in the box, L1's caps at 0
+   and tap at 1, L5's taps on their positions, K2 launched; the per-
+   controller mean rewards (an informed controller beats L0); the first 8
+   steps of 256 lanes from all six blocks replayed through the float64
+   transition on the CPU and the same controllers run on the CPU from the
+   card's states and carries (the same discrete decisions); the collector's
+   env-steps/s beside phase 6's bare multicap17 rate, split into controllers
+   and env step, its GPU ops and host syncs per step, and what the lane
+   mean in the reference's summation order costs;
+8. ANM6Easy at float32, B = 8192, 96 steps (one day) of uniform-random
+   actions through ``step_autoreset_batch`` with an observation plan of
+   every state variable in its non-default unit, halfway through from
+   bad-basin warm starts and with 64 lanes terminated: K2 (n = 5) and K1
+   (n = 10) launched, outputs finite, live residuals within 1e-4, reset
+   lanes at t = 0 with a time index in [0, 96), the entries the clip to the
+   plan's bounds moved; the first 8 steps of 256 lanes replayed through the
+   float64 step on the CPU, before the clip, with per-entry tolerances from
+   the load flow's accuracy and the entry's sensitivity to the voltages, and
+   two controls that must fail them; its env-steps/s, and the share of a
+   step spent in the Newton fallback.
 
 Prints the card's name and power limit first, a JSON line of the kernels
 next to last, and ``{"ok": true, "device": {...}}`` last.  Needs one card;
@@ -42,6 +67,7 @@ imports nothing of JAX.
 """
 
 import dataclasses
+import importlib
 import json
 import math
 import statistics
@@ -54,6 +80,7 @@ import torch
 B_MAIN = 8192
 B_LARGE = 32768
 N_STEPS = 128
+N_COLLECT = 64  # steps of the L0-L5 collection (bench.py workload 3)
 N_REPS = 5
 N_CHECK_LANES, N_CHECK_STEPS = 256, 8
 
@@ -125,11 +152,14 @@ def bad_guesses(B, n, which=(0, 1, 2, 3)):
 
 
 def chord_vs_plain(pf, cuda_k, name, ct, args, x0):
-    """K2 and the plain chord on the same card inputs.  Tolerance: the same
-    accepted lanes; n_iter equal on all but 0.5% of lanes (a float32 AA sum
-    in another order can move a plateau exit); x within 1e-5 (the solver's
-    own scale is xtol = 1e-5 on the residual); F and diff within 1e-4 (the
-    acceptance band).  Returns (max |Δx|, kernel ms, plain ms)."""
+    """K2 and the plain chord on the same card inputs.  Both sum in the same
+    order (the Anderson sums in the warp's butterfly order, the dot products
+    in float64 and rounded once), so they agree bitwise but for a float64
+    dot product whose other accumulation order moves a float32 rounding.
+    Tolerance: the same accepted lanes; n_iter equal on all but 0.5% of
+    lanes; x within 1e-5 (the solver's own scale is xtol = 1e-5 on the
+    residual); F and diff within 1e-4 (the acceptance band).  Returns
+    (max |Δx|, kernel ms, plain ms)."""
     before = cuda_k.launch_count
     xk, Fk, dk, ik, ak = cuda_k(*args, ct, x0=x0)
     torch.cuda.synchronize()
@@ -176,7 +206,34 @@ def multicap_injections(tb, B, g):
     return p_ns, q_ns, dtf_im, dtf_re, dtf_re, dtf_im
 
 
-def phase1b_chord_kernel(pf, cuda_k, VecEnv, make_ieee33_task, make_ieee33_multicap_task):
+def anm6easy_chord_inputs(VecEnv, make_anm6easy_task, n_steps, seed):
+    """The chord solve's inputs at the last of ``n_steps`` ANM6Easy steps at
+    B_MAIN lanes on the card (uniform-random actions through
+    ``step_autoreset_batch``), taken at the call: (constants, injections,
+    warm starts).  Lanes that collapse under the step's actions are among
+    them."""
+    tm = importlib.import_module("gym_anm_torch.physics.transition")
+    env = VecEnv(make_anm6easy_task(), dtype=torch.float32, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    state, _ = env.reset(B_MAIN, g)
+    real, seen = tm.chord_solve, []
+
+    def capture(*args, x0=None):
+        if x0 is not None:  # the step's solve (a reset's starts flat)
+            seen.append((args, x0))
+        return real(*args, x0=x0)
+
+    tm.chord_solve = capture
+    try:
+        for _ in range(n_steps):
+            state, *_ = env.step_autoreset_batch(state, uniform_actions(env, B_MAIN, g), g)
+    finally:
+        tm.chord_solve = real
+    args, x0 = seen[-1]
+    return args[-1], tuple(a.contiguous() for a in args[:-1]), x0.contiguous()
+
+
+def phase1b_chord_kernel(pf, cuda_k, VecEnv, make_ieee33_task, make_ieee33_multicap_task, make_anm6easy_task):
     log(f"== phase 1b: K2 against its plain version, B={B_MAIN}")
     g = torch.Generator(device="cuda").manual_seed(11)
     tb = VecEnv(make_ieee33_task(), dtype=torch.float32, device="cuda").tables
@@ -190,17 +247,22 @@ def phase1b_chord_kernel(pf, cuda_k, VecEnv, make_ieee33_task, make_ieee33_multi
     base = (torch.zeros(B_MAIN, n, device="cuda"), q, di, dr, dr, di)
     warm = tb.chord_t.flat + 0.01 * torch.randn(B_MAIN, 2 * n, generator=g, device="cuda")
     warm[3] = float("nan")
+    mtb = VecEnv(make_ieee33_multicap_task(), dtype=torch.float32, device="cuda").tables
+    # ANM6Easy (n = 5: 27 of the warp's threads idle) at a real step's
+    # injections: from the flat start, from the step's warm starts (its
+    # collapsing lanes are not accepted), and from the bad-basin guesses.
+    a6_ct, a6_args, a6_warm = anm6easy_chord_inputs(VecEnv, make_anm6easy_task, 8, 12)
     errs, times = [], {}
     for name, ct, args, x0 in (
         ("base IEEE33 flat start", tb.chord_t, base, None),
         ("base IEEE33 warm starts", tb.chord_t, base, warm),
-        ("multicap at x* under diurnal loads", None, None, None),
+        ("multicap at x* under diurnal loads", mtb.chord_t, multicap_injections(mtb, B_MAIN, g), None),
         ("bad-basin guesses", tb.chord_t, tuple(torch.full_like(base[0], -0.01) * s for s in (1, 0.5))
          + (torch.zeros_like(di),) * 4, bad_guesses(B_MAIN, n).to("cuda")),
+        ("ANM6Easy flat start", a6_ct, a6_args, None),
+        ("ANM6Easy warm starts of a step", a6_ct, a6_args, a6_warm),
+        ("ANM6Easy bad-basin guesses", a6_ct, a6_args, bad_guesses(B_MAIN, a6_warm.shape[1] // 2).to("cuda")),
     ):
-        if ct is None:
-            mtb = VecEnv(make_ieee33_multicap_task(), dtype=torch.float32, device="cuda").tables
-            ct, args = mtb.chord_t, multicap_injections(mtb, B_MAIN, g)
         err, t_k, t_p = chord_vs_plain(pf, cuda_k, name, ct, args, x0)
         errs.append(err)
         times[name] = (t_k, t_p)
@@ -352,6 +414,46 @@ def phase4_tf32(VecEnv, make_ieee33_task):
     assert same
 
 
+def replay_multicap(VecEnv, make_ieee33_multicap_task, transition, record, what):
+    """The recorded first steps of the card's multicap17 lanes replayed
+    through the port's float64 transition on the CPU (flat-start exact
+    Newton).  ``record`` holds per step [vars, hour, action, reward, bus_vm,
+    done, e_loss, penalty] of the check lanes.  bus_vm within 5e-5 on live
+    lanes; e_loss within rtol 2e-3 / atol 2e-4 where |e_loss| >= 1e-4, and the
+    penalty within rtol 2e-3 / atol λ·Δt·1e-5 (it multiplies the flows'
+    error, bounded by the 1e-5 residual, by λ = 100)."""
+    ref = VecEnv(make_ieee33_multicap_task(), dtype=torch.float64, device="cpu")
+    n_lanes = record[0][0].shape[0]
+    tb, z = ref.tables, torch.zeros(n_lanes, 0, dtype=torch.float64)
+    worst_vm = worst_e = worst_p = 0.0
+    n_checked = 0
+    hours = torch.stack([rec[1] for rec in record])
+    for k, (vars, _, a, r32, vm32, d32, e32, pen32) in enumerate(record):
+        vars, a = vars.double(), a.double()
+        P_gen, Q_gen, P_des, Q_des, Q_cap, taps = ref.split_action(a)
+        n_load = ref.spec.n_load
+        out = transition(tb, vars[:, :n_load], vars[:, n_load:n_load + ref.spec.n_gen], P_gen, Q_gen, P_des,
+                         Q_des, Q_cap, taps, z, ref._rates)
+        live = ~d32
+        assert out.stable[live].all()
+        vm64 = torch.sqrt(out.bus_v_re ** 2 + out.bus_v_im ** 2)
+        torch.testing.assert_close(vm32.double()[live], vm64[live], rtol=0, atol=5e-5, msg=f"bus_vm step {k}")
+        clear = live & (out.e_loss.abs() >= 1e-4)
+        torch.testing.assert_close(e32.double()[clear], out.e_loss[clear], rtol=2e-3, atol=2e-4,
+                                   msg=f"e_loss step {k}")
+        torch.testing.assert_close(pen32.double()[live], out.penalty[live], rtol=2e-3, atol=100 * 1e-5,
+                                   msg=f"penalty step {k}")
+        torch.testing.assert_close(r32.double()[live], out.reward[live], rtol=2e-3, atol=2e-4 + 100 * 1e-5,
+                                   msg=f"reward step {k}")
+        worst_vm = max(worst_vm, float((vm32.double() - vm64)[live].abs().max()))
+        worst_e = max(worst_e, float((e32.double() - out.e_loss)[clear].abs().max()))
+        worst_p = max(worst_p, float((pen32.double() - out.penalty)[live].abs().max()))
+        n_checked += int(live.sum())
+    log(f"{what} f32 card vs f64 CPU replay ({len(record)} steps x {n_lanes} lanes, {n_checked} live "
+        f"lane-steps, hours {float(hours.min()):.3f}-{float(hours.max()):.3f}): bus_vm max abs diff "
+        f"{worst_vm:.3e}, e_loss {worst_e:.3e}, penalty {worst_p:.3e}")
+
+
 def phase5_multicap(VecEnv, make_ieee33_multicap_task, transition, kernel, chord_k):
     log(f"== phase 5: multicap17 path, f32, B={B_MAIN}, {N_STEPS} steps of step_autoreset_batch")
     task = make_ieee33_multicap_task()
@@ -402,47 +504,14 @@ def phase5_multicap(VecEnv, make_ieee33_multicap_task, transition, kernel, chord
     assert launches > 0, "K1 never launched on the multicap17 path"
     assert n_term >= 64
 
-    # The first steps of the first lanes replayed through the port's float64
-    # transition on the CPU (flat-start exact Newton): bus_vm within 5e-5 on
-    # live lanes; e_loss within rtol 2e-3 / atol 2e-4 where |e_loss| >= 1e-4,
-    # and the penalty within rtol 2e-3 / atol λ·Δt·1e-5 (it multiplies the
-    # flows' error, bounded by the 1e-5 residual, by λ = 100).
-    ref = VecEnv(make_ieee33_multicap_task(), dtype=torch.float64, device="cpu")
-    tb, z = ref.tables, torch.zeros(N_CHECK_LANES, 0, dtype=torch.float64)
-    worst_vm = worst_e = worst_p = 0.0
-    n_checked = 0
-    hours = torch.stack([rec[1] for rec in record])
-    for k, (vars, _, a, r32, vm32, d32, e32, pen32) in enumerate(record):
-        vars, a = vars.double(), a.double()
-        P_gen, Q_gen, P_des, Q_des, Q_cap, taps = ref.split_action(a)
-        n_load = ref.spec.n_load
-        out = transition(tb, vars[:, :n_load], vars[:, n_load:n_load + ref.spec.n_gen], P_gen, Q_gen, P_des,
-                         Q_des, Q_cap, taps, z, ref._rates)
-        live = ~d32
-        assert out.stable[live].all()
-        vm64 = torch.sqrt(out.bus_v_re ** 2 + out.bus_v_im ** 2)
-        torch.testing.assert_close(vm32.double()[live], vm64[live], rtol=0, atol=5e-5, msg=f"bus_vm step {k}")
-        clear = live & (out.e_loss.abs() >= 1e-4)
-        torch.testing.assert_close(e32.double()[clear], out.e_loss[clear], rtol=2e-3, atol=2e-4,
-                                   msg=f"e_loss step {k}")
-        torch.testing.assert_close(pen32.double()[live], out.penalty[live], rtol=2e-3, atol=100 * 1e-5,
-                                   msg=f"penalty step {k}")
-        torch.testing.assert_close(r32.double()[live], out.reward[live], rtol=2e-3, atol=2e-4 + 100 * 1e-5,
-                                   msg=f"reward step {k}")
-        worst_vm = max(worst_vm, float((vm32.double() - vm64)[live].abs().max()))
-        worst_e = max(worst_e, float((e32.double() - out.e_loss)[clear].abs().max()))
-        worst_p = max(worst_p, float((pen32.double() - out.penalty)[live].abs().max()))
-        n_checked += int(live.sum())
-    log(f"multicap17 f32 card vs f64 CPU replay ({len(record)} steps x {N_CHECK_LANES} lanes, {n_checked} live "
-        f"lane-steps, hours {float(hours.min()):.3f}-{float(hours.max()):.3f}): bus_vm max abs diff "
-        f"{worst_vm:.3e}, e_loss {worst_e:.3e}, penalty {worst_p:.3e}")
+    replay_multicap(VecEnv, make_ieee33_multicap_task, transition, record, "multicap17")
     return launches, chord_launches
 
 
 def time_path(env, B, step, seed):
     """env-steps/s of ``step`` at B lanes: CUDA events around 128 steps after
     8 warm-up steps, median of 5 reps; also the chord iterations."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.Generator(device=env.device).manual_seed(seed)
     state, _ = env.reset(B, g)
     for _ in range(8):  # warm-up
         state, *_ = step(state, uniform_actions(env, B, g), g)
@@ -471,13 +540,559 @@ def time_path(env, B, step, seed):
 
 
 def phase6_times(VecEnv, make_ieee33_task, make_ieee33_multicap_task):
+    """Returns the multicap17 rate (env-steps/s at B_MAIN)."""
     log("== phase 6: times")
     for B in (B_MAIN, B_LARGE):
         env = VecEnv(make_ieee33_task(), dtype=torch.float32, device="cuda")
         _, n_done = time_path(env, B, env.step, 5)
         assert n_done == 0
     env = VecEnv(make_ieee33_multicap_task(), dtype=torch.float32, device="cuda")
-    time_path(env, B_MAIN, env.step_autoreset_batch, 7)
+    return time_path(env, B_MAIN, env.step_autoreset_batch, 7)[0]
+
+
+def leaves(tree):
+    if isinstance(tree, tuple):
+        return [x for e in tree for x in leaves(e)]
+    return [tree]
+
+
+def block_starts(B, n):
+    """First lane of each of the block collector's n blocks, and B."""
+    sizes = [B // n] * n
+    sizes[-1] += B - sum(sizes)
+    return [sum(sizes[:i]) for i in range(n + 1)]
+
+
+def guarded(Controller, tree_map, ctrl, rec, n_keep):
+    """``ctrl`` whose act runs under torch.cuda.set_sync_debug_mode("error"),
+    so that a host sync inside it raises, and whose first N_CHECK_STEPS calls
+    are recorded (inputs and outputs) for the first ``n_keep`` lanes of its
+    block, after the act and outside the checked region."""
+
+    def act(noise, state, obs, carry):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = ctrl.act(noise, state, obs, carry)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if len(rec) < N_CHECK_STEPS:
+            rec.append(tree_map(lambda x: x[:n_keep].cpu(), (noise, state, obs, carry) + tuple(out)))
+        return out
+
+    return Controller(ctrl.name, ctrl.init_carry, act)
+
+
+def count_ops(fn, baseline=(0, 0)):
+    """(GPU ops, host sync calls) of one call of ``fn``, by torch.profiler,
+    less ``baseline`` (the count of an empty call: the profile's own
+    synchronizes)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = prof.events()
+    n_ops = sum(1 for e in evs if e.device_type == torch.autograd.DeviceType.CUDA)
+    n_sync = sum(1 for e in evs if e.device_type == torch.autograd.DeviceType.CPU and "Synchronize" in e.name)
+    return n_ops - baseline[0], n_sync - baseline[1]
+
+
+def phase7_collection(VecEnv, make_ieee33_multicap_task, transition, kernel, chord_k, bare_rate):
+    """The L0-L5 block collector at full width (bench.py workload 3)."""
+    from gym_anm_torch.offline_vec import action_noise, make_block_collector
+    from gym_anm_torch.vec import controllers as ctrl
+    from gym_anm_torch.vec.core import tree_map
+
+    B, T = B_MAIN, N_COLLECT
+    log(f"== phase 7: L0-L5 block collector on multicap17, f32, B={B}, {T} steps")
+    task = make_ieee33_multicap_task()
+    starts = block_starts(B, 6)
+    per = [N_CHECK_LANES // 6 + (1 if i < N_CHECK_LANES % 6 else 0) for i in range(6)]
+    lanes = torch.cat([torch.arange(starts[i], starts[i] + per[i]) for i in range(6)]).to("cuda")
+    record, steps = [], []
+
+    def recording_vars(generator, s_t, hour, t):
+        vars, new_hour = task.next_vars_fn(generator, s_t, hour, t)
+        if len(record) < N_CHECK_STEPS:
+            record.append([vars[lanes].cpu(), new_hour[lanes].cpu()])
+        return vars, new_hour
+
+    env = VecEnv(dataclasses.replace(task, next_vars_fn=recording_vars), dtype=torch.float32, device="cuda")
+    real_step = env.step_autoreset_batch
+
+    def recording_step(state, action, generator=None):
+        out = real_step(state, action, generator)
+        new_state, _, r, d, info = out
+        steps.append((torch.where(d, torch.zeros_like(info["diff"]), info["diff"]).amax(), d.sum(),
+                      info["n_iter"].float().mean(), info["n_iter"].amax()))
+        if len(steps) <= N_CHECK_STEPS:
+            record[len(steps) - 1] += [action[lanes].cpu(), r[lanes].cpu(), new_state.bus_vm[lanes].cpu(),
+                                       d[lanes].cpu(), info["e_loss"][lanes].cpu(), info["penalty"][lanes].cpu()]
+        return out
+
+    env.step_autoreset_batch = recording_step
+    recs = [[] for _ in range(6)]
+    suite = [guarded(ctrl.Controller, tree_map, c, recs[i], per[i]) for i, c in enumerate(ctrl.make_suite(env))]
+    collect, assignment = make_block_collector(env, suite, B, T)
+    assert [int(x) for x in torch.bincount(assignment.cpu())] == [starts[i + 1] - starts[i] for i in range(6)]
+    kernel.launch_count = 0
+    chord_k.launch_count = 0
+    obs, act, rew, nobs, done = collect(torch.Generator(device="cuda").manual_seed(70))
+    torch.cuda.synchronize()
+    launches, chord_launches = kernel.launch_count, chord_k.launch_count
+
+    assert obs.shape == nobs.shape == (T, B, env.n_obs) and act.shape == (T, B, env.n_action)
+    assert rew.shape == done.shape == (T, B)
+    for name, x in (("obs", obs), ("action", act), ("reward", rew), ("next_obs", nobs)):
+        assert torch.isfinite(x).all(), f"non-finite {name}"
+    assert (act >= env.action_low).all() and (act <= env.action_high).all(), "an action outside the box"
+    res, n_done, it_mean, it_max = (torch.stack(x) for x in zip(*steps))
+    assert float(res.max()) <= 1e-4, f"live-lane residual {float(res.max()):.3e} > 1e-4"
+    cap_sl, tap_sl = env._action_slices["Q_cap"], env._action_slices["tap"]
+    blk = [slice(starts[i], starts[i + 1]) for i in range(6)]
+    assert (act[:, blk[1], cap_sl] == 0).all() and (act[:, blk[1], tap_sl] == 1.0).all(), "L1: caps or tap moved"
+    taps = torch.tensor(ctrl.TAP_POSITIONS, dtype=torch.float32, device="cuda")
+    assert torch.isin(act[:, blk[5], tap_sl], taps).all(), "L5: a tap off its positions"
+    assert chord_launches > 0, "K2 never launched on the collection path"
+    log(f"collection: K2 launches {chord_launches}, K1 launches {launches}; {int(n_done.sum())} lane terminations; "
+        f"chord iterations mean {float(it_mean.mean()):.3f}, worst lane {int(it_max.max())}; worst live residual "
+        f"{float(res.max()):.3e}; trajectories [{T}, {B}, ...] stay on {obs.device}")
+    log("per-controller mean reward per step (the card's L0-L5 quality table):")
+    means = []
+    for i, c in enumerate(suite):
+        means.append(float(rew[:, blk[i]].mean()))
+        log(f"  {c.name:15s} lanes {starts[i]:5d}-{starts[i + 1] - 1:5d}: mean reward {means[i]:.6f}, "
+            f"done {int(done[:, blk[i]].sum())}, distinct taps {torch.unique(act[:, blk[i], tap_sl]).numel()}")
+    assert max(means[1:]) > means[0], "no informed controller beats L0"
+
+    # The same controllers on the CPU at float32 from the card's recorded
+    # states and carries: every carry (cap states, tap indices, timers, the
+    # L5 choice) and the caps and taps of the action must equal the card's;
+    # the continuous set-points are the same ops on the same inputs.
+    env_cpu = VecEnv(make_ieee33_multicap_task(), dtype=torch.float32)
+    grid = torch.tensor(ctrl.l5_grid(), dtype=torch.float32)
+    discrete = list(range(cap_sl.start, tap_sl.stop))
+    n_ls = n_bad = 0
+    worst_a = 0.0
+    l5_choices = set()
+    for i, c in enumerate(ctrl.make_suite(env_cpu)):
+        for noise, state, o, carry, a_card, c_card in recs[i]:
+            a_cpu, c_cpu = c.act(noise, state, o, carry)
+            bad = (a_cpu[:, discrete] != a_card[:, discrete]).any(1)
+            for x, y in zip(leaves(c_cpu), leaves(c_card)):
+                bad |= (x != y).reshape(x.shape[0], -1).any(1)
+            if i == 5:
+                # The grid row chosen: (0.2, cap 1, cap 2, tap index); only the
+                # |ren − 0.2| term depends on ren, so 0.2 is always chosen.
+                for cc in (c_cpu, c_card):
+                    row = torch.stack([torch.full_like(cc.last_cap1, 0.2), cc.last_cap1, cc.last_cap2,
+                                       cc.last_tap_idx.float()], 1)
+                    idx = (row[:, None, :] == grid[None]).all(2).float().argmax(1)
+                    l5_choices.update(idx.tolist())
+            n_bad += int(bad.sum())
+            n_ls += bad.numel()
+            if (~bad).any():
+                worst_a = max(worst_a, float((a_cpu - a_card)[~bad].abs().max()))
+    log(f"controllers on the CPU from the card's states and carries: {n_bad} of {n_ls} lane-steps with another "
+        f"discrete decision; max |action difference| elsewhere {worst_a:.3e}; L5 grid rows chosen {sorted(l5_choices)}")
+    assert n_bad <= n_ls // 1000, f"{n_bad} lane-steps decide otherwise on the CPU"
+    assert worst_a <= 1e-6
+    replay_multicap(VecEnv, make_ieee33_multicap_task, transition, record, "collection")
+
+    # Times: the collector alone (no recording, no sync checks).
+    env = VecEnv(make_ieee33_multicap_task(), dtype=torch.float32, device="cuda")
+    suite = ctrl.make_suite(env)
+    timed, _ = make_block_collector(env, suite, B, T)
+    g = torch.Generator(device="cuda").manual_seed(71)
+    timed(g)  # warm-up
+    ms = [cuda_ms(lambda: timed(g), 1) for _ in range(N_REPS)]
+    reset_ms = statistics.median(cuda_ms(lambda: env.reset(B, g), 1) for _ in range(3))
+    t_ms = statistics.median(ms)
+    rate = T * B / (t_ms / 1e3)
+    log(f"collector: {rate:.1f} env-steps/s (median of {N_REPS} reps of {T} steps at B={B}, reset included; reps "
+        f"{[round(T * B / (m / 1e3), 1) for m in ms]}); {t_ms / T:.3f} ms/step, of which the reset "
+        f"{reset_ms:.3f} ms per collection; bare multicap17 step (phase 6, this run) {bare_rate:.1f} env-steps/s, "
+        f"ratio {rate / bare_rate:.3f}")
+
+    # Split by stage: CUDA events around every act and every env step of one
+    # collection (device timeline; the step is host-bound, so this is mostly
+    # the time to enqueue each stage) and host time of the same calls.
+    ev = {"controllers": [], "env step": []}
+    host = {"controllers": 0.0, "env step": 0.0}
+
+    def stage(fn, key):
+        def run(*args):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            s.record()
+            out = fn(*args)
+            e.record()
+            host[key] += time.perf_counter() - t0
+            ev[key].append((s, e))
+            return out
+        return run
+
+    env.step_autoreset_batch = stage(env.step_autoreset_batch, "env step")
+    split, _ = make_block_collector(env, [ctrl.Controller(c.name, c.init_carry, stage(c.act, "controllers"))
+                                          for c in suite], B, T)
+    total = cuda_ms(lambda: split(g), 1) / T
+    dev_ms = {k: sum(s.elapsed_time(e) for s, e in v) / T for k, v in ev.items()}
+    log(f"collector step split ({T} steps): total {total:.3f} ms/step; controllers {dev_ms['controllers']:.3f} ms "
+        f"(host {1e3 * host['controllers'] / T:.3f}), env step {dev_ms['env step']:.3f} ms (host "
+        f"{1e3 * host['env step'] / T:.3f}), the rest (noise draw, clip, concat, reset, stacking) "
+        f"{total - dev_ms['controllers'] - dev_ms['env step']:.3f} ms")
+
+    # GPU ops and host syncs per collector step (torch.profiler).
+    env = VecEnv(make_ieee33_multicap_task(), dtype=torch.float32, device="cuda")
+    suite = ctrl.make_suite(env)
+    short, _ = make_block_collector(env, suite, B, 8)
+    short(g)
+    empty = count_ops(lambda: None)
+    ops_c, syncs_c = count_ops(lambda: short(g), empty)
+    ops_r, syncs_r = count_ops(lambda: env.reset(B, g), empty)
+    state, o = env.reset(B, g)
+    carries = [c.init_carry(starts[i + 1] - starts[i]) for i, c in enumerate(suite)]
+    noise = action_noise(env, B, g)
+    ops_a, syncs_a = count_ops(lambda: [c.act(noise[blk[i]], tree_map(lambda x: x[blk[i]], state), o[blk[i]],
+                                              carries[i]) for i, c in enumerate(suite)], empty)
+    a = uniform_actions(env, B, g)
+    ops_s, syncs_s = count_ops(lambda: env.step_autoreset_batch(state, a, g), empty)
+    log(f"GPU ops per collector step {(ops_c - ops_r) / 8:.1f} (8-step collection {ops_c}, its reset {ops_r}), host "
+        f"syncs per step {(syncs_c - syncs_r) / 8:.2f}; of which the six controllers {ops_a} ops, {syncs_a} syncs "
+        f"and the env step {ops_s} ops, {syncs_s} syncs")
+    # What L3's and L4's lane mean in the reference's summation order costs
+    # against torch's own mean (one call each per step).
+    vm = state.bus_vm[blk[3]]
+    ops_m, ops_t = count_ops(lambda: ctrl._lane_mean(vm), empty)[0], count_ops(lambda: vm.mean(-1), empty)[0]
+    ms_m, ms_t = cuda_ms(lambda: ctrl._lane_mean(vm), 64), cuda_ms(lambda: vm.mean(-1), 64)
+    log(f"lane mean of bus_vm [{vm.shape[0]}, {vm.shape[1]}] in the reference's order: {ops_m} GPU ops, {ms_m:.4f} ms "
+        f"per call; torch's mean: {ops_t} ops, {ms_t:.4f} ms (2 calls per collector step)")
+    return launches, chord_launches
+
+
+def other_unit_plan(STATE_VARIABLES):
+    """Every variable of STATE_VARIABLES, all ids, in its non-default unit
+    where it has one (branch_i_magn's units are the string "pu")."""
+    plan = []
+    for var, units in STATE_VARIABLES.items():
+        units = (units,) if isinstance(units, str) else units
+        plan.append((var, "all", units[1] if len(units) > 1 else units[0]))
+    return plan
+
+
+def plan_segments(plan, spec):
+    """(variable, unit, slice, scale) of each segment of ``plan`` (an
+    ObsPlan over ``spec``); ``scale`` [n_ids] is the unit's value of 1 p.u."""
+    segs, off = [], 0
+    for var, ids, unit in plan.values:
+        k = len(ids)
+        if unit in ("MW", "MVAr", "MVA", "MWh"):
+            scale = torch.full((k,), float(spec.baseMVA), dtype=torch.float64)
+        elif unit == "kV":
+            scale = torch.tensor(spec.base_kv, dtype=torch.float64)
+        elif unit == "kA":
+            scale = spec.baseMVA / torch.tensor(spec.base_kv, dtype=torch.float64)
+        elif unit == "degree":
+            scale = torch.full((k,), 180.0 / math.pi, dtype=torch.float64)
+        else:
+            scale = torch.ones(k, dtype=torch.float64)
+        segs.append((var, unit, slice(off, off + k), scale))
+        off += k
+    return segs
+
+
+def replay_anm6easy(VecEnv, make_anm6easy_task, plan, build_ybus, record):
+    """The card's first ANM6Easy steps replayed through the port's float64
+    step on the CPU, from the card's pre-step states.  ``record`` holds per
+    step (state, action, the plan's extract before the clip, reward, done,
+    residual) of the check lanes.
+
+    Tolerances, per live lane and entry, to first order.  The f32 solve's
+    [θ, |V|] lies within J⁻¹·δF of the f64 solution, with J the exact
+    Jacobian there and |δF| ≤ r32 + r64 (+ the f32 rounding of the residual
+    itself) componentwise, r32 and r64 the two solves' final ‖F‖∞.  An entry
+    x of the extract, with G = ∂x/∂[θ, |V|] taken by central differences
+    through the port's own float64 code at forced voltages, then lies within
+    |G·J⁻¹|·1·δF, plus its float32 evaluation error 16·ε·(1 p.u. + |x| +
+    |G|·[1, |V|]) (ε = 2⁻²⁴, the inputs rounded by ε).  Current angles are
+    compared where this bound is under 0.1 rad; a flow's sign within its
+    tolerance of zero is not compared.  The reward is held to the errors of
+    the observed entries it is made of (|Δr| ≤ Δt·(2·Σ|Δp_dev| + Σ|Δp_pot|)
+    + λ·Δt·(Σ|Δ|V|| + Σ|Δ|s||), the clips being 1-Lipschitz) plus its
+    float32 rounding.  The clip to the plan's bounds must move the same
+    entries as on the CPU, except within tolerance of a bound.
+
+    Two controls must fail these limits: C1, the f64 solution moved by
+    10·J⁻¹·(δF·σ) (σ = ±1 at random: a solve ten times less accurate than
+    both residuals say), in every segment that depends on the voltages and
+    in the reward; C2, every entry off by 2⁻¹⁴ of (|x| + 1 p.u.), in every
+    segment."""
+    from gym_anm_torch.physics.complexops import cmatvec
+    from gym_anm_torch.physics.power_flow import NRResult, _assemble_v
+    from gym_anm_torch.physics.power_flow import _jacobian as jacobian
+    from gym_anm_torch.vec.core import tree_map
+
+    tm = importlib.import_module("gym_anm_torch.physics.transition")
+    eps = 2.0 ** -24
+    ref = VecEnv(make_anm6easy_task(), dtype=torch.float64, obs=plan)
+    spec, tb = ref.spec, ref.tables
+    n, n_load, n_gen = spec.n_bus - 1, spec.n_load, spec.n_gen
+    Yre, Yim = build_ybus(tb.n_bus, tb.br_f, tb.br_t, tb.series_re, tb.series_im, tb.shunt_im, tb.shift_cos,
+                          tb.shift_sin, tb.tap0[None])
+    Yre, Yim = Yre[0], Yim[0]
+    segs = plan_segments(ref._obs_plan, spec)
+    seg = {var: (sl, scale) for var, _, sl, scale in segs}
+    scale = torch.cat([s for *_, s in segs])
+    half = torch.zeros_like(scale)
+    for var, unit, sl, _ in segs:
+        if var in ("bus_v_ang", "bus_i_ang", "branch_i_ang"):
+            half[sl] = 180.0 if unit == "degree" else math.pi
+    is_ang = half > 0
+    i_ang = torch.zeros_like(is_ang)
+    for var in ("bus_i_ang", "branch_i_ang"):
+        i_ang[seg[var][0]] = True
+    low, high = ref.obs_low, ref.obs_high
+    c1_cost, c2_cost = ref.costs_clipping
+    sigma_g = torch.Generator().manual_seed(81)
+
+    def fields(o):
+        """The transition output's quantities the plan reads, each smooth in
+        the voltages (magnitudes that can be 0 are bounded by their parts)."""
+        return {"vm": torch.hypot(o.bus_v_re, o.bus_v_im), "va": torch.atan2(o.bus_v_im, o.bus_v_re),
+                "i_re": o.bus_i_re, "i_im": o.bus_i_im, "bus_p": o.bus_p, "bus_q": o.bus_q, "dev_p": o.dev_p,
+                "dev_q": o.dev_q, "p_f": o.br_p_from, "q_f": o.br_q_from, "p_t": o.br_p_to, "q_t": o.br_q_to,
+                "if_re": o.br_i_from_re, "if_im": o.br_i_from_im}
+
+    def wrap(dx):  # ±180° are one angle
+        return torch.where(is_ang, torch.remainder(dx + half, 2 * half) - half, dx)
+
+    worst = {v: [0.0, 0.0, 0.0] for v, *_ in segs}  # sound run, C1, C2: worst error over its tolerance
+    worst_r, worst_r_c1, r_tols = 0.0, 0.0, []
+    n_live = n_skipped = n_clip = n_clip_near = 0
+    for pre, a, x32, r32, d32, diff32 in record:
+        st = tree_map(lambda x: x.double() if x.is_floating_point() else x, pre)
+        s_t = ref._state_vector(st.dev_p, st.dev_q, st.soc, st.p_pot, st.aux)
+        vars, _ = ref.task.next_vars_fn(None, s_t, st.task, st.t)
+        args = (vars[:, :n_load], vars[:, n_load:n_load + n_gen], *ref.split_action(a.double()), st.soc)
+        aux = vars[:, n_load + n_gen:]
+        out = ref._run_transition(*args)
+        x64 = ref._obs_plan.extract(out, out.des_soc, aux)
+        _, _, r64, d64, info64 = ref.step(st, a.double())
+        assert torch.equal(d64, d32), "a lane is done on the card and not on the CPU, or the reverse"
+        live = ~d32
+        L = int(live.sum())
+        n_live += L
+
+        def at(v):
+            """The transition output, extract and reward with the voltages
+            forced to [θ, |V|] = v."""
+            v_re, v_im = _assemble_v(v[:, :n], v[:, n:])
+            ok = torch.ones(v.shape[0], dtype=torch.bool)
+            zero = torch.zeros(v.shape[0], dtype=torch.float64)
+            real = tm.nr_solve
+            tm.nr_solve = lambda *_, **__: NRResult(v_re, v_im, zero.int(), zero, ok, ok)
+            try:
+                o = ref._run_transition(*args)
+            finally:
+                tm.nr_solve = real
+            e = torch.sign(o.e_loss) * torch.clamp(o.e_loss.abs(), 0.0, c1_cost)
+            return o, ref._obs_plan.extract(o, o.des_soc, aux), -(e + torch.clamp(o.penalty, 0.0, c2_cost))
+
+        sol = tm.solution_guess(out)
+        h = 1e-6
+        ups, downs = zip(*[(fields(at(sol + h * e)[0]), fields(at(sol - h * e)[0]))
+                           for e in torch.eye(2 * n, dtype=torch.float64)])
+        v_re, v_im = out.bus_v_re[live], out.bus_v_im[live]
+        yv_re, yv_im = cmatvec(Yre, Yim, v_re, v_im)
+        J_inv = torch.linalg.inv(jacobian(v_re, v_im, yv_re, yv_im, Yre, Yim, n))
+        dF = diff32.double()[live] + out.diff[live] + 4 * eps  # + the f32 residual's own rounding
+        w = torch.cat([torch.ones(L, n, dtype=torch.float64), sol[live, n:]], 1)
+        f64 = {f: x[live] for f, x in fields(out).items()}
+        ft = {}  # each field's tolerance, p.u.
+        for f in f64:
+            G = (torch.stack([u[f] - d[f] for u, d in zip(ups, downs)], -1) / (2 * h))[live]  # [L, m, 2n]
+            ft[f] = ((G @ J_inv).abs().sum(-1) * dF[:, None]
+                     + 16 * eps * ((G.abs() * w[:, None, :]).sum(-1) + f64[f].abs()))
+        seg_tol = {
+            "bus_p": ft["bus_p"], "bus_q": ft["bus_q"], "dev_p": ft["dev_p"], "dev_q": ft["dev_q"],
+            "branch_p": ft["p_f"], "branch_q": ft["q_f"], "branch_i_magn": ft["if_re"],
+            "bus_v_magn": ft["vm"], "bus_v_ang": ft["va"], "bus_i_magn": ft["i_re"] + ft["i_im"],
+            "bus_i_ang": (ft["i_re"] + ft["i_im"]) / torch.hypot(f64["i_re"], f64["i_im"]),
+            "branch_s": torch.maximum(ft["p_f"] + ft["q_f"], ft["p_t"] + ft["q_t"]),
+            "branch_i_ang": (ft["if_re"] + ft["if_im"]) / torch.hypot(f64["if_re"], f64["if_im"]),
+        }
+        xl32, xl64 = x32.double()[live], x64[live]
+        tol_v = torch.zeros_like(xl64)
+        for var, _, sl, s in segs:
+            if var in seg_tol:
+                tol_v[:, sl] = seg_tol[var] * s
+        tol = tol_v + 16 * eps * (scale + xl64.abs())
+        compare = ~(i_ang & ~(tol_v <= 0.1 * scale))
+        n_skipped += int((~compare).sum())
+        # sign(p_from) of a flow within its tolerance of zero is a coin flip.
+        sl_p, sl_s = seg["branch_p"][0], seg["branch_s"][0]
+        near0 = torch.zeros_like(compare)
+        near0[:, sl_s] = xl64[:, sl_p].abs() <= tol[:, sl_p]
+
+        def ratio(x):
+            err = torch.where(near0, (x.abs() - xl64.abs()).abs(), wrap(x - xl64).abs())
+            return torch.where(compare, err / tol, torch.zeros_like(tol))
+
+        sigma = torch.randint(0, 2, (L, 2 * n), generator=sigma_g, dtype=torch.float64) * 2 - 1
+        moved = torch.zeros_like(sol)
+        moved[live] = sol[live] + 10 * (J_inv @ (sigma * dF[:, None]).unsqueeze(-1)).squeeze(-1)
+        _, x_c1, r_c1 = at(torch.where(live[:, None], moved, sol))
+        c2 = xl64 + 2.0 ** -14 * (xl64.abs() + scale)
+        for k, x in enumerate((xl32, x_c1[live], c2)):
+            rat = ratio(x)
+            for var, _, sl, _ in segs:
+                worst[var][k] = max(worst[var][k], float(rat[:, sl].max()) if L else 0.0)
+            if k == 0:
+                bad = rat > 1
+                assert not bad.any(), f"{[v for v, _, sl, _ in segs if bad[:, sl].any()]} off their tolerance"
+
+        # The reward, from the errors of the observed entries it is made of.
+        def pu_err(var, signless=False):
+            sl, s = seg[var]
+            d = (xl32[:, sl].abs() - xl64[:, sl].abs()) if signless else (xl32[:, sl] - xl64[:, sl])
+            return (d.abs() / s).sum(1)
+
+        sl_d, s_d = seg["dev_p"]
+        lam_dt = tb.lamb * tb.delta_t
+        r_tol = (tb.delta_t * (2 * pu_err("dev_p") + pu_err("gen_p_max"))
+                 + lam_dt * (pu_err("bus_v_magn") + pu_err("branch_s", signless=True))
+                 + 16 * eps * (1 + info64["e_loss"][live].abs() + info64["penalty"][live]
+                               + tb.delta_t * (xl64[:, sl_d].abs() / s_d).sum(1)
+                               + lam_dt * ((xl64[:, seg["bus_v_magn"][0]] / seg["bus_v_magn"][1]).sum(1)
+                                           + (xl64[:, sl_s].abs() / seg["branch_s"][1]).sum(1))))
+        r_tols.append(r_tol)
+        r_ratio = (r32.double()[live] - r64[live]).abs() / r_tol
+        assert (r_ratio <= 1).all(), f"reward off by {float(r_ratio.max()):.3f}× its tolerance"
+        worst_r = max(worst_r, float(r_ratio.max()) if L else 0.0)
+        worst_r_c1 = max(worst_r_c1, float(((r_c1[live] - r64[live]).abs() / r_tol).max()) if L else 0.0)
+
+        # The clip: the same entries moved on the card as on the CPU.
+        out32 = (xl32 < low.float()) | (xl32 > high.float())  # the card's bounds are float32
+        out64 = (xl64 < low) | (xl64 > high)
+        near_bound = ((xl64 - low).abs() <= tol) | ((xl64 - high).abs() <= tol)
+        assert not ((out32 != out64) & ~near_bound).any(), "the clip moves other entries on the card"
+        n_clip += int(out32.sum())
+        n_clip_near += int(((out32 != out64) & near_bound).sum())
+
+    r_tols = torch.cat(r_tols)
+    log(f"ANM6Easy f32 card vs f64 CPU replay ({len(record)} steps x {N_CHECK_LANES} lanes, {n_live} live "
+        f"lane-steps; {n_skipped} current angles with a bound over 0.1 rad not compared): worst error as a share of "
+        f"its tolerance, sound run / control C1 (a 10x less accurate solve) / C2 (2^-14 off): " + ", ".join(
+            f"{v} {a:.3f}/{b:.3g}/{c:.3g}" for v, (a, b, c) in worst.items())
+        + f"; reward {worst_r:.3f}/{worst_r_c1:.3g} (tolerance median {float(r_tols.median()):.3e}, max "
+        f"{float(r_tols.max()):.3e}); clipped entries {n_clip}, {n_clip_near} of them clipped on one side only "
+        f"within tolerance of a bound")
+    for var, (_, c1, c2) in worst.items():
+        assert c2 > 1, f"{var}: control C2 passes its tolerance"
+        if var not in ("des_soc", "gen_p_max", "aux"):  # the voltages move these
+            assert c1 > 1, f"{var}: control C1 passes its tolerance"
+    assert worst_r_c1 > 1, "reward: control C1 passes its tolerance"
+
+
+def phase8_anm6easy(VecEnv, make_anm6easy_task, STATE_VARIABLES, build_ybus, kernel, chord_k):
+    from gym_anm_torch.vec.core import tree_map
+
+    B, T = B_MAIN, 96
+    plan = other_unit_plan(STATE_VARIABLES)
+    log(f"== phase 8: ANM6Easy, f32, B={B}, {T} steps (one day) of uniform-random actions, obs plan "
+        f"{[(v, u) for v, _, u in plan]}")
+    env = VecEnv(make_anm6easy_task(), dtype=torch.float32, obs=plan, device="cuda")
+    n = env.spec.n_bus - 1
+    low, high = env.obs_low, env.obs_high
+    # The plan's extract before the clip to [low, high]: the step's is the
+    # first call of each step_autoreset_batch (a reset's follows it).
+    extract, extracts = env._obs_plan.extract, []
+
+    def keep_extract(out, soc, aux):
+        extracts.append(extract(out, soc, aux))
+        return extracts[-1]
+
+    env._obs_plan = env._obs_plan._replace(extract=keep_extract)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    kernel.launch_count = 0
+    chord_k.launch_count = 0
+    state, obs = env.reset(B, g)
+    assert torch.isfinite(obs).all()
+    clipped = torch.zeros(env.n_obs, dtype=torch.int64, device="cuda")
+    record, iters, n_term = [], [], 0
+    for k in range(T):
+        a = uniform_actions(env, B, g)
+        if k == T // 2:
+            # As phase 5: far-off warm starts on every lane (the chord resets
+            # them to flat, the Newton fallback solves them with K1 at n = 10)
+            # and 64 lanes already terminated.
+            state = state._replace(v_guess=bad_guesses(B, n, which=(2, 3)).to("cuda"),
+                                   terminated=torch.arange(B, device="cuda") % (B // 64) == 0)
+        pre = tree_map(lambda x: x[:N_CHECK_LANES].cpu(), state) if k < N_CHECK_STEPS else None
+        extracts.clear()
+        state, obs, r, d, info = env.step_autoreset_batch(state, a, g)
+        assert torch.isfinite(obs).all() and torch.isfinite(r).all(), f"step {k}: non-finite output"
+        live = ~d
+        x = extracts[0]
+        clipped += (((x < low) | (x > high)) & live[:, None]).sum(0)
+        worst = float(info["diff"][live].max()) if live.any() else 0.0
+        assert worst <= 1e-4, f"step {k}: live-lane residual {worst:.3e} > 1e-4"
+        assert (state.t[d] == 0).all(), f"step {k}: a reset lane is not at t = 0"
+        t_idx = state.aux[:, -1]
+        assert (t_idx == t_idx.round()).all() and (t_idx >= 0).all() and (t_idx < 96).all(), f"step {k}: time index"
+        n_term += int(d.sum())
+        iters.append(info["n_iter"])
+        if pre is not None:
+            record.append((pre, a[:N_CHECK_LANES].cpu(), x[:N_CHECK_LANES].cpu(), r[:N_CHECK_LANES].cpu(),
+                           d[:N_CHECK_LANES].cpu(), info["diff"][:N_CHECK_LANES].cpu()))
+    torch.cuda.synchronize()
+    launches, chord_launches = kernel.launch_count, chord_k.launch_count
+    it = torch.stack(iters).float()
+    log(f"ANM6Easy: K2 launches {chord_launches} (n = {n}), K1 launches {launches} (n = {2 * n}); {n_term} lane "
+        f"terminations (reset) in {T} steps; chord iterations mean {float(it.mean()):.3f}, worst lane {int(it.max())}")
+    assert chord_launches > 0 and launches > 0, "K2 or K1 never launched on the ANM6Easy path"
+    clipped = clipped.cpu()
+    log("live-lane entries the clip to the plan's bounds moved, by segment: " + ", ".join(
+        f"{var} {int(clipped[sl].sum())}" for var, _, sl, _ in plan_segments(env._obs_plan, env.spec)))
+    replay_anm6easy(VecEnv, make_anm6easy_task, plan, build_ybus, record)
+
+    env = VecEnv(make_anm6easy_task(), dtype=torch.float32, obs=plan, device="cuda")
+    rate, _ = time_path(env, B, env.step_autoreset_batch, 9)
+
+    # Where a step's time goes: wall time inside the Newton fallback (the
+    # step's and the resets'; the card synchronized at its entry and exit)
+    # against the whole step, and the fallback's Newton iterations (one K1
+    # launch each) per step.
+    # (by import_module: the package's ``transition`` attribute is the function)
+    transition_module = importlib.import_module("gym_anm_torch.physics.transition")
+    real_nr, in_nr = transition_module.nr_solve_lazy, [0.0]
+
+    def timed_nr(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_nr(*args, **kwargs)
+        torch.cuda.synchronize()
+        in_nr[0] += time.perf_counter() - t0
+        return out
+
+    n_split = 32
+    state, _ = env.reset(B, g)
+    transition_module.nr_solve_lazy = timed_nr
+    try:
+        kernel.launch_count = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_split):
+            state, *_ = env.step_autoreset_batch(state, uniform_actions(env, B, g), g)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n_split
+    finally:
+        transition_module.nr_solve_lazy = real_nr
+    log(f"ANM6Easy step split ({n_split} steps): wall {1e3 * wall:.3f} ms/step, of which the Newton fallback "
+        f"{1e3 * in_nr[0] / n_split:.3f} ms ({in_nr[0] / n_split / wall:.3f}); {kernel.launch_count / n_split:.2f} "
+        f"Newton iterations (K1 launches) per step")
+    return launches, chord_launches, rate
 
 
 def main():
@@ -490,7 +1105,8 @@ def main():
     from gym_anm_torch.physics import ybus
     from gym_anm_torch.physics.chord_cuda import chord_solve_cuda
     from gym_anm_torch.physics.transition import transition
-    from gym_anm_torch.vec import VecEnv, make_ieee33_multicap_task, make_ieee33_task
+    from gym_anm_torch.specs.constants import STATE_VARIABLES
+    from gym_anm_torch.vec import VecEnv, make_anm6easy_task, make_ieee33_multicap_task, make_ieee33_task
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
@@ -503,21 +1119,26 @@ def main():
 
     kernel = lin.solve_gauss_jordan_cuda
     k1 = phase1_kernel_vs_plain(lin)
-    k2 = phase1b_chord_kernel(pf, chord_solve_cuda, VecEnv, make_ieee33_task, make_ieee33_multicap_task)
+    k2 = phase1b_chord_kernel(pf, chord_solve_cuda, VecEnv, make_ieee33_task, make_ieee33_multicap_task,
+                              make_anm6easy_task)
     launches, chord_launches = phase2_main_path(VecEnv, make_ieee33_task, kernel, chord_solve_cuda)
     phase3_fallback(VecEnv, make_ieee33_task, pf, ybus, kernel)
     phase4_tf32(VecEnv, make_ieee33_task)
     mc_launches, mc_chord_launches = phase5_multicap(VecEnv, make_ieee33_multicap_task, transition, kernel,
                                                      chord_solve_cuda)
-    phase6_times(VecEnv, make_ieee33_task, make_ieee33_multicap_task)
+    bare_rate = phase6_times(VecEnv, make_ieee33_task, make_ieee33_multicap_task)
+    col_launches, col_chord_launches = phase7_collection(VecEnv, make_ieee33_multicap_task, transition, kernel,
+                                                         chord_solve_cuda, bare_rate)
+    a6_launches, a6_chord_launches, a6_rate = phase8_anm6easy(VecEnv, make_anm6easy_task, STATE_VARIABLES,
+                                                              ybus.build_ybus, kernel, chord_solve_cuda)
 
-    # Launches: the base path's and the multicap17 path's runs together.
+    # Launches: the runs of the base, multicap17, collection and ANM6Easy paths together.
     print(json.dumps({"kernels": [{
         "name": "gauss_jordan",
         "route": "cuda",
         "source": "gym_anm_torch/csrc/gauss_jordan.cu",
         "replaces": "gym_anm_tpu/physics/linsolve_pallas.py:31",
-        "launches": launches + mc_launches,
+        "launches": launches + mc_launches + col_launches + a6_launches,
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -526,7 +1147,7 @@ def main():
         "route": "cuda",
         "source": "gym_anm_torch/csrc/chord_newton.cu",
         "replaces": "scripts/chord_pallas_prototype.py:168",
-        "launches": chord_launches + mc_chord_launches,
+        "launches": chord_launches + mc_chord_launches + col_chord_launches + a6_chord_launches,
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],

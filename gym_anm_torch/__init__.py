@@ -3,12 +3,15 @@ PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
 
 A port of :mod:`gym_anm_tpu` (JAX), which stays the reference.  This
 package imports neither jax nor gym_anm_tpu.  It covers the batched step of
-the base IEEE33 task, the renewable family (multicap17 among them) and the
-two-bus example: network specs, the Y-bus, the set-point projections, the
-chord-Newton load flow (on the card one launch of the CUDA kernel
-``csrc/chord_newton.cu``) with its exact Newton-Raphson fallback (whose
-linear solve is the CUDA kernel ``csrc/gauss_jordan.cu``), the transition,
-and :class:`~gym_anm_torch.vec.VecEnv` with autoreset and rollouts.
+the base IEEE33 task, the renewable family (multicap17 among them), ANM6Easy
+and the two-bus example: network specs, the Y-bus, the set-point
+projections, the chord-Newton load flow (on the card one launch of the CUDA
+kernel ``csrc/chord_newton.cu``) with its exact Newton-Raphson fallback
+(whose linear solve is the CUDA kernel ``csrc/gauss_jordan.cu``), the
+transition, :class:`~gym_anm_torch.vec.VecEnv` with observation plans,
+autoreset and rollouts, and the offline-RL collection path: the L0-L5
+controllers and the expert zoo (``vec.controllers``, ``vec.experts``) and
+the dataset collectors (``offline_vec``).
 """
 
 from . import errors

@@ -1,9 +1,10 @@
-"""Carry tables and environment state over from the JAX package.
+"""Carry tables, environment state and controller carries over from the JAX
+package.
 
-Both functions take the JAX objects' fields as numpy arrays (``np.asarray``
+Every function takes the JAX objects' fields as numpy arrays (``np.asarray``
 reads a JAX array without importing jax), so a test can run
-``gym_anm_tpu`` and ``gym_anm_torch`` from the same tables and the same
-state, mid-rollout.
+``gym_anm_tpu`` and ``gym_anm_torch`` from the same tables, the same state
+and the same controller carries, mid-rollout.
 """
 
 import numpy as np
@@ -11,6 +12,7 @@ import torch
 
 from .physics.power_flow import ChordConst
 from .physics.transition import HOST_FIELDS, GridTables, tables_from_host
+from .vec import controllers
 from .vec.core import EnvState, tree_map
 
 
@@ -51,3 +53,16 @@ def state_from_jax(env_state, device="cpu") -> EnvState:
         v_guess=leaf("v_guess"),
         shaping=leaf("shaping"),
     )
+
+
+def carry_from_jax(controller_carry, device="cpu"):
+    """The port's controller carry from a batched ``gym_anm_tpu`` one (lanes
+    on the first axis), at the same dtypes: a ``_L3Carry``/``_L4Carry``/
+    ``_L5Carry`` becomes the port's NamedTuple of that name, L2's bool pair
+    and the hysteresis expert's set-points a tensor, ``()`` stays ``()``."""
+    if isinstance(controller_carry, tuple):
+        leaves = [carry_from_jax(c, device) for c in controller_carry]
+        if hasattr(controller_carry, "_fields"):
+            return getattr(controllers, type(controller_carry).__name__)(*leaves)
+        return tuple(leaves)
+    return torch.as_tensor(np.array(controller_carry), device=device)

@@ -38,8 +38,10 @@
 // rounded op by op (__fmul_rn, __fadd_rn, ...), so no multiply-add is
 // contracted that the plain version does not form; max, minimum and clamp
 // propagate NaN as torch.amax, torch.minimum and torch.clamp do.  The AA sums
-// are float32 sums in butterfly order, not torch's order, hence a comparison
-// with the plain version by tolerance, not bitwise.
+// are float32 sums in butterfly order over the warp (thread i's pair of
+// entries i and n + i first, the idle threads' zeros included), and the plain
+// version sums in that order too (power_flow.py:_butterfly_sum), so the two
+// round alike at any n.
 
 #include <cuda_runtime.h>
 #include <math.h>

@@ -47,3 +47,34 @@ network["branch"] = np.array(
         [2, 5, 0.0159, 0.0502, 0.0, 18, 1, 0],
     ]
 )
+
+
+# ANM6Easy's fixed 24-hour profiles, 96 steps of 15 min (the reference's
+# anm6_easy.py:77-132, as the JAX package's compat tier builds them).
+def _piecewise_day(s1, s12, s2, s23, s3):
+    """A 96-step daily profile from plateau/ramp segments (the construction
+    pattern of anm6_easy.py:77-132)."""
+    return np.concatenate((s1, s12, s2, s23, s3, s23[::-1], s2, s12[::-1], s1[:4]))
+
+
+def anm6easy_load_time_series():
+    """Load profiles [3, 96] in MW of devices 1 (residential), 3 (industrial)
+    and 5 (EV charging), anm6_easy.py:77-107."""
+    P1 = _piecewise_day(-np.ones(25), np.linspace(-1.5, -4.5, 7), -5 * np.ones(13),
+                        np.linspace(-4.625, -2.375, 7), -2 * np.ones(13))
+    P3 = _piecewise_day(-4 * np.ones(25), np.linspace(-4.75, -9.25, 7), -10 * np.ones(13),
+                        np.linspace(-11.25, -18.75, 7), -20 * np.ones(13))
+    P5 = _piecewise_day(np.zeros(25), np.linspace(-3.125, -21.875, 7), -25 * np.ones(13),
+                        np.linspace(-21.875, -3.125, 7), np.zeros(13))
+    return np.vstack((P1, P3, P5))
+
+
+def anm6easy_gen_time_series():
+    """Maximum-generation profiles [2, 96] in MW of devices 2 (residential PV)
+    and 4 (wind farm), with the PV's asymmetric ramp into a lower plateau,
+    anm6_easy.py:110-132."""
+    P2 = _piecewise_day(np.zeros(25), np.linspace(0.5, 3.5, 7), 4 * np.ones(13),
+                        np.linspace(7.25, 36.75, 7), 30 * np.ones(13))
+    P4 = _piecewise_day(40 * np.ones(25), np.linspace(36.375, 14.625, 7), 11 * np.ones(13),
+                        np.linspace(14.725, 36.375, 7), 40 * np.ones(13))
+    return np.vstack((P2, P4))

@@ -339,6 +339,23 @@ def _chord_mismatch(ct: ChordTensors, x, p, q, dtf_re, dtf_im, fast_trig):
     return torch.cat([s_re[:, 1:] - p, s_im[:, 1:] - q], dim=1)
 
 
+def _butterfly_sum(a):
+    """Sum of the 2n entries of ``a`` [B, 2n] in the CUDA kernel's order,
+    so that the kernel and this version round alike: entries i and n + i
+    added (one thread's pair), the n pair sums padded with zeros to a power
+    of two ≥ 32 and summed by a butterfly (offsets 16, 8, 4, 2, 1 for 32), as
+    the kernel's warp shuffles sum them."""
+    n = a.shape[1] // 2
+    width = max(32, 1 << (n - 1).bit_length())
+    v = torch.nn.functional.pad(a[:, :n] + a[:, n:], (0, width - n))
+    lanes = torch.arange(width, device=a.device)
+    o = width // 2
+    while o:
+        v = v + v[:, lanes ^ o]
+        o //= 2
+    return v[:, 0]
+
+
 def _chord_body(ct, data, carry, xtol, fast_trig):
     """One chord + Anderson(1) iteration on every lane."""
     p, q, dtf_re, dtf_im, k00, k01, k10, k11 = data
@@ -356,8 +373,8 @@ def _chord_body(ct, data, carry, xtol, fast_trig):
     # that plain chord contracts monotonically into the plateau rule).
     use_aa = (it > 0) & (diff > 100.0 * xtol)
     df = f - f_prev
-    denom = torch.sum(df * df, dim=1)
-    gamma = torch.where(denom > 1e-30, torch.sum(f * df, dim=1) / denom, torch.zeros_like(denom))
+    denom = _butterfly_sum(df * df)
+    gamma = torch.where(denom > 1e-30, _butterfly_sum(f * df) / denom, torch.zeros_like(denom))
     gamma = torch.where(use_aa, torch.clamp(gamma, -5.0, 5.0), torch.zeros_like(gamma))
     x = g - gamma.unsqueeze(1) * (g - g_prev)
     F = _chord_mismatch(ct, x, p, q, dtf_re, dtf_im, fast_trig)

@@ -24,13 +24,16 @@ import torch
 from ..errors import ObsSpaceError
 from ..physics.transition import GridTables, TransitionOut, make_tables, solution_guess, transition
 from ..specs.network import NetworkSpec, load_network
+from .obs import make_obs_plan
 
 
 def tree_map(fn, *trees):
-    """``fn`` over the tensors of carries of one structure (tensor, tuple of
-    carries, or ``()``)."""
+    """``fn`` over the tensors of carries of one structure (tensor, tuple or
+    NamedTuple of carries, or ``()``); a NamedTuple, such as an
+    :class:`EnvState`, keeps its type."""
     if isinstance(trees[0], tuple):
-        return tuple(tree_map(fn, *leaves) for leaves in zip(*trees))
+        leaves = [tree_map(fn, *group) for group in zip(*trees)]
+        return type(trees[0])(*leaves) if hasattr(trees[0], "_fields") else tuple(leaves)
     return fn(*trees)
 
 
@@ -95,9 +98,11 @@ class VecEnv:
     """Vectorized environment for one task on one device.
 
     ``dtype`` selects the compute precision: float64 for parity work,
-    float32 for throughput (the chord solver).  ``obs="state"`` (the flat
-    MDP state vector) is the observation space; observation plans (lists of
-    ``(variable, ids[, unit])`` triples) are not ported yet.
+    float32 for throughput (the chord solver).  ``obs`` selects the
+    observation space, in the compat/reference format (anm_env.py:516-540):
+    ``"state"`` (the flat MDP state vector, the default) or a list of
+    ``(variable, ids[, unit])`` triples, compiled once into gathers over the
+    transition output (:mod:`gym_anm_torch.vec.obs`).
     """
 
     def __init__(self, task: VecTask, dtype=torch.float32, obs="state", device="cpu"):
@@ -139,11 +144,15 @@ class VecEnv:
             np.full(task.K, np.inf),
         ])
         if isinstance(obs, str) and obs == "state":
+            self._obs_plan = None
             self.n_obs = self.n_state
             self.obs_low = self._tensor(lows)
             self.obs_high = self._tensor(highs)
         elif isinstance(obs, list):
-            raise NotImplementedError("observation plans (gym_anm_tpu/vec/obs.py) are not ported yet")
+            self._obs_plan = make_obs_plan(spec, task.K, obs, device=self.device)
+            self.n_obs = self._obs_plan.n
+            self.obs_low = self._tensor(self._obs_plan.low)
+            self.obs_high = self._tensor(self._obs_plan.high)
         else:
             raise ObsSpaceError(f"obs must be 'state' or a list of (var, ids, unit) triples, got {obs!r}")
 
@@ -174,7 +183,10 @@ class VecEnv:
         return torch.clamp(state_vec, self.obs_low, self.obs_high)
 
     def _obs_from_out(self, out: TransitionOut, soc_pu, aux):
-        return self.observation(self._state_vector(out.dev_p, out.dev_q, soc_pu, out.gen_p_pot, aux))
+        """Observation from a transition output (obs-plan-aware)."""
+        if self._obs_plan is None:
+            return self.observation(self._state_vector(out.dev_p, out.dev_q, soc_pu, out.gen_p_pot, aux))
+        return torch.clamp(self._obs_plan.extract(out, soc_pu, aux).to(self.dtype), self.obs_low, self.obs_high)
 
     def _run_transition(self, P_load, P_pot, P_gen, Q_gen, P_des, Q_des, Q_cap, taps, soc,
                         x_guess=None):
@@ -329,9 +341,14 @@ class VecEnv:
         """Run ``n_steps`` steps.  ``policy_fn(generator, obs, t) -> action``.
         Returns ``(final_state, (obs, action, reward, done))`` with time on the
         first axis of each trajectory tensor; ``obs0`` defaults to the
-        observation of the carried state (0 for terminated lanes)."""
+        observation of the carried state (0 for terminated lanes).  An env
+        with an observation plan needs ``obs0`` (the observation returned by
+        reset/step): it may hold solution quantities the state does not."""
         step = self.step_autoreset_batch if autoreset else self.step
         if obs0 is None:
+            if self._obs_plan is not None:
+                raise ValueError("rollout over a partial-observation env requires obs0 "
+                                 "(the observation returned by reset/step)")
             s_vec = self._state_vector(state.dev_p, state.dev_q, state.soc, state.p_pot, state.aux)
             obs0 = torch.where(state.terminated.unsqueeze(1), torch.zeros_like(s_vec), self.observation(s_vec))
         obs, traj = obs0, []

@@ -4,9 +4,7 @@ Port of ``gym_anm_tpu/vec/tasks.py``.  Each factory returns a
 :class:`~gym_anm_torch.vec.core.VecTask`.  Randomness comes from the
 ``torch.Generator`` the hooks are given (drawn on its device, or on the
 state's device when it is None); the JAX package draws from ``jax.random``,
-so parity tests hand both packages the same numbers.  ``make_anm6easy_task``
-is not ported yet (its daily time series live in the JAX package's compat
-tier).
+so parity tests hand both packages the same numbers.
 """
 
 import dataclasses
@@ -16,12 +14,14 @@ import numpy as np
 import torch
 
 from ..networks import (
+    anm6_network,
     create_multi_capacitor_network,
     create_renewable_network,
     create_unequal_capacitor_network,
     ieee33_network,
     two_bus_network,
 )
+from ..networks.anm6 import anm6easy_gen_time_series, anm6easy_load_time_series
 from ..physics.power_flow import numpy_nr_solve
 from ..specs.network import load_network
 from .core import VecTask
@@ -32,6 +32,7 @@ __all__ = [
     "make_ieee33_renewable_task",
     "make_ieee33_multicap_task",
     "make_ieee33_unequal_task",
+    "make_anm6easy_task",
 ]
 
 
@@ -174,7 +175,9 @@ class DiurnalLoads:
         return torch.cat([loads, tail], dim=1), hour
 
 
-def _make_renewable_family_task(network, name, load_scale=1.0):
+def _make_renewable_family_task(network, name, load_scale=1.0, scenario="default"):
+    # ``scenario`` is accepted and changes nothing, as in the JAX package,
+    # whose renewable potentials stay at zero whatever the scenario.
     spec = load_network(network)
     K = 0
     n_s0 = spec.n_state + K
@@ -200,17 +203,17 @@ def _make_renewable_family_task(network, name, load_scale=1.0):
     )
 
 
-def make_ieee33_renewable_task(load_scale=1.0):
+def make_ieee33_renewable_task(load_scale=1.0, scenario="default"):
     """IEEE33 + 5 renewables, 13-dim actions, diurnal loads."""
-    return _make_renewable_family_task(create_renewable_network(), "ieee33_renewable", load_scale)
+    return _make_renewable_family_task(create_renewable_network(), "ieee33_renewable", load_scale, scenario)
 
 
-def make_ieee33_multicap_task(load_scale=1.0):
+def make_ieee33_multicap_task(load_scale=1.0, scenario="default"):
     """IEEE33 + renewables + 6 capacitors, 17-dim actions."""
-    return _make_renewable_family_task(create_multi_capacitor_network(), "ieee33_multicap", load_scale)
+    return _make_renewable_family_task(create_multi_capacitor_network(), "ieee33_multicap", load_scale, scenario)
 
 
-def make_ieee33_unequal_task(load_scale=1.0, switching_cost_multiplier=1.0):
+def make_ieee33_unequal_task(load_scale=1.0, scenario="default", switching_cost_multiplier=1.0):
     """IEEE33 + renewables + 6 unequal capacitors, 17-dim actions, with the
     per-step capacitor switching-cost accounting of the compat env
     (ieee33_unequal_capacitors.py:144-169) as a reward-shaping hook.
@@ -219,7 +222,7 @@ def make_ieee33_unequal_task(load_scale=1.0, switching_cost_multiplier=1.0):
     sorted by rating largest-first while the switch detections are in action
     order, and the two are multiplied index-wise.  The previous-set-point
     tracker persists across resets."""
-    task = _make_renewable_family_task(create_unequal_capacitor_network(), "ieee33_unequal", load_scale)
+    task = _make_renewable_family_task(create_unequal_capacitor_network(), "ieee33_unequal", load_scale, scenario)
     spec = load_network(task.network)
     ratings = np.sort(spec.q_max[spec.cap_pos] * spec.baseMVA)[::-1]
     base_costs = 0.01 * ratings * switching_cost_multiplier
@@ -249,3 +252,80 @@ def make_ieee33_unequal_task(load_scale=1.0, switching_cost_multiplier=1.0):
         return (cap_a, n_switches, cum_cost), reward - step_cost, extras
 
     return dataclasses.replace(task, shape_reward_fn=shape_reward_fn, init_shape_fn=init_shape_fn)
+
+
+class ANM6EasyHooks:
+    """``init_state_fn`` and ``next_vars_fn`` of ANM6Easy.
+
+    Reset: a random time index t0 in [0, 96), the loads and generation
+    maxima of the daily tables at t0 (load Q at 0.2·P), random generator Q
+    and storage SoC within their bounds, aux = t0; built in float32, as in
+    the JAX package.  Step: the time index advances by one (mod 96) from the
+    state vector's last entry, and the exogenous variables are the tables at
+    that index.  :meth:`s0_from_draws` is the reset as a plain function of
+    the draws, so a test can feed it the JAX package's.
+    """
+
+    N_STEPS_DAY = 96
+
+    def __init__(self, spec):
+        self.spec = spec
+        self.P_loads = anm6easy_load_time_series()  # [3, 96] MW
+        self.P_maxs = anm6easy_gen_time_series()    # [2, 96] MW
+        base = spec.baseMVA
+        gp, dp = spec.gen_nonslack_pos, spec.des_pos
+        self._bounds = [spec.q_min[gp] * base, spec.q_max[gp] * base, spec.soc_min[dp] * base,
+                        spec.soc_max[dp] * base]
+        self._cache = {}  # (dtype, device) -> tables: no host copy per step
+
+    def _tables(self, dtype, device):
+        key = (dtype, device)
+        if key not in self._cache:
+            t = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=device).to(dtype)  # noqa: E731
+            self._cache[key] = [t(self.P_loads), t(self.P_maxs)] + [t(b) for b in self._bounds]
+        return self._cache[key]
+
+    def init_state_fn(self, generator, n, carry):
+        spec = self.spec
+        dev = _draw_device(generator, "cpu")
+        t0 = torch.randint(0, self.N_STEPS_DAY, (n,), generator=generator, device=dev)
+        u_q = torch.rand(n, spec.n_gen, generator=generator, dtype=torch.float32, device=dev)
+        u_soc = torch.rand(n, spec.n_des, generator=generator, dtype=torch.float32, device=dev)
+        return self.s0_from_draws(t0, u_q, u_soc)
+
+    def s0_from_draws(self, t0, u_q, u_soc):
+        """s0 [n, n_state + 1] (float32) from the time index t0 [n] and
+        uniform draws u_q [n, n_gen], u_soc [n, n_des]."""
+        spec = self.spec
+        n_dev, n_des, n_gen = spec.n_dev, spec.n_des, spec.n_gen
+        P_loads, P_maxs, q_min, q_max, soc_min, soc_max = self._tables(torch.float32, t0.device)
+        s = torch.zeros(t0.shape[0], 2 * n_dev + n_des + n_gen + 1, dtype=torch.float32, device=t0.device)
+        # loads at devices 1, 3, 5; generators at 2, 4; storage at 6 (ANM6 layout)
+        loads = P_loads[:, t0].T
+        gens = P_maxs[:, t0].T
+        s[:, 1:6:2] = loads
+        s[:, 1 + n_dev: 6 + n_dev: 2] = loads * 0.2
+        s[:, 2:5:2] = gens
+        s[:, 2 + n_dev: 5 + n_dev: 2] = q_min + u_q * (q_max - q_min)
+        s[:, 2 * n_dev: 2 * n_dev + n_des] = soc_min + u_soc * (soc_max - soc_min)
+        s[:, 2 * n_dev + n_des: 2 * n_dev + n_des + n_gen] = gens
+        s[:, -1] = t0.to(torch.float32)
+        return s
+
+    def next_vars_fn(self, generator, s_t, carry, t):
+        P_loads, P_maxs = self._tables(s_t.dtype, s_t.device)[:2]
+        aux = torch.remainder(s_t[:, -1] + 1, self.N_STEPS_DAY).to(torch.int32)
+        idx = aux.long()
+        return torch.cat([P_loads[:, idx].T, P_maxs[:, idx].T, aux.unsqueeze(1).to(s_t.dtype)], dim=1), carry
+
+
+def make_anm6easy_task():
+    """The ANM6Easy task: fixed 96-step daily profiles, K=1 time-of-day aux,
+    Δt = 15 min (anm6_easy.py:11-65).  Lanes collapse under aggressive
+    actions, so its resets (and their retries) are frequent."""
+    hooks = ANM6EasyHooks(load_network(anm6_network))
+    return VecTask(
+        network=anm6_network, K=1, delta_t=0.25, gamma=0.995, lamb=100,
+        costs_clipping=(1, 100), init_state_fn=hooks.init_state_fn,
+        next_vars_fn=hooks.next_vars_fn, name="anm6easy",
+    )

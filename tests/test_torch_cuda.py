@@ -117,9 +117,10 @@ def _chord_problem(net, delta_t, B, seed, device):
 @pytest.mark.parametrize("B", [7, 33, 1001])
 def test_chord_kernel_matches_plain_version(cuda, net, delta_t, B):
     """K2 against the plain chord on the same card inputs: the same accepted
-    lanes, n_iter equal on all but a rare lane (a float32 AA sum taken in
-    another order can move a plateau exit by an iteration), x within the
-    solver's own scale (2e-5), F and diff within the acceptance band."""
+    lanes, n_iter equal on all but a rare lane (a float64 dot product summed
+    in another order can move a float32 rounding, and a plateau exit by an
+    iteration), x within the solver's own scale (2e-5), F and diff within the
+    acceptance band."""
     ct, args = _chord_problem(net, delta_t, B, B, cuda)
     before = chord_solve_cuda.launch_count
     xk, Fk, dk, ik, ak = pf.chord_solve(*args[:6], ct, x0=args[6])
@@ -178,3 +179,87 @@ def test_chord_kernel_rejects_what_it_does_not_take(cuda):
     assert chord_solve_cuda.launch_count == before
     with pytest.raises(ValueError):  # the dispatcher hands f64 on the card to the kernel, which refuses it
         pf.chord_solve(p.double(), q.double(), wa.double(), wb.double(), dr.double(), di.double(), ct64)
+
+
+def _member_pairs(env_cpu, env_gpu):
+    from gym_anm_torch.vec import controllers, experts
+
+    cpu = controllers.make_suite(env_cpu) + experts.make_expert_zoo(env_cpu)
+    gpu = controllers.make_suite(env_gpu) + experts.make_expert_zoo(env_gpu)
+    return list(zip(cpu, gpu))
+
+
+def _to(tree, device):
+    from gym_anm_torch.vec.core import tree_map
+
+    return tree_map(lambda x: x.to(device), tree)
+
+
+def test_controllers_decide_on_the_card_as_on_the_cpu_without_syncing(cuda):
+    """Every L0-L5 controller and zoo member at float32, from the same state
+    and carry on the card and on the CPU: the same carries (cap states, tap
+    indices, timers, the L5 grid choice) bit for bit, and actions within
+    1e-6; no ``act`` on the card synchronizes with the host."""
+    from gym_anm_torch.offline_vec import action_noise
+    from gym_anm_torch.vec import make_ieee33_multicap_task
+    from gym_anm_torch.vec.core import tree_map
+
+    B = 96
+    env_c = VecEnv(make_ieee33_multicap_task(), dtype=torch.float32)
+    env_g = VecEnv(make_ieee33_multicap_task(), dtype=torch.float32, device=cuda)
+    g = torch.Generator().manual_seed(0)
+    state, obs = env_c.reset(B, g)
+    states = []
+    for k in range(6):  # voltages across the controllers' thresholds
+        state, obs, _, _, _ = env_c.step_autoreset_batch(state, env_c.random_policy()(g, obs, k), g)
+        states.append((state, obs))
+    for c_cpu, c_gpu in _member_pairs(env_c, env_g):
+        carry_c, carry_g = c_cpu.init_carry(B), c_gpu.init_carry(B)
+        for state, obs in states:
+            noise = action_noise(env_c, B, g)
+            args = (noise.to(cuda), _to(state, cuda), obs.to(cuda), carry_g)
+            a_c, carry_c = c_cpu.act(noise, state, obs, carry_c)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                a_g, carry_g = c_gpu.act(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.testing.assert_close(a_g.cpu(), a_c, rtol=0, atol=1e-6, msg=c_cpu.name)
+            tree_map(lambda x, y: torch.testing.assert_close(x.cpu(), y, rtol=0, atol=0, msg=c_cpu.name),
+                     carry_g, carry_c)
+
+
+def test_block_collector_on_the_card_launches_k2(cuda):
+    """The L0-L5 block collector at a small batch on the card: trajectories
+    of the expected shapes, finite, actions in the box, K2 launched."""
+    from gym_anm_torch.offline_vec import make_block_collector
+    from gym_anm_torch.vec import make_ieee33_multicap_task
+    from gym_anm_torch.vec.controllers import make_suite
+
+    env = VecEnv(make_ieee33_multicap_task(), dtype=torch.float32, device=cuda)
+    collect, assignment = make_block_collector(env, make_suite(env), 60, 4)
+    before = chord_solve_cuda.launch_count
+    obs, act, rew, nobs, done = collect(torch.Generator(device=cuda).manual_seed(0))
+    torch.cuda.synchronize()
+    assert chord_solve_cuda.launch_count >= before + 4
+    assert obs.shape == nobs.shape == (4, 60, env.n_obs) and act.shape == (4, 60, env.n_action)
+    assert rew.shape == done.shape == (4, 60) and assignment.shape == (60,)
+    assert all(bool(torch.isfinite(x).all()) for x in (obs, act, rew, nobs))
+    assert bool((act >= env.action_low).all()) and bool((act <= env.action_high).all())
+
+
+def test_anm6easy_on_the_card_launches_k2_at_n5(cuda):
+    """ANM6Easy at float32 on the card with an observation plan: K2 runs the
+    5-unknown chord, observations stay within the plan's bounds."""
+    from gym_anm_torch.vec import make_anm6easy_task
+
+    env = VecEnv(make_anm6easy_task(), dtype=torch.float32, device=cuda,
+                 obs=[("bus_v_magn", "all", "kV"), ("des_soc", "all", "pu"), ("aux", "all", None)])
+    g = torch.Generator(device=cuda).manual_seed(1)
+    before = chord_solve_cuda.launch_count
+    state, obs = env.reset(256, g)
+    for k in range(4):
+        state, obs, r, d, info = env.step_autoreset_batch(state, env.random_policy()(g, obs, k), g)
+        assert bool(torch.isfinite(obs).all()) and bool((obs >= env.obs_low).all()) and bool((obs <= env.obs_high).all())
+    assert env.tables.n_bus - 1 == 5 and chord_solve_cuda.launch_count > before

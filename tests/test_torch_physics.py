@@ -236,6 +236,22 @@ def test_chord_solve_on_cpu_takes_plain_version(ttb32):
     assert chord_solve_cuda.launch_count == before
 
 
+@pytest.mark.parametrize("n", [5, 10, 32])
+def test_butterfly_sum_follows_the_warp_order(n):
+    """The plain chord's Anderson sums take the kernel's warp order, emulated
+    thread by thread in float32: thread i < n adds entries i and n + i, the
+    idle threads hold 0, and each xor shuffle (offsets 16, 8, 4, 2, 1) adds
+    the partner's value; every thread ends with the same sum."""
+    rng = np.random.default_rng(n)
+    a = (rng.standard_normal((64, 2 * n)) * 10.0 ** rng.integers(-6, 3, (64, 2 * n))).astype(np.float32)
+    v = np.zeros((64, 32), np.float32)
+    v[:, :n] = a[:, :n] + a[:, n:]
+    for o in (16, 8, 4, 2, 1):
+        v = v + v[:, np.arange(32) ^ o]
+    assert (v == v[:, :1]).all()
+    np.testing.assert_array_equal(tpf._butterfly_sum(torch.as_tensor(a)).numpy(), v[:, 0])
+
+
 def test_chord_acceptance_rate_is_total(ttb32):
     """Port of tests/test_chord_solver.py::test_chord_acceptance_rate_is_total:
     on the bench action distribution at B=8192 every lane's chord exit is
