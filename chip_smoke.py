@@ -8,14 +8,19 @@ Builds the hand-written CUDA kernels from ``gym_anm_torch/csrc`` with nvcc
 non-zero at the first failure:
 
 1. the Gauss-Jordan kernel (K1) against its plain PyTorch version on the
-   card: f32 and f64, n = 64 at B = 8192 and n = 10 at a ragged B = 1001,
-   and a zero-pivot lane that must stay non-finite in both;
+   card: f32 bitwise (the register path) and f64 within 1e-10, n = 64 at
+   B = 8192 and n = 10 at a ragged B = 1001, and a zero-pivot lane that
+   must stay non-finite in both; times of the kernel, of its shared-memory
+   path (one block per system), of the plain version and of
+   ``torch.linalg.solve_ex`` (the yardstick; the port never calls it), and
+   the kernel's bound;
 1b. the chord-Newton kernel (K2) against its plain version at B = 8192 on
    these input sets: base IEEE33 constants from flat and from warm starts,
    the multicap constants at their nominal-load point under diurnal loads,
    the bad-basin guesses, and ANM6Easy (n = 5) at the injections of a real
    step from the flat start, from the step's warm starts (collapsing lanes
-   among them) and from the bad-basin guesses; times of both;
+   among them) and from the bad-basin guesses; times of both and the
+   kernel's bound from the set's iteration count;
 2. the base path: the base IEEE33 ``VecEnv`` at float32, reset at B = 8192
    and 128 steps of uniform-random actions, then one step from warm starts
    in a bad basin (a restored state whose guesses are far off), which sends
@@ -36,7 +41,8 @@ non-zero at the first failure:
    CPU;
 6. times: env-steps/s of the base path at B = 8192 and 32768 and of the
    multicap17 path at B = 8192 (128 steps, median of 5 reps, CUDA events),
-   chord iterations per step;
+   chord iterations per step; a torch.profiler window of 16 steps of each
+   for the device's busy time per step and K2's share of it;
 7. the L0-L5 collection path (``bench.py`` workload 3): the block collector
    over ``make_suite`` on multicap17 at float32, B = 8192, 64 steps, every
    controller's ``act`` under ``torch.cuda.set_sync_debug_mode("error")``:
@@ -61,15 +67,26 @@ non-zero at the first failure:
    two controls that must fail them; its env-steps/s, and the share of a
    step spent in the Newton fallback.
 
-Prints the card's name and power limit first, a JSON line of the kernels
-next to last, and ``{"ok": true, "device": {...}}`` last.  Needs one card;
-imports nothing of JAX.
+Every kernel time is device time: ``cuda_ms`` puts N_LAUNCH back-to-back
+launches between one pair of CUDA events behind a sleep kernel, so the host
+has enqueued them all before the card reaches them; the median of N_REPS
+such readings.  Bounds are the larger of the bytes a call must move (each
+input read once, each output written once) over 3.35 TB/s and its
+operations over the H100 SXM's peak for their type (67 TFLOP/s float32 on
+the CUDA cores; 67 TFLOP/s float64 on the tensor cores, where K2 runs its
+products).
+
+Prints the card's name and power limit and ptxas's register and spill
+report of every kernel first, a JSON line of the kernels next to last, and
+``{"ok": true, "device": {...}}`` last.  Needs one card; imports nothing of
+JAX.
 """
 
 import dataclasses
 import importlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -83,16 +100,26 @@ N_STEPS = 128
 N_COLLECT = 64  # steps of the L0-L5 collection (bench.py workload 3)
 N_REPS = 5
 N_CHECK_LANES, N_CHECK_STEPS = 256, 8
+N_LAUNCH = 20  # launches per event pair of every kernel reading
+SLEEP_CYCLES = 20_000_000  # ~10 ms of the card's clock: the host enqueues N_LAUNCH calls meanwhile
+PEAK_F32 = 67e12  # FLOP/s, H100 SXM, float32 outside the tensor cores
+PEAK_F64_TC = 67e12  # FLOP/s, H100 SXM, float64 on the tensor cores (DMMA)
+HBM = 3.35e12  # bytes/s
 
 
 def log(*args):
     print(*args, flush=True)
 
 
-def cuda_ms(fn, n_launch):
-    """Mean ms per call of ``fn`` over ``n_launch`` calls, by CUDA events."""
+def cuda_ms(fn, n_launch=N_LAUNCH):
+    """Mean device ms per call of ``fn`` over ``n_launch`` back-to-back
+    calls between one pair of CUDA events.  A sleep kernel ahead of the
+    first event keeps the card busy while the host enqueues the calls, so a
+    call shorter than its own enqueue is timed on the card, not on the
+    host; a call that synchronizes is timed end to end as before."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(n_launch):
         fn()
@@ -111,11 +138,27 @@ def systems(B, n, dtype, seed):
     return A.contiguous(), b.contiguous()
 
 
-def phase1_kernel_vs_plain(lin):
+def bound(flops, peak, n_bytes):
+    """(ms, "operations" or "bytes"): the least time of a call that does
+    ``flops`` at ``peak`` FLOP/s and moves ``n_bytes`` at the HBM rate."""
+    t_ops, t_bytes = flops / peak, n_bytes / HBM
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def k1_bound(B, n, itemsize=4):
+    """K1's bound: per system n sweeps of n divides, n mask multiplies and
+    n (n + 1) multiply/subtract pairs, then n divides; A and b read once, x
+    written once."""
+    flops = B * (n * (2 * n + 2 * n * (n + 1)) + n)
+    return bound(flops, PEAK_F32, itemsize * B * (n * n + 2 * n))
+
+
+def phase1_kernel_vs_plain(lin, lib):
     log("== phase 1: K1 against its plain version")
     result = {}
-    for B, n, dtype, tol in ((B_MAIN, 64, torch.float32, 1e-4), (1001, 10, torch.float32, 1e-4),
-                             (B_MAIN, 64, torch.float64, 1e-10), (1001, 10, torch.float64, 1e-10)):
+    errs = []
+    for B, n, dtype in ((B_MAIN, 64, torch.float32), (1001, 10, torch.float32),
+                        (B_MAIN, 64, torch.float64), (1001, 10, torch.float64)):
         A, b = systems(B, n, dtype, seed=n)
         xk = lin.solve_gauss_jordan_cuda(A, b)
         xp = lin.solve_gauss_jordan(A, b)
@@ -126,16 +169,43 @@ def phase1_kernel_vs_plain(lin):
         assert torch.isfinite(xk[keep]).all() and torch.isfinite(xp[keep]).all()
         err = float((xk[keep] - xp[keep]).abs().max())
         rel = err / float(xp[keep].abs().max())
-        log(f"K1 B={B} n={n} {dtype}: max_abs_err={err:.3e} rel={rel:.3e} (tol {tol:g})")
-        assert rel <= tol, f"K1 disagrees with its plain version: rel {rel:.3e} > {tol:g}"
-        if (B, n, dtype) == (B_MAIN, 64, torch.float32):
-            lin.solve_gauss_jordan_cuda(A, b)  # warm
-            ms = [cuda_ms(lambda: lin.solve_gauss_jordan_cuda(A, b), 20) for _ in range(N_REPS)]
-            lin.solve_gauss_jordan(A, b)
-            plain = [cuda_ms(lambda: lin.solve_gauss_jordan(A, b), 3) for _ in range(N_REPS)]
-            result = dict(max_abs_err=err, ms=statistics.median(ms), plain_ms=statistics.median(plain))
-            log(f"K1 time B={B} n={n} f32: kernel {result['ms']:.4f} ms, plain {result['plain_ms']:.4f} ms "
-                f"(median of {N_REPS})")
+        n_equal = int((xk[keep] == xp[keep]).all(1).sum())
+        log(f"K1 B={B} n={n} {dtype}: max_abs_err={err:.3e} rel={rel:.3e}; bitwise equal on {n_equal} of "
+            f"{B - 1} finite lanes")
+        if dtype == torch.float32:
+            # The register path rounds every operation as the plain version does.
+            assert torch.equal(xk[keep], xp[keep]), "K1 f32 is not bitwise equal to its plain version"
+            errs.append(err)
+        else:
+            assert rel <= 1e-10, f"K1 f64 disagrees with its plain version: rel {rel:.3e} > 1e-10"
+            continue
+        x_smem = torch.empty_like(b)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def smem_path():
+            # The shared-memory path (one block per system, the matrix in
+            # shared memory): the wrapper's path for f64 and n > 64.
+            rc = lib.gj_solve_f32(A.data_ptr(), b.data_ptr(), x_smem.data_ptr(), B, n, stream)
+            assert rc == 0, f"gj_solve_f32 failed with CUDA error {rc}"
+
+        smem_path()
+        torch.cuda.synchronize()
+        assert torch.equal(x_smem[keep], xp[keep])
+        lin.solve_gauss_jordan_cuda(A, b)  # warm
+        torch.linalg.solve_ex(A, b)
+        t = {name: statistics.median(cuda_ms(fn, k) for _ in range(N_REPS)) for name, fn, k in (
+            ("ms", lambda: lin.solve_gauss_jordan_cuda(A, b), N_LAUNCH),
+            ("smem_ms", smem_path, N_LAUNCH),
+            ("library_ms", lambda: torch.linalg.solve_ex(A, b), N_LAUNCH),
+            ("plain_ms", lambda: lin.solve_gauss_jordan(A, b), 3))}
+        bound_ms, bound_by = k1_bound(B, n)
+        log(f"K1 time B={B} n={n} f32 (device time, {N_LAUNCH} launches per reading, median of {N_REPS}): "
+            f"kernel {t['ms']:.4f} ms, shared-memory path {t['smem_ms']:.4f} ms, torch.linalg.solve_ex "
+            f"{t['library_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), "
+            f"kernel at {bound_ms / t['ms']:.3f} of it")
+        if (B, n) == (B_MAIN, 64):
+            result = dict(t, bound_ms=bound_ms, bound_by=bound_by)
+    result["max_abs_err"] = max(errs)
     return result
 
 
@@ -151,6 +221,20 @@ def bad_guesses(B, n, which=(0, 1, 2, 3)):
     return pats.repeat(B // len(which) + 1, 1)[:B]
 
 
+def k2_bound(ct, B, n_iter, x0):
+    """K2's bound from a run's iteration counts: a prologue mismatch per lane
+    (4 N^2 float64 multiply-adds) and per iteration a mismatch, an update
+    product and H F (4 N^2 + 4 n^2 + 4 n), at the float64 tensor-core rate;
+    p, q, the four per-lane scalars, x0, the constants read once, x, F,
+    diff, n_iter and accepted written once.  Lanes reset to the flat start
+    report 0 iterations, so on sets where many are reset this undercounts."""
+    n, N = ct.n, ct.n + 1
+    macs = B * 4 * N * N + int(n_iter.sum()) * (4 * N * N + 4 * n * n + 4 * n)
+    consts = 8 * (2 * N * N + 4 * n * n + 4 * n) + 4 * (4 * n + 4 + 3 * N)
+    n_bytes = 4 * B * (2 * n + 4) + (0 if x0 is None else 4 * B * 2 * n) + consts + B * (4 * 2 * 2 * n + 9)
+    return bound(2 * macs, PEAK_F64_TC, n_bytes)
+
+
 def chord_vs_plain(pf, cuda_k, name, ct, args, x0):
     """K2 and the plain chord on the same card inputs.  Both sum in the same
     order (the Anderson sums in the warp's butterfly order, the dot products
@@ -159,7 +243,7 @@ def chord_vs_plain(pf, cuda_k, name, ct, args, x0):
     Tolerance: the same accepted lanes; n_iter equal on all but 0.5% of
     lanes; x within 1e-5 (the solver's own scale is xtol = 1e-5 on the
     residual); F and diff within 1e-4 (the acceptance band).  Returns
-    (max |Δx|, kernel ms, plain ms)."""
+    (max |dx|, kernel ms, plain ms, bound ms, what bounds it)."""
     before = cuda_k.launch_count
     xk, Fk, dk, ik, ak = cuda_k(*args, ct, x0=x0)
     torch.cuda.synchronize()
@@ -169,18 +253,22 @@ def chord_vs_plain(pf, cuda_k, name, ct, args, x0):
     B = xk.shape[0]
     err = float((xk - xp).abs().max())
     n_diff = int((ik != ip).sum())
+    mean_it = float(ik.float().mean())
     log(f"K2 {name} B={B}: accepted {int(ak.sum())} / plain {int(ap.sum())}; n_iter differs on {n_diff} lanes "
-        f"(max {int((ik - ip).abs().max())}), mean {float(ik.float().mean()):.3f}, worst {int(ik.max())}; "
-        f"max|dx| {err:.3e}, max|dF| {float((Fk - Fp).abs().max()):.3e}, max|ddiff| {float((dk - dp).abs().max()):.3e}, "
-        f"x bitwise equal on {int((xk == xp).all(1).sum())} lanes")
+        f"(max {int((ik - ip).abs().max())}), mean {mean_it:.3f}, worst {int(ik.max())}; "
+        f"max|dx| {err:.3e}, max|dF| {float((Fk - Fp).abs().max()):.3e}, "
+        f"max|ddiff| {float((dk - dp).abs().max()):.3e}, x bitwise equal on {int((xk == xp).all(1).sum())} of "
+        f"{B} lanes")
     assert torch.equal(ak, ap), "K2 and its plain version accept different lanes"
     assert n_diff <= B // 200, f"K2 n_iter differs on {n_diff} lanes"
     assert err <= 1e-5 and float((Fk - Fp).abs().max()) <= 1e-4 and float((dk - dp).abs().max()) <= 1e-4
-    ms = [cuda_ms(lambda: cuda_k(*args, ct, x0=x0), 1) for _ in range(N_REPS)]
-    plain = [cuda_ms(lambda: pf.chord_solve_plain(*args, ct, x0=x0), 1) for _ in range(N_REPS)]
-    t_k, t_p = statistics.median(ms), statistics.median(plain)
-    log(f"K2 {name} time: kernel {t_k:.4f} ms, plain {t_p:.4f} ms (median of {N_REPS})")
-    return err, t_k, t_p
+    t_k = statistics.median(cuda_ms(lambda: cuda_k(*args, ct, x0=x0)) for _ in range(N_REPS))
+    t_p = statistics.median(cuda_ms(lambda: pf.chord_solve_plain(*args, ct, x0=x0), 3) for _ in range(N_REPS))
+    bound_ms, bound_by = k2_bound(ct, B, ik, x0)
+    log(f"K2 {name} time (device time, {N_LAUNCH} launches per reading, median of {N_REPS}): kernel {t_k:.4f} ms, "
+        f"plain {t_p:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}, {int(ik.sum())} lane-iterations), kernel at "
+        f"{bound_ms / t_k:.3f} of it")
+    return err, t_k, t_p, bound_ms, bound_by
 
 
 def multicap_injections(tb, B, g):
@@ -263,11 +351,10 @@ def phase1b_chord_kernel(pf, cuda_k, VecEnv, make_ieee33_task, make_ieee33_multi
         ("ANM6Easy warm starts of a step", a6_ct, a6_args, a6_warm),
         ("ANM6Easy bad-basin guesses", a6_ct, a6_args, bad_guesses(B_MAIN, a6_warm.shape[1] // 2).to("cuda")),
     ):
-        err, t_k, t_p = chord_vs_plain(pf, cuda_k, name, ct, args, x0)
+        err, *times[name] = chord_vs_plain(pf, cuda_k, name, ct, args, x0)
         errs.append(err)
-        times[name] = (t_k, t_p)
-    t_k, t_p = times["base IEEE33 warm starts"]
-    return dict(max_abs_err=max(errs), ms=t_k, plain_ms=t_p)
+    t_k, t_p, bound_ms, bound_by = times["base IEEE33 warm starts"]
+    return dict(max_abs_err=max(errs), ms=t_k, plain_ms=t_p, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def uniform_actions(env, B, g):
@@ -539,6 +626,33 @@ def time_path(env, B, step, seed):
     return rate, int(n_done.sum())
 
 
+def device_profile(env, B, step, seed, n_steps=16):
+    """torch.profiler over ``n_steps`` steps after 8 warm-up steps: the
+    device's busy time per step (the union of its kernels' and copies'
+    spans), K2's device time per step and the GPU ops per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=env.device).manual_seed(seed)
+    state, _ = env.reset(B, g)
+    for _ in range(8):
+        state, *_ = step(state, uniform_actions(env, B, g), g)
+    actions = [uniform_actions(env, B, g) for _ in range(n_steps)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for a in actions:
+            state, *_ = step(state, a, g)
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy, last = 0.0, float("-inf")
+    for start, end in sorted((e.time_range.start, e.time_range.end) for e in evs):
+        busy += max(0.0, end - max(start, last))
+        last = max(last, end)
+    k2 = sum(e.time_range.end - e.time_range.start for e in evs if "chord_kernel" in e.name)
+    log(f"{env.task.name} B={B} profile ({n_steps} steps): device busy {busy / 1e3 / n_steps:.4f} ms/step, K2 "
+        f"{k2 / n_steps:.2f} us/step ({k2 / busy if busy else 0.0:.3f} of busy), {len(evs) / n_steps:.1f} GPU "
+        f"ops/step")
+
+
 def phase6_times(VecEnv, make_ieee33_task, make_ieee33_multicap_task):
     """Returns the multicap17 rate (env-steps/s at B_MAIN)."""
     log("== phase 6: times")
@@ -546,8 +660,11 @@ def phase6_times(VecEnv, make_ieee33_task, make_ieee33_multicap_task):
         env = VecEnv(make_ieee33_task(), dtype=torch.float32, device="cuda")
         _, n_done = time_path(env, B, env.step, 5)
         assert n_done == 0
+        device_profile(env, B, lambda s, a, g: env.step(s, a), 5)
     env = VecEnv(make_ieee33_multicap_task(), dtype=torch.float32, device="cuda")
-    return time_path(env, B_MAIN, env.step_autoreset_batch, 7)[0]
+    rate = time_path(env, B_MAIN, env.step_autoreset_batch, 7)[0]
+    device_profile(env, B_MAIN, env.step_autoreset_batch, 7)
+    return rate
 
 
 def leaves(tree):
@@ -670,7 +787,7 @@ def phase7_collection(VecEnv, make_ieee33_multicap_task, transition, kernel, cho
     # states and carries: every carry (cap states, tap indices, timers, the
     # L5 choice) and the caps and taps of the action must equal the card's;
     # the continuous set-points are the same ops on the same inputs.
-    env_cpu = VecEnv(make_ieee33_multicap_task(), dtype=torch.float32)
+    env_cpu = VecEnv(make_ieee33_multicap_task(), dtype=torch.float32, device="cpu")
     grid = torch.tensor(ctrl.l5_grid(), dtype=torch.float32)
     discrete = list(range(cap_sl.start, tap_sl.stop))
     n_ls = n_bad = 0
@@ -835,7 +952,7 @@ def replay_anm6easy(VecEnv, make_anm6easy_task, plan, build_ybus, record):
 
     tm = importlib.import_module("gym_anm_torch.physics.transition")
     eps = 2.0 ** -24
-    ref = VecEnv(make_anm6easy_task(), dtype=torch.float64, obs=plan)
+    ref = VecEnv(make_anm6easy_task(), dtype=torch.float64, obs=plan, device="cpu")
     spec, tb = ref.spec, ref.tables
     n, n_load, n_gen = spec.n_bus - 1, spec.n_load, spec.n_gen
     Yre, Yim = build_ybus(tb.n_bus, tb.br_f, tb.br_t, tb.series_re, tb.series_im, tb.shunt_im, tb.shift_cos,
@@ -1095,6 +1212,26 @@ def phase8_anm6easy(VecEnv, make_anm6easy_task, STATE_VARIABLES, build_ybus, ker
     return launches, chord_launches, rate
 
 
+def log_ptxas(report):
+    """One line per kernel of ptxas's report: registers and spill bytes."""
+    names = ((r"gj_regsILi(\d+)E", "gj_regs<{}>"), (r"gj_smemI([fd])E", "gj_smem<{}>"),
+             (r"chord_kernelILi(\d+)ELi(\d+)E", "chord_kernel<{}, {}>"))
+    name = spill = None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = next((fmt.format(*k.groups()) for pat, fmt in names if (k := re.search(pat, m.group(1)))),
+                        m.group(1))
+            name = name.replace("<f>", "<float>").replace("<d>", "<double>")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            log(f"ptxas: {name}: {m.group(1)} registers, {spill}")
+            name = None
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device is visible; it runs only on a card", file=sys.stderr)
@@ -1114,11 +1251,12 @@ def main():
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     lib_path = _build.library_path()
-    _build.load_library()
+    lib = _build.load_library()
     log(f"K1 and K2 built/loaded in {time.perf_counter() - t0:.1f} s: {lib_path.name}")
+    log_ptxas(_build.ptxas_report())
 
     kernel = lin.solve_gauss_jordan_cuda
-    k1 = phase1_kernel_vs_plain(lin)
+    k1 = phase1_kernel_vs_plain(lin, lib)
     k2 = phase1b_chord_kernel(pf, chord_solve_cuda, VecEnv, make_ieee33_task, make_ieee33_multicap_task,
                               make_anm6easy_task)
     launches, chord_launches = phase2_main_path(VecEnv, make_ieee33_task, kernel, chord_solve_cuda)
@@ -1142,6 +1280,9 @@ def main():
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
+        "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"],
+        "library_ms": k1["library_ms"],
     }, {
         "name": "chord_newton",
         "route": "cuda",
@@ -1151,6 +1292,9 @@ def main():
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"],
+        "library_ms": None,  # no single PyTorch call runs the chord iteration
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -4,8 +4,10 @@
 per source, all started together, and links the objects into one shared
 library with a plain C interface under ``build/kernels/`` beside the
 package, keyed by a hash of the sources and flags; ``ctypes`` loads it.
-Nothing here runs at import: :func:`load_library` builds on its first call,
-so importing the package needs neither ``nvcc`` nor a card.
+``ptxas``'s report of each kernel's registers, shared memory and spills is
+kept beside the library (:func:`ptxas_report`).  Nothing here runs at
+import: :func:`load_library` builds on its first call, so importing the
+package needs neither ``nvcc`` nor a card.
 """
 
 import ctypes
@@ -21,19 +23,20 @@ CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points, each returning a cudaError_t as int.
 _SIGNATURES = {
     # (A, b, x, B, n, stream)
+    "gj_solve_f32_regs": [_P, _P, _P, _I, _I, _P],
     "gj_solve_f32": [_P, _P, _P, _I, _I, _P],
     "gj_solve_f64": [_P, _P, _P, _I, _I, _P],
     # (p, q, w_a, w_b, dtf_re, dtf_im, x0, W_pack, invJ0_T, H_T, g_col0,
     #  g_col1, C, e_t, rs_re, rs_im, va, vb, inv_vmag, xtol, band, aa_gate,
-    #  lim_iter, x, F, diff, n_iter, accepted, B, n, stream)
-    "chord_newton_f32": [_P] * 16 + [_F] * 6 + [_I] + [_P] * 5 + [_I, _I, _P],
+    #  lim_iter, x, F, diff, n_iter, accepted, next_lane, B, n, stream)
+    "chord_newton_f32": [_P] * 16 + [_F] * 6 + [_I] + [_P] * 6 + [_I, _I, _P],
 }
 
 
@@ -57,6 +60,12 @@ def library_path():
     return BUILD_DIR / f"libgym_anm_kernels_{h.hexdigest()[:16]}.so"
 
 
+def ptxas_report():
+    """``ptxas -v``'s output for the current library (registers, shared
+    memory and spill stores/loads of every kernel), as the build wrote it."""
+    return library_path().with_suffix(".ptxas.txt").read_text()
+
+
 def _check(cmd, stderr, returncode):
     if returncode != 0:
         raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}\n{stderr}")
@@ -76,8 +85,12 @@ def load_library():
         procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
                  for cmd in jobs]
         try:
+            report = []
             for cmd, proc in zip(jobs, procs):
-                _check(cmd, proc.communicate()[1], proc.returncode)
+                stderr = proc.communicate()[1]
+                _check(cmd, stderr, proc.returncode)
+                report.append(stderr)
+            out.with_suffix(".ptxas.txt").write_text("".join(report))
             cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             _check(cmd, proc.stderr, proc.returncode)

@@ -16,7 +16,7 @@ from .vec import controllers
 from .vec.core import EnvState, tree_map
 
 
-def tables_from_jax(grid_tables, device="cpu") -> GridTables:
+def tables_from_jax(grid_tables, device="cuda") -> GridTables:
     """The port's :class:`GridTables` from a ``gym_anm_tpu`` ``GridTables``
     (its numpy fields and its ``ChordConst``), at the same dtype.  The
     projectors are rebuilt from the generator and storage half-planes."""
@@ -30,7 +30,7 @@ def tables_from_jax(grid_tables, device="cpu") -> GridTables:
     return tables_from_host(host, chord, np.dtype(grid_tables.dtype), device)
 
 
-def state_from_jax(env_state, device="cpu") -> EnvState:
+def state_from_jax(env_state, device="cuda") -> EnvState:
     """The port's :class:`EnvState` from the numeric leaves of a batched
     ``gym_anm_tpu`` ``EnvState`` (lanes on the first axis), at their dtypes,
     the task and shaping carries included (tuples stay tuples).  The PRNG
@@ -55,7 +55,7 @@ def state_from_jax(env_state, device="cpu") -> EnvState:
     )
 
 
-def carry_from_jax(controller_carry, device="cpu"):
+def carry_from_jax(controller_carry, device="cuda"):
     """The port's controller carry from a batched ``gym_anm_tpu`` one (lanes
     on the first axis), at the same dtypes: a ``_L3Carry``/``_L4Carry``/
     ``_L5Carry`` becomes the port's NamedTuple of that name, L2's bool pair

@@ -57,6 +57,7 @@ def chord_solve_cuda(p, q, w_a, w_b, dtf_re, dtf_im, ct, xtol=1e-5, lim_iter=48,
     diff = torch.empty(B, dtype=torch.float32, device=device)
     n_iter = torch.empty(B, dtype=torch.int32, device=device)
     accepted = torch.empty(B, dtype=torch.bool, device=device)
+    next_lane = torch.zeros(1, dtype=torch.int32, device=device)  # the kernel's work counter
     va, vb = float(ct.vstar_re), float(ct.vstar_im)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -66,7 +67,7 @@ def chord_solve_cuda(p, q, w_a, w_b, dtf_re, dtf_im, ct, xtol=1e-5, lim_iter=48,
             *(t.data_ptr() for t in consts),
             va, vb, 1.0 / float(np.hypot(va, vb)), xtol, stall_tol_factor * xtol, 100.0 * xtol, int(lim_iter),
             x.data_ptr(), F.data_ptr(), diff.data_ptr(), n_iter.data_ptr(), accepted.data_ptr(),
-            B, n, stream)
+            next_lane.data_ptr(), B, n, stream)
     if rc != 0:
         raise RuntimeError(f"chord_newton kernel launch failed with CUDA error {rc} (B={B}, n={n})")
     chord_solve_cuda.launch_count += 1

@@ -11,6 +11,10 @@ TPU kernel ``gym_anm_tpu/physics/linsolve_pallas.py:solve_gauss_jordan_pallas``.
 
 import torch
 
+# Largest n of the float32 path that keeps each system in one warp's
+# registers; float64 and larger n take the shared-memory path.
+REG_MAX_N = 64
+
 
 def solve_gauss_jordan(A, b):
     """Solve A x = b by unpivoted Gauss-Jordan elimination, batched over
@@ -41,7 +45,10 @@ def solve_gauss_jordan_cuda(A, b):
 
     Takes contiguous float32 or float64 tensors on one CUDA device, launches
     on the current stream, and raises on anything else or on a failed
-    launch.  Adds one to ``solve_gauss_jordan_cuda.launch_count`` per launch.
+    launch.  Float32 at n <= ``REG_MAX_N`` runs with each system in one
+    warp's registers, float64 and larger n with each system in a block's
+    shared memory.  Adds one to ``solve_gauss_jordan_cuda.launch_count`` per
+    launch.
     """
     if not (A.is_cuda and b.is_cuda) or A.device != b.device:
         raise ValueError(f"solve_gauss_jordan_cuda needs both tensors on one CUDA device, "
@@ -58,7 +65,10 @@ def solve_gauss_jordan_cuda(A, b):
     from .._build import load_library
 
     lib = load_library()
-    fn = lib.gj_solve_f32 if A.dtype == torch.float32 else lib.gj_solve_f64
+    if A.dtype == torch.float64:
+        fn = lib.gj_solve_f64
+    else:
+        fn = lib.gj_solve_f32_regs if n <= REG_MAX_N else lib.gj_solve_f32
     x = torch.empty_like(b)
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream

@@ -219,7 +219,7 @@ def tables_from_host(host: dict, chord: Optional[ChordConst], dtype, device) -> 
     )
 
 
-def make_tables(spec: NetworkSpec, delta_t, lamb, dtype=torch.float64, device="cpu",
+def make_tables(spec: NetworkSpec, delta_t, lamb, dtype=torch.float64, device="cuda",
                 chord_x_star=None) -> GridTables:
     """Tables of ``spec`` at ``dtype`` on ``device``.  Built in float64 on
     the host (the chord constants included) and cast once."""

@@ -105,7 +105,7 @@ class VecEnv:
     transition output (:mod:`gym_anm_torch.vec.obs`).
     """
 
-    def __init__(self, task: VecTask, dtype=torch.float32, obs="state", device="cpu"):
+    def __init__(self, task: VecTask, dtype=torch.float32, obs="state", device="cuda"):
         self.task = task
         self.dtype = dtype
         self.device = torch.device(device)

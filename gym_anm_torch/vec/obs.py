@@ -103,7 +103,7 @@ _ANGLES = {
 }
 
 
-def make_obs_plan(spec, K, values, device="cpu"):
+def make_obs_plan(spec, K, values, device="cuda"):
     """Compile a list of ``(variable, ids[, unit])`` triples into an
     :class:`ObsPlan` for ``spec`` (a :class:`~gym_anm_torch.specs.network.
     NetworkSpec`) with ``K`` aux variables; the gathers' index tensors live

@@ -49,7 +49,7 @@ def test_reset_state_from_jax_draws():
     """The port's s0 from JAX's draws (t0, generator Q and SoC uniforms)
     equals JAX's ``init_state_fn`` bit for bit (float32)."""
     jtask, task = j_make_anm6easy_task(), make_anm6easy_task()
-    spec = VecEnv(task).spec
+    spec = VecEnv(task, device="cpu").spec
     keys = jax.random.split(jax.random.PRNGKey(0), 64)
 
     def draws(key):
@@ -85,8 +85,8 @@ def test_golden_rollout_f64(janm6):
     iterate, ~1e15), equal done and Newton iteration counts."""
     jenv, jreset, jstep = janm6
     js, jobs = jreset(jax.random.split(jax.random.PRNGKey(9), B))
-    tenv = VecEnv(make_anm6easy_task(), dtype=torch.float64)
-    ts = state_from_jax(js)
+    tenv = VecEnv(make_anm6easy_task(), dtype=torch.float64, device="cpu")
+    ts = state_from_jax(js, device="cpu")
     s_vec = tenv._state_vector(ts.dev_p, ts.dev_q, ts.soc, ts.p_pot, ts.aux)
     np.testing.assert_allclose(tenv.observation(s_vec).numpy(), np.asarray(jobs), rtol=0, atol=1e-12)
     rng = np.random.default_rng(9)
@@ -114,7 +114,7 @@ def test_golden_rollout_f64(janm6):
 def test_reset_lanes_have_a_valid_time_index():
     """Reset (and autoreset) lanes come back with an integer time index in
     [0, 96), generator Q and SoC within their bounds, at t = 0."""
-    env = VecEnv(make_anm6easy_task(), dtype=torch.float64)
+    env = VecEnv(make_anm6easy_task(), dtype=torch.float64, device="cpu")
     g = torch.Generator().manual_seed(3)
     state, obs = env.reset(64, g)
     spec = env.spec

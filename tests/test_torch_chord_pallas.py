@@ -91,7 +91,7 @@ def test_plain_chord_matches_pallas_kernel(pallas_run):
     and its in-band stall limit is 2 where theirs is 1, so exits may lie an
     iteration apart on the residual plateau (measured: max |Δx| 4.8e-6 on
     these inputs, mean iterations 7.1 against the prototype's 8.4)."""
-    tb = make_tables(load_network(ieee33_network), 1.0, 100, dtype=torch.float32)
+    tb = make_tables(load_network(ieee33_network), 1.0, 100, dtype=torch.float32, device="cpu")
     assert tb.chord.t_bus == pallas_run["t_bus"]
     t = torch.as_tensor
     dtf_re, dtf_im = t(pallas_run["dtf_re"]), t(pallas_run["dtf_im"])

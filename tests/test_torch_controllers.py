@@ -38,7 +38,7 @@ def _pair(dt):
     if dt not in _CACHE:
         jdt, tdt = DTYPES[dt]
         jenv = JVecEnv(j_make_ieee33_multicap_task(), dtype=jdt)
-        tenv = VecEnv(make_ieee33_multicap_task(), dtype=tdt)
+        tenv = VecEnv(make_ieee33_multicap_task(), dtype=tdt, device="cpu")
         ctrls = {}
         for fam, i in MEMBERS:
             jc = (jctrl.make_suite(jenv) if fam == "suite" else jexp.make_expert_zoo(jenv))[i]
@@ -94,7 +94,8 @@ def test_controller_open_loop_matches_jax(dt, member):
     n_changes = 0
     for k in range(T):
         keys = jax.random.split(jax.random.PRNGKey(100 + k), B)
-        ta, tcarry = tc.act(None, state_from_jax(js), torch.as_tensor(np.array(jobs)), carry_from_jax(jcarry))
+        ta, tcarry = tc.act(None, state_from_jax(js, device="cpu"), torch.as_tensor(np.array(jobs)),
+                            carry_from_jax(jcarry, device="cpu"))
         ja, jcarry2 = jact(keys, js, jobs, jcarry)
         _check(dt, ta, tcarry, ja, jcarry2, f"{jc.name} step {k}")
         n_changes += sum(int((np.asarray(a) != np.asarray(b)).sum()) for a, b in zip(_leaves(jcarry),
@@ -115,7 +116,7 @@ def test_l0_matches_jax_given_its_draw(dt):
     u = jax.vmap(lambda k: jax.random.uniform(k, (jenv.n_action,), dtype=jdt))(keys)
     js, jobs = _reset(dt, 1)
     ja, _ = jax.vmap(jl0.act)(keys, js, jobs, _j_carry0(jl0, B))
-    ta, carry = tl0.act(torch.as_tensor(np.array(u)), state_from_jax(js), None, tl0.init_carry(B))
+    ta, carry = tl0.act(torch.as_tensor(np.array(u)), state_from_jax(js, device="cpu"), None, tl0.init_carry(B))
     assert carry == ()
     np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
 
@@ -160,7 +161,8 @@ def test_controller_on_random_states_and_carries(dt, member):
         js = js._replace(p_pot=jnp.asarray(rng.uniform(0.0, 0.05, js.p_pot.shape), jenv.dtype))
         jcarry = _random_carry(_j_carry0(jc, B), rng)
         ja, jcarry2 = jact(jax.random.split(jax.random.PRNGKey(k), B), js, jobs, jcarry)
-        ta, tcarry = tc.act(None, state_from_jax(js), torch.as_tensor(np.array(jobs)), carry_from_jax(jcarry))
+        ta, tcarry = tc.act(None, state_from_jax(js, device="cpu"), torch.as_tensor(np.array(jobs)),
+                            carry_from_jax(jcarry, device="cpu"))
         _check(dt, ta, tcarry, ja, jcarry2, f"{jc.name} state {k}")
 
 
@@ -178,7 +180,7 @@ def test_lane_mean_matches_jax_mean():
 def test_carry_from_jax_keeps_structure():
     jenv, _, _, _ = _pair("f64")
     for jc in jctrl.make_suite(jenv) + jexp.make_expert_zoo(jenv):
-        c = carry_from_jax(_j_carry0(jc, 3))
+        c = carry_from_jax(_j_carry0(jc, 3), device="cpu")
         if isinstance(c, tuple) and c:
             assert type(c) is getattr(tctrl, type(c).__name__)
             assert all(x.shape[0] == 3 for x in c)

@@ -47,12 +47,41 @@ def test_kernel_matches_plain_version(cuda, dtype, rtol, B, n):
     torch.testing.assert_close(xk[keep], xp[keep], rtol=rtol, atol=rtol * float(xp[keep].abs().max()))
 
 
+@pytest.mark.parametrize("n", [2, 5, 10, 16, 17, 33, 64])
+@pytest.mark.parametrize("B", [1, 7, 1001])
+def test_kernel_f32_is_bitwise_its_plain_version(cuda, n, B):
+    """The float32 register path (packed systems at n <= 16, one system per
+    warp above, identity padding at 33) rounds every operation as the plain
+    version does: equal bit for bit on every lane, and the zero-pivot lane
+    (lane 1) non-finite in both."""
+    g = torch.Generator(device=cuda).manual_seed(100 * n + B)
+    A = torch.randn(B, n, n, generator=g, device=cuda) + n * torch.eye(n, device=cuda)
+    b = torch.randn(B, n, generator=g, device=cuda)
+    if B > 1:
+        A[1, 0, 0] = 0.0
+    before = solve_gauss_jordan_cuda.launch_count
+    xk = solve_gauss_jordan_cuda(A, b)
+    xp = solve_gauss_jordan(A, b)
+    torch.cuda.synchronize()
+    assert solve_gauss_jordan_cuda.launch_count == before + 1
+    zero = torch.arange(B, device=cuda) == 1
+    assert not torch.isfinite(xk[zero]).all(dim=1).any() and not torch.isfinite(xp[zero]).all(dim=1).any()
+    assert torch.isfinite(xp[~zero]).all() and torch.equal(xk[~zero], xp[~zero])
+
+
 def test_batched_solve_on_cuda_launches_kernel(cuda):
     A = 2 * torch.eye(8, device=cuda).expand(5, 8, 8)
     before = solve_gauss_jordan_cuda.launch_count
     x = batched_solve(A, torch.ones(5, 8, device=cuda))
     assert solve_gauss_jordan_cuda.launch_count == before + 1
     torch.testing.assert_close(x, torch.full((5, 8), 0.5, device=cuda))
+
+
+def test_vec_env_runs_on_the_card_by_default(cuda):
+    env = VecEnv(make_ieee33_task())
+    assert env.device.type == "cuda" and env.tables.chord_t.W_pack.is_cuda
+    state, obs = env.reset(4)
+    assert obs.is_cuda and state.bus_vm.is_cuda
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -137,6 +166,36 @@ def test_chord_kernel_matches_plain_version(cuda, net, delta_t, B):
     assert torch.equal(xk[0], xf[0]) and int(ik[0]) == int(itf[0])
 
 
+@pytest.mark.parametrize("net,delta_t", [(ieee33_network, 1.0), (anm6_network, 0.25)], ids=["ieee33", "anm6"])
+@pytest.mark.parametrize("B", [1, 7, 33, 1001])
+def test_chord_kernel_on_mixed_starts(cuda, net, delta_t, B):
+    """Flat (a NaN guess), warm and bad-basin starts mixed lane by lane, at
+    fewer lanes than a block's slots and at enough to refill every slot
+    many times: the same accepted lanes as the plain chord, n_iter equal on
+    all but a rare lane, x within 2e-5, F and diff within the acceptance
+    band; the reset lanes leave exactly flat."""
+    ct, args = _chord_problem(net, delta_t, B, 3 * B + 1, cuda)
+    n = ct.n
+    rng = np.random.default_rng(B)
+    kind = torch.as_tensor(rng.integers(0, 3, B), device=cuda)
+    bad = torch.tensor([[0.0] * n + [1e-6] * n, [0.0] * n + [-1.0] * n, [30.0] * n + [1.0] * n,
+                        [0.0] * n + [1e15] * n], device=cuda)[torch.as_tensor(rng.integers(0, 4, B), device=cuda)]
+    x0 = torch.where((kind == 0)[:, None], torch.full_like(args[6], float("nan")), args[6])
+    x0 = torch.where((kind == 2)[:, None], bad, x0).contiguous()
+    before = chord_solve_cuda.launch_count
+    xk, Fk, dk, ik, ak = pf.chord_solve(*args[:6], ct, x0=x0)
+    xp, Fp, dp, ip, ap = pf.chord_solve_plain(*args[:6], ct, x0=x0)
+    torch.cuda.synchronize()
+    assert chord_solve_cuda.launch_count == before + 1
+    assert torch.equal(ak, ap)
+    assert int((ik != ip).sum()) <= max(1, B // 500)
+    torch.testing.assert_close(xk, xp, rtol=0, atol=2e-5)
+    torch.testing.assert_close(Fk, Fp, rtol=0, atol=1e-4)
+    torch.testing.assert_close(dk, dp, rtol=0, atol=1e-4)
+    reset = (ik == 0) & ~ak
+    assert torch.equal(xk[reset], ct.flat.expand(int(reset.sum()), -1))
+
+
 def test_chord_kernel_trig_guard_resets_to_flat(cuda):
     """A lane whose warm start at |θ| = 1 rad solves its injections exactly
     (with the kernel's own Taylor sin/cos) is not accepted and leaves flat,
@@ -205,7 +264,7 @@ def test_controllers_decide_on_the_card_as_on_the_cpu_without_syncing(cuda):
     from gym_anm_torch.vec.core import tree_map
 
     B = 96
-    env_c = VecEnv(make_ieee33_multicap_task(), dtype=torch.float32)
+    env_c = VecEnv(make_ieee33_multicap_task(), dtype=torch.float32, device="cpu")
     env_g = VecEnv(make_ieee33_multicap_task(), dtype=torch.float32, device=cuda)
     g = torch.Generator().manual_seed(0)
     state, obs = env_c.reset(B, g)

@@ -78,7 +78,7 @@ def _fed_env(dtype):
             return torch.as_tensor(np.array(v), dtype=dtype), torch.as_tensor(np.array(h))
         return task.next_vars_fn.from_noise(hour, torch.as_tensor(feed["z"], dtype=dtype))
 
-    return VecEnv(dataclasses.replace(task, next_vars_fn=next_vars_fn), dtype=dtype), feed
+    return VecEnv(dataclasses.replace(task, next_vars_fn=next_vars_fn), dtype=dtype, device="cpu"), feed
 
 
 class _Sim:
@@ -167,7 +167,7 @@ def test_multicap_golden_rollout_f64(jmulti64, multicap_actions, solved_states):
     jenv, jreset, jstep = jmulti64
     js, jobs = jreset(jax.random.split(jax.random.PRNGKey(3), B))
     tenv, feed = _fed_env(torch.float64)
-    ts = state_from_jax(js)
+    ts = state_from_jax(js, device="cpu")
     assert ts.task.dtype == torch.float32 and ts.task.shape == (B,)
     next_vars = jax.jit(jax.vmap(jenv.task.next_vars_fn))
     n_done = 0
@@ -201,7 +201,7 @@ def test_multicap_f32_rollout_matches_f64_jax(jmulti64, multicap_actions):
     jenv, jreset, jstep = jmulti64
     js, _ = jreset(jax.random.split(jax.random.PRNGKey(4), B))
     tenv, feed = _fed_env(torch.float32)
-    ts = state_from_jax(js)
+    ts = state_from_jax(js, device="cpu")
     ts = ts._replace(**{f: getattr(ts, f).float() for f in ("soc", "oltc_tap", "dev_p", "dev_q", "p_pot",
                                                             "bus_vm", "aux", "v_guess")})
     for k in range(8):
@@ -228,8 +228,8 @@ def test_step_autoreset_batch_matches_jax(solved_states):
     batched autoreset; the port's solved states pass the PFE oracle."""
     jenv = JVecEnv(j_make_ieee33_task(), dtype=jnp.float64)
     js, _ = jax.jit(jax.vmap(jenv.reset))(jax.random.split(jax.random.PRNGKey(0), B))
-    tenv = VecEnv(make_ieee33_task(), dtype=torch.float64)
-    ts = state_from_jax(js)
+    tenv = VecEnv(make_ieee33_task(), dtype=torch.float64, device="cpu")
+    ts = state_from_jax(js, device="cpu")
     rng = np.random.default_rng(8)
     lo, hi = np.asarray(jenv.action_low), np.asarray(jenv.action_high)
     jstep = jax.jit(jenv.step_autoreset_batch)
@@ -263,7 +263,7 @@ def test_unequal_shaping_carry_persists_across_reset():
     autoreset, as in JAX (whose carry depends on the actions only)."""
     jenv = JVecEnv(j_make_ieee33_unequal_task(), dtype=jnp.float64)
     js, _ = jax.jit(jax.vmap(jenv.reset))(jax.random.split(jax.random.PRNGKey(1), 8))
-    tenv = VecEnv(make_ieee33_unequal_task(), dtype=torch.float64)
+    tenv = VecEnv(make_ieee33_unequal_task(), dtype=torch.float64, device="cpu")
     ts, _ = tenv.reset(8, torch.Generator().manual_seed(1))
     for carry in ts.shaping:
         assert not carry.any()
@@ -305,7 +305,7 @@ def test_reset_retry_passes_each_lane_its_own_task_carry():
 
     fixed = dataclasses.replace(task, network=net, init_task_fn=lambda generator, n: torch.arange(n) * 10,
                                 init_state_fn=init_state_fn)
-    state, _ = VecEnv(fixed, dtype=torch.float64).reset(6)
+    state, _ = VecEnv(fixed, dtype=torch.float64, device="cpu").reset(6)
     assert len(seen) == 2
     torch.testing.assert_close(seen[1], torch.tensor([10, 30, 50]))
     assert not state.terminated.any()
@@ -315,7 +315,7 @@ def test_reset_retry_passes_each_lane_its_own_task_carry():
 def test_base_rollout_passes_pfe_oracle(solved_states):
     """ROADMAP queue 1 item 3: the port's f64 base IEEE33 solved states
     satisfy the power-flow invariants (oracle atol 5e-5)."""
-    env = VecEnv(make_ieee33_task(), dtype=torch.float64)
+    env = VecEnv(make_ieee33_task(), dtype=torch.float64, device="cpu")
     state, obs = env.reset(8)
     state, traj = env.rollout(state, env.random_policy(), 4, generator=torch.Generator().manual_seed(0))
     assert traj[0].shape == (4, 8, env.n_obs) and traj[1].shape == (4, 8, env.n_action)
@@ -326,7 +326,7 @@ def test_base_rollout_passes_pfe_oracle(solved_states):
 def test_rollout_and_two_bus_task_run_with_a_generator():
     """The two-bus task and rollout draw only from the generator they are
     given: the same seed gives the same trajectory."""
-    env = VecEnv(make_two_bus_task(), dtype=torch.float64)
+    env = VecEnv(make_two_bus_task(), dtype=torch.float64, device="cpu")
     runs = []
     for _ in range(2):
         g = torch.Generator().manual_seed(5)

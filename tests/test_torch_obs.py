@@ -94,7 +94,7 @@ def test_extract_matches_jax(task, plan):
     jenv, jout, soc, aux = _outs(task)
     spec = jenv.spec
     jplan = j_make_obs_plan(spec, jenv.task.K, values)
-    tplan = make_obs_plan(spec, jenv.task.K, values)
+    tplan = make_obs_plan(spec, jenv.task.K, values, device="cpu")
     np.testing.assert_array_equal(tplan.low, jplan.low)
     np.testing.assert_array_equal(tplan.high, jplan.high)
     assert tplan.values == jplan.values and tplan.n == jplan.n
@@ -112,7 +112,7 @@ def test_extract_keeps_the_output_dtype_with_float64_scales():
     contracted into a fused multiply-add, round apart from torch's)."""
     jenv = JVecEnv(j_make_ieee33_task(), dtype=jnp.float32)
     values = [("bus_v_magn", "all", "kV"), ("bus_i_magn", "all", "kA"), ("bus_v_ang", "all", "degree")]
-    jplan, tplan = j_make_obs_plan(jenv.spec, 0, values), make_obs_plan(jenv.spec, 0, values)
+    jplan, tplan = j_make_obs_plan(jenv.spec, 0, values), make_obs_plan(jenv.spec, 0, values, device="cpu")
     jout, soc, aux = _jax_outs(jenv, seed=3)
     tobs = tplan.extract(_port_out(jout), torch.as_tensor(np.array(soc)), torch.as_tensor(np.array(aux)))
     assert tobs.dtype == torch.float32
@@ -131,13 +131,13 @@ def test_env_step_with_plan_matches_jax(task):
     jmake, tmake = TASKS[task]
     values = FULL_OTHER if task == "anm6easy" else IEEE33_OBS
     jenv = JVecEnv(jmake(), dtype=jnp.float64, obs=values)
-    tenv = VecEnv(tmake(), dtype=torch.float64, obs=values)
+    tenv = VecEnv(tmake(), dtype=torch.float64, obs=values, device="cpu")
     np.testing.assert_array_equal(tenv.obs_low.numpy(), np.asarray(jenv.obs_low))
     np.testing.assert_array_equal(tenv.obs_high.numpy(), np.asarray(jenv.obs_high))
     js, _ = jax.jit(jax.vmap(jenv.reset))(jax.random.split(jax.random.PRNGKey(2), B))
     a = 0.2 * np.random.default_rng(2).uniform(np.asarray(jenv.action_low), np.asarray(jenv.action_high),
                                               (B, jenv.n_action))
-    ts = state_from_jax(js)
+    ts = state_from_jax(js, device="cpu")
     _, tobs, _, td, _ = tenv.step(ts, torch.as_tensor(a))
     _, jobs, _, jd, _ = jax.jit(jax.vmap(jenv.step))(js, jnp.asarray(a))
     np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
@@ -158,17 +158,17 @@ def test_env_step_with_plan_matches_jax(task):
 
 def test_obs_plan_errors_and_rollout_guard():
     with pytest.raises(ObsNotSupportedError):
-        VecEnv(make_ieee33_task(), obs=[("no_such_var", "all", "pu")])
+        VecEnv(make_ieee33_task(), obs=[("no_such_var", "all", "pu")], device="cpu")
     with pytest.raises(UnitsNotSupportedError):
-        VecEnv(make_ieee33_task(), obs=[("bus_p", "all", "furlongs")])
+        VecEnv(make_ieee33_task(), obs=[("bus_p", "all", "furlongs")], device="cpu")
     with pytest.raises(ObsSpaceError):
-        VecEnv(make_ieee33_task(), obs=42)
+        VecEnv(make_ieee33_task(), obs=42, device="cpu")
     with pytest.raises(ObsSpaceError):
-        VecEnv(make_ieee33_task(), obs=[("bus_p", [999], "MW")])
+        VecEnv(make_ieee33_task(), obs=[("bus_p", [999], "MW")], device="cpu")
     with pytest.raises(ObsSpaceError):
-        VecEnv(make_anm6easy_task(), obs=[("aux", [1], None)])
+        VecEnv(make_anm6easy_task(), obs=[("aux", [1], None)], device="cpu")
 
-    env = VecEnv(make_ieee33_task(), dtype=torch.float32, obs=[("bus_v_magn", "all", "pu")])
+    env = VecEnv(make_ieee33_task(), dtype=torch.float32, obs=[("bus_v_magn", "all", "pu")], device="cpu")
     state, obs = env.reset(2)
     assert obs.shape == (2, 33)
     with pytest.raises(ValueError):
@@ -181,7 +181,7 @@ def test_obs_plan_errors_and_rollout_guard():
 
 def test_obs_plan_default_unit_and_two_tuples():
     """A 2-tuple takes the variable's default unit (MW for dev_p)."""
-    env2 = VecEnv(make_ieee33_task(), obs=[("dev_p", [0, 1])])
-    env3 = VecEnv(make_ieee33_task(), obs=[("dev_p", [0, 1], "MW")])
+    env2 = VecEnv(make_ieee33_task(), obs=[("dev_p", [0, 1])], device="cpu")
+    env3 = VecEnv(make_ieee33_task(), obs=[("dev_p", [0, 1], "MW")], device="cpu")
     assert torch.equal(env2.obs_low, env3.obs_low)
     assert torch.equal(env2.reset(2)[1], env3.reset(2)[1])

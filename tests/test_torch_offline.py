@@ -37,14 +37,14 @@ B, T = 24, 8
 
 @pytest.fixture(scope="module")
 def renv():
-    return VecEnv(make_ieee33_renewable_task(), dtype=torch.float64)
+    return VecEnv(make_ieee33_renewable_task(), dtype=torch.float64, device="cpu")
 
 
 def test_block_collector_matches_mixed_collector():
     """Port of tests/test_vec_controllers.py::test_block_collector_matches_mixed_collector:
     bit-identical trajectories under the block assignment, from generators
     of one seed."""
-    env = VecEnv(make_ieee33_multicap_task(), dtype=torch.float32)
+    env = VecEnv(make_ieee33_multicap_task(), dtype=torch.float32, device="cpu")
     suite = make_suite(env)
     block, assignment = make_block_collector(env, suite, B, 6)
     mixed = make_mixed_collector(env, suite, B, 6)
@@ -57,7 +57,7 @@ def test_block_collector_matches_mixed_collector():
 
 
 def test_block_sizes_give_the_remainder_to_the_last_block():
-    env = VecEnv(make_ieee33_multicap_task(), dtype=torch.float32)
+    env = VecEnv(make_ieee33_multicap_task(), dtype=torch.float32, device="cpu")
     _, assignment = make_block_collector(env, make_suite(env), 20, 1)
     np.testing.assert_array_equal(np.bincount(assignment.numpy()), [3, 3, 3, 3, 3, 5])
 
@@ -116,10 +116,10 @@ def test_block_collector_matches_jax(monkeypatch):
         return torch.as_tensor(v), torch.as_tensor(h)
 
     monkeypatch.setattr(offline_vec, "action_noise", lambda env, n, generator: torch.as_tensor(next(noise)))
-    tenv = VecEnv(dataclasses.replace(task, next_vars_fn=next_vars_fn), dtype=torch.float64)
+    tenv = VecEnv(dataclasses.replace(task, next_vars_fn=next_vars_fn), dtype=torch.float64, device="cpu")
     tcollect, tassign = make_block_collector(tenv, make_suite(tenv), B, T)
     np.testing.assert_array_equal(tassign.numpy(), np.asarray(jassign))
-    ttraj = tcollect(None, start=(state_from_jax(state0[0]), torch.as_tensor(np.array(state0[1]))))
+    ttraj = tcollect(None, start=(state_from_jax(state0[0], device="cpu"), torch.as_tensor(np.array(state0[1]))))
     for name, t, j in zip(("obs", "action", "reward", "next_obs", "done"), ttraj, jtraj):
         assert t.shape == j.shape, name
         if name == "done":
@@ -134,7 +134,7 @@ def test_behavior_cloning_matches_jax_lstsq():
     observation has all-zero columns (rank-deficient): the weights equal
     ``jnp.linalg.lstsq(rcond=None)``'s minimum-norm solution to 1e-8
     (relative to the largest weight), and the policy stays in the box."""
-    env = VecEnv(make_ieee33_multicap_task(), dtype=torch.float64)
+    env = VecEnv(make_ieee33_multicap_task(), dtype=torch.float64, device="cpu")
     (obs, act, _, _, _), _ = generate_mixed_dataset_vec(env, make_suite(env), torch.Generator().manual_seed(1),
                                                         B, T)
     X = obs.reshape(-1, env.n_obs)

@@ -37,7 +37,7 @@ def jtb32():
 
 @pytest.fixture(scope="module")
 def ttb32():
-    return make_tables(t_load_network(t_ieee33), 1.0, 100, dtype=torch.float32)
+    return make_tables(t_load_network(t_ieee33), 1.0, 100, dtype=torch.float32, device="cpu")
 
 
 def _tap_lanes(tb, taps):
@@ -72,7 +72,7 @@ def test_build_ybus_matches_jax(jtb64):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_chord_const_matches_jax(dtype, jtb64, jtb32):
     jc = (jtb64 if dtype == torch.float64 else jtb32).chord
-    tc = make_tables(t_load_network(t_ieee33), 1.0, 100, dtype=dtype).chord
+    tc = make_tables(t_load_network(t_ieee33), 1.0, 100, dtype=dtype, device="cpu").chord
     # f32 arrays are casts of f64 values that agree to ~1e-15 relative.
     atol = 1e-12 if dtype == torch.float64 else 0.0
     rtol = 1e-12 if dtype == torch.float64 else 1.2e-7
@@ -363,7 +363,7 @@ def test_trig_guard_rejects_out_of_range_angle_in_both_packages(jtb32, ttb32):
 def test_trig_guard_is_float32_only(ttb32):
     """Control for the guard test: at float64 (native trig, no guard) the
     same out-of-range warm start is accepted as it is."""
-    tb64 = make_tables(t_load_network(t_ieee33), 1.0, 100, dtype=torch.float64)
+    tb64 = make_tables(t_load_network(t_ieee33), 1.0, 100, dtype=torch.float64, device="cpu")
     args = [torch.as_tensor(a).double() for a in _guard_problem(ttb32)]
     x, F, diff, it, acc = tpf.chord_solve(*args[:6], tb64.chord_t, x0=args[6], xtol=1e-2)
     assert bool(acc.all())

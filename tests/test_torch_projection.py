@@ -29,7 +29,7 @@ def both64(request):
     net, delta_t = NETWORKS[request.param]
     spec = load_network(net())
     return request.param, spec, j_make_tables(spec, delta_t, 100, dtype=jnp.float64), \
-        make_tables(spec, delta_t, 100, dtype=torch.float64)
+        make_tables(spec, delta_t, 100, dtype=torch.float64, device="cpu")
 
 
 def _points(rng, lo, hi, shape):
@@ -94,7 +94,7 @@ def test_tables_from_jax_rebuild_projectors(both64):
     """Tables carried over from JAX project like the port's own tables and
     hold the same generator and storage rows."""
     name, spec, jtb, ttb = both64
-    ctb = tables_from_jax(jtb)
+    ctb = tables_from_jax(jtb, device="cpu")
     for field in ("gen_p_lo_row", "gen_p_hi_row", "des_p_lo_row", "des_p_hi_row", "gen_p_min", "gen_p_max",
                   "des_soc_min", "des_soc_max", "des_eff", "gen_rer_mask", "gen_pos", "des_pos"):
         assert torch.equal(getattr(ctb, field), getattr(ttb, field)), field

@@ -33,7 +33,7 @@ def jenv64():
 @pytest.fixture(scope="module")
 def actions():
     """[T, B, 3] uniform actions over the base IEEE33 action box."""
-    env = VecEnv(make_ieee33_task(), dtype=torch.float64)
+    env = VecEnv(make_ieee33_task(), dtype=torch.float64, device="cpu")
     lo, hi = env.action_low.numpy(), env.action_high.numpy()
     return np.random.default_rng(11).uniform(lo, hi, size=(20, B, env.n_action))
 
@@ -50,7 +50,7 @@ def _close(t, j, atol, rtol=0.0, name=""):
 
 def test_golden_rollout_f64(jenv64, actions):
     """20 steps of 32 lanes: obs, reward, bus_vm and v_guess within 1e-8."""
-    tenv = VecEnv(make_ieee33_task(), dtype=torch.float64)
+    tenv = VecEnv(make_ieee33_task(), dtype=torch.float64, device="cpu")
     ts, tobs = tenv.reset(B)
     js, jobs = _j_reset(jenv64)
     _close(tobs, jobs, 1e-8, name="reset obs")
@@ -71,7 +71,7 @@ def test_golden_rollout_f64(jenv64, actions):
 def test_f32_rollout_matches_f64_jax(jenv64, actions):
     """The port's f32 step (chord path) against the JAX f64 step (exact NR)
     at the f32 solver tolerances of tests/test_chord_solver.py."""
-    tenv = VecEnv(make_ieee33_task(), dtype=torch.float32)
+    tenv = VecEnv(make_ieee33_task(), dtype=torch.float32, device="cpu")
     ts, _ = tenv.reset(B)
     js, _ = _j_reset(jenv64)
     step = jenv64[2]
@@ -91,8 +91,8 @@ def test_state_from_jax_mid_rollout(jenv64, actions):
     step = jenv64[2]
     for k in range(10):
         js, *_ = step(js, jnp.asarray(actions[k]))
-    tenv = VecEnv(make_ieee33_task(), dtype=torch.float64)
-    ts = state_from_jax(js)
+    tenv = VecEnv(make_ieee33_task(), dtype=torch.float64, device="cpu")
+    ts = state_from_jax(js, device="cpu")
     assert ts.t.dtype == torch.int32 and int(ts.t[0]) == 10
     for k in range(10, 13):
         ts, tobs, tr, _, _ = tenv.step(ts, torch.as_tensor(actions[k]))
@@ -106,8 +106,8 @@ def test_state_from_jax_mid_rollout(jenv64, actions):
 @pytest.mark.parametrize("dtype", [jnp.float64, jnp.float32])
 def test_tables_from_jax_equal_make_tables(dtype):
     jtb = JVecEnv(j_make_ieee33_task(), dtype=dtype).tables
-    ttb = tables_from_jax(jtb)
-    ref = VecEnv(make_ieee33_task(), dtype=ttb.dtype).tables
+    ttb = tables_from_jax(jtb, device="cpu")
+    ref = VecEnv(make_ieee33_task(), dtype=ttb.dtype, device="cpu").tables
     assert ttb.dtype == (torch.float64 if dtype == jnp.float64 else torch.float32)
     for name, a in ref._asdict().items():
         b = getattr(ttb, name)
@@ -127,8 +127,8 @@ def test_f32_step_from_carried_state_matches_jax_f32():
     js, _ = jax.jit(jax.vmap(jenv.reset))(jax.random.split(jax.random.PRNGKey(0), B))
     a = np.random.default_rng(5).uniform(jenv.action_low, jenv.action_high, (B, 3)).astype(np.float32)
     js2, jobs, jr, _, _ = jax.jit(jax.vmap(jenv.step))(js, jnp.asarray(a))
-    tenv = VecEnv(make_ieee33_task(), dtype=torch.float32)
-    ts2, tobs, tr, td, tinfo = tenv.step(state_from_jax(js), torch.as_tensor(a))
+    tenv = VecEnv(make_ieee33_task(), dtype=torch.float32, device="cpu")
+    ts2, tobs, tr, td, tinfo = tenv.step(state_from_jax(js, device="cpu"), torch.as_tensor(a))
     assert not td.any() and float(tinfo["diff"].max()) <= 1e-4
     _close(ts2.bus_vm, js2.bus_vm, 5e-6, name="bus_vm")
     _close(tr, jr, 2e-4, rtol=2e-3, name="reward")
@@ -174,9 +174,36 @@ def test_reset_retries_unstable_lanes_and_terminates():
         return out
 
     env = VecEnv(dataclasses.replace(task, network=net, init_state_fn=init_state_fn),
-                 dtype=torch.float32)
+                 dtype=torch.float32, device="cpu")
     state, obs = env.reset(3)
     assert calls == [3] + [1] * 99
     np.testing.assert_array_equal(state.terminated.numpy(), [False, True, False])
-    ref_state, ref_obs = VecEnv(make_ieee33_task(), dtype=torch.float32).reset(2)
+    ref_state, ref_obs = VecEnv(make_ieee33_task(), dtype=torch.float32, device="cpu").reset(2)
     torch.testing.assert_close(state.bus_vm[[0, 2]], ref_state.bus_vm)
+
+
+def test_entry_points_default_to_the_card():
+    """``VecEnv``, ``make_tables``, ``make_obs_plan`` and the ``convert``
+    functions run on the card when no device is given: without one they
+    raise, as torch raises for a CUDA tensor, and nothing falls back to the
+    CPU."""
+    import inspect
+
+    from gym_anm_torch import convert
+    from gym_anm_torch.physics.transition import make_tables
+    from gym_anm_torch.vec.obs import make_obs_plan
+
+    for fn in (VecEnv.__init__, make_tables, make_obs_plan, convert.tables_from_jax, convert.state_from_jax,
+               convert.carry_from_jax):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
+    task = make_ieee33_task()
+    spec = VecEnv(task, device="cpu").spec
+    builds = (lambda: VecEnv(task), lambda: make_tables(spec, task.delta_t, task.lamb),
+              lambda: make_obs_plan(spec, 0, [("bus_v_magn", "all", "pu")]),
+              lambda: convert.carry_from_jax(np.zeros(3, np.float32)))
+    if torch.cuda.is_available():
+        assert VecEnv(task).device.type == "cuda"
+        return
+    for build in builds:
+        with pytest.raises((AssertionError, RuntimeError)):
+            build()
