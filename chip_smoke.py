@@ -65,7 +65,24 @@ non-zero at the first failure:
    float64 step on the CPU, before the clip, with per-entry tolerances from
    the load flow's accuracy and the entry's sensitivity to the voltages, and
    two controls that must fail them; its env-steps/s, and the share of a
-   step spent in the Newton fallback.
+   step spent in the Newton fallback;
+9. the MPC farm (``bench.py`` workload 4) and its ADMM kernel K5:
+   9a. K5 against its plain version at B = 8192 on the LPs of ANM6Easy reset
+   states (N = 1 cold at max_iter 4000, the same lanes warm from their own
+   solutions, N = 4 perfect forecast cold), IEEE33-renewable N = 1 cold, and
+   1% of the lanes with a crossed bound row: flags equal on every lane,
+   iterations on >= 99.5%, x within 1e-5; times of both and the bound;
+   9b. 64 lanes of the N = 1 cold set against scipy's HiGHS: objective within
+   1e-3 relative and the stage-0 action within 2e-2 MW of the LP's optimal
+   face on the lanes that exited by the strict rule;
+   9c. ``make_vec_mpc`` (N = 1, budget 48) driving ANM6Easy at float32, B =
+   8192, 64 steps of ``step_autoreset_batch``, every ``act`` under
+   ``torch.cuda.set_sync_debug_mode("error")``: one K5 launch per step, mean
+   reward at an informed controller's level; env-steps/s, the share of the
+   step inside ``act``, K5 µs per step, ADMM iterations, the converged
+   share, the device's idle share, GPU ops and host syncs per step;
+   9d. the farm's first 8 steps of 64 lanes replayed at float64 on the CPU
+   from the card's states and warm carries: actions within 2e-2 MW.
 
 Every kernel time is device time: ``cuda_ms`` puts N_LAUNCH back-to-back
 launches between one pair of CUDA events behind a sleep kernel, so the host
@@ -92,6 +109,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 B_MAIN = 8192
@@ -1212,10 +1230,374 @@ def phase8_anm6easy(VecEnv, make_anm6easy_task, STATE_VARIABLES, build_ybus, ker
     return launches, chord_launches, rate
 
 
+def admm_bound(dc, B, iterations):
+    """K5's bound from a run's per-lane iterations (each one sweep): per
+    sweep m·n + (n+m)·n multiply-adds of the two products (float64 sums of
+    exact float32 products, at the float64 tensor-core rate) and 14m + 6n
+    float32 operations of the elementwise chain; per check (one per K sweeps)
+    m·n multiply-adds and 8m + 5n operations more.  Bounds, warm start in and
+    out and the solution read or written once per lane, the matrices once."""
+    n, m, K = dc.n, dc.m, dc.check_every
+    sweeps = int(iterations.sum())
+    checks = sweeps // K
+    macs = sweeps * (m * n + (n + m) * n) + checks * m * n
+    t_ops = 2 * macs / PEAK_F64_TC + (sweeps * (14 * m + 6 * n) + checks * (8 * m + 5 * n)) / PEAK_F32
+    n_bytes = 4 * B * (2 * m + 2 * (n + 3 * m) + n + 3) + 3 * B + 4 * (m * n + n * (n + m) + 3 * n + 4 * m)
+    t_bytes = n_bytes / HBM
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), sweeps
+
+
+def admm_vs_plain(mpc, cuda_k, name, dc, l, u, warm, n_launch=N_LAUNCH, plain_launch=3, reps=N_REPS):
+    """K5 and its plain version on the same card inputs.  They differ only in
+    the order of the products' float64 sums, which moves a float32 rounding
+    where a sum lies within an ulp of a tie.  Limits: converged, bounds_ok
+    and feasible equal on every lane; iterations equal on >= 99.5% of lanes;
+    x within 1e-5 where they are.  Returns the kernel's solution and
+    (max |dx|, kernel ms, plain ms, bound ms, what bounds it)."""
+    before = cuda_k.launch_count
+    sk = cuda_k(dc, l, u, warm)
+    torch.cuda.synchronize()
+    sp = mpc.solve_dcopf_plain(dc, l, u, warm)
+    torch.cuda.synchronize()
+    assert cuda_k.launch_count == before + 1
+    B = l.shape[0]
+    same = sk.iterations == sp.iterations
+    flags = {f: int((getattr(sk, f) == getattr(sp, f)).sum()) for f in ("converged", "bounds_ok", "feasible")}
+    err = float((sk.x - sp.x)[same].abs().max()) if same.any() else 0.0
+    werr = [float((a - b)[same].abs().max()) if same.any() else 0.0 for a, b in zip(sk.warm, sp.warm)]
+    it = sk.iterations.float()
+    log(f"K5 {name} B={B} (n={dc.n}, m={dc.m}, max_iter {dc.max_iter}): iterations equal on {int(same.sum())} lanes "
+        f"(max diff {int((sk.iterations - sp.iterations).abs().max())}), mean {float(it.mean()):.2f}, max "
+        f"{int(it.max())}; lanes with equal flags {flags}; converged {int(sk.converged.sum())}, bounds_ok "
+        f"{int(sk.bounds_ok.sum())}, feasible {int(sk.feasible.sum())}; max|dx| {err:.3e}, max|d warm| (x, y, z, Ax) "
+        f"{', '.join(f'{e:.3e}' for e in werr)}; x bitwise equal on {int((sk.x == sp.x).all(1).sum())} lanes")
+    assert all(v == B for v in flags.values()), f"K5 and its plain version disagree on a flag: {flags}"
+    assert int(same.sum()) >= B - B // 200, f"K5 iterations differ on {B - int(same.sum())} lanes"
+    assert err <= 1e-5, f"K5 x differs by {err:.3e} > 1e-5"
+    t_k = statistics.median(cuda_ms(lambda: cuda_k(dc, l, u, warm), n_launch) for _ in range(reps))
+    t_p = statistics.median(cuda_ms(lambda: mpc.solve_dcopf_plain(dc, l, u, warm), plain_launch) for _ in range(reps))
+    bound_ms, bound_by, sweeps = admm_bound(dc, B, sk.iterations)
+    log(f"K5 {name} time (device time, {n_launch} launches per reading, median of {reps}): kernel {t_k:.4f} ms, "
+        f"plain {t_p:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}, {sweeps} lane-sweeps), kernel at "
+        f"{bound_ms / t_k:.3f} of it")
+    return sk, (err, t_k, t_p, bound_ms, bound_by)
+
+
+def strict_exit(mpc, dc, sol):
+    """Lanes that exited by the strict rule (both residuals within their
+    tolerances), from the exit iterate; the others exited by the plateau
+    rule, at the budget, or not at all (crossed bounds)."""
+    _, y, z, Ax = sol.warm
+    t_y = mpc.matmul_full(y, dc.A_bar)
+    d_ref = torch.clamp(torch.amax(torch.abs(dc.D_inv * t_y), dim=1) / dc.c_scale, min=dc.q_ref)
+    p_ref = mpc._p_ref(dc, Ax, z)
+    return (sol.converged & (sol.r_prim <= dc.eps_abs + dc.eps_rel * p_ref)
+            & (sol.r_dual <= dc.eps_abs + dc.eps_rel * d_ref))
+
+
+def face_distance(st, P_load, P_gen, soc, a_hat, fun):
+    """The ∞-norm distance (p.u.) from the stage-0 action ``a_hat`` to the
+    stage-0 actions of the LP's optimal face (objective within 1e-7 relative
+    of HiGHS's ``fun``), by one more HiGHS solve: min s over (x, s) with x
+    feasible and optimal and |x[act_idx] − a_hat| <= s.  Where the optimum is
+    unique it is the gap to HiGHS's action; on a degenerate LP (a zero-cost
+    trade between storage and renewables) any point of the face is as good."""
+    from scipy.optimize import linprog
+    from scipy.sparse import csr_matrix, hstack, vstack
+
+    lb, ub, b_eq = st.lb.copy(), st.ub.copy(), st.b_eq.copy()
+    lb[st.load_pin_idx] = P_load
+    ub[st.load_pin_idx] = P_load
+    ub[st.gen_cap_idx] = np.minimum(st.gen_pmax[:, None], P_gen)
+    b_eq[st.soc_rows] = soc
+    n, k = st.n_var, len(st.act_idx)
+    S = csr_matrix((np.ones(k), (np.arange(k), st.act_idx)), shape=(k, n))
+    one = csr_matrix(np.ones((k, 1)))
+    A_ub = vstack([hstack([st.A_ub, csr_matrix((st.A_ub.shape[0], 1))]),
+                   hstack([csr_matrix(st.c[None]), csr_matrix((1, 1))]), hstack([S, -one]), hstack([-S, -one])]).tocsr()
+    b_ub = np.concatenate([st.b_ub, [fun + 1e-7 * max(1.0, abs(fun))], a_hat, -a_hat])
+    c = np.zeros(n + 1)
+    c[-1] = 1.0
+    res = linprog(c, A_eq=hstack([st.A_eq, csr_matrix((st.A_eq.shape[0], 1))]).tocsr(), b_eq=b_eq, A_ub=A_ub, b_ub=b_ub,
+                  bounds=np.concatenate([np.stack([lb, ub], 1), [[0.0, np.inf]]]), method="highs")
+    assert res.success, res.message
+    return res.fun
+
+
+def phase9a_admm_kernel(mpc, cuda_k, VecEnv, make_anm6easy_task, make_ieee33_renewable_task):
+    """K5 against its plain version on five sets at B = B_MAIN; returns the
+    N=1 cold set (for 9b) and the warm set's numbers (the JSON line)."""
+    from gym_anm_torch.agents.mpc import build_dcopf_structure
+
+    B = B_MAIN
+    log(f"== phase 9a: K5 against its plain version, B={B}")
+    g = torch.Generator(device="cuda").manual_seed(90)
+    env = VecEnv(make_anm6easy_task(), dtype=torch.float32, device="cuda")
+    state, _ = env.reset(B, g)
+    spec = env.spec
+    load_pos = torch.as_tensor(spec.load_pos, device="cuda")
+    st1 = build_dcopf_structure(spec, env.task.delta_t, env.task.lamb, 0.995, 0.96, 1)
+    dc1 = mpc.make_vec_dcopf(st1, device="cuda", max_iter=4000)
+    l1, u1 = mpc.lane_bounds(dc1, state.dev_p[:, load_pos], state.p_pot, state.soc)
+    cold = mpc.init_warm(dc1, B)
+    errs = []
+    sol1, r = admm_vs_plain(mpc, cuda_k, "ANM6Easy N=1 cold (reset states)", dc1, l1, u1, cold, 3, 1, 3)
+    errs.append(r[0])
+    # The farm's call (bench.py workload 4): warm starts at the budget of 48.
+    _, warm_r = admm_vs_plain(mpc, cuda_k, "ANM6Easy N=1 warm from its own solutions, budget 48",
+                              dc1._replace(max_iter=48), l1, u1, sol1.warm)
+    errs.append(warm_r[0])
+    # The perfect-forecast N=4 LP (time-varying pins and caps) and the IEEE33
+    # renewable N=1 LP (n = 111, m = 218: the matrices, 241 KB, stay in L2),
+    # cold; max_iter 400 keeps their plain version's time inside the run.
+    st4 = build_dcopf_structure(spec, env.task.delta_t, env.task.lamb, 0.995, 0.96, 4)
+    dc4 = mpc.make_vec_dcopf(st4, device="cuda", max_iter=400)
+    P_load4, P_pot4 = mpc.profile_forecast_fn(env, 4)(state)
+    l4, u4 = mpc.lane_bounds(dc4, P_load4, P_pot4, state.soc)
+    errs.append(admm_vs_plain(mpc, cuda_k, "ANM6Easy N=4 perfect forecast cold", dc4, l4, u4,
+                              mpc.init_warm(dc4, B), 3, 1, 3)[1][0])
+    renv = VecEnv(make_ieee33_renewable_task(), dtype=torch.float32, device="cuda")
+    rstate, _ = renv.reset(B, g)
+    stR = build_dcopf_structure(renv.spec, renv.task.delta_t, renv.task.lamb, 0.99, 0.9, 1)
+    dcR = mpc.make_vec_dcopf(stR, device="cuda", max_iter=400)
+    lR, uR = mpc.lane_bounds(dcR, rstate.dev_p[:, torch.as_tensor(renv.spec.load_pos, device="cuda")],
+                             rstate.p_pot, rstate.soc)
+    errs.append(admm_vs_plain(mpc, cuda_k, "IEEE33-renewable N=1 cold", dcR, lR, uR, mpc.init_warm(dcR, B),
+                              3, 1, 3)[1][0])
+    # 1% of the lanes unsolvable (a variable-bound row crossed), at the farm's
+    # budget from the cold start: those exit at entry with their warm start.
+    bad = torch.arange(B, device="cuda") % 100 == 0
+    row = dc1.m - dc1.n + 3
+    l_bad = l1.clone()
+    l_bad[bad, row] = u1[bad, row] + 1.0
+    sb, r = admm_vs_plain(mpc, cuda_k, "ANM6Easy N=1, 1% of lanes with a crossed bound row, budget 48",
+                          dc1._replace(max_iter=48), l_bad, u1, cold)
+    errs.append(r[0])
+    assert torch.equal(sb.bounds_ok, ~bad) and (sb.iterations[bad] == 0).all() and not sb.converged[bad].any()
+    assert torch.isinf(sb.r_prim[bad]).all() and all(torch.equal(w[bad], c[bad]) for w, c in zip(sb.warm, cold))
+    assert (sb.iterations[~bad] > 0).all()
+    t_k, t_p, bound_ms, bound_by = warm_r[1:]
+    return (st1, state, load_pos, sol1, dc1), dict(max_abs_err=max(errs), ms=t_k, plain_ms=t_p, bound_ms=bound_ms,
+                                                   bound_by=bound_by)
+
+
+def phase9b_highs(mpc, cold_set, n_lanes=64):
+    """K5's N=1 cold solutions against scipy's HiGHS on the same LPs, with
+    the bars of tests/test_vec_mpc.py:75-92: objective within 1e-3 relative,
+    stage-0 action within 2e-2 MW.  The action is measured to the LP's
+    optimal face (face_distance): reset states give degenerate LPs, where
+    HiGHS's vertex is one optimum of many.  The bars hold on the first
+    ``n_lanes`` lanes that exited by the strict rule.  The first ``n_lanes``
+    lanes of the set, whatever their exit, are measured and printed: the
+    solver's plateau rule accepts a dual residual up to d_ref, which the
+    λ = 100 overflow cost sets to 100 here, and a few lanes stop there short
+    of the optimum (the JAX package's solve does the same)."""
+    from gym_anm_torch.agents.mpc import solve_highs
+
+    st, state, load_pos, sol, dc = cold_set
+    strict = strict_exit(mpc, dc, sol).cpu()
+    held = torch.nonzero(strict).squeeze(1)[:n_lanes].tolist()
+    first = list(range(n_lanes))
+    log(f"== phase 9b: K5's N=1 cold solutions against HiGHS: the first {n_lanes} lanes that exited strictly "
+        f"({int(strict.sum())} of {strict.numel()} did) and the first {n_lanes} lanes")
+    x = sol.x.double().cpu().numpy()
+    P_load = state.dev_p[:, load_pos].double().cpu().numpy()
+    P_gen, soc = state.p_pot.double().cpu().numpy(), state.soc.double().cpu().numpy()
+    rows = {}
+    for b in sorted(set(held + first)):
+        _, res = solve_highs(st, P_load[b][:, None], P_gen[b][:, None], soc[b])
+        assert res.success, f"lane {b}: HiGHS fails on a reset state's LP"
+        a = x[b][st.act_idx]
+        rows[b] = (abs(float(st.c @ x[b]) - res.fun) / max(1.0, abs(res.fun)),
+                   float(np.abs(a - res.x[st.act_idx]).max()) * st.baseMVA,
+                   face_distance(st, P_load[b][:, None], P_gen[b][:, None], soc[b], a, res.fun) * st.baseMVA)
+
+    def report(lanes, what):
+        r = np.array([rows[b] for b in lanes])
+        over = [b for b in lanes if rows[b][0] > 1e-3 or rows[b][2] > 2e-2]
+        log(f"HiGHS, {what}: objective gap max {r[:, 0].max():.3e} (rel), stage-0 action to the optimal face max "
+            f"{r[:, 2].max():.3e} MW (to HiGHS's vertex max {r[:, 1].max():.3e} MW, {int((r[:, 1] > 2e-2).sum())} "
+            f"lanes over 2e-2 MW on degenerate LPs); {len(over)} lanes over a bar")
+        for b in over:
+            log(f"  lane {b}: objective gap {rows[b][0]:.3e}, action to the face {rows[b][2]:.3e} MW; iterations "
+                f"{int(sol.iterations[b])}, converged {bool(sol.converged[b])}, strict {bool(strict[b])}, r_dual "
+                f"{float(sol.r_dual[b]):.3e}")
+        return over
+
+    assert len(held) == n_lanes, f"only {len(held)} lanes exited strictly"
+    assert not report(held, f"the first {n_lanes} strict exits"), "a strict exit misses a HiGHS bar"
+    report(first, f"the first {n_lanes} lanes")
+
+
+def phase9c_farm(mpc, cuda_k, VecEnv, make_anm6easy_task, kernel, chord_k):
+    """bench.py workload 4: the MPC farm on the card.  Returns the launches of
+    K5 in the recorded run (K1's and K2's are printed: K1 launches once per
+    Newton iteration of the fallback), its record for 9d and the rate."""
+    from gym_anm_torch.vec.core import tree_map
+
+    B, T = B_MAIN, N_COLLECT
+    log(f"== phase 9c: the MPC farm (bench.py workload 4): ANM6Easy f32, B={B}, {T} steps, make_vec_mpc N=1 budget 48")
+    env = VecEnv(make_anm6easy_task(), dtype=torch.float32, device="cuda")
+    ctrl = mpc.make_vec_mpc(env, gamma=0.995, safety_margin=0.96, planning_steps=1)
+    real_solve, sols = mpc.solve_dcopf, []
+
+    def recording_solve(*args, **kw):
+        sol = real_solve(*args, **kw)
+        sols.append((sol.iterations, sol.converged))
+        return sol
+
+    g = torch.Generator(device="cuda").manual_seed(91)
+    state, obs = env.reset(B, g)
+    carry = ctrl.init_carry(B)
+    lanes = slice(0, N_CHECK_LANES // 4)
+    record, rewards, n_done = [], [], 0
+    mpc.solve_dcopf = recording_solve
+    cuda_k.launch_count = kernel.launch_count = chord_k.launch_count = 0
+    try:
+        for k in range(T):
+            pre = tree_map(lambda x: x[lanes].cpu(), (state, carry)) if k < N_CHECK_STEPS else None
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                a, carry = ctrl.act(None, state, obs, carry)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            state, obs, r, d, info = env.step_autoreset_batch(state, a, g)
+            rewards.append(r)
+            n_done += int(d.sum())
+            if pre is not None:
+                record.append(pre + (a[lanes].cpu(), r[lanes].cpu(), sols[-1][0][lanes].cpu()))
+        torch.cuda.synchronize()
+    finally:
+        mpc.solve_dcopf = real_solve
+    launches = cuda_k.launch_count
+    rew = torch.stack(rewards)
+    its = torch.stack([s[0] for s in sols]).float()
+    conv = torch.stack([s[1] for s in sols]).float()
+    assert torch.isfinite(rew).all() and torch.isfinite(obs).all()
+    assert launches == T, f"K5 launched {launches} times in {T} steps"
+    log(f"farm: K5 launches {launches}, K2 {chord_k.launch_count}, K1 {kernel.launch_count} (Newton iterations of "
+        f"the fallback); mean reward {float(rew.mean()):.6f}, {n_done} lane terminations; ADMM iterations per lane "
+        f"per step mean {float(its.mean()):.3f}, max {int(its.max())}; converged share {float(conv.mean()):.4f}; no "
+        f"host sync inside act")
+    assert float(rew.mean()) > -5.0, "the farm's mean reward is not at an informed controller's level"
+
+    # The rate: CUDA events around T steps (act and step), median of N_REPS.
+    reps = []
+    for _ in range(N_REPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(T):
+            a, carry = ctrl.act(None, state, obs, carry)
+            state, obs, r, d, info = env.step_autoreset_batch(state, a, g)
+        end.record()
+        torch.cuda.synchronize()
+        reps.append(T * B / (start.elapsed_time(end) / 1e3))
+    rate = statistics.median(reps)
+
+    # The share inside act (CUDA events around each act on the device's
+    # timeline, and host time), K5's device time per step and the device's
+    # busy time (torch.profiler over 16 steps), ops and syncs per step.
+    ev, host_act, n_split = [], 0.0, 32
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    total_start, total_end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    total_start.record()
+    for _ in range(n_split):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        h = time.perf_counter()
+        s.record()
+        a, carry = ctrl.act(None, state, obs, carry)
+        e.record()
+        host_act += time.perf_counter() - h
+        ev.append((s, e))
+        state, obs, r, d, info = env.step_autoreset_batch(state, a, g)
+    total_end.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n_split
+    total = total_start.elapsed_time(total_end) / n_split
+    act_ms = sum(s.elapsed_time(e) for s, e in ev) / n_split
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    n_prof = 16
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_prof):
+            a, carry = ctrl.act(None, state, obs, carry)
+            state, obs, r, d, info = env.step_autoreset_batch(state, a, g)
+        torch.cuda.synchronize()
+    prof_wall = (time.perf_counter() - t0) / n_prof
+    evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy, last = 0.0, float("-inf")
+    for s0, e0 in sorted((e.time_range.start, e.time_range.end) for e in evs):
+        busy += max(0.0, e0 - max(s0, last))
+        last = max(last, e0)
+    k5 = sum(e.time_range.end - e.time_range.start for e in evs if "admm_kernel" in e.name)
+    busy_ms = busy / 1e3 / n_prof
+    count_ops(lambda: None)  # the first profile after a window may still report some of its events
+    empty = count_ops(lambda: None)
+    ops_act, syncs_act = count_ops(lambda: ctrl.act(None, state, obs, carry), empty)
+    a, _ = ctrl.act(None, state, obs, carry)
+    ops_step, syncs_step = count_ops(lambda: env.step_autoreset_batch(state, a, g), empty)
+    step_ms = 1e3 * B / rate
+    log(f"farm: {rate:.1f} env-steps/s (median of {N_REPS} reps of {T} steps at B={B}; reps "
+        f"{[round(x, 1) for x in reps]}), {step_ms:.3f} ms/step")
+    log(f"farm step split ({n_split} steps): {total:.3f} ms/step (wall {1e3 * wall:.3f}), act {act_ms:.3f} ms on the "
+        f"device's timeline ({act_ms / total:.3f} of the step; host {1e3 * host_act / n_split:.3f} ms)")
+    log(f"farm profile ({n_prof} steps, {1e3 * prof_wall:.3f} ms/step under the profiler): device busy "
+        f"{busy_ms:.4f} ms/step, idle share {1 - busy_ms / step_ms:.3f} of the timed step ({step_ms:.3f} ms); K5 "
+        f"{k5 / n_prof:.2f} us/step ({k5 / busy if busy else 0.0:.3f} of busy); GPU ops per step "
+        f"{ops_act + ops_step} (act {ops_act}, env step {ops_step}), host syncs per step {syncs_act + syncs_step} "
+        f"(act {syncs_act}; empty-call baseline {empty})")
+    assert syncs_act == 0, "act synchronizes with the host"
+    return launches, record, rate
+
+
+def phase9d_replay(mpc, VecEnv, make_anm6easy_task, record):
+    """The farm's first steps of its first lanes replayed on the CPU at
+    float64 through the plain solve, from the card's states and warm
+    carries: the actions within 2e-2 MW (the HiGHS bar of the float32 tier;
+    both solves stop at the same budget of 48 sweeps from the same start, so
+    the float32 rounding is all that moves them)."""
+    from gym_anm_torch.vec.core import tree_map
+
+    log(f"== phase 9d: the farm's first {len(record)} steps of {record[0][2].shape[0]} lanes replayed at float64 "
+        f"on the CPU")
+    env = VecEnv(make_anm6easy_task(), dtype=torch.float64, device="cpu")
+    ctrl = mpc.make_vec_mpc(env, gamma=0.995, safety_margin=0.96, planning_steps=1)
+    real_solve, its = mpc.solve_dcopf, []
+
+    def recording_solve(*args, **kw):
+        sol = real_solve(*args, **kw)
+        its.append(sol.iterations)
+        return sol
+
+    mpc.solve_dcopf = recording_solve
+    worst_a, worst_r, n_it = 0.0, 0.0, 0
+    try:
+        for k, (state, carry, a32, r32, it32) in enumerate(record):
+            to64 = lambda x: x.double() if x.is_floating_point() else x  # noqa: E731
+            st64 = tree_map(to64, state)
+            a64, _ = ctrl.act(None, st64, None, tree_map(to64, carry))
+            _, _, r64, _, _ = env.step(st64, a64)
+            da = float((a64 - a32.double()).abs().max())
+            worst_a = max(worst_a, da)
+            worst_r = max(worst_r, float((r64 - r32.double()).abs().max()))
+            n_it += int((its[-1] == it32).sum())
+            assert da <= 2e-2, f"step {k}: the float64 replay's action differs by {da:.3e} MW"
+    finally:
+        mpc.solve_dcopf = real_solve
+    n = len(record) * record[0][2].shape[0]
+    log(f"replay: max |action difference| {worst_a:.3e} MW, max |reward difference| {worst_r:.3e}, ADMM iterations "
+        f"equal on {n_it} of {n} lane-steps")
+
+
 def log_ptxas(report):
     """One line per kernel of ptxas's report: registers and spill bytes."""
     names = ((r"gj_regsILi(\d+)E", "gj_regs<{}>"), (r"gj_smemI([fd])E", "gj_smem<{}>"),
-             (r"chord_kernelILi(\d+)ELi(\d+)E", "chord_kernel<{}, {}>"))
+             (r"chord_kernelILi(\d+)ELi(\d+)E", "chord_kernel<{}, {}>"), (r"(admm_kernel)", "{}"))
     name = spill = None
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -1243,7 +1625,10 @@ def main():
     from gym_anm_torch.physics.chord_cuda import chord_solve_cuda
     from gym_anm_torch.physics.transition import transition
     from gym_anm_torch.specs.constants import STATE_VARIABLES
-    from gym_anm_torch.vec import VecEnv, make_anm6easy_task, make_ieee33_multicap_task, make_ieee33_task
+    from gym_anm_torch.vec import (VecEnv, make_anm6easy_task, make_ieee33_multicap_task, make_ieee33_renewable_task,
+                                   make_ieee33_task)
+    from gym_anm_torch.vec import mpc
+    from gym_anm_torch.vec.admm_cuda import solve_dcopf_cuda
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
@@ -1252,7 +1637,7 @@ def main():
     t0 = time.perf_counter()
     lib_path = _build.library_path()
     lib = _build.load_library()
-    log(f"K1 and K2 built/loaded in {time.perf_counter() - t0:.1f} s: {lib_path.name}")
+    log(f"K1, K2 and K5 built/loaded in {time.perf_counter() - t0:.1f} s: {lib_path.name}")
     log_ptxas(_build.ptxas_report())
 
     kernel = lin.solve_gauss_jordan_cuda
@@ -1269,6 +1654,11 @@ def main():
                                                          chord_solve_cuda, bare_rate)
     a6_launches, a6_chord_launches, a6_rate = phase8_anm6easy(VecEnv, make_anm6easy_task, STATE_VARIABLES,
                                                               ybus.build_ybus, kernel, chord_solve_cuda)
+    cold_set, k5 = phase9a_admm_kernel(mpc, solve_dcopf_cuda, VecEnv, make_anm6easy_task, make_ieee33_renewable_task)
+    phase9b_highs(mpc, cold_set)
+    k5_launches, farm_record, _ = phase9c_farm(mpc, solve_dcopf_cuda, VecEnv, make_anm6easy_task, kernel,
+                                               chord_solve_cuda)
+    phase9d_replay(mpc, VecEnv, make_anm6easy_task, farm_record)
 
     # Launches: the runs of the base, multicap17, collection and ANM6Easy paths together.
     print(json.dumps({"kernels": [{
@@ -1295,6 +1685,18 @@ def main():
         "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"],
         "library_ms": None,  # no single PyTorch call runs the chord iteration
+    }, {
+        "name": "admm_dcopf",
+        "route": "cuda",
+        "source": "gym_anm_torch/csrc/admm_dcopf.cu",
+        "replaces": "gym_anm_tpu/vec/mpc.py:357",
+        "launches": k5_launches,  # the MPC farm's run (phase 9c)
+        "max_abs_err": k5["max_abs_err"],
+        "ms": k5["ms"],
+        "plain_ms": k5["plain_ms"],
+        "bound_ms": k5["bound_ms"],
+        "bound_by": k5["bound_by"],
+        "library_ms": None,  # no single PyTorch call runs the ADMM loop
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -37,6 +37,12 @@ _SIGNATURES = {
     #  g_col1, C, e_t, rs_re, rs_im, va, vb, inv_vmag, xtol, band, aa_gate,
     #  lim_iter, x, F, diff, n_iter, accepted, next_lane, B, n, stream)
     "chord_newton_f32": [_P] * 16 + [_F] * 6 + [_I] + [_P] * 6 + [_I, _I, _P],
+    # (A_bar, P_pack_T, q_bar, rho, inv_rho, D, D_inv, E, E_inv, l, u, x0, y0,
+    #  z0, Ax0, x, xw, yw, zw, Axw, iterations, r_prim, r_dual, converged,
+    #  bounds_ok, feasible, sigma, alpha, 1 - alpha, c_scale, q_ref, eps_abs,
+    #  eps_rel, improve, plateau_cap, feas_band, max_iter, K, stall_checks, B,
+    #  n, m, stream)
+    "admm_dcopf_f32": [_P] * 26 + [_F] * 10 + [_I] * 6 + [_P],
 }
 
 

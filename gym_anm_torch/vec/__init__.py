@@ -1,11 +1,13 @@
 """Vectorized batch-leading environment tier.
 
 Submodules: :mod:`.controllers` (the L0-L5 suite), :mod:`.experts` (the
-heuristic expert zoo), :mod:`.obs` (observation plans), :mod:`.tasks` (task
-factories).
+heuristic expert zoo), :mod:`.mpc` (the batched DC-OPF MPC controllers and
+their ADMM solve; its CUDA kernel's wrapper is :mod:`.admm_cuda`), :mod:`.obs`
+(observation plans), :mod:`.tasks` (task factories).
 """
 
 from .core import EnvState, VecEnv, VecTask
+from .mpc import make_vec_mpc, make_vec_mpc_perfect
 from .obs import ObsPlan, make_obs_plan
 from .tasks import (
     make_anm6easy_task,
@@ -22,6 +24,8 @@ __all__ = [
     "VecTask",
     "ObsPlan",
     "make_obs_plan",
+    "make_vec_mpc",
+    "make_vec_mpc_perfect",
     "make_two_bus_task",
     "make_ieee33_task",
     "make_ieee33_renewable_task",

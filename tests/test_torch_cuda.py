@@ -322,3 +322,101 @@ def test_anm6easy_on_the_card_launches_k2_at_n5(cuda):
         state, obs, r, d, info = env.step_autoreset_batch(state, env.random_policy()(g, obs, k), g)
         assert bool(torch.isfinite(obs).all()) and bool((obs >= env.obs_low).all()) and bool((obs <= env.obs_high).all())
     assert env.tables.n_bus - 1 == 5 and chord_solve_cuda.launch_count > before
+
+
+def _dcopf_lanes(task, N, B, seed, cuda, max_iter, gamma=0.995, safety_margin=0.96):
+    """A task's N-stage DC-OPF on the card and the bounds of B reset states
+    (the constant forecast; ANM6Easy's perfect forecast at N > 1)."""
+    from gym_anm_torch.agents.mpc import build_dcopf_structure
+    from gym_anm_torch.vec import mpc
+
+    env = VecEnv(task, dtype=torch.float32, device=cuda)
+    state, _ = env.reset(B, torch.Generator(device=cuda).manual_seed(seed))
+    st = build_dcopf_structure(env.spec, env.task.delta_t, env.task.lamb, gamma, safety_margin, N)
+    dc = mpc.make_vec_dcopf(st, device=cuda, max_iter=max_iter)
+    if N > 1:
+        P_load, P_pot = mpc.profile_forecast_fn(env, N)(state)
+    else:
+        P_load, P_pot = state.dev_p[:, torch.as_tensor(env.spec.load_pos, device=cuda)], state.p_pot
+    return dc, *mpc.lane_bounds(dc, P_load, P_pot, state.soc)
+
+
+@pytest.mark.parametrize("name,N,max_iter", [("anm6easy", 1, 4000), ("anm6easy", 2, 400), ("anm6easy", 4, 400),
+                                             ("anm6easy", 8, 200), ("anm6easy", 16, 96),
+                                             ("ieee33_renewable", 1, 400), ("multicap17", 1, 400)])
+def test_admm_kernel_matches_plain_version(cuda, name, N, max_iter):
+    """K5 against its plain version on the LPs of 96 reset states of each
+    shape family (n = 21..336, m = 39..624 on ANM6Easy; n = 111/115 on the
+    IEEE33 networks), cold and then warm from the kernel's solution, with
+    three lanes made unsolvable: converged, bounds_ok and feasible equal on
+    every lane, iterations on all but 0.5% of lanes, x within 1e-5 where
+    they are; the unsolvable lanes run no sweep and keep their warm start."""
+    from gym_anm_torch.vec import make_anm6easy_task, make_ieee33_multicap_task, make_ieee33_renewable_task
+    from gym_anm_torch.vec import mpc
+    from gym_anm_torch.vec.admm_cuda import solve_dcopf_cuda
+
+    task = {"anm6easy": make_anm6easy_task, "ieee33_renewable": make_ieee33_renewable_task,
+            "multicap17": make_ieee33_multicap_task}[name]()
+    B = 96
+    dc, l, u = _dcopf_lanes(task, N, B, N, cuda, max_iter)
+    bad = torch.arange(B, device=cuda) % 40 == 7
+    row = dc.m - dc.n + 1
+    l[bad, row] = u[bad, row] + 1.0
+    warm = mpc.init_warm(dc, B)
+    for _ in range(2):
+        before = solve_dcopf_cuda.launch_count
+        sk = mpc.solve_dcopf(dc, l, u, warm)
+        sp = mpc.solve_dcopf_plain(dc, l, u, warm)
+        torch.cuda.synchronize()
+        assert solve_dcopf_cuda.launch_count == before + 1
+        for f in ("converged", "bounds_ok", "feasible"):
+            assert torch.equal(getattr(sk, f), getattr(sp, f)), f
+        same = sk.iterations == sp.iterations
+        assert int((~same).sum()) <= B // 200
+        torch.testing.assert_close(sk.x[same], sp.x[same], rtol=0, atol=1e-5)
+        assert torch.equal(sk.bounds_ok, ~bad) and bool((sk.iterations[bad] == 0).all())
+        assert all(torch.equal(w[bad], w0[bad]) for w, w0 in zip(sk.warm, warm))
+        warm = sk.warm
+
+
+def test_admm_kernel_rejects_what_it_does_not_take(cuda):
+    from gym_anm_torch.vec import make_anm6easy_task
+    from gym_anm_torch.vec import mpc
+    from gym_anm_torch.vec.admm_cuda import solve_dcopf_cuda
+
+    dc, l, u = _dcopf_lanes(make_anm6easy_task(), 1, 4, 0, cuda, 48)
+    w = mpc.init_warm(dc, 4)
+    before = solve_dcopf_cuda.launch_count
+    for args in ((dc, l.double(), u.double(), w), (dc, l.cpu(), u.cpu(), tuple(x.cpu() for x in w)),
+                 (dc, l.t().contiguous().t(), u, w), (dc, l[:, :-1].contiguous(), u, w), (dc, l[:0], u[:0], w)):
+        with pytest.raises(ValueError):
+            solve_dcopf_cuda(*args)
+    assert solve_dcopf_cuda.launch_count == before
+
+
+def test_mpc_act_on_the_card_launches_k5_without_syncing(cuda):
+    """``make_vec_mpc`` on the card: one K5 launch per ``act``, no host sync
+    inside it, and the same actions as on the CPU within 2e-2 MW from the
+    same state (budget 48, float32 both)."""
+    from gym_anm_torch.vec import make_anm6easy_task, make_vec_mpc
+    from gym_anm_torch.vec.admm_cuda import solve_dcopf_cuda
+
+    env_c = VecEnv(make_anm6easy_task(), dtype=torch.float32, device="cpu")
+    env_g = VecEnv(make_anm6easy_task(), dtype=torch.float32, device=cuda)
+    ctrl_c = make_vec_mpc(env_c, gamma=0.995, safety_margin=0.96)
+    ctrl_g = make_vec_mpc(env_g, gamma=0.995, safety_margin=0.96)
+    state, obs = env_c.reset(64, torch.Generator().manual_seed(2))
+    carry_c, carry_g = ctrl_c.init_carry(64), ctrl_g.init_carry(64)
+    for _ in range(3):
+        a_c, carry_c = ctrl_c.act(None, state, obs, carry_c)
+        before = solve_dcopf_cuda.launch_count
+        state_g, obs_g = _to(state, cuda), obs.to(cuda)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            a_g, carry_g = ctrl_g.act(None, state_g, obs_g, carry_g)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert solve_dcopf_cuda.launch_count == before + 1
+        torch.testing.assert_close(a_g.cpu(), a_c, rtol=0, atol=2e-2)
+        state, obs, _, _, _ = env_c.step_autoreset_batch(state, a_c)
