@@ -82,7 +82,14 @@ non-zero at the first failure:
    step inside ``act``, K5 µs per step, ADMM iterations, the converged
    share, the device's idle share, GPU ops and host syncs per step;
    9d. the farm's first 8 steps of 64 lanes replayed at float64 on the CPU
-   from the card's states and warm carries: actions within 2e-2 MW.
+   from the card's states and warm carries: actions within 2e-2 MW;
+10. networks above 33 buses: random radial feeders of 48, 64 and 130 buses
+   (``gym_anm_torch.networks.random_feeder``) at B = 8192: the wide chord
+   kernel against its plain version from flat, warm and bad-basin starts;
+   K1 in device memory at n = 258 (float32 bitwise, float64 within 1e-10)
+   with its times; each feeder's float32 ``VecEnv`` for 5 steps, the last
+   from bad-basin warm starts (the Newton fallback, K1 in device memory on
+   the 130-bus feeder), held against the float64 tier on the card.
 
 Every kernel time is device time: ``cuda_ms`` puts N_LAUNCH back-to-back
 launches between one pair of CUDA events behind a sleep kernel, so the host
@@ -312,14 +319,14 @@ def multicap_injections(tb, B, g):
     return p_ns, q_ns, dtf_im, dtf_re, dtf_re, dtf_im
 
 
-def anm6easy_chord_inputs(VecEnv, make_anm6easy_task, n_steps, seed):
-    """The chord solve's inputs at the last of ``n_steps`` ANM6Easy steps at
-    B_MAIN lanes on the card (uniform-random actions through
+def task_chord_inputs(VecEnv, task, n_steps, seed):
+    """The chord solve's inputs at the last of ``n_steps`` steps of ``task``
+    at B_MAIN lanes on the card (uniform-random actions through
     ``step_autoreset_batch``), taken at the call: (constants, injections,
     warm starts).  Lanes that collapse under the step's actions are among
-    them."""
+    them (on ANM6Easy)."""
     tm = importlib.import_module("gym_anm_torch.physics.transition")
-    env = VecEnv(make_anm6easy_task(), dtype=torch.float32, device="cuda")
+    env = VecEnv(task, dtype=torch.float32, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(seed)
     state, _ = env.reset(B_MAIN, g)
     real, seen = tm.chord_solve, []
@@ -357,7 +364,7 @@ def phase1b_chord_kernel(pf, cuda_k, VecEnv, make_ieee33_task, make_ieee33_multi
     # ANM6Easy (n = 5: 27 of the warp's threads idle) at a real step's
     # injections: from the flat start, from the step's warm starts (its
     # collapsing lanes are not accepted), and from the bad-basin guesses.
-    a6_ct, a6_args, a6_warm = anm6easy_chord_inputs(VecEnv, make_anm6easy_task, 8, 12)
+    a6_ct, a6_args, a6_warm = task_chord_inputs(VecEnv, make_anm6easy_task(), 8, 12)
     errs, times = [], {}
     for name, ct, args, x0 in (
         ("base IEEE33 flat start", tb.chord_t, base, None),
@@ -1230,6 +1237,134 @@ def phase8_anm6easy(VecEnv, make_anm6easy_task, STATE_VARIABLES, build_ybus, ker
     return launches, chord_launches, rate
 
 
+FEEDERS = ((48, 0.6), (64, 0.5), (130, 0.15))  # (buses, load scale): the f64 tier converges at these loads
+
+
+def feeder_env_task(n_bus, scale, n_steps=8):
+    """The seeded random radial feeder of ``n_bus`` buses and its task
+    (gym_anm_torch.networks.random_feeder; the CPU tests' feeders)."""
+    from gym_anm_torch.networks.random_feeder import feeder_vars, make_feeder_task, random_radial_network
+
+    rng = np.random.default_rng(n_bus)
+    net = random_radial_network(rng, n_bus)
+    return make_feeder_task(net, feeder_vars(net, scale, n_steps, rng), name=f"feeder{n_bus}")
+
+
+def phase10_feeders(pf, lin, cuda_k, VecEnv):
+    """Networks above 33 buses (ROADMAP F3): random radial feeders of 48, 64
+    and 130 buses at B = 8192.  The wide chord kernel against its plain
+    version on a real step's injections from flat, warm and bad-basin
+    starts; K1 in device memory (n = 258) against its plain version, float32
+    bitwise and float64 within 1e-10; then the feeders' path: a float32
+    VecEnv, 4 steps of uniform-random actions and one from bad-basin warm
+    starts (the Newton fallback: K1 at n = 94, 126 and 258), every output
+    finite, live residuals within 1e-4, no lane terminated, the first 256
+    lanes' voltages within 1e-4 of the float64 tier's on the card (Newton with
+    K1 in float64; in device memory at 130 buses).  Returns the wide chord
+    kernel's and K1's device-memory numbers for the kernels' line, their
+    launches those of the float32 path alone."""
+    log(f"== phase 10: random radial feeders above 33 buses, B={B_MAIN}")
+    wide, gmem = {"errs": []}, {}
+    for n_bus, scale in FEEDERS:
+        task = feeder_env_task(n_bus, scale)
+        ct, args, warm = task_chord_inputs(VecEnv, task, 4, n_bus)
+        n = ct.n
+        for name, x0 in (("flat start", None), ("warm starts of a step", warm),
+                         ("bad-basin guesses", bad_guesses(B_MAIN, n).to("cuda"))):
+            err, t_k, t_p, bound_ms, bound_by = chord_vs_plain(pf, cuda_k, f"wide, {n_bus}-bus feeder, {name}", ct,
+                                                               args, x0)
+            wide["errs"].append(err)
+            if n_bus == 130 and x0 is warm:
+                wide.update(ms=t_k, plain_ms=t_p, bound_ms=bound_ms, bound_by=bound_by)
+
+    # K1 above the card's shared memory per block: n = 258 (the 130-bus feeder).
+    n = 258
+    for B, dtype in ((B_MAIN, torch.float32), (1001, torch.float64)):
+        A, b = systems(B, n, dtype, seed=n)
+        before = lin.solve_gauss_jordan_cuda.launches["gmem"]
+        xk = lin.solve_gauss_jordan_cuda(A, b)
+        xp = lin.solve_gauss_jordan(A, b)
+        torch.cuda.synchronize()
+        assert lin.solve_gauss_jordan_cuda.launches["gmem"] == before + 1, "K1's device-memory path did not run"
+        assert not torch.isfinite(xk[1]).all() and not torch.isfinite(xp[1]).all(), "zero pivot repaired"
+        keep = torch.ones(B, dtype=torch.bool, device="cuda")
+        keep[1] = False
+        err = float((xk[keep] - xp[keep]).abs().max())
+        rel = err / float(xp[keep].abs().max())
+        log(f"K1 in device memory B={B} n={n} {dtype}: max_abs_err={err:.3e} rel={rel:.3e}; bitwise equal on "
+            f"{int((xk[keep] == xp[keep]).all(1).sum())} of {B - 1} finite lanes")
+        if dtype == torch.float64:
+            assert rel <= 1e-10, f"K1 f64 in device memory disagrees with its plain version: rel {rel:.3e}"
+            continue
+        assert torch.equal(xk[keep], xp[keep]), "K1 f32 in device memory is not bitwise equal to its plain version"
+        t = {key: statistics.median(cuda_ms(fn, 1) for _ in range(3)) for key, fn in (
+            ("ms", lambda: lin.solve_gauss_jordan_cuda(A, b)),
+            ("library_ms", lambda: torch.linalg.solve_ex(A, b)),
+            ("plain_ms", lambda: lin.solve_gauss_jordan(A, b)))}
+        bound_ms, bound_by = k1_bound(B, n)
+        log(f"K1 in device memory time B={B} n={n} f32 (device time, median of 3): kernel {t['ms']:.4f} ms, "
+            f"torch.linalg.solve_ex {t['library_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; bound {bound_ms:.4f} ms "
+            f"({bound_by}), kernel at {bound_ms / t['ms']:.4f} of it")
+        gmem = dict(t, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+
+    # The feeders' path, the float32 tier: the counts zeroed just before each
+    # of its calls and read just after, so that the float64 tier that checks
+    # it (on the card too, K1 at n = 258 in device memory on the 130-bus
+    # feeder) is counted apart.
+    k1 = lin.solve_gauss_jordan_cuda
+
+    def counted(tally, fn, *args):
+        cuda_k.launches["wide"] = k1.launches["gmem"] = k1.launch_count = 0
+        out = fn(*args)
+        for key, got in (("wide", cuda_k.launches["wide"]), ("gmem", k1.launches["gmem"]), ("k1", k1.launch_count)):
+            tally[key] += got
+        return out
+
+    counts = {"wide": 0, "gmem": 0}
+    for n_bus, scale in FEEDERS:
+        task = feeder_env_task(n_bus, scale)
+        env = VecEnv(task, dtype=torch.float32, device="cuda")
+        ref = VecEnv(task, dtype=torch.float64, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(100 + n_bus)
+        n = env.spec.n_bus - 1
+        f32, f32_bad, f64 = ({"wide": 0, "gmem": 0, "k1": 0} for _ in range(3))
+        t0 = time.perf_counter()
+        state, obs = counted(f32, env.reset, B_MAIN, g)
+        s64, _ = counted(f64, ref.reset, N_CHECK_LANES)
+        worst_vm = 0.0
+        for k in range(5):
+            a = uniform_actions(env, B_MAIN, g)
+            if k == 4:
+                state = state._replace(v_guess=bad_guesses(B_MAIN, n, which=(2, 3)).to("cuda"))
+            state, obs, r, d, info = counted(f32_bad if k == 4 else f32, env.step, state, a)
+            check_step(obs, r, d, info, f"{n_bus}-bus feeder step {k}")
+            s64, _, _, d64, info64 = counted(f64, ref.step, s64, a[:N_CHECK_LANES].double())
+            assert not d64.any() and float(info64["diff"].max()) <= 1e-5
+            worst_vm = max(worst_vm, float((state.bus_vm[:N_CHECK_LANES].double() - s64.bus_vm).abs().max()))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for key in counts:
+            counts[key] += f32[key] + f32_bad[key]
+        log(f"{n_bus}-bus feeder path (n = {n}): 5 f32 steps at B={B_MAIN} and the f64 tier's on {N_CHECK_LANES} "
+            f"lanes in {wall:.2f} s; f32 path: wide chord launches {f32['wide'] + f32_bad['wide']}, K1 launches "
+            f"{f32['k1'] + f32_bad['k1']} (n = {2 * n}; {f32_bad['k1']} in the bad-basin step, "
+            f"{f32['gmem'] + f32_bad['gmem']} in device memory); f64 tier: K1 launches {f64['k1']}, "
+            f"{f64['gmem']} in device memory; f32 voltages against the f64 tier on {N_CHECK_LANES} lanes: max abs "
+            f"diff {worst_vm:.3e}")
+        assert f32["wide"] + f32_bad["wide"] > 0, "the wide chord kernel never launched on the feeder path"
+        assert f32_bad["k1"] > 0, "the f32 fallback did not launch K1 in the bad-basin step"
+        # The JAX package's bar for random feeders (tests/test_random_networks.py:143): the f32
+        # chord stops within ||F|| <= 1e-5 (1e-4 on a plateau), and these feeders' voltages are
+        # more sensitive to the residual than IEEE33's (5e-5 above).
+        assert worst_vm <= 1e-4, f"{n_bus}-bus feeder: f32 voltages off the f64 tier's by {worst_vm:.3e}"
+        if 2 * n > 239:
+            assert f32_bad["gmem"] > 0, "the f32 fallback did not run K1 in device memory on the 130-bus feeder"
+        if 2 * n > 168:
+            assert f64["gmem"] > 0, "the f64 tier did not run K1 in device memory on the 130-bus feeder"
+    wide["max_abs_err"] = max(wide.pop("errs"))
+    return dict(wide, launches=counts["wide"]), dict(gmem, launches=counts["gmem"])
+
+
 def admm_bound(dc, B, iterations):
     """K5's bound from a run's per-lane iterations (each one sweep): per
     sweep m·n + (n+m)·n multiply-adds of the two products (float64 sums of
@@ -1277,9 +1412,15 @@ def admm_vs_plain(mpc, cuda_k, name, dc, l, u, warm, n_launch=N_LAUNCH, plain_la
     t_k = statistics.median(cuda_ms(lambda: cuda_k(dc, l, u, warm), n_launch) for _ in range(reps))
     t_p = statistics.median(cuda_ms(lambda: mpc.solve_dcopf_plain(dc, l, u, warm), plain_launch) for _ in range(reps))
     bound_ms, bound_by, sweeps = admm_bound(dc, B, sk.iterations)
+    from gym_anm_torch._build import load_library
+    from gym_anm_torch.vec.admm_cuda import l2_bytes_per_lane_sweep
+
+    staged = load_library().admm_scratch_bytes(B, dc.n, dc.m) == 0
+    where = "staged in shared memory" if staged else "from L2"
     log(f"K5 {name} time (device time, {n_launch} launches per reading, median of {reps}): kernel {t_k:.4f} ms, "
         f"plain {t_p:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}, {sweeps} lane-sweeps), kernel at "
-        f"{bound_ms / t_k:.3f} of it")
+        f"{bound_ms / t_k:.3f} of it; matrix fragments {where}, {l2_bytes_per_lane_sweep(dc.n, dc.m, staged)} L2 "
+        f"bytes per lane-sweep (PR 5's design: {4 * (dc.m * dc.n + dc.n * (dc.n + dc.m))})")
     return sk, (err, t_k, t_p, bound_ms, bound_by)
 
 
@@ -1596,15 +1737,17 @@ def phase9d_replay(mpc, VecEnv, make_anm6easy_task, record):
 
 def log_ptxas(report):
     """One line per kernel of ptxas's report: registers and spill bytes."""
-    names = ((r"gj_regsILi(\d+)E", "gj_regs<{}>"), (r"gj_smemI([fd])E", "gj_smem<{}>"),
-             (r"chord_kernelILi(\d+)ELi(\d+)E", "chord_kernel<{}, {}>"), (r"(admm_kernel)", "{}"))
+    b = {"0": "false", "1": "true", "f": "float", "d": "double"}
+    names = ((r"gj_regsILi(\d+)E", lambda k: f"gj_regs<{k}>"),
+             (r"gj_smemI([fd])Lb([01])E", lambda t, g: f"gj_smem<{b[t]}, {b[g]}>"),
+             (r"chord_kernelILi(\d+)ELi(\d+)E", lambda a, c: f"chord_kernel<{a}, {c}>"),
+             (r"(chord_wide_kernel)", lambda k: k),
+             (r"admm_kernelILb([01])ELb([01])E", lambda m, g: f"admm_kernel<{b[m]}, {b[g]}>"))
     name = spill = None
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = next((fmt.format(*k.groups()) for pat, fmt in names if (k := re.search(pat, m.group(1)))),
-                        m.group(1))
-            name = name.replace("<f>", "<float>").replace("<d>", "<double>")
+            name = next((fmt(*k.groups()) for pat, fmt in names if (k := re.search(pat, m.group(1)))), m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
@@ -1637,28 +1780,37 @@ def main():
     t0 = time.perf_counter()
     lib_path = _build.library_path()
     lib = _build.load_library()
-    log(f"K1, K2 and K5 built/loaded in {time.perf_counter() - t0:.1f} s: {lib_path.name}")
+    log(f"K1, K2 (tile and wide) and K5 built/loaded in {time.perf_counter() - t0:.1f} s: {lib_path.name}")
     log_ptxas(_build.ptxas_report())
 
     kernel = lin.solve_gauss_jordan_cuda
-    k1 = phase1_kernel_vs_plain(lin, lib)
-    k2 = phase1b_chord_kernel(pf, chord_solve_cuda, VecEnv, make_ieee33_task, make_ieee33_multicap_task,
-                              make_anm6easy_task)
-    launches, chord_launches = phase2_main_path(VecEnv, make_ieee33_task, kernel, chord_solve_cuda)
-    phase3_fallback(VecEnv, make_ieee33_task, pf, ybus, kernel)
-    phase4_tf32(VecEnv, make_ieee33_task)
-    mc_launches, mc_chord_launches = phase5_multicap(VecEnv, make_ieee33_multicap_task, transition, kernel,
-                                                     chord_solve_cuda)
-    bare_rate = phase6_times(VecEnv, make_ieee33_task, make_ieee33_multicap_task)
-    col_launches, col_chord_launches = phase7_collection(VecEnv, make_ieee33_multicap_task, transition, kernel,
-                                                         chord_solve_cuda, bare_rate)
-    a6_launches, a6_chord_launches, a6_rate = phase8_anm6easy(VecEnv, make_anm6easy_task, STATE_VARIABLES,
-                                                              ybus.build_ybus, kernel, chord_solve_cuda)
-    cold_set, k5 = phase9a_admm_kernel(mpc, solve_dcopf_cuda, VecEnv, make_anm6easy_task, make_ieee33_renewable_task)
-    phase9b_highs(mpc, cold_set)
-    k5_launches, farm_record, _ = phase9c_farm(mpc, solve_dcopf_cuda, VecEnv, make_anm6easy_task, kernel,
-                                               chord_solve_cuda)
-    phase9d_replay(mpc, VecEnv, make_anm6easy_task, farm_record)
+    t_run = time.perf_counter()
+
+    def run(phase, *args):
+        out = phase(*args)
+        log(f"-- {phase.__name__} done, {time.perf_counter() - t_run:.1f} s since the build")
+        return out
+
+    k1 = run(phase1_kernel_vs_plain, lin, lib)
+    k2 = run(phase1b_chord_kernel, pf, chord_solve_cuda, VecEnv, make_ieee33_task, make_ieee33_multicap_task,
+             make_anm6easy_task)
+    launches, chord_launches = run(phase2_main_path, VecEnv, make_ieee33_task, kernel, chord_solve_cuda)
+    run(phase3_fallback, VecEnv, make_ieee33_task, pf, ybus, kernel)
+    run(phase4_tf32, VecEnv, make_ieee33_task)
+    mc_launches, mc_chord_launches = run(phase5_multicap, VecEnv, make_ieee33_multicap_task, transition, kernel,
+                                         chord_solve_cuda)
+    bare_rate = run(phase6_times, VecEnv, make_ieee33_task, make_ieee33_multicap_task)
+    col_launches, col_chord_launches = run(phase7_collection, VecEnv, make_ieee33_multicap_task, transition, kernel,
+                                           chord_solve_cuda, bare_rate)
+    a6_launches, a6_chord_launches, a6_rate = run(phase8_anm6easy, VecEnv, make_anm6easy_task, STATE_VARIABLES,
+                                                  ybus.build_ybus, kernel, chord_solve_cuda)
+    cold_set, k5 = run(phase9a_admm_kernel, mpc, solve_dcopf_cuda, VecEnv, make_anm6easy_task,
+                       make_ieee33_renewable_task)
+    run(phase9b_highs, mpc, cold_set)
+    k5_launches, farm_record, _ = run(phase9c_farm, mpc, solve_dcopf_cuda, VecEnv, make_anm6easy_task, kernel,
+                                      chord_solve_cuda)
+    run(phase9d_replay, mpc, VecEnv, make_anm6easy_task, farm_record)
+    k2w, k1g = run(phase10_feeders, pf, lin, chord_solve_cuda, VecEnv)
 
     # Launches: the runs of the base, multicap17, collection and ANM6Easy paths together.
     print(json.dumps({"kernels": [{
@@ -1697,6 +1849,30 @@ def main():
         "bound_ms": k5["bound_ms"],
         "bound_by": k5["bound_by"],
         "library_ms": None,  # no single PyTorch call runs the ADMM loop
+    }, {
+        "name": "chord_newton_wide",
+        "route": "cuda",
+        "source": "gym_anm_torch/csrc/chord_newton_wide.cu",
+        "replaces": "scripts/chord_pallas_prototype.py:168",
+        "launches": k2w["launches"],  # the random feeders' path (phase 10)
+        "max_abs_err": k2w["max_abs_err"],
+        "ms": k2w["ms"],
+        "plain_ms": k2w["plain_ms"],
+        "bound_ms": k2w["bound_ms"],
+        "bound_by": k2w["bound_by"],
+        "library_ms": None,  # no single PyTorch call runs the chord iteration
+    }, {
+        "name": "gauss_jordan_gmem",
+        "route": "cuda",
+        "source": "gym_anm_torch/csrc/gauss_jordan.cu",
+        "replaces": "gym_anm_tpu/physics/linsolve_pallas.py:31",
+        "launches": k1g["launches"],  # the random feeders' path (phase 10)
+        "max_abs_err": k1g["max_abs_err"],
+        "ms": k1g["ms"],
+        "plain_ms": k1g["plain_ms"],
+        "bound_ms": k1g["bound_ms"],
+        "bound_by": k1g["bound_by"],
+        "library_ms": k1g["library_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

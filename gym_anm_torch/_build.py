@@ -27,23 +27,32 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C entry points, each returning a cudaError_t as int.
+# C entry points, returning a cudaError_t as int unless _RESTYPES says otherwise.
 _SIGNATURES = {
     # (A, b, x, B, n, stream)
     "gj_solve_f32_regs": [_P, _P, _P, _I, _I, _P],
     "gj_solve_f32": [_P, _P, _P, _I, _I, _P],
     "gj_solve_f64": [_P, _P, _P, _I, _I, _P],
+    # (A, b, x, scratch, B, n, stream)
+    "gj_solve_f32_gmem": [_P, _P, _P, _P, _I, _I, _P],
+    "gj_solve_f64_gmem": [_P, _P, _P, _P, _I, _I, _P],
+    "gj_smem_limit_bytes": [],
     # (p, q, w_a, w_b, dtf_re, dtf_im, x0, W_pack, invJ0_T, H_T, g_col0,
     #  g_col1, C, e_t, rs_re, rs_im, va, vb, inv_vmag, xtol, band, aa_gate,
     #  lim_iter, x, F, diff, n_iter, accepted, next_lane, B, n, stream)
     "chord_newton_f32": [_P] * 16 + [_F] * 6 + [_I] + [_P] * 6 + [_I, _I, _P],
-    # (A_bar, P_pack_T, q_bar, rho, inv_rho, D, D_inv, E, E_inv, l, u, x0, y0,
+    # as chord_newton_f32 without next_lane
+    "chord_newton_wide_f32": [_P] * 16 + [_F] * 6 + [_I] + [_P] * 5 + [_I, _I, _P],
+    # (A_frag, P_frag, q_bar, rho, inv_rho, D, D_inv, E, E_inv, l, u, x0, y0,
     #  z0, Ax0, x, xw, yw, zw, Axw, iterations, r_prim, r_dual, converged,
-    #  bounds_ok, feasible, sigma, alpha, 1 - alpha, c_scale, q_ref, eps_abs,
-    #  eps_rel, improve, plateau_cap, feas_band, max_iter, K, stall_checks, B,
-    #  n, m, stream)
-    "admm_dcopf_f32": [_P] * 26 + [_F] * 10 + [_I] * 6 + [_P],
+    #  bounds_ok, feasible, next_lane, scratch, sigma, alpha, 1 - alpha,
+    #  c_scale, q_ref, eps_abs, eps_rel, improve, plateau_cap, feas_band,
+    #  max_iter, K, stall_checks, B, n, m, stream)
+    "admm_dcopf_f32": [_P] * 28 + [_F] * 10 + [_I] * 6 + [_P],
+    # (B, n, m) -> bytes, not an error code
+    "admm_scratch_bytes": [_I, _I, _I],
 }
+_RESTYPES = {"admm_scratch_bytes": ctypes.c_longlong}  # every other entry point returns an int
 
 
 def _nvcc():
@@ -112,5 +121,5 @@ def load_library():
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     return lib

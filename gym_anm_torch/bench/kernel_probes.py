@@ -1,4 +1,4 @@
-"""Where the two kernels' time goes, on one card.
+"""Where the kernels' time goes, on one card.
 
     python -m gym_anm_torch.bench.kernel_probes
 
@@ -10,6 +10,15 @@
 3. K1 (``csrc/gauss_jordan.cu``): a copy with ``clock64`` around the sweeps
    of the 64-row body, at B = 8192 and at few enough systems that every
    scheduler holds one warp: cycles per sweep of a warp.
+4. K5 (``csrc/admm_dcopf.cu``) beside PR 5's design, kept in
+   ``admm_dcopf_pr5.cu`` (one block per lane, float32 matrices, every
+   multiply-add converting both operands to float64), and that design built
+   with ``-DADMM_F64`` (float64 matrices, the lane's vectors staged once as
+   float64: no conversion in the k-loops), on ``chip_smoke.py`` phase 9a's
+   five sets at B = 8192, in one call: the conversions' share of PR 5's time
+   is (PR 5 − its float64 build) / PR 5.  A copy of K5 with ``clock64``
+   counters gives its cycles per warp-sweep by step at the farm's call and
+   on IEEE33-renewable.
 
 The copies are built into ``build/kernels/probe/``; the counters cost
 registers, so the instrumented K2 runs ~15% slower than the kernel itself
@@ -28,7 +37,7 @@ import torch
 from .. import _build
 from ..physics.chord_cuda import chord_solve_cuda
 from ..physics.linsolve_cuda import solve_gauss_jordan
-from ..vec import VecEnv, make_ieee33_task
+from ..vec import VecEnv, make_anm6easy_task, make_ieee33_renewable_task, make_ieee33_task
 
 OUT = _build.BUILD_DIR / "probe"
 # The counters and their read-out, added to an instrumented copy.
@@ -100,14 +109,41 @@ def instrument_gj(src):
     return s.replace("namespace {\n", COUNTERS, 1) + READOUT
 
 
+ADMM_STEPS = ["(a) stage v", "(b) t product, stage rhs", "(c) w product and the chain", "check and refill"]
+
+
+def instrument_admm(src):
+    """admm_dcopf.cu with cycle counters (lane 0 of every warp) around the
+    three steps of a sweep, and around a check with its exits and refills."""
+    marks = {
+        "  const float a = P.alpha, bm = P.one_minus_alpha;\n":
+            "  long long PT[6] = {0, 0, 0, 0, 0, 0};\n",
+        "    for (int s = 0; s < P.K; ++s) {\n": "    const long long tl0 = clock64();\n",
+        "      // (a) Stage v = rho z - y": "      const long long ta = clock64();\n      ++PT[5];\n",
+        "      // (b) t = v A_bar": "      const long long tb = clock64();\n      PT[0] += tb - ta;\n",
+        "      // (c) w = P_pack rhs": "      PT[1] += clock64() - tb;\n",
+        "    // The check: stage y": "    const long long tk = clock64();\n    PT[2] += tk - tl0;\n",
+    }
+    for mark, code in marks.items():
+        assert src.count(mark) == 1, f"the kernel's layout changed: {mark!r}"
+        src = src.replace(mark, code + mark if mark.startswith("    ") or mark.startswith("      ") else mark + code)
+    tail = "    refill();\n  }\n}\n"
+    assert src.count(tail) == 1, "the kernel's layout changed"
+    src = src.replace(tail, "    refill();\n    PT[3] += clock64() - tk;\n    ++PT[4];\n  }\n"
+                      "  if (lane == 0)\n    for (int i = 0; i < 6; ++i) atomicAdd(&g_probe[i], (unsigned long long)PT[i]);\n"
+                      "  if (lane == 0) atomicAdd(&g_probe[6], 1ull);\n}\n")
+    return src.replace("namespace {\n", COUNTERS, 1) + READOUT
+
+
 def load(src_text, name):
+    OUT.mkdir(parents=True, exist_ok=True)
     src = OUT / f"{name}.cu"
     src.write_text(src_text)
     lib = ctypes.CDLL(str(nvcc(src, OUT / f"{name}.so", "-shared")))
     for fn, args in _build._SIGNATURES.items():
         if hasattr(lib, fn):
             getattr(lib, fn).argtypes = args
-            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).restype = _build._RESTYPES.get(fn, ctypes.c_int)
     return lib
 
 
@@ -189,10 +225,142 @@ def probe_gj():
         print(f"K1 n=64 B={B}: {ms:.4f} ms (instrumented copy); {cyc / warps / 64:.0f} cycles per sweep of a warp")
 
 
+# PR 5's admm_dcopf_f32 arguments (admm_dcopf_pr5.cu's admm_probe_f32).
+PR5_ARGS = [ctypes.c_void_p] * 26 + [ctypes.c_float] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+def admm_sets(B=8192, seed=90):
+    """``chip_smoke.py`` phase 9a's five K5 input sets on the card, built the
+    same way from the same seed: name -> (spec, l, u, warm)."""
+    from ..agents.mpc import build_dcopf_structure
+    from ..vec import mpc
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    env = VecEnv(make_anm6easy_task(), dtype=torch.float32)
+    state, _ = env.reset(B, g)
+    spec = env.spec
+    load_pos = torch.as_tensor(spec.load_pos, device="cuda")
+    dc1 = mpc.make_vec_dcopf(build_dcopf_structure(spec, env.task.delta_t, env.task.lamb, 0.995, 0.96, 1),
+                             max_iter=4000)
+    l1, u1 = mpc.lane_bounds(dc1, state.dev_p[:, load_pos], state.p_pot, state.soc)
+    cold = mpc.init_warm(dc1, B)
+    warm = mpc.solve_dcopf(dc1, l1, u1, cold).warm
+    dc4 = mpc.make_vec_dcopf(build_dcopf_structure(spec, env.task.delta_t, env.task.lamb, 0.995, 0.96, 4),
+                             max_iter=400)
+    P_load4, P_pot4 = mpc.profile_forecast_fn(env, 4)(state)
+    l4, u4 = mpc.lane_bounds(dc4, P_load4, P_pot4, state.soc)
+    renv = VecEnv(make_ieee33_renewable_task(), dtype=torch.float32)
+    rstate, _ = renv.reset(B, g)
+    dcR = mpc.make_vec_dcopf(build_dcopf_structure(renv.spec, renv.task.delta_t, renv.task.lamb, 0.99, 0.9, 1),
+                             max_iter=400)
+    lR, uR = mpc.lane_bounds(dcR, rstate.dev_p[:, torch.as_tensor(renv.spec.load_pos, device="cuda")],
+                             rstate.p_pot, rstate.soc)
+    bad = torch.arange(B, device="cuda") % 100 == 0
+    row = dc1.m - dc1.n + 3
+    l_bad = l1.clone()
+    l_bad[bad, row] = u1[bad, row] + 1.0
+    return {
+        "ANM6Easy N=1 cold, max_iter 4000": (dc1, l1, u1, cold),
+        "the farm's call (N=1 warm, budget 48)": (dc1._replace(max_iter=48), l1, u1, warm),
+        "ANM6Easy N=4 perfect forecast cold, 400": (dc4, l4, u4, mpc.init_warm(dc4, B)),
+        "IEEE33-renewable N=1 cold, 400": (dcR, lR, uR, mpc.init_warm(dcR, B)),
+        "1% crossed bounds, budget 48": (dc1._replace(max_iter=48), l_bad, u1, cold),
+    }
+
+
+def pr5_solve(lib, f64, dc, l, u, warm):
+    """One launch of PR 5's K5 (``admm_dcopf_pr5.cu``, built with or without
+    ``-DADMM_F64``); returns (iterations, converged, x)."""
+    B, n, m = l.shape[0], dc.n, dc.m
+    A, PT = (dc.A_bar.double(), dc.P_pack_T.double()) if f64 else (dc.A_bar, dc.P_pack_T)
+    empty = lambda *shape, dtype=torch.float32: torch.empty(*shape, dtype=dtype, device="cuda")  # noqa: E731
+    x, xw, yw, zw, Axw = empty(B, n), empty(B, n), empty(B, m), empty(B, m), empty(B, m)
+    it, rp, rd = empty(B, dtype=torch.int32), empty(B), empty(B)
+    flags = [empty(B, dtype=torch.bool) for _ in range(3)]
+    K = dc.check_every
+    consts = (A, PT, dc.q_bar, dc.rho, dc.inv_rho, dc.D, dc.D_inv, dc.E, dc.E_inv)
+    rc = lib.admm_probe_f32(*(t.data_ptr() for t in consts + (l, u) + tuple(warm)),
+                            *(t.data_ptr() for t in (x, xw, yw, zw, Axw, it, rp, rd, *flags)),
+                            dc.sigma, dc.alpha, 1.0 - dc.alpha, dc.c_scale_value, dc.q_ref, dc.eps_abs, dc.eps_rel,
+                            1.0 - 1e-3 * K, dc.dual_plateau_cap, dc.feas_band_factor, dc.max_iter, K,
+                            -(-dc.dual_stall_limit // K), B, n, m, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, rc
+    return it, flags[0], x
+
+
+def probe_admm_cycles():
+    """Cycles per warp-sweep of each step of K5 (an instrumented copy) at the
+    farm's call and on IEEE33-renewable (fragments from L2)."""
+    lib = load(instrument_admm((_build.CSRC_DIR / "admm_dcopf.cu").read_text()), "admm_probe")
+    sets = admm_sets()
+    for name in ("the farm's call (N=1 warm, budget 48)", "IEEE33-renewable N=1 cold, 400"):
+        dc, l, u, (x0, y0, z0, Ax0) = sets[name]
+        B, n, m = l.shape[0], dc.n, dc.m
+        empty = lambda *shape, dtype=torch.float32: torch.empty(*shape, dtype=dtype, device="cuda")  # noqa: E731
+        outs = (empty(B, n), empty(B, n), empty(B, m), empty(B, m), empty(B, m), empty(B, dtype=torch.int32),
+                empty(B), empty(B), *(empty(B, dtype=torch.bool) for _ in range(3)))
+        nxt = torch.zeros(1, dtype=torch.int32, device="cuda")
+        scratch_bytes = lib.admm_scratch_bytes(B, n, m)
+        assert scratch_bytes >= 0, (n, m)
+        scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device="cuda") if scratch_bytes else None
+        K = dc.check_every
+        lib.probe_zero()
+        rc = lib.admm_dcopf_f32(
+            *(t.data_ptr() for t in (dc.A_frag, dc.P_frag, dc.q_bar, dc.rho, dc.inv_rho, dc.D, dc.D_inv, dc.E,
+                                     dc.E_inv, l, u, x0, y0, z0, Ax0) + outs), nxt.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), dc.sigma, dc.alpha, 1.0 - dc.alpha, dc.c_scale_value,
+            dc.q_ref, dc.eps_abs, dc.eps_rel, 1.0 - 1e-3 * K, dc.dual_plateau_cap, dc.feas_band_factor, dc.max_iter,
+            K, -(-dc.dual_stall_limit // K), B, n, m, torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, rc
+        torch.cuda.synchronize()
+        T = read(lib)
+        sweeps, checks, warps = T[5], T[4], T[6]
+        a, b, loop, chk = T[0] / sweeps, T[1] / sweeps, T[2] / sweeps, T[3] / checks
+        print(f"K5 {name} (instrumented copy, lane 0 of {warps} warps, {sweeps / warps:.1f} sweeps a warp): "
+              f"cycles per warp-sweep {ADMM_STEPS[0]} {a:.0f}, {ADMM_STEPS[1]} {b:.0f}, {ADMM_STEPS[2]} "
+              f"{loop - a - b:.0f}; per check, {ADMM_STEPS[3]} {chk:.0f}")
+
+
+def probe_admm():
+    from ..vec.admm_cuda import frag_count, solve_dcopf_cuda
+
+    src = Path(__file__).with_name("admm_dcopf_pr5.cu")
+    libs = {}
+    for f64 in (False, True):
+        name = "admm_pr5_f64" if f64 else "admm_pr5"
+        lib = ctypes.CDLL(str(nvcc(src, OUT / f"{name}.so", "-shared", *(["-DADMM_F64"] if f64 else []))))
+        lib.admm_probe_f32.argtypes = PR5_ARGS
+        lib.admm_probe_f32.restype = ctypes.c_int
+        libs[f64] = lib
+    for name, (dc, l, u, warm) in admm_sets().items():
+        sol = solve_dcopf_cuda(dc, l, u, warm)
+        its = {}
+        for f64, lib in libs.items():
+            it, conv, x = pr5_solve(lib, f64, dc, l, u, warm)
+            torch.cuda.synchronize()
+            same = it == sol.iterations
+            its[f64] = (int(same.sum()), int((conv == sol.converged).sum()),
+                        float((x - sol.x)[same].abs().max()) if same.any() else 0.0)
+        k = 3 if dc.max_iter > 48 else 20
+        t = {key: statistics.median(device_ms(fn, k) for _ in range(3)) for key, fn in (
+            ("new", lambda: solve_dcopf_cuda(dc, l, u, warm)),
+            ("pr5", lambda: pr5_solve(libs[False], False, dc, l, u, warm)),
+            ("pr5_f64", lambda: pr5_solve(libs[True], True, dc, l, u, warm)))}
+        n, m = dc.n, dc.m
+        print(f"K5 {name} B={l.shape[0]} (n={n}, m={m}): this kernel {t['new']:.4f} ms; PR 5's design "
+              f"{t['pr5']:.4f} ms, its float64 build {t['pr5_f64']:.4f} ms (the conversions' share "
+              f"{(t['pr5'] - t['pr5_f64']) / t['pr5']:.3f}); mean {float(sol.iterations.float().mean()):.2f} sweeps "
+              f"a lane; PR 5's design / its float64 build against this kernel: (iterations equal, converged "
+              f"equal, max|dx| where iterations are equal) {its[False]} / {its[True]} of {l.shape[0]} lanes; "
+              f"this kernel's fragments {16 * frag_count(n, m)} bytes")
+
+
 if __name__ == "__main__":
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"nvidia-smi: {smi}")
+    probe_admm()
+    probe_admm_cycles()
     probe_dmma()
     probe_chord()
     probe_gj()

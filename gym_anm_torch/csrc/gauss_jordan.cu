@@ -49,8 +49,17 @@
 // Design, float64 or n > 64 (gj_smem): one thread block per system, the
 // augmented matrix in shared memory (stride n + 1, odd for even n, so column
 // reads hit distinct banks), warps own rows and lanes own columns, two block
-// barriers per sweep.  It serves the float64 tier and the sizes no network of
-// the repository reaches.
+// barriers per sweep.  It serves the float64 tier and the networks above 33
+// buses.
+//
+// Design, a matrix too large for a block's shared memory (gj_gmem): the same
+// kernel with the augmented matrix in a device scratch buffer [B, n, n + 1]
+// that the wrapper allocates (the pivot row and the factors stay in shared
+// memory).  It sweeps in gj_smem's order and rounds alike, so it is bitwise
+// equal to it and to the plain version.  The opt-in limit (227 KB on an H100)
+// puts the switch at n = 239 in float32 (networks of 121 buses and more) and
+// n = 168 in float64 (86 buses); at n = 258, float64, a system's matrix is
+// 535 KB and stays in L2 while its block runs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -226,15 +235,17 @@ int dispatch_exact(const float* A, const float* b, float* x, int B, int n, cudaS
 // ---------------------------------------------------------------------------
 // gj_smem: one block per system, the matrix in shared memory.
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void gj_smem(const T* __restrict__ A, const T* __restrict__ b, T* __restrict__ x, int n) {
+// kGlobal: the augmented matrix in `scratch` (device memory) rather than in
+// shared memory; the sweeps are the same.
+template <typename T, bool kGlobal>
+__global__ void gj_smem(const T* __restrict__ A, const T* __restrict__ b, T* __restrict__ x, T* __restrict__ scratch,
+                        int n) {
   extern __shared__ unsigned char smem_raw[];
-  T* M = reinterpret_cast<T*>(smem_raw);  // [n][ld]
   const int ld = n + 1;
-  T* prow = M + n * ld;  // [ld]  pivot row of the current sweep
-  T* fcol = prow + ld;   // [n]   elimination factors of the current sweep
-
   const long long sys = blockIdx.x;
+  T* M = kGlobal ? scratch + sys * n * ld : reinterpret_cast<T*>(smem_raw);  // [n][ld]
+  T* prow = kGlobal ? reinterpret_cast<T*>(smem_raw) : M + n * ld;           // [ld]  pivot row of the sweep
+  T* fcol = prow + ld;                                                       // [n]   elimination factors
   const T* As = A + sys * n * n;
   const T* bs = b + sys * n;
   const int lane = threadIdx.x & 31;
@@ -264,21 +275,29 @@ __global__ void gj_smem(const T* __restrict__ A, const T* __restrict__ b, T* __r
   for (int i = threadIdx.x; i < n; i += blockDim.x) x[sys * n + i] = M[i * ld + n] / M[i * ld + i];
 }
 
-template <typename T>
-int launch_smem(const T* A, const T* b, T* x, int B, int n, void* stream) {
-  if (B <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (static_cast<size_t>(n) * (n + 1) + (n + 1) + n) * sizeof(T);
+int max_smem_optin() {
   int device = 0, max_smem = 0;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (smem > static_cast<size_t>(max_smem)) return static_cast<int>(cudaErrorInvalidValue);
+  return max_smem;
+}
+
+// scratch == nullptr: the matrix in shared memory (it must fit); else in
+// scratch [B, n, n + 1].
+template <typename T>
+int launch_smem(const T* A, const T* b, T* x, T* scratch, int B, int n, void* stream) {
+  if (B <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t vecs = static_cast<size_t>(n + 1) + n;
+  const size_t smem = (scratch == nullptr ? static_cast<size_t>(n) * (n + 1) + vecs : vecs) * sizeof(T);
+  if (smem > static_cast<size_t>(max_smem_optin())) return static_cast<int>(cudaErrorInvalidValue);
+  void (*kernel)(const T*, const T*, T*, T*, int) = scratch == nullptr ? gj_smem<T, false> : gj_smem<T, true>;
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(gj_smem<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int threads = n > 16 ? 128 : 32;
-  gj_smem<T><<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(A, b, x, n);
+  const int threads = n > 16 ? (scratch == nullptr ? 128 : 256) : 32;
+  kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(A, b, x, scratch, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -295,9 +314,26 @@ extern "C" int gj_solve_f32_regs(const float* A, const float* b, float* x, int B
 
 // Any n whose matrix fits in a block's shared memory.
 extern "C" int gj_solve_f32(const float* A, const float* b, float* x, int B, int n, void* stream) {
-  return launch_smem<float>(A, b, x, B, n, stream);
+  return launch_smem<float>(A, b, x, nullptr, B, n, stream);
 }
 
 extern "C" int gj_solve_f64(const double* A, const double* b, double* x, int B, int n, void* stream) {
-  return launch_smem<double>(A, b, x, B, n, stream);
+  return launch_smem<double>(A, b, x, nullptr, B, n, stream);
 }
+
+// Any n: the matrix in `scratch` [B, n, n + 1].
+extern "C" int gj_solve_f32_gmem(const float* A, const float* b, float* x, float* scratch, int B, int n,
+                                 void* stream) {
+  if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_smem<float>(A, b, x, scratch, B, n, stream);
+}
+
+extern "C" int gj_solve_f64_gmem(const double* A, const double* b, double* x, double* scratch, int B, int n,
+                                 void* stream) {
+  if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_smem<double>(A, b, x, scratch, B, n, stream);
+}
+
+// The card's opt-in shared memory per block, bytes: gj_smem takes n while
+// (n (n + 1) + 2 n + 1) elements fit in it (linsolve_cuda.py).
+extern "C" int gj_smem_limit_bytes() { return max_smem_optin(); }

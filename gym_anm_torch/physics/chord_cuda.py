@@ -1,6 +1,8 @@
-"""The fused chord-Newton solve on the card: the wrapper of the CUDA kernel
-``csrc/chord_newton.cu``, which replaces the TPU kernel
-``scripts/chord_pallas_prototype.py:kernel`` (``chord_pallas``).
+"""The fused chord-Newton solve on the card: the wrapper of the CUDA kernels
+``csrc/chord_newton.cu`` (n <= 32, lane tiles on the FP64 tensor cores) and
+``csrc/chord_newton_wide.cu`` (33 <= n <= 512, one block per lane), which
+replace the TPU kernel ``scripts/chord_pallas_prototype.py:kernel``
+(``chord_pallas``).
 
 Its plain version is :func:`~gym_anm_torch.physics.power_flow.chord_solve_plain`;
 :func:`~gym_anm_torch.physics.power_flow.chord_solve` picks between the two by
@@ -10,9 +12,11 @@ the tensors' device alone.
 import numpy as np
 import torch
 
-# Largest n = N_bus − 1 the kernel takes (one warp thread per non-slack bus):
-# IEEE33 (n = 32) and ANM6 (n = 5) fit.
-MAX_N = 32
+# Largest n = N_bus − 1 of the tile kernel (one warp thread per non-slack
+# bus: IEEE33, n = 32, and ANM6, n = 5) and of the wide kernel (two buses per
+# thread of a 256-thread block: networks up to 513 buses).
+TILE_MAX_N = 32
+MAX_N = 512
 
 
 def chord_solve_cuda(p, q, w_a, w_b, dtf_re, dtf_im, ct, xtol=1e-5, lim_iter=48,
@@ -22,9 +26,13 @@ def chord_solve_cuda(p, q, w_a, w_b, dtf_re, dtf_im, ct, xtol=1e-5, lim_iter=48,
     Takes what :func:`~gym_anm_torch.physics.power_flow.chord_solve_plain`
     takes, as contiguous float32 tensors on one CUDA device with ``ct`` a
     :class:`~gym_anm_torch.physics.power_flow.ChordTensors` on that device,
-    and returns the same ``(x, F, diff, n_iter, accepted)``.  Launches on the
-    current stream and raises on anything else or on a failed launch.  Adds
-    one to ``chord_solve_cuda.launch_count`` per launch.
+    and returns the same ``(x, F, diff, n_iter, accepted)``.  Picks the tile
+    kernel at n <= ``TILE_MAX_N`` and the wide kernel above, by n alone.
+    Launches on the current stream and raises on anything else (n above
+    ``MAX_N`` included) or on a failed launch.  Adds one to
+    ``chord_solve_cuda.launch_count`` per launch, and to
+    ``chord_solve_cuda.launches["tile"]`` or ``["wide"]`` for the kernel that
+    ran.
     """
     lane_vecs = (p, q, w_a, w_b, dtf_re, dtf_im) + (() if x0 is None else (x0,))
     consts = (ct.W_pack, ct.invJ0_T, ct.H_T, ct.g_col0, ct.g_col1, ct.c, ct.e_t, ct.rs_re, ct.rs_im)
@@ -48,7 +56,8 @@ def chord_solve_cuda(p, q, w_a, w_b, dtf_re, dtf_im, ct, xtol=1e-5, lim_iter=48,
     if tuple(ct.W_pack.shape) != (n + 1, 2 * n + 2) or tuple(ct.invJ0_T.shape) != (2 * n, 2 * n):
         raise ValueError("chord constants do not match n")
     if B == 0 or not 1 <= n <= MAX_N:
-        raise ValueError(f"chord_solve_cuda needs a non-empty batch and 1 <= n <= {MAX_N}, got B={B}, n={n}")
+        raise ValueError(f"chord_solve_cuda needs a non-empty batch and 1 <= n <= {MAX_N} (networks of at most "
+                         f"{MAX_N + 1} buses), got B={B}, n={n}")
     from .._build import load_library
 
     lib = load_library()
@@ -57,21 +66,26 @@ def chord_solve_cuda(p, q, w_a, w_b, dtf_re, dtf_im, ct, xtol=1e-5, lim_iter=48,
     diff = torch.empty(B, dtype=torch.float32, device=device)
     n_iter = torch.empty(B, dtype=torch.int32, device=device)
     accepted = torch.empty(B, dtype=torch.bool, device=device)
-    next_lane = torch.zeros(1, dtype=torch.int32, device=device)  # the kernel's work counter
     va, vb = float(ct.vstar_re), float(ct.vstar_im)
+    args = (p.data_ptr(), q.data_ptr(), w_a.data_ptr(), w_b.data_ptr(), dtf_re.data_ptr(), dtf_im.data_ptr(),
+            None if x0 is None else x0.data_ptr(), *(t.data_ptr() for t in consts),
+            va, vb, 1.0 / float(np.hypot(va, vb)), xtol, stall_tol_factor * xtol, 100.0 * xtol, int(lim_iter),
+            x.data_ptr(), F.data_ptr(), diff.data_ptr(), n_iter.data_ptr(), accepted.data_ptr())
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.chord_newton_f32(
-            p.data_ptr(), q.data_ptr(), w_a.data_ptr(), w_b.data_ptr(), dtf_re.data_ptr(),
-            dtf_im.data_ptr(), None if x0 is None else x0.data_ptr(),
-            *(t.data_ptr() for t in consts),
-            va, vb, 1.0 / float(np.hypot(va, vb)), xtol, stall_tol_factor * xtol, 100.0 * xtol, int(lim_iter),
-            x.data_ptr(), F.data_ptr(), diff.data_ptr(), n_iter.data_ptr(), accepted.data_ptr(),
-            next_lane.data_ptr(), B, n, stream)
+        if n <= TILE_MAX_N:
+            kind = "tile"
+            next_lane = torch.zeros(1, dtype=torch.int32, device=device)  # the tile kernel's work counter
+            rc = lib.chord_newton_f32(*args, next_lane.data_ptr(), B, n, stream)
+        else:
+            kind = "wide"
+            rc = lib.chord_newton_wide_f32(*args, B, n, stream)
     if rc != 0:
-        raise RuntimeError(f"chord_newton kernel launch failed with CUDA error {rc} (B={B}, n={n})")
+        raise RuntimeError(f"chord_newton ({kind}) kernel launch failed with CUDA error {rc} (B={B}, n={n})")
     chord_solve_cuda.launch_count += 1
+    chord_solve_cuda.launches[kind] += 1
     return x, F, diff, n_iter, accepted
 
 
 chord_solve_cuda.launch_count = 0
+chord_solve_cuda.launches = {"tile": 0, "wide": 0}

@@ -12,8 +12,16 @@ TPU kernel ``gym_anm_tpu/physics/linsolve_pallas.py:solve_gauss_jordan_pallas``.
 import torch
 
 # Largest n of the float32 path that keeps each system in one warp's
-# registers; float64 and larger n take the shared-memory path.
+# registers; float64 and larger n take the shared-memory path, and a system
+# whose matrix does not fit in a block's shared memory the path with the
+# matrix in device memory.
 REG_MAX_N = 64
+
+
+def smem_bytes(n, itemsize):
+    """Shared memory of the shared-memory path's block: the augmented [n, n+1]
+    matrix, the pivot row and the factors."""
+    return itemsize * (n * (n + 1) + 2 * n + 1)
 
 
 def solve_gauss_jordan(A, b):
@@ -47,8 +55,12 @@ def solve_gauss_jordan_cuda(A, b):
     on the current stream, and raises on anything else or on a failed
     launch.  Float32 at n <= ``REG_MAX_N`` runs with each system in one
     warp's registers, float64 and larger n with each system in a block's
-    shared memory.  Adds one to ``solve_gauss_jordan_cuda.launch_count`` per
-    launch.
+    shared memory, and a system too large for the card's shared memory per
+    block (n > 239 in float32, n > 168 in float64 on an H100) in a scratch
+    buffer [B, n, n+1] in device memory.  Adds one to
+    ``solve_gauss_jordan_cuda.launch_count`` per launch, and to
+    ``solve_gauss_jordan_cuda.launches[path]`` for the path that ran
+    (``"regs"``, ``"smem"``, ``"gmem"``).
     """
     if not (A.is_cuda and b.is_cuda) or A.device != b.device:
         raise ValueError(f"solve_gauss_jordan_cuda needs both tensors on one CUDA device, "
@@ -65,21 +77,28 @@ def solve_gauss_jordan_cuda(A, b):
     from .._build import load_library
 
     lib = load_library()
-    if A.dtype == torch.float64:
-        fn = lib.gj_solve_f64
-    else:
-        fn = lib.gj_solve_f32_regs if n <= REG_MAX_N else lib.gj_solve_f32
+    f64 = A.dtype == torch.float64
     x = torch.empty_like(b)
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
-        rc = fn(A.data_ptr(), b.data_ptr(), x.data_ptr(), B, n, stream)
+        if not f64 and n <= REG_MAX_N:
+            path, rc = "regs", lib.gj_solve_f32_regs(A.data_ptr(), b.data_ptr(), x.data_ptr(), B, n, stream)
+        elif smem_bytes(n, A.element_size()) <= lib.gj_smem_limit_bytes():
+            fn = lib.gj_solve_f64 if f64 else lib.gj_solve_f32
+            path, rc = "smem", fn(A.data_ptr(), b.data_ptr(), x.data_ptr(), B, n, stream)
+        else:
+            scratch = torch.empty(B, n, n + 1, dtype=A.dtype, device=A.device)
+            fn = lib.gj_solve_f64_gmem if f64 else lib.gj_solve_f32_gmem
+            path, rc = "gmem", fn(A.data_ptr(), b.data_ptr(), x.data_ptr(), scratch.data_ptr(), B, n, stream)
     if rc != 0:
         raise RuntimeError(f"gauss_jordan kernel launch failed with CUDA error {rc} (B={B}, n={n}, {A.dtype})")
     solve_gauss_jordan_cuda.launch_count += 1
+    solve_gauss_jordan_cuda.launches[path] += 1
     return x
 
 
 solve_gauss_jordan_cuda.launch_count = 0
+solve_gauss_jordan_cuda.launches = {"regs": 0, "smem": 0, "gmem": 0}
 
 
 def batched_solve(J, F):

@@ -85,6 +85,11 @@ class VecDCOPF(NamedTuple):
     dual_plateau_cap: float = 1.0
     feas_band_factor: float = 10.0
     check_every: int = 8
+    # K5's operands: Āᵀ [n, m] and P_pack [n+m, n] as float64 copies of the
+    # working-dtype values in the FP64 mma's A-fragment order
+    # (:func:`mma_a_fragments`), made once here.
+    A_frag: Optional[torch.Tensor] = None
+    P_frag: Optional[torch.Tensor] = None
 
 
 class DCOPFSolution(NamedTuple):
@@ -100,6 +105,18 @@ class DCOPFSolution(NamedTuple):
     # [B] bool: also inside the primal band feas_band_factor × the strict
     # tolerance.  Informative; the controller idles only on ~bounds_ok.
     feasible: torch.Tensor
+
+
+def mma_a_fragments(M):
+    """``M`` [R, K] as the A operand of FP64 ``mma.sync.m16n8k4`` tiles: a
+    flat float64 tensor [ceil(R/16), ceil(K/4), 32, 2] (zero-padded), entry
+    [rt, c, l, h] = M[16·rt + 8·h + l // 4, 4·c + l % 4], so thread l of a
+    warp loads its (a0, a1) of tile (rt, c) as one 16-byte read."""
+    R, K = M.shape
+    RT, KC = -(-R // 16), -(-K // 4)
+    Mp = torch.zeros(16 * RT, 4 * KC, dtype=torch.float64, device=M.device)
+    Mp[:R, :K] = M.to(torch.float64)
+    return Mp.reshape(RT, 2, 8, KC, 4).permute(0, 3, 2, 4, 1).contiguous().reshape(-1)
 
 
 def _ruiz_equilibrate(A, q, iters=15):
@@ -187,8 +204,9 @@ def make_vec_dcopf(
     # operation as torch does).
     q_ref = np.max(np.abs((1.0 / D).astype(np_dt) * q_bar.astype(np_dt))) / np_dt(c_scale)
     bound0 = n_eq + n_ub  # first identity (variable-bound) row
+    A_bar_t, P_pack_T = t(A_bar), t(P_pack.T).contiguous()
     return VecDCOPF(
-        A_bar=t(A_bar), P_pack_T=t(P_pack.T).contiguous(),
+        A_bar=A_bar_t, P_pack_T=P_pack_T,
         q_bar=t(q_bar), rho=t(rho_v), inv_rho=t(1.0 / rho_v), D=t(D), D_inv=t(1.0 / D), E=t(E),
         E_inv=t(1.0 / E), c_scale=t(c_scale), c_scale_value=float(np_dt(c_scale)), q_ref=float(q_ref),
         l_tmpl=t(l_tmpl), u_tmpl=t(u_tmpl),
@@ -198,6 +216,7 @@ def make_vec_dcopf(
         eps_abs=float(eps_abs), eps_rel=float(eps_rel), n=int(n), m=int(m),
         dual_stall_limit=int(dual_stall_limit), dual_plateau_cap=float(dual_plateau_cap),
         feas_band_factor=float(feas_band_factor), check_every=int(check_every),
+        A_frag=mma_a_fragments(A_bar_t.T), P_frag=mma_a_fragments(P_pack_T.T),
     )
 
 

@@ -1,6 +1,8 @@
-"""gym_anm_torch on a CUDA card: the Gauss-Jordan kernel (K1) and the fused
-chord-Newton kernel (K2) against their plain versions, and the float32 step
-on the card against the CPU.
+"""gym_anm_torch on a CUDA card: the Gauss-Jordan kernel (K1, with its path
+in device memory), the fused chord-Newton kernels (K2, and its wide kernel
+above 33 buses) and the ADMM kernel (K5) against their plain versions, and
+the float32 and float64 steps on the card against the CPU, random feeders
+above 33 buses among them.
 
 Every test here needs a card and skips without one.  The file imports no
 JAX, so on a machine with a card and no JAX it runs on its own:
@@ -420,3 +422,189 @@ def test_mpc_act_on_the_card_launches_k5_without_syncing(cuda):
         assert solve_dcopf_cuda.launch_count == before + 1
         torch.testing.assert_close(a_g.cpu(), a_c, rtol=0, atol=2e-2)
         state, obs, _, _, _ = env_c.step_autoreset_batch(state, a_c)
+
+
+# ----------------------------------------------------------------------
+# Networks above 33 buses: the wide chord kernel and K1 in device memory
+# ----------------------------------------------------------------------
+
+def _feeder_chord_problem(n_bus, B, seed, device):
+    """_chord_problem's injections, taps and warm starts on a random radial
+    feeder of ``n_bus`` buses (gym_anm_torch.networks.random_feeder)."""
+    from gym_anm_torch.networks.random_feeder import random_radial_network
+
+    return _chord_problem(random_radial_network(np.random.default_rng(n_bus), n_bus), 0.5, B, seed, device)
+
+
+@pytest.mark.parametrize("n", [33, 47, 63, 129])
+@pytest.mark.parametrize("B", [1, 7, 1001])
+def test_wide_chord_kernel_matches_plain_version(cuda, n, B):
+    """The wide chord kernel (n > 32) against the plain chord on flat (a NaN
+    guess), warm and bad-basin starts mixed lane by lane: the same accepted
+    lanes, n_iter equal on all but a rare lane, x within 1e-5 (chip_smoke.py's
+    chord_vs_plain limit), F and diff within the acceptance band, the reset
+    lanes exactly flat; the dispatch counts a wide launch."""
+    ct, args = _feeder_chord_problem(n + 1, B, 5 * B + n, cuda)
+    assert ct.n == n
+    rng = np.random.default_rng(n + B)
+    kind = torch.as_tensor(rng.integers(0, 3, B), device=cuda)
+    bad = torch.tensor([[0.0] * n + [1e-6] * n, [0.0] * n + [-1.0] * n, [30.0] * n + [1.0] * n,
+                        [0.0] * n + [1e15] * n], device=cuda)[torch.as_tensor(rng.integers(0, 4, B), device=cuda)]
+    x0 = torch.where((kind == 0)[:, None], torch.full_like(args[6], float("nan")), args[6])
+    x0 = torch.where((kind == 2)[:, None], bad, x0).contiguous()
+    before, wide = chord_solve_cuda.launch_count, chord_solve_cuda.launches["wide"]
+    xk, Fk, dk, ik, ak = pf.chord_solve(*args[:6], ct, x0=x0)
+    xp, Fp, dp, ip, ap = pf.chord_solve_plain(*args[:6], ct, x0=x0)
+    torch.cuda.synchronize()
+    assert chord_solve_cuda.launch_count == before + 1 and chord_solve_cuda.launches["wide"] == wide + 1
+    assert torch.equal(ak, ap)
+    assert int((ik != ip).sum()) <= max(1, B // 500)
+    torch.testing.assert_close(xk, xp, rtol=0, atol=1e-5)
+    torch.testing.assert_close(Fk, Fp, rtol=0, atol=1e-4)
+    torch.testing.assert_close(dk, dp, rtol=0, atol=1e-4)
+    reset = (ik == 0) & ~ak
+    assert torch.equal(xk[reset], ct.flat.expand(int(reset.sum()), -1))
+
+
+def test_wide_chord_kernel_refuses_networks_above_its_limit(cuda):
+    from gym_anm_torch.physics.chord_cuda import MAX_N
+
+    ct, args = _feeder_chord_problem(MAX_N + 2, 2, 0, cuda)
+    before = chord_solve_cuda.launch_count
+    with pytest.raises(ValueError, match=str(MAX_N)):
+        chord_solve_cuda(*args[:6], ct, x0=args[6])
+    assert chord_solve_cuda.launch_count == before
+
+
+@pytest.mark.parametrize("dtype,n", [(torch.float32, 240), (torch.float32, 258), (torch.float64, 170),
+                                     (torch.float64, 258)])
+def test_kernel_in_device_memory_matches_plain_version(cuda, dtype, n):
+    """K1 on systems too large for a block's shared memory (the matrix in a
+    device scratch buffer): bitwise equal to the plain version at float32,
+    within 1e-10 at float64, and the zero-pivot lane non-finite in both."""
+    B = 5
+    g = torch.Generator(device=cuda).manual_seed(n)
+    A = torch.randn(B, n, n, generator=g, device=cuda, dtype=dtype) + n * torch.eye(n, device=cuda, dtype=dtype)
+    b = torch.randn(B, n, generator=g, device=cuda, dtype=dtype)
+    A[1, 0, 0] = 0.0
+    before = solve_gauss_jordan_cuda.launches["gmem"]
+    xk = solve_gauss_jordan_cuda(A, b)
+    xp = solve_gauss_jordan(A, b)
+    torch.cuda.synchronize()
+    assert solve_gauss_jordan_cuda.launches["gmem"] == before + 1
+    assert not torch.isfinite(xk[1]).all() and not torch.isfinite(xp[1]).all()
+    keep = torch.arange(B, device=cuda) != 1
+    if dtype == torch.float32:
+        assert torch.equal(xk[keep], xp[keep])
+    else:
+        torch.testing.assert_close(xk[keep], xp[keep], rtol=1e-10, atol=1e-10 * float(xp[keep].abs().max()))
+
+
+@pytest.mark.parametrize("n_bus,scale", [(48, 0.6), (130, 0.15)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_feeder_step_on_card_matches_cpu(cuda, n_bus, scale, dtype):
+    """A random radial feeder above 33 buses steps on the card at float32
+    (the wide chord kernel, and the Newton fallback from bad-basin warm
+    starts) and at float64 (Newton with K1; above 85 buses in device
+    memory), and matches the same step on the CPU: voltages within 5e-6 at
+    float32 (the solver's tolerance) and 1e-9 at float64."""
+    from gym_anm_torch.networks.random_feeder import feeder_vars, make_feeder_task, random_radial_network
+
+    rng = np.random.default_rng(n_bus)
+    net = random_radial_network(rng, n_bus)
+    task = make_feeder_task(net, feeder_vars(net, scale, 3, rng))
+    B = 16
+    envs = {d: VecEnv(task, dtype=dtype, device=d) for d in ("cpu", "cuda")}
+    states = {d: e.reset(B)[0] for d, e in envs.items()}
+    lo, hi = envs["cpu"].action_low.double().numpy(), envs["cpu"].action_high.double().numpy()
+    acts = np.random.default_rng(1).uniform(lo, hi, (3, B, len(lo)))
+    k1 = solve_gauss_jordan_cuda.launch_count
+    wide = chord_solve_cuda.launches["wide"]
+    n = n_bus - 1
+    for k in range(3):
+        outs = {}
+        for d, e in envs.items():
+            s = states[d]
+            if k == 2 and dtype == torch.float32:  # far-off warm starts: the chord resets, Newton solves
+                s = s._replace(v_guess=torch.cat([torch.full((B, n), 30.0), torch.ones(B, n)], 1).to(d))
+            states[d], obs, r, done, info = e.step(s, torch.as_tensor(acts[k], dtype=dtype).to(d))
+            assert not done.any() and float(info["diff"].max()) <= 1e-4
+            outs[d] = states[d].bus_vm.cpu()
+        torch.testing.assert_close(outs["cuda"], outs["cpu"], rtol=0, atol=5e-6 if dtype == torch.float32 else 1e-9)
+    torch.cuda.synchronize()
+    assert solve_gauss_jordan_cuda.launch_count > k1
+    if dtype == torch.float32:
+        assert chord_solve_cuda.launches["wide"] > wide
+
+
+# ----------------------------------------------------------------------
+# K5 as lane tiles: ragged batches, exits at different checks, NaN bounds
+# ----------------------------------------------------------------------
+
+def _admm_agree(dc, l, u, warm, max_diff=0):
+    from gym_anm_torch.vec import mpc
+    from gym_anm_torch.vec.admm_cuda import solve_dcopf_cuda
+
+    before = solve_dcopf_cuda.launch_count
+    sk = mpc.solve_dcopf(dc, l, u, warm)
+    sp = mpc.solve_dcopf_plain(dc, l, u, warm)
+    torch.cuda.synchronize()
+    assert solve_dcopf_cuda.launch_count == before + 1
+    for f in ("converged", "bounds_ok", "feasible"):
+        assert torch.equal(getattr(sk, f), getattr(sp, f)), f
+    same = sk.iterations == sp.iterations
+    assert int((~same).sum()) <= max_diff
+    torch.testing.assert_close(sk.x[same], sp.x[same], rtol=0, atol=1e-5)
+    for a, b_ in zip(sk.warm, sp.warm):
+        torch.testing.assert_close(a[same], b_[same], rtol=0, atol=1e-4)
+    return sk, sp
+
+
+@pytest.mark.parametrize("B", [1, 7, 1001])
+def test_admm_kernel_on_ragged_batches(cuda, B):
+    """Batches that fill no whole tile of 8 lanes (and many tiles, refilled):
+    the kernel's lanes against the plain version's, cold and then warm."""
+    from gym_anm_torch.vec import make_anm6easy_task, mpc
+
+    dc, l, u = _dcopf_lanes(make_anm6easy_task(), 1, B, B, cuda, 400)
+    warm = mpc.init_warm(dc, B)
+    for _ in range(2):
+        sk, _ = _admm_agree(dc, l, u, warm, max_diff=B // 200)
+        warm = sk.warm
+
+
+def test_admm_kernel_tile_with_lanes_exiting_at_different_checks(cuda):
+    """One tile of 8 lanes: two crossed-bound lanes (exit at entry), lanes
+    warm from their own solutions (exit at an early check) and cold lanes
+    (later checks), interleaved; then 24 such lanes so that slots refill."""
+    from gym_anm_torch.vec import make_anm6easy_task, mpc
+
+    for B in (8, 24):
+        dc, l, u = _dcopf_lanes(make_anm6easy_task(), 1, B, 3, cuda, 4000)
+        cold = mpc.init_warm(dc, B)
+        solved = mpc.solve_dcopf_plain(dc, l, u, cold).warm
+        lane = torch.arange(B, device=cuda)
+        use_warm = (lane % 3 == 1)[:, None]
+        warm = tuple(torch.where(use_warm, s, c).contiguous() for s, c in zip(solved, cold))
+        bad = lane % 8 == 5
+        l = l.clone()
+        l[bad, dc.m - dc.n + 2] = u[bad, dc.m - dc.n + 2] + 1.0
+        sk, _ = _admm_agree(dc, l, u, warm)
+        its = sk.iterations[~bad]
+        assert bool((sk.iterations[bad] == 0).all()) and len(set(its.tolist())) > 1
+        assert all(torch.equal(w[bad], c[bad]) for w, c in zip(sk.warm, warm))
+
+
+def test_admm_kernel_on_nan_bounds(cuda):
+    """A NaN in a lane's bounds makes it unsolvable in both versions (no
+    sweep, warm start passed through), and the other lanes are untouched."""
+    from gym_anm_torch.vec import make_anm6easy_task, mpc
+
+    B = 12
+    dc, l, u = _dcopf_lanes(make_anm6easy_task(), 1, B, 4, cuda, 400)
+    l, u = l.clone(), u.clone()
+    l[2, 0] = float("nan")
+    u[7, dc.m - 1] = float("nan")
+    sk, sp = _admm_agree(dc, l, u, mpc.init_warm(dc, B))
+    assert not bool(sk.bounds_ok[2]) and not bool(sk.bounds_ok[7]) and int(sk.bounds_ok.sum()) == B - 2
+    assert torch.equal(torch.isinf(sk.r_prim), torch.isinf(sp.r_prim))

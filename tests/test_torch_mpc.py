@@ -423,6 +423,41 @@ def test_shift_warm_is_exact_stage_shift(host_problem):
     assert tm.make_shift_warm(dc1, host_problem(1)[0], 1)(w) is w
 
 
+@pytest.mark.parametrize("R,K", [(21, 39), (60, 21), (16, 4), (17, 5)])
+def test_mma_fragments_layout(R, K):
+    """Entry [rt, c, l, h] of the fragment copy is M[16 rt + 8 h + l // 4,
+    4 c + l % 4] (zero beyond M), float64: the (a0, a1) of thread l in K5's
+    m16n8k4 tile (rt, c)."""
+    M = torch.arange(R * K, dtype=torch.float32).reshape(R, K) / 7
+    RT, KC = -(-R // 16), -(-K // 4)
+    f = tm.mma_a_fragments(M)
+    assert f.dtype == torch.float64 and f.numel() == RT * KC * 64
+    f = f.reshape(RT, KC, 32, 2)
+    Mp = torch.zeros(16 * RT, 4 * KC, dtype=torch.float64)
+    Mp[:R, :K] = M.double()
+    for rt in range(RT):
+        for c in range(KC):
+            for lane in range(32):
+                for h in range(2):
+                    assert f[rt, c, lane, h] == Mp[16 * rt + 8 * h + lane // 4, 4 * c + lane % 4]
+
+
+@pytest.mark.parametrize("N", [1, 4])
+def test_vec_dcopf_carries_the_kernels_fragments(host_problem, N):
+    """``make_vec_dcopf`` makes K5's fragment copies of Āᵀ and P_pack from the
+    working-dtype values, and their sizes are the kernel's (admm_cuda's
+    frag_count); a lane-sweep reads them from L2 only where the kernel does
+    not stage them, a warp's loads shared by its 8 lanes."""
+    from gym_anm_torch.vec.admm_cuda import frag_count, l2_bytes_per_lane_sweep
+
+    dc = tm.make_vec_dcopf(host_problem(N)[0], dtype=torch.float32, device="cpu")
+    assert torch.equal(dc.A_frag, tm.mma_a_fragments(dc.A_bar.T))
+    assert torch.equal(dc.P_frag, tm.mma_a_fragments(dc.P_pack_T.T))
+    assert dc.A_frag.numel() + dc.P_frag.numel() == 2 * frag_count(dc.n, dc.m)
+    assert l2_bytes_per_lane_sweep(dc.n, dc.m, staged=True) == 0
+    assert l2_bytes_per_lane_sweep(dc.n, dc.m, staged=False) == 2 * frag_count(dc.n, dc.m)
+
+
 def test_cold_warm_tuple_shapes(host_problem):
     dc = tm.make_vec_dcopf(host_problem(1)[0], dtype=torch.float32, device="cpu")
     x, y, z, Ax = tm.init_warm(dc, 5)

@@ -252,6 +252,38 @@ def test_butterfly_sum_follows_the_warp_order(n):
     np.testing.assert_array_equal(tpf._butterfly_sum(torch.as_tensor(a)).numpy(), v[:, 0])
 
 
+@pytest.mark.parametrize("n", [33, 63, 129, 300])
+def test_butterfly_sum_follows_the_wide_kernels_fold(n):
+    """Above one warp (n > 32) the wide chord kernel folds the zero-padded
+    pair sums in place, v[j] += v[j + o] for j < o at each offset o >= 32 of
+    the butterfly, then finishes with the warp's shuffles (16..1) on v[0..31]:
+    the same float32 sums as the plain version's full butterfly."""
+    rng = np.random.default_rng(n)
+    a = (rng.standard_normal((64, 2 * n)) * 10.0 ** rng.integers(-6, 3, (64, 2 * n))).astype(np.float32)
+    width = 1 << (n - 1).bit_length()
+    v = np.zeros((64, width), np.float32)
+    v[:, :n] = a[:, :n] + a[:, n:]
+    o = width // 2
+    while o >= 32:
+        v[:, :o] = v[:, :o] + v[:, o:2 * o]
+        o //= 2
+    w = v[:, :32]
+    for o in (16, 8, 4, 2, 1):
+        w = w + w[:, np.arange(32) ^ o]
+    np.testing.assert_array_equal(tpf._butterfly_sum(torch.as_tensor(a)).numpy(), w[:, 0])
+
+
+@pytest.mark.parametrize("itemsize,n_max", [(4, 239), (8, 168)])
+def test_gauss_jordan_switches_to_device_memory_above_the_cards_shared_memory(itemsize, n_max):
+    """With an H100's 227 KB of opt-in shared memory per block, the
+    shared-memory path takes n <= 239 in float32 and n <= 168 in float64;
+    larger systems go to the path with the matrix in device memory."""
+    from gym_anm_torch.physics.linsolve_cuda import smem_bytes
+
+    h100 = 232448
+    assert smem_bytes(n_max, itemsize) <= h100 < smem_bytes(n_max + 1, itemsize)
+
+
 def test_chord_acceptance_rate_is_total(ttb32):
     """Port of tests/test_chord_solver.py::test_chord_acceptance_rate_is_total:
     on the bench action distribution at B=8192 every lane's chord exit is
