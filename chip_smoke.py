@@ -85,11 +85,16 @@ non-zero at the first failure:
    from the card's states and warm carries: actions within 2e-2 MW;
 10. networks above 33 buses: random radial feeders of 48, 64 and 130 buses
    (``gym_anm_torch.networks.random_feeder``) at B = 8192: the wide chord
-   kernel against its plain version from flat, warm and bad-basin starts;
-   K1 in device memory at n = 258 (float32 bitwise, float64 within 1e-10)
-   with its times; each feeder's float32 ``VecEnv`` for 5 steps, the last
-   from bad-basin warm starts (the Newton fallback, K1 in device memory on
-   the 130-bus feeder), held against the float64 tier on the card.
+   kernel against its plain version from flat, warm and bad-basin starts,
+   timed beside its block-per-lane design
+   (``gym_anm_torch/bench/chord_newton_wide_lane.cu``); K1's blocked route at
+   n = 258 (float32 bitwise, float64 within 1e-10) timed beside its
+   device-memory design (``bench/gauss_jordan_gmem.cu``) and
+   ``torch.linalg.solve_ex``; K1's shared-memory route at n = 94 and 126
+   (float32) and 64 and 126 (float64) beside ``torch.linalg.solve_ex``; each
+   feeder's float32 ``VecEnv`` for 5 steps, the last from bad-basin warm
+   starts (the Newton fallback, K1's blocked route on the 130-bus feeder),
+   held against the float64 tier on the card.
 
 Every kernel time is device time: ``cuda_ms`` puts N_LAUNCH back-to-back
 launches between one pair of CUDA events behind a sleep kernel, so the host
@@ -106,6 +111,7 @@ report of every kernel first, a JSON line of the kernels next to last, and
 JAX.
 """
 
+import concurrent.futures
 import dataclasses
 import importlib
 import json
@@ -260,15 +266,17 @@ def k2_bound(ct, B, n_iter, x0):
     return bound(2 * macs, PEAK_F64_TC, n_bytes)
 
 
-def chord_vs_plain(pf, cuda_k, name, ct, args, x0):
+def chord_vs_plain(pf, cuda_k, name, ct, args, x0, baseline=None):
     """K2 and the plain chord on the same card inputs.  Both sum in the same
     order (the Anderson sums in the warp's butterfly order, the dot products
     in float64 and rounded once), so they agree bitwise but for a float64
     dot product whose other accumulation order moves a float32 rounding.
     Tolerance: the same accepted lanes; n_iter equal on all but 0.5% of
     lanes; x within 1e-5 (the solver's own scale is xtol = 1e-5 on the
-    residual); F and diff within 1e-4 (the acceptance band).  Returns
-    (max |dx|, kernel ms, plain ms, bound ms, what bounds it)."""
+    residual); F and diff within 1e-4 (the acceptance band).  ``baseline``
+    (an earlier design on the same arguments) is held to the same limits
+    against the kernel and timed beside it.  Returns (max |dx|, kernel ms,
+    plain ms, bound ms, what bounds it, baseline ms or None)."""
     before = cuda_k.launch_count
     xk, Fk, dk, ik, ak = cuda_k(*args, ct, x0=x0)
     torch.cuda.synchronize()
@@ -287,13 +295,23 @@ def chord_vs_plain(pf, cuda_k, name, ct, args, x0):
     assert torch.equal(ak, ap), "K2 and its plain version accept different lanes"
     assert n_diff <= B // 200, f"K2 n_iter differs on {n_diff} lanes"
     assert err <= 1e-5 and float((Fk - Fp).abs().max()) <= 1e-4 and float((dk - dp).abs().max()) <= 1e-4
+    t_b = None
+    if baseline is not None:
+        xb, Fb, db, ib, ab = baseline(*args, ct, x0=x0)
+        torch.cuda.synchronize()
+        nb = int((ib != ik).sum())
+        log(f"K2 {name}: the earlier design against the kernel: n_iter differs on {nb} lanes, max|dx| "
+            f"{float((xb - xk).abs().max()):.3e}, x bitwise equal on {int((xb == xk).all(1).sum())} of {B} lanes")
+        assert torch.equal(ab, ak) and nb <= B // 200 and float((xb - xk).abs().max()) <= 1e-5
+        t_b = statistics.median(cuda_ms(lambda: baseline(*args, ct, x0=x0)) for _ in range(N_REPS))
     t_k = statistics.median(cuda_ms(lambda: cuda_k(*args, ct, x0=x0)) for _ in range(N_REPS))
     t_p = statistics.median(cuda_ms(lambda: pf.chord_solve_plain(*args, ct, x0=x0), 3) for _ in range(N_REPS))
     bound_ms, bound_by = k2_bound(ct, B, ik, x0)
     log(f"K2 {name} time (device time, {N_LAUNCH} launches per reading, median of {N_REPS}): kernel {t_k:.4f} ms, "
-        f"plain {t_p:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}, {int(ik.sum())} lane-iterations), kernel at "
+        + ("" if t_b is None else f"the earlier design {t_b:.4f} ms, ")
+        + f"plain {t_p:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}, {int(ik.sum())} lane-iterations), kernel at "
         f"{bound_ms / t_k:.3f} of it")
-    return err, t_k, t_p, bound_ms, bound_by
+    return err, t_k, t_p, bound_ms, bound_by, t_b
 
 
 def multicap_injections(tb, B, g):
@@ -378,7 +396,7 @@ def phase1b_chord_kernel(pf, cuda_k, VecEnv, make_ieee33_task, make_ieee33_multi
     ):
         err, *times[name] = chord_vs_plain(pf, cuda_k, name, ct, args, x0)
         errs.append(err)
-    t_k, t_p, bound_ms, bound_by = times["base IEEE33 warm starts"]
+    t_k, t_p, bound_ms, bound_by, _ = times["base IEEE33 warm starts"]
     return dict(max_abs_err=max(errs), ms=t_k, plain_ms=t_p, bound_ms=bound_ms, bound_by=bound_by)
 
 
@@ -1250,30 +1268,42 @@ def feeder_env_task(n_bus, scale, n_steps=8):
     return make_feeder_task(net, feeder_vars(net, scale, n_steps, rng), name=f"feeder{n_bus}")
 
 
-def phase10_feeders(pf, lin, cuda_k, VecEnv):
+def phase10_feeders(pf, lin, cuda_k, VecEnv, base):
     """Networks above 33 buses (ROADMAP F3): random radial feeders of 48, 64
     and 130 buses at B = 8192.  The wide chord kernel against its plain
     version on a real step's injections from flat, warm and bad-basin
-    starts; K1 in device memory (n = 258) against its plain version, float32
-    bitwise and float64 within 1e-10; then the feeders' path: a float32
-    VecEnv, 4 steps of uniform-random actions and one from bad-basin warm
-    starts (the Newton fallback: K1 at n = 94, 126 and 258), every output
-    finite, live residuals within 1e-4, no lane terminated, the first 256
-    lanes' voltages within 1e-4 of the float64 tier's on the card (Newton with
-    K1 in float64; in device memory at 130 buses).  Returns the wide chord
-    kernel's and K1's device-memory numbers for the kernels' line, their
-    launches those of the float32 path alone."""
+    starts, and timed beside its block-per-lane design (``base``, the
+    library of ``gym_anm_torch/bench/kernel_probes.BASELINE_SOURCES``); K1's
+    blocked route (n = 258) against its plain version, float32 bitwise and
+    float64 within 1e-10, timed beside its device-memory design and
+    ``torch.linalg.solve_ex``; K1's shared-memory route at
+    the feeders' other sizes (float32 n = 94, 126; float64 n = 64, 126) beside
+    ``torch.linalg.solve_ex``; then the feeders' path: a float32 VecEnv, 4
+    steps of uniform-random actions and one from bad-basin warm starts (the
+    Newton fallback: K1 at n = 94, 126 and 258), every output finite, live
+    residuals within 1e-4, no lane terminated, the first 256 lanes' voltages
+    within 1e-4 of the float64 tier's on the card (Newton with K1 in float64;
+    blocked at 130 buses).  Returns the wide chord kernel's and K1's blocked
+    route's numbers for the kernels' line, their launches those of the
+    float32 path alone."""
+    from gym_anm_torch.bench.kernel_probes import gmem_solve, lane_chord
+
     log(f"== phase 10: random radial feeders above 33 buses, B={B_MAIN}")
-    wide, gmem = {"errs": []}, {}
+    wide, blocked = {"errs": []}, {}
     for n_bus, scale in FEEDERS:
         task = feeder_env_task(n_bus, scale)
         ct, args, warm = task_chord_inputs(VecEnv, task, 4, n_bus)
         n = ct.n
         for name, x0 in (("flat start", None), ("warm starts of a step", warm),
                          ("bad-basin guesses", bad_guesses(B_MAIN, n).to("cuda"))):
-            err, t_k, t_p, bound_ms, bound_by = chord_vs_plain(pf, cuda_k, f"wide, {n_bus}-bus feeder, {name}", ct,
-                                                               args, x0)
+            err, t_k, t_p, bound_ms, bound_by, t_b = chord_vs_plain(
+                pf, cuda_k, f"wide, {n_bus}-bus feeder, {name}", ct, args, x0,
+                baseline=lambda *a, **kw: lane_chord(base, *a, **kw))
             wide["errs"].append(err)
+            if x0 is warm:
+                log(f"K2 wide, {n_bus}-bus feeder, warm starts: this kernel {t_k:.4f} ms, the block-per-lane design "
+                    f"{t_b:.4f} ms "
+                    f"in this call ({t_b / t_k:.2f}x)")
             if n_bus == 130 and x0 is warm:
                 wide.update(ms=t_k, plain_ms=t_p, bound_ms=bound_ms, bound_by=bound_by)
 
@@ -1281,53 +1311,72 @@ def phase10_feeders(pf, lin, cuda_k, VecEnv):
     n = 258
     for B, dtype in ((B_MAIN, torch.float32), (1001, torch.float64)):
         A, b = systems(B, n, dtype, seed=n)
-        before = lin.solve_gauss_jordan_cuda.launches["gmem"]
+        before = lin.solve_gauss_jordan_cuda.launches["blocked"]
         xk = lin.solve_gauss_jordan_cuda(A, b)
         xp = lin.solve_gauss_jordan(A, b)
+        xg = gmem_solve(base, A, b)
         torch.cuda.synchronize()
-        assert lin.solve_gauss_jordan_cuda.launches["gmem"] == before + 1, "K1's device-memory path did not run"
+        assert lin.solve_gauss_jordan_cuda.launches["blocked"] == before + 1, "K1's blocked route did not run"
         assert not torch.isfinite(xk[1]).all() and not torch.isfinite(xp[1]).all(), "zero pivot repaired"
         keep = torch.ones(B, dtype=torch.bool, device="cuda")
         keep[1] = False
         err = float((xk[keep] - xp[keep]).abs().max())
         rel = err / float(xp[keep].abs().max())
-        log(f"K1 in device memory B={B} n={n} {dtype}: max_abs_err={err:.3e} rel={rel:.3e}; bitwise equal on "
-            f"{int((xk[keep] == xp[keep]).all(1).sum())} of {B - 1} finite lanes")
+        log(f"K1 blocked B={B} n={n} {dtype}: max_abs_err={err:.3e} rel={rel:.3e}; bitwise equal on "
+            f"{int((xk[keep] == xp[keep]).all(1).sum())} of {B - 1} finite lanes (the device-memory design: on "
+            f"{int((xg[keep] == xp[keep]).all(1).sum())})")
         if dtype == torch.float64:
-            assert rel <= 1e-10, f"K1 f64 in device memory disagrees with its plain version: rel {rel:.3e}"
+            assert rel <= 1e-10, f"K1 f64 blocked disagrees with its plain version: rel {rel:.3e}"
             continue
-        assert torch.equal(xk[keep], xp[keep]), "K1 f32 in device memory is not bitwise equal to its plain version"
-        t = {key: statistics.median(cuda_ms(fn, 1) for _ in range(3)) for key, fn in (
-            ("ms", lambda: lin.solve_gauss_jordan_cuda(A, b)),
-            ("library_ms", lambda: torch.linalg.solve_ex(A, b)),
-            ("plain_ms", lambda: lin.solve_gauss_jordan(A, b)))}
+        assert torch.equal(xk[keep], xp[keep]), "K1 f32 blocked is not bitwise equal to its plain version"
+        t = {key: statistics.median(cuda_ms(fn, k) for _ in range(r)) for key, fn, k, r in (
+            ("ms", lambda: lin.solve_gauss_jordan_cuda(A, b), N_LAUNCH, N_REPS),
+            ("library_ms", lambda: torch.linalg.solve_ex(A, b), N_LAUNCH, N_REPS),
+            ("gmem_ms", lambda: gmem_solve(base, A, b), 2, 3),
+            ("plain_ms", lambda: lin.solve_gauss_jordan(A, b), 1, 3))}
         bound_ms, bound_by = k1_bound(B, n)
-        log(f"K1 in device memory time B={B} n={n} f32 (device time, median of 3): kernel {t['ms']:.4f} ms, "
-            f"torch.linalg.solve_ex {t['library_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; bound {bound_ms:.4f} ms "
-            f"({bound_by}), kernel at {bound_ms / t['ms']:.4f} of it")
-        gmem = dict(t, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+        log(f"K1 blocked time B={B} n={n} f32 (device time; kernel and solve_ex {N_LAUNCH} launches a reading, median "
+            f"of {N_REPS}; the device-memory design 2 launches, median of 3; plain 1, median of 3): kernel "
+            f"{t['ms']:.4f} ms, the device-memory design {t['gmem_ms']:.4f} ms, torch.linalg.solve_ex {t['library_ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), kernel at {bound_ms / t['ms']:.4f} of it")
+        del t["gmem_ms"]
+        blocked = dict(t, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+
+    # K1's shared-memory route at the feeders' other sizes, for its row.
+    for n, dtype in ((94, torch.float32), (126, torch.float32), (64, torch.float64), (126, torch.float64)):
+        A, b = systems(B_MAIN, n, dtype, seed=n)
+        before = lin.solve_gauss_jordan_cuda.launches["smem"]
+        xk = lin.solve_gauss_jordan_cuda(A, b)
+        torch.cuda.synchronize()
+        assert lin.solve_gauss_jordan_cuda.launches["smem"] == before + 1
+        t_k = statistics.median(cuda_ms(lambda: lin.solve_gauss_jordan_cuda(A, b)) for _ in range(N_REPS))
+        t_ex = statistics.median(cuda_ms(lambda: torch.linalg.solve_ex(A, b)) for _ in range(N_REPS))
+        bound_ms, bound_by = k1_bound(B_MAIN, n, A.element_size())
+        log(f"K1 shared-memory route B={B_MAIN} n={n} {dtype}: kernel {t_k:.4f} ms, torch.linalg.solve_ex "
+            f"{t_ex:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), kernel at {bound_ms / t_k:.4f} of it")
 
     # The feeders' path, the float32 tier: the counts zeroed just before each
     # of its calls and read just after, so that the float64 tier that checks
-    # it (on the card too, K1 at n = 258 in device memory on the 130-bus
+    # it (on the card too, K1 at n = 258 on its blocked route on the 130-bus
     # feeder) is counted apart.
     k1 = lin.solve_gauss_jordan_cuda
 
     def counted(tally, fn, *args):
-        cuda_k.launches["wide"] = k1.launches["gmem"] = k1.launch_count = 0
+        cuda_k.launches["wide"] = k1.launches["blocked"] = k1.launch_count = 0
         out = fn(*args)
-        for key, got in (("wide", cuda_k.launches["wide"]), ("gmem", k1.launches["gmem"]), ("k1", k1.launch_count)):
+        for key, got in (("wide", cuda_k.launches["wide"]), ("blocked", k1.launches["blocked"]),
+                         ("k1", k1.launch_count)):
             tally[key] += got
         return out
 
-    counts = {"wide": 0, "gmem": 0}
+    counts = {"wide": 0, "blocked": 0}
     for n_bus, scale in FEEDERS:
         task = feeder_env_task(n_bus, scale)
         env = VecEnv(task, dtype=torch.float32, device="cuda")
         ref = VecEnv(task, dtype=torch.float64, device="cuda")
         g = torch.Generator(device="cuda").manual_seed(100 + n_bus)
         n = env.spec.n_bus - 1
-        f32, f32_bad, f64 = ({"wide": 0, "gmem": 0, "k1": 0} for _ in range(3))
+        f32, f32_bad, f64 = ({"wide": 0, "blocked": 0, "k1": 0} for _ in range(3))
         t0 = time.perf_counter()
         state, obs = counted(f32, env.reset, B_MAIN, g)
         s64, _ = counted(f64, ref.reset, N_CHECK_LANES)
@@ -1348,8 +1397,8 @@ def phase10_feeders(pf, lin, cuda_k, VecEnv):
         log(f"{n_bus}-bus feeder path (n = {n}): 5 f32 steps at B={B_MAIN} and the f64 tier's on {N_CHECK_LANES} "
             f"lanes in {wall:.2f} s; f32 path: wide chord launches {f32['wide'] + f32_bad['wide']}, K1 launches "
             f"{f32['k1'] + f32_bad['k1']} (n = {2 * n}; {f32_bad['k1']} in the bad-basin step, "
-            f"{f32['gmem'] + f32_bad['gmem']} in device memory); f64 tier: K1 launches {f64['k1']}, "
-            f"{f64['gmem']} in device memory; f32 voltages against the f64 tier on {N_CHECK_LANES} lanes: max abs "
+            f"{f32['blocked'] + f32_bad['blocked']} blocked); f64 tier: K1 launches {f64['k1']}, "
+            f"{f64['blocked']} blocked; f32 voltages against the f64 tier on {N_CHECK_LANES} lanes: max abs "
             f"diff {worst_vm:.3e}")
         assert f32["wide"] + f32_bad["wide"] > 0, "the wide chord kernel never launched on the feeder path"
         assert f32_bad["k1"] > 0, "the f32 fallback did not launch K1 in the bad-basin step"
@@ -1358,11 +1407,11 @@ def phase10_feeders(pf, lin, cuda_k, VecEnv):
         # more sensitive to the residual than IEEE33's (5e-5 above).
         assert worst_vm <= 1e-4, f"{n_bus}-bus feeder: f32 voltages off the f64 tier's by {worst_vm:.3e}"
         if 2 * n > 239:
-            assert f32_bad["gmem"] > 0, "the f32 fallback did not run K1 in device memory on the 130-bus feeder"
+            assert f32_bad["blocked"] > 0, "the f32 fallback did not run K1's blocked route on the 130-bus feeder"
         if 2 * n > 168:
-            assert f64["gmem"] > 0, "the f64 tier did not run K1 in device memory on the 130-bus feeder"
+            assert f64["blocked"] > 0, "the f64 tier did not run K1's blocked route on the 130-bus feeder"
     wide["max_abs_err"] = max(wide.pop("errs"))
-    return dict(wide, launches=counts["wide"]), dict(gmem, launches=counts["gmem"])
+    return dict(wide, launches=counts["wide"]), dict(blocked, launches=counts["blocked"])
 
 
 def admm_bound(dc, B, iterations):
@@ -1739,9 +1788,10 @@ def log_ptxas(report):
     """One line per kernel of ptxas's report: registers and spill bytes."""
     b = {"0": "false", "1": "true", "f": "float", "d": "double"}
     names = ((r"gj_regsILi(\d+)E", lambda k: f"gj_regs<{k}>"),
-             (r"gj_smemI([fd])Lb([01])E", lambda t, g: f"gj_smem<{b[t]}, {b[g]}>"),
+             (r"gj_smemI([fd])E", lambda t: f"gj_smem<{b[t]}>"),
+             (r"gj_blockedI([fd])Li(\d+)E", lambda t, k: f"gj_blocked<{b[t]}, {k}>"),
              (r"chord_kernelILi(\d+)ELi(\d+)E", lambda a, c: f"chord_kernel<{a}, {c}>"),
-             (r"(chord_wide_kernel)", lambda k: k),
+             (r"chord_wide_kernelILi(\d+)E", lambda k: f"chord_wide_kernel<{k}>"),
              (r"admm_kernelILb([01])ELb([01])E", lambda m, g: f"admm_kernel<{b[m]}, {b[g]}>"))
     name = spill = None
     for line in report.splitlines():
@@ -1762,6 +1812,7 @@ def main():
         print("chip_smoke.py: no CUDA device is visible; it runs only on a card", file=sys.stderr)
         return 1
     from gym_anm_torch import _build
+    from gym_anm_torch.bench.kernel_probes import load_baselines
     from gym_anm_torch.physics import linsolve_cuda as lin
     from gym_anm_torch.physics import power_flow as pf
     from gym_anm_torch.physics import ybus
@@ -1779,8 +1830,14 @@ def main():
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     lib_path = _build.library_path()
-    lib = _build.load_library()
-    log(f"K1, K2 (tile and wide) and K5 built/loaded in {time.perf_counter() - t0:.1f} s: {lib_path.name}")
+    # The earlier designs of K1's large route and of the wide K2 (phase 10's
+    # baselines) build beside the kernels.
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        base = pool.submit(load_baselines)
+        lib = _build.load_library()
+        base = base.result()
+    log(f"K1, K2 (tile and wide), K5 and the baselines built/loaded in {time.perf_counter() - t0:.1f} s: "
+        f"{lib_path.name}")
     log_ptxas(_build.ptxas_report())
 
     kernel = lin.solve_gauss_jordan_cuda
@@ -1810,7 +1867,7 @@ def main():
     k5_launches, farm_record, _ = run(phase9c_farm, mpc, solve_dcopf_cuda, VecEnv, make_anm6easy_task, kernel,
                                       chord_solve_cuda)
     run(phase9d_replay, mpc, VecEnv, make_anm6easy_task, farm_record)
-    k2w, k1g = run(phase10_feeders, pf, lin, chord_solve_cuda, VecEnv)
+    k2w, k1g = run(phase10_feeders, pf, lin, chord_solve_cuda, VecEnv, base)
 
     # Launches: the runs of the base, multicap17, collection and ANM6Easy paths together.
     print(json.dumps({"kernels": [{
@@ -1862,7 +1919,7 @@ def main():
         "bound_by": k2w["bound_by"],
         "library_ms": None,  # no single PyTorch call runs the chord iteration
     }, {
-        "name": "gauss_jordan_gmem",
+        "name": "gauss_jordan_blocked",
         "route": "cuda",
         "source": "gym_anm_torch/csrc/gauss_jordan.cu",
         "replaces": "gym_anm_tpu/physics/linsolve_pallas.py:31",

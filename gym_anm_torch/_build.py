@@ -33,16 +33,17 @@ _SIGNATURES = {
     "gj_solve_f32_regs": [_P, _P, _P, _I, _I, _P],
     "gj_solve_f32": [_P, _P, _P, _I, _I, _P],
     "gj_solve_f64": [_P, _P, _P, _I, _I, _P],
-    # (A, b, x, scratch, B, n, stream)
-    "gj_solve_f32_gmem": [_P, _P, _P, _P, _I, _I, _P],
-    "gj_solve_f64_gmem": [_P, _P, _P, _P, _I, _I, _P],
+    # (A, b, x, scratch, B, n, panel, stream)
+    "gj_solve_f32_blocked": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "gj_solve_f64_blocked": [_P, _P, _P, _P, _I, _I, _I, _P],
     "gj_smem_limit_bytes": [],
     # (p, q, w_a, w_b, dtf_re, dtf_im, x0, W_pack, invJ0_T, H_T, g_col0,
     #  g_col1, C, e_t, rs_re, rs_im, va, vb, inv_vmag, xtol, band, aa_gate,
     #  lim_iter, x, F, diff, n_iter, accepted, next_lane, B, n, stream)
     "chord_newton_f32": [_P] * 16 + [_F] * 6 + [_I] + [_P] * 6 + [_I, _I, _P],
-    # as chord_newton_f32 without next_lane
-    "chord_newton_wide_f32": [_P] * 16 + [_F] * 6 + [_I] + [_P] * 5 + [_I, _I, _P],
+    # as chord_newton_f32 with the float32 W_pack and invJ0_T, then scratch
+    # after next_lane and their row strides (w_ld, u_ld) after n
+    "chord_newton_wide_f32": [_P] * 16 + [_F] * 6 + [_I] + [_P] * 7 + [_I] * 4 + [_P],
     # (A_frag, P_frag, q_bar, rho, inv_rho, D, D_inv, E, E_inv, l, u, x0, y0,
     #  z0, Ax0, x, xw, yw, zw, Axw, iterations, r_prim, r_dual, converged,
     #  bounds_ok, feasible, next_lane, scratch, sigma, alpha, 1 - alpha,
@@ -66,13 +67,14 @@ def _nvcc():
     return found
 
 
-def library_path():
-    """Path of the shared library for the current sources and flags."""
+def library_path(sources=None, stem="libgym_anm_kernels"):
+    """Path of the shared library for ``sources`` (default: every
+    ``csrc/*.cu``) and the flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC_DIR.glob("*.cu")):
+    for src in sorted(sources or CSRC_DIR.glob("*.cu")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libgym_anm_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
 
 
 def ptxas_report():
@@ -86,40 +88,55 @@ def _check(cmd, stderr, returncode):
         raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}\n{stderr}")
 
 
+def build_library(sources, stem):
+    """Compile ``sources`` (one nvcc per source, all started together) and
+    link them into one shared library under ``build/kernels/``, unless it is
+    there already; returns its path."""
+    sources = sorted(sources)
+    out = library_path(sources, stem)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+    jobs = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(sources, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for cmd in jobs]
+    try:
+        report = []
+        for cmd, proc in zip(jobs, procs):
+            stderr = proc.communicate()[1]
+            _check(cmd, stderr, proc.returncode)
+            report.append(stderr)
+        out.with_suffix(".ptxas.txt").write_text("".join(report))
+        cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        _check(cmd, proc.stderr, proc.returncode)
+        os.replace(tmp, out)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in objs:
+            f.unlink(missing_ok=True)
+    return out
+
+
+def declare(lib):
+    """Declare ``argtypes``/``restype`` of every entry point ``lib`` has."""
+    for name, argtypes in _SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
+    return lib
+
+
 @functools.cache
 def load_library():
     """Build (if needed) and load the kernel library; returns the CDLL with
     every entry point's ``argtypes``/``restype`` declared."""
-    out = library_path()
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        sources = sorted(CSRC_DIR.glob("*.cu"))
-        objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
-        jobs = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(sources, objs)]
-        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-                 for cmd in jobs]
-        try:
-            report = []
-            for cmd, proc in zip(jobs, procs):
-                stderr = proc.communicate()[1]
-                _check(cmd, stderr, proc.returncode)
-                report.append(stderr)
-            out.with_suffix(".ptxas.txt").write_text("".join(report))
-            cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            _check(cmd, proc.stderr, proc.returncode)
-            os.replace(tmp, out)
-        finally:
-            for proc in procs:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-            for f in objs:
-                f.unlink(missing_ok=True)
-    lib = ctypes.CDLL(str(out))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = _RESTYPES.get(name, ctypes.c_int)
-    return lib
+    lib = ctypes.CDLL(str(build_library(CSRC_DIR.glob("*.cu"), "libgym_anm_kernels")))
+    for name in _SIGNATURES:
+        getattr(lib, name)  # every entry point is there
+    return declare(lib)

@@ -20,18 +20,36 @@
    counters gives its cycles per warp-sweep by step at the farm's call and
    on IEEE33-renewable.
 
+5. The wide K2 (``csrc/chord_newton_wide.cu``): a copy with ``clock64``
+   counters around the five steps of a round (thread 0 of every block), on
+   the 130-bus feeder's warm starts at B = 8192 (``chip_smoke.py`` phase
+   10's set): rounds per block and cycles per round by step, beside the
+   block-per-lane design.
+6. K1's blocked route (``gj_blocked``) at n = 258, float32, B = 8192 with
+   panels of 16, 32 and 64 pivots and the kernel's own choice, beside the
+   device-memory design (``gauss_jordan_gmem.cu``: the matrix read and
+   written in device memory every sweep) and ``torch.linalg.solve_ex``.
+
+The earlier designs of K1 above the card's shared memory (the matrix swept
+in device memory) and of the wide chord kernel (one block per lane) stay in
+``gauss_jordan_gmem.cu`` and ``chord_newton_wide_lane.cu`` as the baselines
+of probes 5 and 6 and of ``chip_smoke.py`` phase 10 (:func:`load_baselines`,
+:func:`gmem_solve`, :func:`lane_chord`).
+
 The copies are built into ``build/kernels/probe/``; the counters cost
 registers, so the instrumented K2 runs ~15% slower than the kernel itself
 (both times are printed).  Needs a card and nvcc.
 """
 
 import ctypes
+import importlib
 import math
 import re
 import statistics
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from .. import _build
@@ -139,12 +157,7 @@ def load(src_text, name):
     OUT.mkdir(parents=True, exist_ok=True)
     src = OUT / f"{name}.cu"
     src.write_text(src_text)
-    lib = ctypes.CDLL(str(nvcc(src, OUT / f"{name}.so", "-shared")))
-    for fn, args in _build._SIGNATURES.items():
-        if hasattr(lib, fn):
-            getattr(lib, fn).argtypes = args
-            getattr(lib, fn).restype = _build._RESTYPES.get(fn, ctypes.c_int)
-    return lib
+    return _build.declare(ctypes.CDLL(str(nvcc(src, OUT / f"{name}.so", "-shared"))))
 
 
 def read(lib):
@@ -223,6 +236,169 @@ def probe_gj():
         cyc, warps = read(lib)[:2]
         ms = statistics.median(device_ms(call) for _ in range(5))
         print(f"K1 n=64 B={B}: {ms:.4f} ms (instrumented copy); {cyc / warps / 64:.0f} cycles per sweep of a warp")
+
+
+# The baselines: K1 with the matrix in device memory, and the wide chord
+# kernel with one block per lane.
+BASELINE_SOURCES = ("gauss_jordan_gmem.cu", "chord_newton_wide_lane.cu")
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+BASELINE_SIGNATURES = {
+    "gj_solve_f32_gmem": [_P, _P, _P, _P, _I, _I, _P],  # (A, b, x, scratch, B, n, stream)
+    "gj_solve_f64_gmem": [_P, _P, _P, _P, _I, _I, _P],
+    # chord_newton_f32's arguments without next_lane
+    "chord_newton_wide_lane_f32": [_P] * 16 + [_F] * 6 + [_I] + [_P] * 5 + [_I, _I, _P],
+}
+
+
+def load_baselines():
+    """Build (if needed) and load the two baselines as one library."""
+    here = Path(__file__).parent
+    lib = ctypes.CDLL(str(_build.build_library([here / f for f in BASELINE_SOURCES], "libgym_anm_baselines")))
+    for name, argtypes in BASELINE_SIGNATURES.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def gmem_solve(lib, A, b):
+    """x = A^-1 b by K1's device-memory design (A [B, n, n], b [B, n] on the card)."""
+    B, n = b.shape
+    x, scratch = torch.empty_like(b), torch.empty(B, n, n + 1, dtype=A.dtype, device=A.device)
+    fn = lib.gj_solve_f64_gmem if A.dtype == torch.float64 else lib.gj_solve_f32_gmem
+    rc = fn(A.data_ptr(), b.data_ptr(), x.data_ptr(), scratch.data_ptr(), B, n, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, f"K1's device-memory design failed with CUDA error {rc}"
+    return x
+
+
+def lane_chord(lib, p, q, w_a, w_b, dtf_re, dtf_im, ct, xtol=1e-5, lim_iter=48, stall_tol_factor=10.0, x0=None):
+    """The block-per-lane wide chord kernel on chord_solve_cuda's arguments; returns
+    (x, F, diff, n_iter, accepted)."""
+    B, n = p.shape
+    consts = (ct.W_pack, ct.invJ0_T, ct.H_T, ct.g_col0, ct.g_col1, ct.c, ct.e_t, ct.rs_re, ct.rs_im)
+    x = torch.empty(B, 2 * n, device=p.device)
+    F, diff = torch.empty_like(x), torch.empty(B, device=p.device)
+    n_iter = torch.empty(B, dtype=torch.int32, device=p.device)
+    accepted = torch.empty(B, dtype=torch.bool, device=p.device)
+    va, vb = float(ct.vstar_re), float(ct.vstar_im)
+    rc = lib.chord_newton_wide_lane_f32(
+        *(t.data_ptr() for t in (p, q, w_a, w_b, dtf_re, dtf_im)), None if x0 is None else x0.data_ptr(),
+        *(t.data_ptr() for t in consts), va, vb, 1.0 / math.hypot(va, vb), xtol, stall_tol_factor * xtol,
+        100.0 * xtol, int(lim_iter), *(t.data_ptr() for t in (x, F, diff, n_iter, accepted)), B, n,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, f"the block-per-lane wide chord kernel failed with CUDA error {rc}"
+    return x, F, diff, n_iter, accepted
+
+
+WIDE_STEPS = ["(1) refill, stage F", "(2) update product", "(3) direction, AA, stage V", "(4) mismatch product",
+              "(5) exit test"]
+
+
+def instrument_wide(src):
+    """chord_newton_wide.cu with cycle counters around each step of a round."""
+    marks = ["    // (1) Refill an empty slot", "    // (2) The update product", "    // The mismatch product's first",
+             "    // (4) The mismatch product:", "    // (5) ||F||inf"]
+    for i, mark in enumerate(marks):
+        assert src.count(mark) == 1, f"the kernel's layout changed: {mark!r}"
+        src = src.replace(mark, f"    const long long t{i} = clock64();\n" + mark)
+    head, tail = "  while (true) {\n", "  }\n}\n\n// The smallest"
+    assert src.count(head) == 1 and src.count(tail) == 1, "the kernel's layout changed"
+    src = src.replace(head, "  long long T[6] = {}; long long t_prev = 0;\n" + head)
+    src = src.replace("    // (1) Refill an empty slot", "    if (t_prev) T[4] += t0 - t_prev;\n    ++T[5];\n"
+                      "    // (1) Refill an empty slot")
+    src = src.replace("    // (2) The update product", "    T[0] += t1 - t0;\n    // (2) The update product")
+    src = src.replace("    // The mismatch product's first", "    T[1] += t2 - t1;\n    // The mismatch product's first")
+    src = src.replace("    // (4) The mismatch product:", "    T[2] += t3 - t2;\n    // (4) The mismatch product:")
+    src = src.replace("    // (5) ||F||inf", "    T[3] += t4 - t3;\n    t_prev = t4;\n    // (5) ||F||inf")
+    src = src.replace(tail, "  }\n  if (threadIdx.x == 0) {\n    for (int i = 0; i < 6; ++i) atomicAdd(&g_probe[i], "
+                      "(unsigned long long)T[i]);\n    atomicAdd(&g_probe[6], 1ull);\n  }\n}\n\n// The smallest")
+    return src.replace("namespace {\n", COUNTERS, 1) + READOUT
+
+
+def feeder_chord_inputs(n_bus=130, scale=0.15, n_steps=4):
+    """``chip_smoke.py`` phase 10's warm-start set: the chord solve's
+    inputs at step ``n_steps`` of the seeded random feeder at B = 8192."""
+    from ..networks.random_feeder import feeder_vars, make_feeder_task, random_radial_network
+
+    tm = importlib.import_module("gym_anm_torch.physics.transition")
+    rng = np.random.default_rng(n_bus)
+    net = random_radial_network(rng, n_bus)
+    env = VecEnv(make_feeder_task(net, feeder_vars(net, scale, 8, rng), name=f"feeder{n_bus}"), dtype=torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(n_bus)
+    state, _ = env.reset(8192, g)
+    real, seen = tm.chord_solve, []
+
+    def capture(*args, x0=None):
+        if x0 is not None:
+            seen.append((args, x0))
+        return real(*args, x0=x0)
+
+    tm.chord_solve = capture
+    try:
+        for _ in range(n_steps):
+            u = torch.rand(8192, env.n_action, generator=g, device="cuda")
+            state, *_ = env.step_autoreset_batch(state, env.action_low + u * (env.action_high - env.action_low), g)
+    finally:
+        tm.chord_solve = real
+    args, x0 = seen[-1]
+    return args[-1], tuple(a.contiguous() for a in args[:-1]), x0.contiguous()
+
+
+def probe_wide():
+    ct, args, warm = feeder_chord_inputs()
+    B, n = args[0].shape
+    base = load_baselines()
+    t = {key: statistics.median(device_ms(fn) for _ in range(5)) for key, fn in (
+        ("kernel", lambda: chord_solve_cuda(*args, ct, x0=warm)),
+        ("lane", lambda: lane_chord(base, *args, ct, x0=warm)))}
+    lib = load(instrument_wide((_build.CSRC_DIR / "chord_newton_wide.cu").read_text()), "wide_probe")
+    consts = (ct.W_pack_f32, ct.invJ0_T_f32, ct.H_T, ct.g_col0, ct.g_col1, ct.c, ct.e_t, ct.rs_re, ct.rs_im)
+    x, scratch = torch.empty(B, 2 * n, device="cuda"), torch.empty(B, 4 * n, device="cuda")
+    F, diff = torch.empty_like(x), torch.empty(B, device="cuda")
+    it, acc = torch.empty(B, dtype=torch.int32, device="cuda"), torch.empty(B, dtype=torch.bool, device="cuda")
+    nxt = torch.zeros(1, dtype=torch.int32, device="cuda")
+    va, vb = float(ct.vstar_re), float(ct.vstar_im)
+    lib.probe_zero()
+    rc = lib.chord_newton_wide_f32(*(a.data_ptr() for a in args), warm.data_ptr(), *(c.data_ptr() for c in consts),
+                                   va, vb, 1.0 / math.hypot(va, vb), 1e-5, 1e-4, 1e-3, 48, x.data_ptr(), F.data_ptr(),
+                                   diff.data_ptr(), it.data_ptr(), acc.data_ptr(), nxt.data_ptr(), scratch.data_ptr(),
+                                   B, n, ct.W_pack_f32.shape[1], ct.invJ0_T_f32.shape[1],
+                                   torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, rc
+    torch.cuda.synchronize()
+    T = read(lib)
+    rounds, blocks = T[5], T[6]
+    print(f"K2 wide, 130-bus feeder warm starts B={B} (n={n}): kernel {t['kernel']:.4f} ms, block-per-lane design "
+          f"{t['lane']:.4f} ms; {int(it.sum())} lane-iterations, {blocks} blocks, {rounds / blocks:.1f} rounds a block, "
+          f"{sum(T[:5]) / rounds:.0f} cycles a round (block thread 0): "
+          + ", ".join(f"{name} {T[i] / rounds:.0f}" for i, name in enumerate(WIDE_STEPS)))
+
+
+def probe_blocked():
+    """K1's blocked route by panel width at n = 258, float32, B = 8192."""
+    B, n = 8192, 258
+    g = torch.Generator(device="cuda").manual_seed(n)
+    A = torch.randn(B, n, n, generator=g, device="cuda") + n * torch.eye(n, device="cuda")
+    b = torch.randn(B, n, generator=g, device="cuda")
+    lib, base = _build.load_library(), load_baselines()
+    x, scratch = torch.empty_like(b), torch.empty(B, n, n + 1, device="cuda")
+    xp = gmem_solve(base, A, b)  # bitwise the plain version (its card tests)
+
+    def blocked(panel):
+        rc = lib.gj_solve_f32_blocked(A.data_ptr(), b.data_ptr(), x.data_ptr(), scratch.data_ptr(), B, n, panel,
+                                      torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, rc
+        return x
+
+    line = []
+    for panel in (0, 16, 32, 64):
+        blocked(panel)
+        torch.cuda.synchronize()
+        assert torch.equal(x, xp), f"panel {panel} is not bitwise the device-memory design"
+        line.append(f"panel {panel or 'auto'} {statistics.median(device_ms(lambda: blocked(panel)) for _ in range(5)):.4f}")
+    t_ex = statistics.median(device_ms(lambda: torch.linalg.solve_ex(A, b)) for _ in range(3))
+    t_gmem = statistics.median(device_ms(lambda: gmem_solve(base, A, b), 2) for _ in range(3))
+    print(f"K1 blocked B={B} n={n} f32 (device ms, median of 5 readings of 20 launches): " + ", ".join(line)
+          + f"; device-memory design {t_gmem:.4f} (2 launches, median of 3); torch.linalg.solve_ex {t_ex:.4f}")
 
 
 # PR 5's admm_dcopf_f32 arguments (admm_dcopf_pr5.cu's admm_probe_f32).
@@ -359,6 +535,8 @@ if __name__ == "__main__":
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"nvidia-smi: {smi}")
+    probe_wide()
+    probe_blocked()
     probe_admm()
     probe_admm_cycles()
     probe_dmma()

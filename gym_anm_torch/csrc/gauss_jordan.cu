@@ -52,17 +52,47 @@
 // barriers per sweep.  It serves the float64 tier and the networks above 33
 // buses.
 //
-// Design, a matrix too large for a block's shared memory (gj_gmem): the same
-// kernel with the augmented matrix in a device scratch buffer [B, n, n + 1]
-// that the wrapper allocates (the pivot row and the factors stay in shared
-// memory).  It sweeps in gj_smem's order and rounds alike, so it is bitwise
-// equal to it and to the plain version.  The opt-in limit (227 KB on an H100)
-// puts the switch at n = 239 in float32 (networks of 121 buses and more) and
-// n = 168 in float64 (86 buses); at n = 258, float64, a system's matrix is
-// 535 KB and stays in L2 while its block runs.
+// Design, a matrix too large for a block's shared memory (gj_blocked):
+// blocked Gauss-Jordan.  The augmented matrix lives in a device scratch
+// buffer [B, n, n + 1] that the wrapper allocates, and it is read and written
+// there once every BP pivots instead of once every pivot.  For the pivots
+// k0 .. k0 + BP - 1 (a panel) the block loads two panels into shared memory:
+// the n x BP column panel and the BP x (n + 1) pivot-row panel.  It runs the
+// BP sweeps on them alone, in the plain version's order and rounding (the
+// factor an IEEE division, the pivot row's own factor times 0, the product
+// and the difference rounded one by one), updating only what a later sweep
+// of the panel reads: the column panel's columns right of the pivot, and the
+// pivot-row panel's rows below it.  That leaves each row's factor f_i(k) in
+// the column panel and each pivot row p(k) as it stood at sweep k in the row
+// panel.  Then every entry of the matrix is read once, takes its BP updates
+// M <- M - f_i(k) p_j(k) in k order, each rounded one by one, and is written
+// back once: the eliminated columns and the pivot rows too, as the plain
+// version updates all n + 1 columns of every row.  So every entry sees the
+// same operations in the same order as in the plain version: float32 is
+// bitwise equal to it, and a zero pivot or a non-finite entry stays
+// non-finite.  The first panel reads A and b in place of the scratch buffer,
+// and the last panel updates only the diagonal and column n and writes x.
+//
+// Bound (n = 258, B = 8192, float32): 2 n^2 (n + 1) operations a system, 283
+// GFLOP, 4.2 ms at 67 TFLOP/s; without fused multiply-adds each multiply and
+// each subtract takes an issue slot, so 8.4 ms is the floor of this
+// arithmetic.  Device memory: sweeping the matrix in device memory reads and
+// writes it every sweep (bench/gauss_jordan_gmem.cu), 138 MB a system, 1.1
+// TB a call; blocked, the kernel moves it once a panel, n / BP times, ~35 GB a call at BP = 32 (~10 ms at 3.35 TB/s, less
+// where the resident blocks' matrices stay in the 50 MB L2).  The trailing
+// update keeps BP pivot-row entries of its column in registers and reads
+// four rows' factors of a pivot with one 16-byte broadcast load from shared
+// memory (the column panel is stored column by column, so that the panel's
+// sweeps, a thread a row, are free of bank conflicts too).  The grid is
+// persistent (SMs x resident blocks), a block walking over systems.  BP is
+// the largest of 32, 16 and 8 whose panels fit the card's shared memory:
+// float32 up to n = 886 at 32 and 1,782 at 16; float64 up to n = 443 at 32,
+// 886 at 16 and 1,782 at 8.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 #include <utility>
 
@@ -235,17 +265,14 @@ int dispatch_exact(const float* A, const float* b, float* x, int B, int n, cudaS
 // ---------------------------------------------------------------------------
 // gj_smem: one block per system, the matrix in shared memory.
 // ---------------------------------------------------------------------------
-// kGlobal: the augmented matrix in `scratch` (device memory) rather than in
-// shared memory; the sweeps are the same.
-template <typename T, bool kGlobal>
-__global__ void gj_smem(const T* __restrict__ A, const T* __restrict__ b, T* __restrict__ x, T* __restrict__ scratch,
-                        int n) {
+template <typename T>
+__global__ void gj_smem(const T* __restrict__ A, const T* __restrict__ b, T* __restrict__ x, int n) {
   extern __shared__ unsigned char smem_raw[];
   const int ld = n + 1;
   const long long sys = blockIdx.x;
-  T* M = kGlobal ? scratch + sys * n * ld : reinterpret_cast<T*>(smem_raw);  // [n][ld]
-  T* prow = kGlobal ? reinterpret_cast<T*>(smem_raw) : M + n * ld;           // [ld]  pivot row of the sweep
-  T* fcol = prow + ld;                                                       // [n]   elimination factors
+  T* M = reinterpret_cast<T*>(smem_raw);  // [n][ld]
+  T* prow = M + n * ld;                   // [ld]  pivot row of the sweep
+  T* fcol = prow + ld;                    // [n]   elimination factors
   const T* As = A + sys * n * n;
   const T* bs = b + sys * n;
   const int lane = threadIdx.x & 31;
@@ -282,22 +309,184 @@ int max_smem_optin() {
   return max_smem;
 }
 
-// scratch == nullptr: the matrix in shared memory (it must fit); else in
-// scratch [B, n, n + 1].
 template <typename T>
-int launch_smem(const T* A, const T* b, T* x, T* scratch, int B, int n, void* stream) {
+int launch_smem(const T* A, const T* b, T* x, int B, int n, void* stream) {
   if (B <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t vecs = static_cast<size_t>(n + 1) + n;
-  const size_t smem = (scratch == nullptr ? static_cast<size_t>(n) * (n + 1) + vecs : vecs) * sizeof(T);
+  const size_t smem = (static_cast<size_t>(n) * (n + 1) + static_cast<size_t>(n + 1) + n) * sizeof(T);
   if (smem > static_cast<size_t>(max_smem_optin())) return static_cast<int>(cudaErrorInvalidValue);
-  void (*kernel)(const T*, const T*, T*, T*, int) = scratch == nullptr ? gj_smem<T, false> : gj_smem<T, true>;
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaError_t err = cudaFuncSetAttribute(gj_smem<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int threads = n > 16 ? (scratch == nullptr ? 128 : 256) : 32;
-  kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(A, b, x, scratch, n);
+  const int threads = n > 16 ? 128 : 32;
+  gj_smem<T><<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(A, b, x, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// gj_blocked: blocked Gauss-Jordan, the matrix in a device scratch buffer.
+// ---------------------------------------------------------------------------
+constexpr int kBlkThreads = 256;
+
+__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
+
+// Four consecutive entries of a shared-memory array (16-byte aligned).
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+}
+__device__ __forceinline__ void load4(const double* p, double (&v)[4]) {
+  const double2 a = reinterpret_cast<const double2*>(p)[0], c = reinterpret_cast<const double2*>(p)[1];
+  v[0] = a.x, v[1] = a.y, v[2] = c.x, v[3] = c.y;
+}
+
+// Shared memory of a block: the column panel [BP][ldn] (column by column,
+// ldn = n rounded up to 4) and the pivot-row panel [BP][n + 1].
+template <typename T>
+size_t blocked_smem_bytes(int n, int bp) {
+  const size_t ldn = (static_cast<size_t>(n) + 3) / 4 * 4;
+  return sizeof(T) * static_cast<size_t>(bp) * (ldn + n + 1);
+}
+
+template <typename T, int BP>
+__global__ void __launch_bounds__(kBlkThreads) gj_blocked(const T* __restrict__ A, const T* __restrict__ bv,
+                                                          T* __restrict__ x, T* __restrict__ S, int B, int n) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ld = n + 1, ldn = (n + 3) / 4 * 4;
+  T* fp = reinterpret_cast<T*>(smem_raw);  // [BP][ldn]: the column panel, then the factors f_i(k)
+  T* pr = fp + BP * ldn;                   // [BP][ld]:  the pivot-row panel, then the rows p(k)
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int kWarps = kBlkThreads / 32;
+
+  for (long long sys = blockIdx.x; sys < B; sys += gridDim.x) {
+    const T* As = A + sys * n * n;
+    const T* bs = bv + sys * n;
+    T* M = S + sys * n * ld;
+    for (int k0 = 0; k0 < n; k0 += BP) {
+      const int bw = n - k0 < BP ? n - k0 : BP;
+      const bool first = k0 == 0, last = k0 + bw == n;
+      // The matrix as it stood before this panel: A and b, or the scratch buffer.
+      auto at = [&](int i, int j) -> T { return first ? (j < n ? As[i * n + j] : bs[i]) : M[i * ld + j]; };
+
+      // Load both panels (the padding rows of the column panel are zeros).
+      for (int c = warp; c < bw; c += kWarps) {
+        for (int i = lane; i < ldn; i += 32) fp[c * ldn + i] = i < n ? at(i, k0 + c) : T(0);
+      }
+      for (int r = warp; r < bw; r += kWarps) {
+        for (int j = lane; j < ld; j += 32) pr[r * ld + j] = at(k0 + r, j);
+      }
+      __syncthreads();
+
+      // The panel's sweeps: a thread a row of the column panel and a column
+      // of the pivot-row panel.
+      for (int kk = 0; kk < bw; ++kk) {
+        const int k = k0 + kk;
+        const T pivot = pr[kk * ld + k];
+        for (int i = tid; i < n; i += kBlkThreads) {
+          const T f = mul_rn(div_rn(fp[kk * ldn + i], pivot), i == k ? T(0) : T(1));
+          fp[kk * ldn + i] = f;
+          for (int c = kk + 1; c < bw; ++c) fp[c * ldn + i] = sub_rn(fp[c * ldn + i], mul_rn(f, pr[kk * ld + k0 + c]));
+        }
+        __syncthreads();
+        if (kk + 1 < bw) {
+          for (int j = tid; j < ld; j += kBlkThreads) {
+            const T p = pr[kk * ld + j];
+            for (int r = kk + 1; r < bw; ++r) pr[r * ld + j] = sub_rn(pr[r * ld + j], mul_rn(fp[kk * ldn + k0 + r], p));
+          }
+          __syncthreads();
+        }
+      }
+
+      if (!last) {
+        // Every entry once, its BP updates in k order (bw == BP here).  A
+        // warp walks over units (32 columns, 4 rows), columns outermost, with
+        // the pivot-row entries of its column in registers.
+        const int nc = (ld + 31) / 32, ng = ldn / 4;
+        const int total = nc * ng, per = (total + kWarps - 1) / kWarps;
+        int u = warp * per;
+        const int u_end = total < u + per ? total : u + per;
+        while (u < u_end) {
+          const int cj = u / ng, g0 = u - cj * ng;
+          const int g1 = ng < g0 + (u_end - u) ? ng : g0 + (u_end - u);
+          const int j = 32 * cj + lane;
+          const bool jv = j < ld;
+          T p[BP];
+#pragma unroll
+          for (int kk = 0; kk < BP; ++kk) p[kk] = jv ? pr[kk * ld + j] : T(0);
+          for (int g = g0; g < g1; ++g) {
+            const int i = 4 * g;
+            T v[4];
+#pragma unroll
+            for (int r = 0; r < 4; ++r) v[r] = (jv && i + r < n) ? at(i + r, j) : T(0);
+#pragma unroll
+            for (int kk = 0; kk < BP; ++kk) {
+              T f[4];
+              load4(fp + kk * ldn + i, f);
+#pragma unroll
+              for (int r = 0; r < 4; ++r) v[r] = sub_rn(v[r], mul_rn(f[r], p[kk]));
+            }
+            if (jv) {
+#pragma unroll
+              for (int r = 0; r < 4; ++r) {
+                if (i + r < n) M[(i + r) * ld + j] = v[r];
+              }
+            }
+          }
+          u += g1 - g0;
+        }
+      } else {
+        // The last panel: only the diagonal and column n, then x.
+        for (int i = tid; i < n; i += kBlkThreads) {
+          T d = at(i, i), r = at(i, n);
+          for (int kk = 0; kk < bw; ++kk) {
+            const T f = fp[kk * ldn + i];
+            d = sub_rn(d, mul_rn(f, pr[kk * ld + i]));
+            r = sub_rn(r, mul_rn(f, pr[kk * ld + n]));
+          }
+          x[sys * n + i] = div_rn(r, d);
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// panel == 0: the largest of 32, 16 and 8 whose panels fit the card's shared
+// memory; else that panel width (8, 16, 32 or 64: the probe's choice).
+template <typename T>
+int launch_blocked(const T* A, const T* b, T* x, T* scratch, int B, int n, int panel, void* stream) {
+  if (B <= 0 || n <= 0 || scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t limit = static_cast<size_t>(max_smem_optin());
+  if (panel == 0) {
+    for (int bp : {32, 16, 8}) {
+      if (blocked_smem_bytes<T>(n, bp) <= limit) {
+        panel = bp;
+        break;
+      }
+    }
+  }
+  void (*kernel)(const T*, const T*, T*, T*, int, int) = nullptr;
+  switch (panel) {
+    case 8: kernel = gj_blocked<T, 8>; break;
+    case 16: kernel = gj_blocked<T, 16>; break;
+    case 32: kernel = gj_blocked<T, 32>; break;
+    case 64: kernel = gj_blocked<T, 64>; break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = blocked_smem_bytes<T>(n, panel);
+  if (smem > limit) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, n_sm = 0, per_sm = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlkThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long cap = static_cast<long long>(per_sm > 0 ? per_sm : 1) * n_sm;
+  const int grid = static_cast<int>(B < cap ? B : cap);
+  kernel<<<grid, kBlkThreads, smem, static_cast<cudaStream_t>(stream)>>>(A, b, x, scratch, B, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -314,24 +503,23 @@ extern "C" int gj_solve_f32_regs(const float* A, const float* b, float* x, int B
 
 // Any n whose matrix fits in a block's shared memory.
 extern "C" int gj_solve_f32(const float* A, const float* b, float* x, int B, int n, void* stream) {
-  return launch_smem<float>(A, b, x, nullptr, B, n, stream);
+  return launch_smem<float>(A, b, x, B, n, stream);
 }
 
 extern "C" int gj_solve_f64(const double* A, const double* b, double* x, int B, int n, void* stream) {
-  return launch_smem<double>(A, b, x, nullptr, B, n, stream);
+  return launch_smem<double>(A, b, x, B, n, stream);
 }
 
-// Any n: the matrix in `scratch` [B, n, n + 1].
-extern "C" int gj_solve_f32_gmem(const float* A, const float* b, float* x, float* scratch, int B, int n,
-                                 void* stream) {
-  if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_smem<float>(A, b, x, scratch, B, n, stream);
+// Blocked, the matrix in `scratch` [B, n, n + 1]; panel 0 picks the panel
+// width (the wrapper's call), 8/16/32/64 forces one (kernel_probes.py).
+extern "C" int gj_solve_f32_blocked(const float* A, const float* b, float* x, float* scratch, int B, int n,
+                                    int panel, void* stream) {
+  return launch_blocked<float>(A, b, x, scratch, B, n, panel, stream);
 }
 
-extern "C" int gj_solve_f64_gmem(const double* A, const double* b, double* x, double* scratch, int B, int n,
-                                 void* stream) {
-  if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_smem<double>(A, b, x, scratch, B, n, stream);
+extern "C" int gj_solve_f64_blocked(const double* A, const double* b, double* x, double* scratch, int B, int n,
+                                    int panel, void* stream) {
+  return launch_blocked<double>(A, b, x, scratch, B, n, panel, stream);
 }
 
 // The card's opt-in shared memory per block, bytes: gj_smem takes n while

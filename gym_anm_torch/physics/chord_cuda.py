@@ -1,6 +1,7 @@
 """The fused chord-Newton solve on the card: the wrapper of the CUDA kernels
-``csrc/chord_newton.cu`` (n <= 32, lane tiles on the FP64 tensor cores) and
-``csrc/chord_newton_wide.cu`` (33 <= n <= 512, one block per lane), which
+``csrc/chord_newton.cu`` (n <= 32) and ``csrc/chord_newton_wide.cu``
+(33 <= n <= 512, the constants streamed through shared memory), both lane
+tiles on the FP64 tensor cores, which
 replace the TPU kernel ``scripts/chord_pallas_prototype.py:kernel``
 (``chord_pallas``).
 
@@ -13,8 +14,8 @@ import numpy as np
 import torch
 
 # Largest n = N_bus − 1 of the tile kernel (one warp thread per non-slack
-# bus: IEEE33, n = 32, and ANM6, n = 5) and of the wide kernel (two buses per
-# thread of a 256-thread block: networks up to 513 buses).
+# bus: IEEE33, n = 32, and ANM6, n = 5) and of the wide kernel (up to 16
+# buses per thread of a lane's warp: networks up to 513 buses).
 TILE_MAX_N = 32
 MAX_N = 512
 
@@ -73,13 +74,21 @@ def chord_solve_cuda(p, q, w_a, w_b, dtf_re, dtf_im, ct, xtol=1e-5, lim_iter=48,
             x.data_ptr(), F.data_ptr(), diff.data_ptr(), n_iter.data_ptr(), accepted.data_ptr())
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
+        next_lane = torch.zeros(1, dtype=torch.int32, device=device)  # the kernels' work counter
         if n <= TILE_MAX_N:
             kind = "tile"
-            next_lane = torch.zeros(1, dtype=torch.int32, device=device)  # the tile kernel's work counter
             rc = lib.chord_newton_f32(*args, next_lane.data_ptr(), B, n, stream)
         else:
             kind = "wide"
-            rc = lib.chord_newton_wide_f32(*args, B, n, stream)
+            W32, J32 = ct.W_pack_f32, ct.invJ0_T_f32  # the float32 copies it streams
+            if not all(t is not None and t.is_cuda and t.device == device and t.dtype == torch.float32
+                       and t.is_contiguous() for t in (W32, J32)):
+                raise ValueError("the wide chord kernel needs ChordTensors.W_pack_f32 and invJ0_T_f32 on the device")
+            wide_args = list(args)
+            wide_args[7], wide_args[8] = W32.data_ptr(), J32.data_ptr()
+            scratch = torch.empty(B, 4 * n, dtype=torch.float32, device=device)  # each lane's previous f and g
+            rc = lib.chord_newton_wide_f32(*wide_args, next_lane.data_ptr(), scratch.data_ptr(), B, n,
+                                           W32.shape[1], J32.shape[1], stream)
     if rc != 0:
         raise RuntimeError(f"chord_newton ({kind}) kernel launch failed with CUDA error {rc} (B={B}, n={n})")
     chord_solve_cuda.launch_count += 1

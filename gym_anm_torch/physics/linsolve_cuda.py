@@ -13,8 +13,8 @@ import torch
 
 # Largest n of the float32 path that keeps each system in one warp's
 # registers; float64 and larger n take the shared-memory path, and a system
-# whose matrix does not fit in a block's shared memory the path with the
-# matrix in device memory.
+# whose matrix does not fit in a block's shared memory the blocked path (the
+# matrix in device memory, read and written once a panel of pivots).
 REG_MAX_N = 64
 
 
@@ -56,11 +56,12 @@ def solve_gauss_jordan_cuda(A, b):
     launch.  Float32 at n <= ``REG_MAX_N`` runs with each system in one
     warp's registers, float64 and larger n with each system in a block's
     shared memory, and a system too large for the card's shared memory per
-    block (n > 239 in float32, n > 168 in float64 on an H100) in a scratch
-    buffer [B, n, n+1] in device memory.  Adds one to
+    block (n > 239 in float32, n > 168 in float64 on an H100) by blocked
+    Gauss-Jordan on a scratch buffer [B, n, n+1] in device memory (panels of
+    32, 16 or 8 pivots in shared memory, the kernel's choice).  Adds one to
     ``solve_gauss_jordan_cuda.launch_count`` per launch, and to
     ``solve_gauss_jordan_cuda.launches[path]`` for the path that ran
-    (``"regs"``, ``"smem"``, ``"gmem"``).
+    (``"regs"``, ``"smem"``, ``"blocked"``).
     """
     if not (A.is_cuda and b.is_cuda) or A.device != b.device:
         raise ValueError(f"solve_gauss_jordan_cuda needs both tensors on one CUDA device, "
@@ -88,8 +89,8 @@ def solve_gauss_jordan_cuda(A, b):
             path, rc = "smem", fn(A.data_ptr(), b.data_ptr(), x.data_ptr(), B, n, stream)
         else:
             scratch = torch.empty(B, n, n + 1, dtype=A.dtype, device=A.device)
-            fn = lib.gj_solve_f64_gmem if f64 else lib.gj_solve_f32_gmem
-            path, rc = "gmem", fn(A.data_ptr(), b.data_ptr(), x.data_ptr(), scratch.data_ptr(), B, n, stream)
+            fn = lib.gj_solve_f64_blocked if f64 else lib.gj_solve_f32_blocked
+            path, rc = "blocked", fn(A.data_ptr(), b.data_ptr(), x.data_ptr(), scratch.data_ptr(), B, n, 0, stream)
     if rc != 0:
         raise RuntimeError(f"gauss_jordan kernel launch failed with CUDA error {rc} (B={B}, n={n}, {A.dtype})")
     solve_gauss_jordan_cuda.launch_count += 1
@@ -98,7 +99,7 @@ def solve_gauss_jordan_cuda(A, b):
 
 
 solve_gauss_jordan_cuda.launch_count = 0
-solve_gauss_jordan_cuda.launches = {"regs": 0, "smem": 0, "gmem": 0}
+solve_gauss_jordan_cuda.launches = {"regs": 0, "smem": 0, "blocked": 0}
 
 
 def batched_solve(J, F):

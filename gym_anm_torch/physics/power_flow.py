@@ -24,7 +24,7 @@ Host-side tables (:class:`ChordConst` and the functions building it) are
 numpy float64, as in the reference.
 """
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -266,6 +266,26 @@ class ChordTensors(NamedTuple):
     flat: torch.Tensor       # [2n] flat start
     vstar_re: float
     vstar_im: float
+    # float32 only: W_pack and invJ0ᵀ as float32 with padded rows (the wide
+    # CUDA kernel's copies, laid out as its shared-memory chunks, so that a
+    # chunk is one copy): W_pack_f32 [N, 2 LW] holds Y0reᵀ in columns 0..N-1
+    # and Y0imᵀ from column LW, the least LW >= N with LW = 4 (mod 16);
+    # invJ0_T_f32 [2n, LU], the least LU >= 2n with LU = 8 (mod 32).  The
+    # padding is zeros.
+    W_pack_f32: Optional[torch.Tensor] = None
+    invJ0_T_f32: Optional[torch.Tensor] = None
+
+
+def _pad_to(x, r, m):
+    """The least x' >= x with x' = r (mod m)."""
+    return x + (r - x) % m
+
+
+def _padded_rows(M, width):
+    """``M`` [R, C] in a zero [R, width] tensor (width >= C)."""
+    out = torch.zeros(M.shape[0], width, dtype=M.dtype, device=M.device)
+    out[:, :M.shape[1]] = M
+    return out
 
 
 def chord_tensors(const: ChordConst, dtype, device) -> ChordTensors:
@@ -298,6 +318,9 @@ def chord_tensors(const: ChordConst, dtype, device) -> ChordTensors:
                         torch.ones(n, dtype=dtype, device=device)]),
         vstar_re=float(const.vstar_re),
         vstar_im=float(const.vstar_im),
+        W_pack_f32=None if dtype != torch.float32 else torch.cat(
+            [_padded_rows(Y0re.T, _pad_to(n + 1, 4, 16)), _padded_rows(Y0im.T, _pad_to(n + 1, 4, 16))], dim=1),
+        invJ0_T_f32=None if dtype != torch.float32 else _padded_rows(invJ0.T, _pad_to(2 * n, 8, 32)),
     )
 
 

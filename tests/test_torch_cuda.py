@@ -1,6 +1,7 @@
-"""gym_anm_torch on a CUDA card: the Gauss-Jordan kernel (K1, with its path
-in device memory), the fused chord-Newton kernels (K2, and its wide kernel
-above 33 buses) and the ADMM kernel (K5) against their plain versions, and
+"""gym_anm_torch on a CUDA card: the Gauss-Jordan kernel (K1, with its
+blocked route for systems above a block's shared memory), the fused
+chord-Newton kernels (K2, and its wide kernel above 33 buses) and the ADMM
+kernel (K5) against their plain versions, and
 the float32 and float64 steps on the card against the CPU, random feeders
 above 33 buses among them.
 
@@ -425,7 +426,7 @@ def test_mpc_act_on_the_card_launches_k5_without_syncing(cuda):
 
 
 # ----------------------------------------------------------------------
-# Networks above 33 buses: the wide chord kernel and K1 in device memory
+# Networks above 33 buses: the wide chord kernel and K1's blocked route
 # ----------------------------------------------------------------------
 
 def _feeder_chord_problem(n_bus, B, seed, device):
@@ -436,12 +437,13 @@ def _feeder_chord_problem(n_bus, B, seed, device):
     return _chord_problem(random_radial_network(np.random.default_rng(n_bus), n_bus), 0.5, B, seed, device)
 
 
-@pytest.mark.parametrize("n", [33, 47, 63, 129])
+@pytest.mark.parametrize("n", [33, 47, 63, 129, 512])
 @pytest.mark.parametrize("B", [1, 7, 1001])
 def test_wide_chord_kernel_matches_plain_version(cuda, n, B):
     """The wide chord kernel (n > 32) against the plain chord on flat (a NaN
-    guess), warm and bad-basin starts mixed lane by lane: the same accepted
-    lanes, n_iter equal on all but a rare lane, x within 1e-5 (chip_smoke.py's
+    guess), warm and bad-basin starts mixed lane by lane, so that a block's
+    lane slots exit in different rounds and refill: the same accepted lanes,
+    n_iter equal on all but a rare lane, x within 1e-5 (chip_smoke.py's
     chord_vs_plain limit), F and diff within the acceptance band, the reset
     lanes exactly flat; the dispatch counts a wide launch."""
     ct, args = _feeder_chord_problem(n + 1, B, 5 * B + n, cuda)
@@ -476,24 +478,30 @@ def test_wide_chord_kernel_refuses_networks_above_its_limit(cuda):
     assert chord_solve_cuda.launch_count == before
 
 
-@pytest.mark.parametrize("dtype,n", [(torch.float32, 240), (torch.float32, 258), (torch.float64, 170),
-                                     (torch.float64, 258)])
+@pytest.mark.parametrize("dtype,n", [(torch.float32, 240), (torch.float32, 258), (torch.float32, 300),
+                                     (torch.float32, 1024), (torch.float64, 170), (torch.float64, 258)])
 def test_kernel_in_device_memory_matches_plain_version(cuda, dtype, n):
-    """K1 on systems too large for a block's shared memory (the matrix in a
-    device scratch buffer): bitwise equal to the plain version at float32,
-    within 1e-10 at float64, and the zero-pivot lane non-finite in both."""
-    B = 5
+    """K1 on systems too large for a block's shared memory (blocked
+    Gauss-Jordan on a device scratch buffer; none of these n is a multiple
+    of the panel width): bitwise equal to the plain version at float32,
+    within 1e-10 at float64; the zero-pivot lane and the lane with an inf
+    entry non-finite in both, as the plain version has them."""
+    B = 3 if n > 512 else 5
     g = torch.Generator(device=cuda).manual_seed(n)
     A = torch.randn(B, n, n, generator=g, device=cuda, dtype=dtype) + n * torch.eye(n, device=cuda, dtype=dtype)
     b = torch.randn(B, n, generator=g, device=cuda, dtype=dtype)
     A[1, 0, 0] = 0.0
-    before = solve_gauss_jordan_cuda.launches["gmem"]
+    A[2, n // 2, 3] = float("inf")
+    before = solve_gauss_jordan_cuda.launches["blocked"]
     xk = solve_gauss_jordan_cuda(A, b)
     xp = solve_gauss_jordan(A, b)
     torch.cuda.synchronize()
-    assert solve_gauss_jordan_cuda.launches["gmem"] == before + 1
-    assert not torch.isfinite(xk[1]).all() and not torch.isfinite(xp[1]).all()
-    keep = torch.arange(B, device=cuda) != 1
+    assert solve_gauss_jordan_cuda.launches["blocked"] == before + 1
+    for lane in (1, 2):
+        assert not torch.isfinite(xk[lane]).all() and not torch.isfinite(xp[lane]).all()
+    assert torch.equal(torch.isnan(xk), torch.isnan(xp))
+    keep = torch.arange(B, device=cuda) > 2
+    keep[0] = True
     if dtype == torch.float32:
         assert torch.equal(xk[keep], xp[keep])
     else:

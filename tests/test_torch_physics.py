@@ -130,7 +130,7 @@ def _systems(rng, B, n, dtype):
 
 
 @pytest.mark.parametrize("dtype,rtol", [(np.float64, 1e-10), (np.float32, 1e-5)])
-@pytest.mark.parametrize("n", [64, 10])
+@pytest.mark.parametrize("n", [64, 10, 258])
 def test_gauss_jordan_matches_jax(dtype, rtol, n):
     A, b = _systems(np.random.default_rng(n), 9, n, dtype)
     xt = solve_gauss_jordan(torch.as_tensor(A), torch.as_tensor(b)).numpy()
@@ -400,3 +400,32 @@ def test_trig_guard_is_float32_only(ttb32):
     x, F, diff, it, acc = tpf.chord_solve(*args[:6], tb64.chord_t, x0=args[6], xtol=1e-2)
     assert bool(acc.all())
     assert torch.equal(x, args[6])
+
+
+@pytest.mark.parametrize("n_bus", [33, 48, 130])
+def test_chord_tensors_float32_copies_are_exact_and_padded(n_bus):
+    """The wide chord kernel streams ChordTensors.W_pack_f32 and invJ0_T_f32:
+    the same values as the float64 W_pack and invJ0_T (float32 values, so
+    the copies are exact), zeros in the padding, and rows of 8 (mod 32)
+    floats with the Y0im^T half at a column of 4 (mod 16), the layout its
+    shared-memory chunks take."""
+    from gym_anm_torch.networks.random_feeder import feeder_vars, make_feeder_task, random_radial_network
+    from gym_anm_torch.vec import VecEnv, make_ieee33_task
+
+    if n_bus == 33:
+        task = make_ieee33_task()
+    else:
+        rng = np.random.default_rng(n_bus)
+        net = random_radial_network(rng, n_bus)
+        task = make_feeder_task(net, feeder_vars(net, 0.5, 2, rng))
+    ct = VecEnv(task, dtype=torch.float32, device="cpu").tables.chord_t
+    n, N = ct.n, ct.n + 1
+    W, J = ct.W_pack_f32, ct.invJ0_T_f32
+    lw = W.shape[1] // 2
+    assert W.dtype == J.dtype == torch.float32 and W.shape[0] == N and J.shape[0] == 2 * n
+    assert W.shape[1] % 32 == 8 and lw % 16 == 4 and lw >= N and J.shape[1] % 32 == 8 and J.shape[1] >= 2 * n
+    assert torch.equal(W[:, :N].double(), ct.W_pack[:, :N]) and torch.equal(W[:, lw:lw + N].double(), ct.W_pack[:, N:])
+    assert torch.equal(J[:, :2 * n].double(), ct.invJ0_T)
+    assert not W[:, N:lw].any() and not W[:, lw + N:].any() and not J[:, 2 * n:].any()
+    ct64 = VecEnv(task, dtype=torch.float64, device="cpu").tables.chord_t
+    assert ct64.W_pack_f32 is None and ct64.invJ0_T_f32 is None
