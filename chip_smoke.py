@@ -8,12 +8,12 @@ Builds the hand-written CUDA kernels from ``gym_anm_torch/csrc`` with nvcc
 non-zero at the first failure:
 
 1. the Gauss-Jordan kernel (K1) against its plain PyTorch version on the
-   card: f32 bitwise (the register path) and f64 within 1e-10, n = 64 at
-   B = 8192 and n = 10 at a ragged B = 1001, and a zero-pivot lane that
-   must stay non-finite in both; times of the kernel, of its shared-memory
-   path (one block per system), of the plain version and of
-   ``torch.linalg.solve_ex`` (the yardstick; the port never calls it), and
-   the kernel's bound;
+   card: its register route bitwise in f32 and f64, n = 64 at B = 8192 and
+   n = 10 at a ragged B = 1001, and a zero-pivot lane that must stay
+   non-finite in both; times of the kernel, of the one-block design of its
+   shared-memory route (``gym_anm_torch/bench/gauss_jordan_smem.cu``), of
+   the plain version and of ``torch.linalg.solve_ex`` (the yardstick; the
+   port never calls it), and the kernel's bound;
 1b. the chord-Newton kernel (K2) against its plain version at B = 8192 on
    these input sets: base IEEE33 constants from flat and from warm starts,
    the multicap constants at their nominal-load point under diurnal loads,
@@ -88,10 +88,11 @@ non-zero at the first failure:
    kernel against its plain version from flat, warm and bad-basin starts,
    timed beside its block-per-lane design
    (``gym_anm_torch/bench/chord_newton_wide_lane.cu``); K1's blocked route at
-   n = 258 (float32 bitwise, float64 within 1e-10) timed beside its
-   device-memory design (``bench/gauss_jordan_gmem.cu``) and
-   ``torch.linalg.solve_ex``; K1's shared-memory route at n = 94 and 126
-   (float32) and 64 and 126 (float64) beside ``torch.linalg.solve_ex``; each
+   n = 258 (bitwise in float32 and float64) timed beside its device-memory
+   design (``bench/gauss_jordan_gmem.cu``) and ``torch.linalg.solve_ex``;
+   K1's routes bitwise at both sides of each route edge and at float32 n =
+   94, 126 and float64 n = 64, 126, the latter timed beside the one-block
+   design, the blocked route in device memory and ``solve_ex``; each
    feeder's float32 ``VecEnv`` for 5 steps, the last from bad-basin warm
    starts (the Newton fallback, K1's blocked route on the 130-bus feeder),
    held against the float64 tier on the card.
@@ -102,8 +103,9 @@ has enqueued them all before the card reaches them; the median of N_REPS
 such readings.  Bounds are the larger of the bytes a call must move (each
 input read once, each output written once) over 3.35 TB/s and its
 operations over the H100 SXM's peak for their type (67 TFLOP/s float32 on
-the CUDA cores; 67 TFLOP/s float64 on the tensor cores, where K2 runs its
-products).
+the CUDA cores; 67 TFLOP/s float64 on the tensor cores, where K2 and K5
+run their products; 34 TFLOP/s float64 on the CUDA cores, where K1 rounds
+each product and difference apart).
 
 Prints the card's name and power limit and ptxas's register and spill
 report of every kernel first, a JSON line of the kernels next to last, and
@@ -135,6 +137,7 @@ N_LAUNCH = 20  # launches per event pair of every kernel reading
 SLEEP_CYCLES = 20_000_000  # ~10 ms of the card's clock: the host enqueues N_LAUNCH calls meanwhile
 PEAK_F32 = 67e12  # FLOP/s, H100 SXM, float32 outside the tensor cores
 PEAK_F64_TC = 67e12  # FLOP/s, H100 SXM, float64 on the tensor cores (DMMA)
+PEAK_F64 = 34e12  # FLOP/s, H100 SXM, float64 on the CUDA cores
 HBM = 3.35e12  # bytes/s
 
 
@@ -179,63 +182,58 @@ def bound(flops, peak, n_bytes):
 def k1_bound(B, n, itemsize=4):
     """K1's bound: per system n sweeps of n divides, n mask multiplies and
     n (n + 1) multiply/subtract pairs, then n divides; A and b read once, x
-    written once."""
+    written once.  Float64 counts at the CUDA cores' peak: the kernel rounds
+    each product and difference apart, which the FP64 tensor cores (DMMA,
+    fused) cannot."""
     flops = B * (n * (2 * n + 2 * n * (n + 1)) + n)
-    return bound(flops, PEAK_F32, itemsize * B * (n * n + 2 * n))
+    return bound(flops, PEAK_F64 if itemsize == 8 else PEAK_F32, itemsize * B * (n * n + 2 * n))
 
 
-def phase1_kernel_vs_plain(lin, lib):
+def phase1_kernel_vs_plain(lin, base):
+    """K1's register route (n = 64 at B = 8192, n = 10 at B = 1001; float32
+    and float64) against its plain version, bitwise, the zero-pivot lane
+    non-finite in both; each timed beside the one-block design (``base``), the
+    plain version and ``torch.linalg.solve_ex``, with its bound."""
+    from gym_anm_torch.bench.kernel_probes import one_block_solve
+
     log("== phase 1: K1 against its plain version")
     result = {}
     errs = []
     for B, n, dtype in ((B_MAIN, 64, torch.float32), (1001, 10, torch.float32),
                         (B_MAIN, 64, torch.float64), (1001, 10, torch.float64)):
         A, b = systems(B, n, dtype, seed=n)
+        before = lin.solve_gauss_jordan_cuda.launches["regs"]
         xk = lin.solve_gauss_jordan_cuda(A, b)
         xp = lin.solve_gauss_jordan(A, b)
+        x1 = one_block_solve(base, A, b)
         torch.cuda.synchronize()
+        assert lin.solve_gauss_jordan_cuda.launches["regs"] == before + 1, "K1's register route did not run"
         assert not torch.isfinite(xk[1]).all() and not torch.isfinite(xp[1]).all(), "zero pivot repaired"
         keep = torch.ones(B, dtype=torch.bool, device="cuda")
         keep[1] = False
         assert torch.isfinite(xk[keep]).all() and torch.isfinite(xp[keep]).all()
         err = float((xk[keep] - xp[keep]).abs().max())
-        rel = err / float(xp[keep].abs().max())
         n_equal = int((xk[keep] == xp[keep]).all(1).sum())
-        log(f"K1 B={B} n={n} {dtype}: max_abs_err={err:.3e} rel={rel:.3e}; bitwise equal on {n_equal} of "
-            f"{B - 1} finite lanes")
-        if dtype == torch.float32:
-            # The register path rounds every operation as the plain version does.
-            assert torch.equal(xk[keep], xp[keep]), "K1 f32 is not bitwise equal to its plain version"
-            errs.append(err)
-        else:
-            assert rel <= 1e-10, f"K1 f64 disagrees with its plain version: rel {rel:.3e} > 1e-10"
-            continue
-        x_smem = torch.empty_like(b)
-        stream = torch.cuda.current_stream().cuda_stream
-
-        def smem_path():
-            # The shared-memory path (one block per system, the matrix in
-            # shared memory): the wrapper's path for f64 and n > 64.
-            rc = lib.gj_solve_f32(A.data_ptr(), b.data_ptr(), x_smem.data_ptr(), B, n, stream)
-            assert rc == 0, f"gj_solve_f32 failed with CUDA error {rc}"
-
-        smem_path()
-        torch.cuda.synchronize()
-        assert torch.equal(x_smem[keep], xp[keep])
+        log(f"K1 B={B} n={n} {dtype}: max_abs_err={err:.3e}; bitwise equal on {n_equal} of {B - 1} finite lanes")
+        # The register route rounds every operation as the plain version does, in both types.
+        assert torch.equal(xk[keep], xp[keep]), f"K1 {dtype} is not bitwise equal to its plain version"
+        assert torch.equal(x1[keep], xp[keep]), "the one-block design is not bitwise the plain version"
+        errs.append(err)
         lin.solve_gauss_jordan_cuda(A, b)  # warm
         torch.linalg.solve_ex(A, b)
         t = {name: statistics.median(cuda_ms(fn, k) for _ in range(N_REPS)) for name, fn, k in (
             ("ms", lambda: lin.solve_gauss_jordan_cuda(A, b), N_LAUNCH),
-            ("smem_ms", smem_path, N_LAUNCH),
+            ("one_block_ms", lambda: one_block_solve(base, A, b), N_LAUNCH),
             ("library_ms", lambda: torch.linalg.solve_ex(A, b), N_LAUNCH),
             ("plain_ms", lambda: lin.solve_gauss_jordan(A, b), 3))}
-        bound_ms, bound_by = k1_bound(B, n)
-        log(f"K1 time B={B} n={n} f32 (device time, {N_LAUNCH} launches per reading, median of {N_REPS}): "
-            f"kernel {t['ms']:.4f} ms, shared-memory path {t['smem_ms']:.4f} ms, torch.linalg.solve_ex "
+        bound_ms, bound_by = k1_bound(B, n, A.element_size())
+        log(f"K1 time B={B} n={n} {dtype} (device time, {N_LAUNCH} launches per reading, median of {N_REPS}): "
+            f"kernel {t['ms']:.4f} ms, the one-block design {t['one_block_ms']:.4f} ms, torch.linalg.solve_ex "
             f"{t['library_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), "
-            f"kernel at {bound_ms / t['ms']:.3f} of it")
-        if (B, n) == (B_MAIN, 64):
+            f"kernel at {bound_ms / t['ms']:.4f} of it")
+        if (B, n, dtype) == (B_MAIN, 64, torch.float32):
             result = dict(t, bound_ms=bound_ms, bound_by=bound_by)
+            del result["one_block_ms"]
     result["max_abs_err"] = max(errs)
     return result
 
@@ -1274,18 +1272,19 @@ def phase10_feeders(pf, lin, cuda_k, VecEnv, base):
     version on a real step's injections from flat, warm and bad-basin
     starts, and timed beside its block-per-lane design (``base``, the
     library of ``gym_anm_torch/bench/kernel_probes.BASELINE_SOURCES``); K1's
-    blocked route (n = 258) against its plain version, float32 bitwise and
-    float64 within 1e-10, timed beside its device-memory design and
-    ``torch.linalg.solve_ex``; K1's shared-memory route at
-    the feeders' other sizes (float32 n = 94, 126; float64 n = 64, 126) beside
-    ``torch.linalg.solve_ex``; then the feeders' path: a float32 VecEnv, 4
-    steps of uniform-random actions and one from bad-basin warm starts (the
-    Newton fallback: K1 at n = 94, 126 and 258), every output finite, live
-    residuals within 1e-4, no lane terminated, the first 256 lanes' voltages
-    within 1e-4 of the float64 tier's on the card (Newton with K1 in float64;
-    blocked at 130 buses).  Returns the wide chord kernel's and K1's blocked
-    route's numbers for the kernels' line, their launches those of the
-    float32 path alone."""
+    blocked route (n = 258) against its plain version, bitwise in float32
+    and float64, timed beside its device-memory design and
+    ``torch.linalg.solve_ex``; K1's routes at their edges and the feeders'
+    other sizes (``phase10_k1_routes``); then the feeders' path: a float32
+    VecEnv, 4 steps of uniform-random actions and one from bad-basin warm
+    starts (the Newton fallback: K1 at n = 94, 126 and 258), every output
+    finite, live residuals within 1e-4, no lane terminated, the first 256
+    lanes' voltages within 1e-4 of the float64 tier's on the card (Newton
+    with K1 in float64), and each feeder's fallback on the route
+    ``k1_route`` gives its size.  Returns the wide chord kernel's, K1's
+    blocked route's and K1's shared-memory route's numbers for the kernels'
+    line, their launches those of the float32 path alone."""
+    from gym_anm_torch._build import load_library
     from gym_anm_torch.bench.kernel_probes import gmem_solve, lane_chord
 
     log(f"== phase 10: random radial feeders above 33 buses, B={B_MAIN}")
@@ -1325,10 +1324,9 @@ def phase10_feeders(pf, lin, cuda_k, VecEnv, base):
         log(f"K1 blocked B={B} n={n} {dtype}: max_abs_err={err:.3e} rel={rel:.3e}; bitwise equal on "
             f"{int((xk[keep] == xp[keep]).all(1).sum())} of {B - 1} finite lanes (the device-memory design: on "
             f"{int((xg[keep] == xp[keep]).all(1).sum())})")
+        assert torch.equal(xk[keep], xp[keep]), f"K1 {dtype} blocked is not bitwise equal to its plain version"
         if dtype == torch.float64:
-            assert rel <= 1e-10, f"K1 f64 blocked disagrees with its plain version: rel {rel:.3e}"
             continue
-        assert torch.equal(xk[keep], xp[keep]), "K1 f32 blocked is not bitwise equal to its plain version"
         t = {key: statistics.median(cuda_ms(fn, k) for _ in range(r)) for key, fn, k, r in (
             ("ms", lambda: lin.solve_gauss_jordan_cuda(A, b), N_LAUNCH, N_REPS),
             ("library_ms", lambda: torch.linalg.solve_ex(A, b), N_LAUNCH, N_REPS),
@@ -1342,18 +1340,7 @@ def phase10_feeders(pf, lin, cuda_k, VecEnv, base):
         del t["gmem_ms"]
         blocked = dict(t, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
 
-    # K1's shared-memory route at the feeders' other sizes, for its row.
-    for n, dtype in ((94, torch.float32), (126, torch.float32), (64, torch.float64), (126, torch.float64)):
-        A, b = systems(B_MAIN, n, dtype, seed=n)
-        before = lin.solve_gauss_jordan_cuda.launches["smem"]
-        xk = lin.solve_gauss_jordan_cuda(A, b)
-        torch.cuda.synchronize()
-        assert lin.solve_gauss_jordan_cuda.launches["smem"] == before + 1
-        t_k = statistics.median(cuda_ms(lambda: lin.solve_gauss_jordan_cuda(A, b)) for _ in range(N_REPS))
-        t_ex = statistics.median(cuda_ms(lambda: torch.linalg.solve_ex(A, b)) for _ in range(N_REPS))
-        bound_ms, bound_by = k1_bound(B_MAIN, n, A.element_size())
-        log(f"K1 shared-memory route B={B_MAIN} n={n} {dtype}: kernel {t_k:.4f} ms, torch.linalg.solve_ex "
-            f"{t_ex:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), kernel at {bound_ms / t_k:.4f} of it")
+    resident = phase10_k1_routes(lin, base)
 
     # The feeders' path, the float32 tier: the counts zeroed just before each
     # of its calls and read just after, so that the float64 tier that checks
@@ -1362,21 +1349,21 @@ def phase10_feeders(pf, lin, cuda_k, VecEnv, base):
     k1 = lin.solve_gauss_jordan_cuda
 
     def counted(tally, fn, *args):
-        cuda_k.launches["wide"] = k1.launches["blocked"] = k1.launch_count = 0
+        cuda_k.launches["wide"] = k1.launches["smem"] = k1.launches["blocked"] = k1.launch_count = 0
         out = fn(*args)
-        for key, got in (("wide", cuda_k.launches["wide"]), ("blocked", k1.launches["blocked"]),
-                         ("k1", k1.launch_count)):
+        for key, got in (("wide", cuda_k.launches["wide"]), ("smem", k1.launches["smem"]),
+                         ("blocked", k1.launches["blocked"]), ("k1", k1.launch_count)):
             tally[key] += got
         return out
 
-    counts = {"wide": 0, "blocked": 0}
+    counts = {"wide": 0, "smem": 0, "blocked": 0}
     for n_bus, scale in FEEDERS:
         task = feeder_env_task(n_bus, scale)
         env = VecEnv(task, dtype=torch.float32, device="cuda")
         ref = VecEnv(task, dtype=torch.float64, device="cuda")
         g = torch.Generator(device="cuda").manual_seed(100 + n_bus)
         n = env.spec.n_bus - 1
-        f32, f32_bad, f64 = ({"wide": 0, "blocked": 0, "k1": 0} for _ in range(3))
+        f32, f32_bad, f64 = ({"wide": 0, "smem": 0, "blocked": 0, "k1": 0} for _ in range(3))
         t0 = time.perf_counter()
         state, obs = counted(f32, env.reset, B_MAIN, g)
         s64, _ = counted(f64, ref.reset, N_CHECK_LANES)
@@ -1397,8 +1384,9 @@ def phase10_feeders(pf, lin, cuda_k, VecEnv, base):
         log(f"{n_bus}-bus feeder path (n = {n}): 5 f32 steps at B={B_MAIN} and the f64 tier's on {N_CHECK_LANES} "
             f"lanes in {wall:.2f} s; f32 path: wide chord launches {f32['wide'] + f32_bad['wide']}, K1 launches "
             f"{f32['k1'] + f32_bad['k1']} (n = {2 * n}; {f32_bad['k1']} in the bad-basin step, "
-            f"{f32['blocked'] + f32_bad['blocked']} blocked); f64 tier: K1 launches {f64['k1']}, "
-            f"{f64['blocked']} blocked; f32 voltages against the f64 tier on {N_CHECK_LANES} lanes: max abs "
+            f"{f32['smem'] + f32_bad['smem']} resident, {f32['blocked'] + f32_bad['blocked']} blocked); f64 tier: "
+            f"K1 launches {f64['k1']}, {f64['smem']} resident, {f64['blocked']} blocked; f32 voltages against the f64 "
+            f"tier on {N_CHECK_LANES} lanes: max abs "
             f"diff {worst_vm:.3e}")
         assert f32["wide"] + f32_bad["wide"] > 0, "the wide chord kernel never launched on the feeder path"
         assert f32_bad["k1"] > 0, "the f32 fallback did not launch K1 in the bad-basin step"
@@ -1406,12 +1394,13 @@ def phase10_feeders(pf, lin, cuda_k, VecEnv, base):
         # chord stops within ||F|| <= 1e-5 (1e-4 on a plateau), and these feeders' voltages are
         # more sensitive to the residual than IEEE33's (5e-5 above).
         assert worst_vm <= 1e-4, f"{n_bus}-bus feeder: f32 voltages off the f64 tier's by {worst_vm:.3e}"
-        if 2 * n > 239:
-            assert f32_bad["blocked"] > 0, "the f32 fallback did not run K1's blocked route on the 130-bus feeder"
-        if 2 * n > 168:
-            assert f64["blocked"] > 0, "the f64 tier did not run K1's blocked route on the 130-bus feeder"
+        limit = load_library().gj_smem_limit_bytes()
+        route32, route64 = (lin.k1_route(2 * n, dtype, limit)[0] for dtype in (torch.float32, torch.float64))
+        assert f32_bad[route32] > 0, f"the f32 fallback did not run K1's {route32} route on the {n_bus}-bus feeder"
+        assert f64[route64] > 0, f"the f64 tier did not run K1's {route64} route on the {n_bus}-bus feeder"
     wide["max_abs_err"] = max(wide.pop("errs"))
-    return dict(wide, launches=counts["wide"]), dict(blocked, launches=counts["blocked"])
+    return (dict(wide, launches=counts["wide"]), dict(blocked, launches=counts["blocked"]),
+            dict(resident, launches=counts["smem"]))
 
 
 def admm_bound(dc, B, iterations):
@@ -1784,12 +1773,91 @@ def phase9d_replay(mpc, VecEnv, make_anm6easy_task, record):
         f"equal on {n_it} of {n} lane-steps")
 
 
+def phase10_k1_routes(lin, base):
+    """K1's routes at the feeders' sizes (float32 n = 94, 126; float64 n =
+    64, 126; B = 8192) and at both sides of each route edge (B = 1001): the
+    route ``k1_route`` picks runs, and is bitwise equal to the plain version
+    with the zero-pivot lane (and, at the edges, a lane with an inf entry)
+    non-finite in both.  At the feeders' sizes each is timed beside the
+    one-block design (``base``), the blocked route in device memory and
+    ``torch.linalg.solve_ex``, each with its share of the bound.  Returns the
+    shared-memory route's numbers at float32 n = 126 (the 64-bus feeder's
+    fallback) for the kernels' line."""
+    from gym_anm_torch._build import load_library
+    from gym_anm_torch.bench.kernel_probes import panel_solve, one_block_solve
+
+    k1 = lin.solve_gauss_jordan_cuda
+    limit = load_library().gj_smem_limit_bytes()
+
+    def check(B, n, dtype, inf_lane):
+        A, b = systems(B, n, dtype, seed=n + B)
+        if inf_lane:
+            A[2, n // 2, 3] = float("inf")
+        route, panel = lin.k1_route(n, dtype, limit)
+        before = k1.launches[route]
+        xk = k1(A, b)
+        xp = lin.solve_gauss_jordan(A, b)
+        torch.cuda.synchronize()
+        assert k1.launches[route] == before + 1, f"K1's {route} route did not run at n={n} {dtype}"
+        bad = (1, 2) if inf_lane else (1,)
+        for lane in bad:
+            assert not torch.isfinite(xk[lane]).all() and not torch.isfinite(xp[lane]).all(), "non-finite lost"
+        assert torch.equal(torch.isnan(xk), torch.isnan(xp))
+        keep = torch.ones(B, dtype=torch.bool, device="cuda")
+        keep[list(bad)] = False
+        assert torch.isfinite(xp[keep]).all()
+        assert torch.equal(xk[keep], xp[keep]), f"K1's {route} route at n={n} {dtype} is not bitwise the plain version"
+        return A, b, route, panel, xp
+
+    # Both sides of each edge: registers | resident | blocked, where this card's limit puts them.
+    for dtype in (torch.float32, torch.float64):
+        top = 65
+        while lin.k1_route(top + 1, dtype, limit)[0] == "smem":
+            top += 1
+        routes = []
+        for n in (lin.REG_MAX_N, lin.REG_MAX_N + 1, top, top + 1):
+            routes.append(f"n={n} {check(1001, n, dtype, True)[2]}")
+        log(f"K1 route edges {dtype}, B=1001: " + ", ".join(routes) + "; each bitwise equal to the plain version, "
+            "the zero-pivot and inf lanes non-finite in both")
+
+    resident = {}
+    for n, dtype in ((94, torch.float32), (126, torch.float32), (64, torch.float64), (126, torch.float64)):
+        A, b, route, panel, xp = check(B_MAIN, n, dtype, False)
+        itemsize = A.element_size()
+        blocked_panel = next(bp for bp in lin.BLOCKED_PANELS[itemsize]
+                             if lin.panel_smem_bytes(n, itemsize, bp, False) <= limit)
+        keep = torch.arange(B_MAIN, device="cuda") != 1
+        x1 = one_block_solve(base, A, b)
+        xb = panel_solve(load_library(), A, b, blocked_panel, False)
+        torch.cuda.synchronize()
+        assert torch.equal(x1[keep], xp[keep]) and torch.equal(xb[keep], xp[keep]), "a baseline is not bitwise"
+        slow = n > 100  # the one-block design takes up to ~80 ms a call there: 2 launches a reading
+        t = {key: statistics.median(cuda_ms(fn, k) for _ in range(r)) for key, fn, k, r in (
+            ("ms", lambda: k1(A, b), N_LAUNCH, N_REPS),
+            ("one_block_ms", lambda: one_block_solve(base, A, b), 2 if slow else N_LAUNCH, 3),
+            ("blocked_ms", lambda: panel_solve(load_library(), A, b, blocked_panel, False), N_LAUNCH, 3),
+            ("library_ms", lambda: torch.linalg.solve_ex(A, b), N_LAUNCH, N_REPS))}
+        bound_ms, bound_by = k1_bound(B_MAIN, n, itemsize)
+        log(f"K1 B={B_MAIN} n={n} {dtype}, route {route} (panel {panel}): kernel {t['ms']:.4f} ms "
+            f"({bound_ms / t['ms']:.4f} of the bound), the one-block design {t['one_block_ms']:.4f} ms "
+            f"({bound_ms / t['one_block_ms']:.4f}), blocked route in device memory (panel {blocked_panel}) "
+            f"{t['blocked_ms']:.4f} ms ({bound_ms / t['blocked_ms']:.4f}), torch.linalg.solve_ex "
+            f"{t['library_ms']:.4f} ms ({bound_ms / t['library_ms']:.4f}); bound {bound_ms:.4f} ms ({bound_by}); "
+            f"device time, median of {N_REPS} (kernel, solve_ex) or 3 readings of {N_LAUNCH} launches "
+            f"({2 if slow else N_LAUNCH} for the one-block design)")
+        if (n, dtype) == (126, torch.float32):
+            assert route == "smem", "float32 n = 126 is off the shared-memory route"
+            t_plain = statistics.median(cuda_ms(lambda: lin.solve_gauss_jordan(A, b), 1) for _ in range(3))
+            resident = dict(ms=t["ms"], plain_ms=t_plain, library_ms=t["library_ms"], bound_ms=bound_ms,
+                            bound_by=bound_by, max_abs_err=float((k1(A, b)[keep] - xp[keep]).abs().max()))
+    return resident
+
+
 def log_ptxas(report):
     """One line per kernel of ptxas's report: registers and spill bytes."""
     b = {"0": "false", "1": "true", "f": "float", "d": "double"}
-    names = ((r"gj_regsILi(\d+)E", lambda k: f"gj_regs<{k}>"),
-             (r"gj_smemI([fd])E", lambda t: f"gj_smem<{b[t]}>"),
-             (r"gj_blockedI([fd])Li(\d+)E", lambda t, k: f"gj_blocked<{b[t]}, {k}>"),
+    names = ((r"gj_regsI([fd])Li(\d+)E", lambda t, k: f"gj_regs<{b[t]}, {k}>"),
+             (r"gj_panelsI([fd])Li(\d+)ELb([01])E", lambda t, k, r: f"gj_panels<{b[t]}, {k}, {b[r]}>"),
              (r"chord_kernelILi(\d+)ELi(\d+)E", lambda a, c: f"chord_kernel<{a}, {c}>"),
              (r"chord_wide_kernelILi(\d+)E", lambda k: f"chord_wide_kernel<{k}>"),
              (r"admm_kernelILb([01])ELb([01])E", lambda m, g: f"admm_kernel<{b[m]}, {b[g]}>"))
@@ -1848,7 +1916,7 @@ def main():
         log(f"-- {phase.__name__} done, {time.perf_counter() - t_run:.1f} s since the build")
         return out
 
-    k1 = run(phase1_kernel_vs_plain, lin, lib)
+    k1 = run(phase1_kernel_vs_plain, lin, base)
     k2 = run(phase1b_chord_kernel, pf, chord_solve_cuda, VecEnv, make_ieee33_task, make_ieee33_multicap_task,
              make_anm6easy_task)
     launches, chord_launches = run(phase2_main_path, VecEnv, make_ieee33_task, kernel, chord_solve_cuda)
@@ -1867,7 +1935,7 @@ def main():
     k5_launches, farm_record, _ = run(phase9c_farm, mpc, solve_dcopf_cuda, VecEnv, make_anm6easy_task, kernel,
                                       chord_solve_cuda)
     run(phase9d_replay, mpc, VecEnv, make_anm6easy_task, farm_record)
-    k2w, k1g = run(phase10_feeders, pf, lin, chord_solve_cuda, VecEnv, base)
+    k2w, k1g, k1s = run(phase10_feeders, pf, lin, chord_solve_cuda, VecEnv, base)
 
     # Launches: the runs of the base, multicap17, collection and ANM6Easy paths together.
     print(json.dumps({"kernels": [{
@@ -1930,6 +1998,18 @@ def main():
         "bound_ms": k1g["bound_ms"],
         "bound_by": k1g["bound_by"],
         "library_ms": k1g["library_ms"],
+    }, {
+        "name": "gauss_jordan_resident",
+        "route": "cuda",
+        "source": "gym_anm_torch/csrc/gauss_jordan.cu",
+        "replaces": "gym_anm_tpu/physics/linsolve_pallas.py:31",
+        "launches": k1s["launches"],  # the random feeders' path (phase 10)
+        "max_abs_err": k1s["max_abs_err"],
+        "ms": k1s["ms"],
+        "plain_ms": k1s["plain_ms"],
+        "bound_ms": k1s["bound_ms"],
+        "bound_by": k1s["bound_by"],
+        "library_ms": k1s["library_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -31,8 +31,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # (A, b, x, B, n, stream)
     "gj_solve_f32_regs": [_P, _P, _P, _I, _I, _P],
-    "gj_solve_f32": [_P, _P, _P, _I, _I, _P],
-    "gj_solve_f64": [_P, _P, _P, _I, _I, _P],
+    "gj_solve_f64_regs": [_P, _P, _P, _I, _I, _P],
+    # (A, b, x, B, n, panel, stream)
+    "gj_solve_f32_resident": [_P, _P, _P, _I, _I, _I, _P],
+    "gj_solve_f64_resident": [_P, _P, _P, _I, _I, _I, _P],
     # (A, b, x, scratch, B, n, panel, stream)
     "gj_solve_f32_blocked": [_P, _P, _P, _P, _I, _I, _I, _P],
     "gj_solve_f64_blocked": [_P, _P, _P, _P, _I, _I, _I, _P],
@@ -69,9 +71,11 @@ def _nvcc():
 
 def library_path(sources=None, stem="libgym_anm_kernels"):
     """Path of the shared library for ``sources`` (default: every
-    ``csrc/*.cu``) and the flags."""
+    ``csrc/*.cu``), the headers beside them and the flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(sources or CSRC_DIR.glob("*.cu")):
+    sources = sorted(sources or CSRC_DIR.glob("*.cu"))
+    headers = sorted({hdr for src in sources for hdr in Path(src).parent.glob("*.cuh")})
+    for src in sources + headers:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"

@@ -1,6 +1,6 @@
 // The device-memory design of K1 above a block's shared memory, kept as the
 // baseline of gym_anm_torch/bench/kernel_probes.py and chip_smoke.py phase
-// 10 (the kernel itself is csrc/gauss_jordan.cu:gj_blocked): gj_smem with
+// 10 (the route itself is csrc/gauss_jordan.cuh:gj_panels): gj_smem with
 // the augmented matrix in a device scratch buffer [B, n, n + 1], one block
 // per system, every sweep reading and writing the whole matrix in device
 // memory between two block barriers.  Bitwise equal to the plain version

@@ -7,8 +7,8 @@
    five steps of a round (read by thread 0 of every block), on the base
    IEEE33 constants from warm starts at B = 8192 (``chip_smoke.py`` phase
    1b's set): rounds per block and cycles per round by step.
-3. K1 (``csrc/gauss_jordan.cu``): a copy with ``clock64`` around the sweeps
-   of the 64-row body, at B = 8192 and at few enough systems that every
+3. K1's register route (``csrc/gauss_jordan.cuh``): a copy with ``clock64``
+   around the sweeps of the float32 64-row body, at B = 8192 and at few enough systems that every
    scheduler holds one warp: cycles per sweep of a warp.
 4. K5 (``csrc/admm_dcopf.cu``) beside PR 5's design, kept in
    ``admm_dcopf_pr5.cu`` (one block per lane, float32 matrices, every
@@ -25,16 +25,23 @@
    the 130-bus feeder's warm starts at B = 8192 (``chip_smoke.py`` phase
    10's set): rounds per block and cycles per round by step, beside the
    block-per-lane design.
-6. K1's blocked route (``gj_blocked``) at n = 258, float32, B = 8192 with
-   panels of 16, 32 and 64 pivots and the kernel's own choice, beside the
-   device-memory design (``gauss_jordan_gmem.cu``: the matrix read and
-   written in device memory every sweep) and ``torch.linalg.solve_ex``.
+6. K1's blocked route (``gj_panels`` in device memory) at n = 258, float32,
+   B = 8192 with panels of 8, 16 and 32 pivots, beside the device-memory
+   design (``gauss_jordan_gmem.cu``: the matrix read and written in device
+   memory every sweep) and ``torch.linalg.solve_ex``.
+7. K1's shared-memory route (``gj_panels`` with the matrix resident in
+   shared memory) at float32 n = 94, 126 and float64 n = 64, 126, B = 8192,
+   at each panel width that fits, beside the blocked route on the same
+   systems, the one-block design (``gauss_jordan_smem.cu``), ``solve_ex``
+   and, at float64 n = 48 and 64, the register route's float64 bodies.
 
-The earlier designs of K1 above the card's shared memory (the matrix swept
-in device memory) and of the wide chord kernel (one block per lane) stay in
-``gauss_jordan_gmem.cu`` and ``chord_newton_wide_lane.cu`` as the baselines
-of probes 5 and 6 and of ``chip_smoke.py`` phase 10 (:func:`load_baselines`,
-:func:`gmem_solve`, :func:`lane_chord`).
+The earlier designs of K1's shared-memory route (the one-block design: a
+block per system, two block barriers a sweep) and of its route above the
+card's shared memory (the matrix swept in device memory), and of the wide
+chord kernel (one block per lane) stay in ``gauss_jordan_smem.cu``, ``gauss_jordan_gmem.cu`` and
+``chord_newton_wide_lane.cu`` as the baselines of probes 5 to 7 and of
+``chip_smoke.py`` phases 1 and 10 (:func:`load_baselines`,
+:func:`one_block_solve`, :func:`gmem_solve`, :func:`lane_chord`).
 
 The copies are built into ``build/kernels/probe/``; the counters cost
 registers, so the instrumented K2 runs ~15% slower than the kernel itself
@@ -54,7 +61,7 @@ import torch
 
 from .. import _build
 from ..physics.chord_cuda import chord_solve_cuda
-from ..physics.linsolve_cuda import solve_gauss_jordan
+from ..physics.linsolve_cuda import BLOCKED_PANELS, k1_route, panel_smem_bytes, solve_gauss_jordan
 from ..vec import VecEnv, make_anm6easy_task, make_ieee33_renewable_task, make_ieee33_task
 
 OUT = _build.BUILD_DIR / "probe"
@@ -117,13 +124,43 @@ def instrument_chord(src):
     return s.replace("namespace {\n", COUNTERS, 1) + READOUT
 
 
+def gj_source(*units):
+    """K1's ``gauss_jordan.cuh`` and the translation units ``units`` of
+    ``csrc/`` without their include, as one source."""
+    text = (_build.CSRC_DIR / "gauss_jordan.cuh").read_text().replace("#pragma once\n", "")
+    for unit in units:
+        text += (_build.CSRC_DIR / unit).read_text().replace('#include "gauss_jordan.cuh"\n', "")
+    return text
+
+
 def instrument_gj(src):
-    """gauss_jordan.cu with the 64-row body's sweeps timed per warp."""
-    a, b = "  sweeps<NP>(std::make_integer_sequence<int, NP>{}", "  float d = m[0];"
+    """K1's source (:func:`gj_source`) with the register route's float32
+    64-row body's sweeps timed per warp."""
+    a, b = "  sweeps<T, NP>(std::make_integer_sequence<int, NP>{}", "  T d = m[0];"
     assert src.count(a) == 1 and src.count(b) == 1, "the kernel's layout changed"
     s = src.replace(a, "  const long long t0 = clock64();\n" + a)
-    s = s.replace(b, "  if (NP == 64 && lane == 0) { atomicAdd(&g_probe[0], (unsigned long long)(clock64() - t0));"
+    s = s.replace(b, "  if (NP == 64 && sizeof(T) == 4 && lane == 0) {"
+                  " atomicAdd(&g_probe[0], (unsigned long long)(clock64() - t0));"
                   " atomicAdd(&g_probe[1], 1ull); }\n" + b)
+    return s.replace("namespace {\n", COUNTERS, 1) + READOUT
+
+
+PANEL_STEPS = ["load the panels", "(1) diagonal block", "(2) panel rows and columns", "(3) trailing update"]
+
+
+def instrument_panels(src):
+    """K1's source (:func:`gj_source`) with the panel kernel's four steps
+    timed by thread 0 of every block (cycles summed over blocks and panels;
+    the panels counted)."""
+    loop = "    for (int k0 = 0; k0 < n; k0 += BP) {\n"
+    bar = "\n      __syncthreads();\n"
+    assert src.count(loop) == 1 and src.count(bar) == 4, "the kernel's layout changed"
+    s = src.replace(loop, loop + "      long long t_p = clock64();\n"
+                    "      if (tid == 0) atomicAdd(&g_probe[4], 1ull);\n")
+    parts = s.split(bar)
+    s = parts[0] + "".join(
+        bar + f"      {{ const long long t_q = clock64(); if (tid == 0) atomicAdd(&g_probe[{q}], "
+        f"(unsigned long long)(t_q - t_p)); t_p = t_q; }}\n" + part for q, part in enumerate(parts[1:]))
     return s.replace("namespace {\n", COUNTERS, 1) + READOUT
 
 
@@ -157,7 +194,7 @@ def load(src_text, name):
     OUT.mkdir(parents=True, exist_ok=True)
     src = OUT / f"{name}.cu"
     src.write_text(src_text)
-    return _build.declare(ctypes.CDLL(str(nvcc(src, OUT / f"{name}.so", "-shared"))))
+    return _build.declare(ctypes.CDLL(str(nvcc(src, OUT / f"{name}.so", "-shared", "-I", str(_build.CSRC_DIR)))))
 
 
 def read(lib):
@@ -217,10 +254,10 @@ def probe_chord():
 def probe_gj():
     A = torch.randn(8192, 64, 64, device="cuda") + 64 * torch.eye(64, device="cuda")
     b = torch.randn(8192, 64, device="cuda")
-    lib = load(instrument_gj((_build.CSRC_DIR / "gauss_jordan.cu").read_text()), "gj_probe")
+    lib = load(instrument_gj(gj_source("gauss_jordan_regs_f32.cu", "gauss_jordan_regs_f32_high.cu")), "gj_probe")
     cuobjdump = str(Path(_build._nvcc()).with_name("cuobjdump"))
     sass = subprocess.run([cuobjdump, "-sass", str(OUT / "gj_probe.so")], capture_output=True, text=True).stdout
-    body = next(f for f in re.split(r"\n\s*Function : ", sass) if "gj_regsILi64E" in f.split("\n")[0])
+    body = next(f for f in re.split(r"\n\s*Function : ", sass) if "gj_regsIfLi64E" in f.split("\n")[0])
     n_ins = len(re.findall(r"/\*[0-9a-f]{4,}\*/", body))  # one address comment per instruction
     print(f"K1 n=64 body: {n_ins} SASS instructions a warp")
     x = torch.empty_like(b)
@@ -240,9 +277,11 @@ def probe_gj():
 
 # The baselines: K1 with the matrix in device memory, and the wide chord
 # kernel with one block per lane.
-BASELINE_SOURCES = ("gauss_jordan_gmem.cu", "chord_newton_wide_lane.cu")
+BASELINE_SOURCES = ("gauss_jordan_smem.cu", "gauss_jordan_gmem.cu", "chord_newton_wide_lane.cu")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 BASELINE_SIGNATURES = {
+    "gj_solve_f32_one_block": [_P, _P, _P, _I, _I, _P],  # (A, b, x, B, n, stream)
+    "gj_solve_f64_one_block": [_P, _P, _P, _I, _I, _P],
     "gj_solve_f32_gmem": [_P, _P, _P, _P, _I, _I, _P],  # (A, b, x, scratch, B, n, stream)
     "gj_solve_f64_gmem": [_P, _P, _P, _P, _I, _I, _P],
     # chord_newton_f32's arguments without next_lane
@@ -251,13 +290,40 @@ BASELINE_SIGNATURES = {
 
 
 def load_baselines():
-    """Build (if needed) and load the two baselines as one library."""
+    """Build (if needed) and load the baselines as one library."""
     here = Path(__file__).parent
     lib = ctypes.CDLL(str(_build.build_library([here / f for f in BASELINE_SOURCES], "libgym_anm_baselines")))
     for name, argtypes in BASELINE_SIGNATURES.items():
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = ctypes.c_int
     return lib
+
+
+def one_block_solve(lib, A, b):
+    """x = A^-1 b by the one-block design of K1's shared-memory route."""
+    B, n = b.shape
+    x = torch.empty_like(b)
+    fn = lib.gj_solve_f64_one_block if A.dtype == torch.float64 else lib.gj_solve_f32_one_block
+    rc = fn(A.data_ptr(), b.data_ptr(), x.data_ptr(), B, n, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, f"the one-block design failed with CUDA error {rc}"
+    return x
+
+
+def panel_solve(lib, A, b, panel, resident):
+    """x = A^-1 b by K1's panel kernel at a given panel width, the matrix
+    resident in shared memory or in a device scratch buffer."""
+    B, n = b.shape
+    x, stream = torch.empty_like(b), torch.cuda.current_stream().cuda_stream
+    f64 = A.dtype == torch.float64
+    if resident:
+        fn = lib.gj_solve_f64_resident if f64 else lib.gj_solve_f32_resident
+        rc = fn(A.data_ptr(), b.data_ptr(), x.data_ptr(), B, n, panel, stream)
+    else:
+        scratch = torch.empty(B, n, n + 1, dtype=A.dtype, device=A.device)
+        fn = lib.gj_solve_f64_blocked if f64 else lib.gj_solve_f32_blocked
+        rc = fn(A.data_ptr(), b.data_ptr(), x.data_ptr(), scratch.data_ptr(), B, n, panel, stream)
+    assert rc == 0, f"K1's panel kernel (panel {panel}, resident {resident}) failed with CUDA error {rc}"
+    return x
 
 
 def gmem_solve(lib, A, b):
@@ -373,6 +439,52 @@ def probe_wide():
           + ", ".join(f"{name} {T[i] / rounds:.0f}" for i, name in enumerate(WIDE_STEPS)))
 
 
+def probe_panels():
+    """K1's panel kernel's cycles by step (a clock64 copy, thread 0 of every
+    block), at B = 8192 on the feeders' sizes, resident and blocked."""
+    lib = load(instrument_panels(gj_source("gauss_jordan.cu", "gauss_jordan_f64.cu")), "gj_panels_probe")
+    B = 8192
+    for n, dtype, panel, resident in ((126, torch.float64, 8, True), (126, torch.float64, 32, False),
+                                      (126, torch.float32, 8, True), (126, torch.float32, 16, True),
+                                      (94, torch.float32, 16, True)):
+        g = torch.Generator(device="cuda").manual_seed(n)
+        A = torch.randn(B, n, n, generator=g, device="cuda", dtype=dtype) + n * torch.eye(n, device="cuda", dtype=dtype)
+        b = torch.randn(B, n, generator=g, device="cuda", dtype=dtype)
+        lib.probe_zero()
+        panel_solve(lib, A, b, panel, resident)
+        torch.cuda.synchronize()
+        T = read(lib)
+        ms = statistics.median(device_ms(lambda: panel_solve(lib, A, b, panel, resident)) for _ in range(3))
+        total = sum(T[:4])
+        print(f"K1 panels n={n} {dtype} BP={panel} {'resident' if resident else 'blocked'}: {ms:.4f} ms (instrumented "
+              f"copy); {T[4]} block-panels, {total / T[4]:.0f} cycles a panel (thread 0 of a block): "
+              + ", ".join(f"{name} {T[i] / T[4]:.0f} ({T[i] / total:.2f})" for i, name in enumerate(PANEL_STEPS)),
+              flush=True)
+
+
+def probe_route_edges():
+    """K1's panel kernel resident against blocked across the sizes the
+    resident route can take (B = 8192, device ms, median of 3 readings of 20
+    launches), for the route function's resident ceiling."""
+    lib = _build.load_library()
+    limit = lib.gj_smem_limit_bytes()
+    B = 8192
+    for dtype, sizes in ((torch.float32, (150, 162, 180, 200, 224)), (torch.float64, (80, 94, 110, 116, 126, 153, 258))):
+        for n in sizes:
+            g = torch.Generator(device="cuda").manual_seed(n)
+            A = torch.randn(B, n, n, generator=g, device="cuda", dtype=dtype) + n * torch.eye(n, device="cuda",
+                                                                                          dtype=dtype)
+            b = torch.randn(B, n, generator=g, device="cuda", dtype=dtype)
+            line = []
+            for resident, panels in ((True, (8, 16)), (False, (8, 16, 32))):
+                for panel in panels:
+                    if panel_smem_bytes(n, A.element_size(), panel, resident) > limit:
+                        continue
+                    t = statistics.median(device_ms(lambda: panel_solve(lib, A, b, panel, resident)) for _ in range(3))
+                    line.append(f"{'resident' if resident else 'blocked'} BP={panel} {t:.4f}")
+            print(f"K1 n={n} {dtype} B={B}: " + ", ".join(line), flush=True)
+
+
 def probe_blocked():
     """K1's blocked route by panel width at n = 258, float32, B = 8192."""
     B, n = 8192, 258
@@ -380,25 +492,61 @@ def probe_blocked():
     A = torch.randn(B, n, n, generator=g, device="cuda") + n * torch.eye(n, device="cuda")
     b = torch.randn(B, n, generator=g, device="cuda")
     lib, base = _build.load_library(), load_baselines()
-    x, scratch = torch.empty_like(b), torch.empty(B, n, n + 1, device="cuda")
     xp = gmem_solve(base, A, b)  # bitwise the plain version (its card tests)
-
-    def blocked(panel):
-        rc = lib.gj_solve_f32_blocked(A.data_ptr(), b.data_ptr(), x.data_ptr(), scratch.data_ptr(), B, n, panel,
-                                      torch.cuda.current_stream().cuda_stream)
-        assert rc == 0, rc
-        return x
-
     line = []
-    for panel in (0, 16, 32, 64):
-        blocked(panel)
+    for panel in (8, 16, 32):
+        x = panel_solve(lib, A, b, panel, False)
         torch.cuda.synchronize()
         assert torch.equal(x, xp), f"panel {panel} is not bitwise the device-memory design"
-        line.append(f"panel {panel or 'auto'} {statistics.median(device_ms(lambda: blocked(panel)) for _ in range(5)):.4f}")
+        t = statistics.median(device_ms(lambda: panel_solve(lib, A, b, panel, False)) for _ in range(5))
+        line.append(f"panel {panel} {t:.4f}")
     t_ex = statistics.median(device_ms(lambda: torch.linalg.solve_ex(A, b)) for _ in range(3))
     t_gmem = statistics.median(device_ms(lambda: gmem_solve(base, A, b), 2) for _ in range(3))
-    print(f"K1 blocked B={B} n={n} f32 (device ms, median of 5 readings of 20 launches): " + ", ".join(line)
+    print(f"K1 blocked B={B} n={n} f32 (device ms, median of 5 readings of 20 launches; the route takes panel "
+          f"{k1_route(n, torch.float32, lib.gj_smem_limit_bytes())[1]}): " + ", ".join(line)
           + f"; device-memory design {t_gmem:.4f} (2 launches, median of 3); torch.linalg.solve_ex {t_ex:.4f}")
+
+
+def probe_resident():
+    """K1's shared-memory route by panel width at the feeders' sizes, B =
+    8192, beside the blocked route, the one-block design and ``solve_ex``;
+    and the register route's float64 bodies at n = 48 and 64 beside it.  Every
+    variant is checked bitwise against the plain version first."""
+    lib, base = _build.load_library(), load_baselines()
+    limit = lib.gj_smem_limit_bytes()
+    B = 8192
+    for n, dtype in ((94, torch.float32), (126, torch.float32), (48, torch.float64), (64, torch.float64),
+                     (126, torch.float64)):
+        g = torch.Generator(device="cuda").manual_seed(n)
+        A = torch.randn(B, n, n, generator=g, device="cuda", dtype=dtype) + n * torch.eye(n, device="cuda", dtype=dtype)
+        b = torch.randn(B, n, generator=g, device="cuda", dtype=dtype)
+        A[1, 0, 0] = 0.0
+        xp = solve_gauss_jordan(A, b)
+        keep = torch.ones(B, dtype=torch.bool, device="cuda")
+        keep[1] = False
+        itemsize = A.element_size()
+        variants = {f"resident BP={bp}": (lambda bp=bp: panel_solve(lib, A, b, bp, True), 20)
+                    for bp in (8, 16) if panel_smem_bytes(n, itemsize, bp, True) <= limit}
+        blocked_bp = next(bp for bp in BLOCKED_PANELS[itemsize] if panel_smem_bytes(n, itemsize, bp, False) <= limit)
+        variants[f"blocked BP={blocked_bp}"] = (lambda: panel_solve(lib, A, b, blocked_bp, False), 20)
+        if dtype == torch.float64 and n <= 64:
+            def regs():
+                x = torch.empty_like(b)
+                assert lib.gj_solve_f64_regs(A.data_ptr(), b.data_ptr(), x.data_ptr(), B, n,
+                                             torch.cuda.current_stream().cuda_stream) == 0
+                return x
+            variants["regs f64"] = (regs, 20)
+        variants["one-block design"] = (lambda: one_block_solve(base, A, b), 2 if n > 100 else 20)
+        line = []
+        for name, (fn, k) in variants.items():
+            x = fn()
+            torch.cuda.synchronize()
+            assert not torch.isfinite(x[1]).all(), f"{name}: the zero pivot was repaired"
+            assert torch.equal(x[keep], xp[keep]), f"{name} at n={n} {dtype} is not bitwise the plain version"
+            line.append(f"{name} {statistics.median(device_ms(fn, k) for _ in range(3)):.4f}")
+        t_ex = statistics.median(device_ms(lambda: torch.linalg.solve_ex(A, b)) for _ in range(3))
+        print(f"K1 n={n} {dtype} B={B} (device ms, median of 3 readings; the route: "
+              f"{k1_route(n, dtype, limit)}): " + ", ".join(line) + f", torch.linalg.solve_ex {t_ex:.4f}", flush=True)
 
 
 # PR 5's admm_dcopf_f32 arguments (admm_dcopf_pr5.cu's admm_probe_f32).
@@ -535,6 +683,7 @@ if __name__ == "__main__":
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"nvidia-smi: {smi}")
+    probe_resident()
     probe_wide()
     probe_blocked()
     probe_admm()

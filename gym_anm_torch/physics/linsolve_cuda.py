@@ -11,17 +11,58 @@ TPU kernel ``gym_anm_tpu/physics/linsolve_pallas.py:solve_gauss_jordan_pallas``.
 
 import torch
 
-# Largest n of the float32 path that keeps each system in one warp's
-# registers; float64 and larger n take the shared-memory path, and a system
-# whose matrix does not fit in a block's shared memory the blocked path (the
-# matrix in device memory, read and written once a panel of pivots).
+# The routes of the kernel (csrc/gauss_jordan.cu), chosen by k1_route:
+# "regs", each row of a system in one thread's registers, up to REG_MAX_N;
+# "smem", blocked Gauss-Jordan with the matrix resident in a block's shared
+# memory, in panels of the width of RESIDENT_PANELS that fits the most
+# blocks an SM (by shared memory, and by the registers the kernels are
+# compiled for, RESIDENT_REG_BLOCKS; the wider on a tie), taken while two
+# such blocks fit an SM; "blocked", the same with the matrix in a device
+# scratch buffer, read and written once a panel, in panels of the first
+# width of BLOCKED_PANELS that fits.  A resident block alone on an SM leaves
+# it idle in each panel's serial steps, where the blocked route runs two or
+# more blocks an SM from L2 (gym_anm_torch/bench/kernel_probes.py:
+# probe_route_edges), hence the two blocks.
 REG_MAX_N = 64
+RESIDENT_PANELS = (16, 8)
+RESIDENT_REG_BLOCKS = {4: 4, 8: 3}  # by the element's bytes: csrc/gauss_jordan.cuh:kPanMinBlocks
+BLOCKED_PANELS = {4: (32, 16, 8), 8: (16, 8)}
+H100_SMEM_OPTIN = 232448  # bytes of opt-in shared memory a block on an H100
+BLOCK_RESERVED = 1024  # bytes an SM reserves for each resident block; it has the opt-in amount plus one of these
 
 
-def smem_bytes(n, itemsize):
-    """Shared memory of the shared-memory path's block: the augmented [n, n+1]
-    matrix, the pivot row and the factors."""
-    return itemsize * (n * (n + 1) + 2 * n + 1)
+def panel_smem_bytes(n, itemsize, panel, resident):
+    """Shared memory of a block of the panel routes: the column panel
+    [panel, n rounded up to 4], the pivot-row panel [panel, n+1], the
+    diagonal block's factors and pivot rows [panel, panel] each, and on the
+    resident route the augmented matrix [n, n+1]."""
+    ldn = (n + 3) // 4 * 4
+    return itemsize * (panel * (ldn + n + 1) + 2 * panel * panel + (n * (n + 1) if resident else 0))
+
+
+def blocks_per_sm(nbytes, smem_limit):
+    """How many blocks of ``nbytes`` of shared memory fit one SM of a card
+    whose opt-in limit a block is ``smem_limit``."""
+    return (smem_limit + BLOCK_RESERVED) // (nbytes + BLOCK_RESERVED)
+
+
+def k1_route(n, dtype, smem_limit):
+    """The route and panel width of an n×n system of ``dtype`` on a card with
+    ``smem_limit`` bytes of opt-in shared memory a block: ``("regs", 0)``,
+    ``("smem", panel)`` or ``("blocked", panel)``.  On an H100 both types
+    run in registers to n = 64; float32 resident to n = 161 and float64 to
+    111, and blocked above."""
+    itemsize = dtype.itemsize
+    if n <= REG_MAX_N:
+        return "regs", 0
+    blocks, panel = max((min(blocks_per_sm(panel_smem_bytes(n, itemsize, bp, True), smem_limit),
+                             RESIDENT_REG_BLOCKS[itemsize]), bp) for bp in RESIDENT_PANELS)
+    if blocks >= 2:
+        return "smem", panel
+    for panel in BLOCKED_PANELS[itemsize]:
+        if panel_smem_bytes(n, itemsize, panel, False) <= smem_limit:
+            return "blocked", panel
+    raise ValueError(f"n = {n} ({dtype}) is too large for the blocked route's panels in {smem_limit} bytes")
 
 
 def solve_gauss_jordan(A, b):
@@ -53,14 +94,13 @@ def solve_gauss_jordan_cuda(A, b):
 
     Takes contiguous float32 or float64 tensors on one CUDA device, launches
     on the current stream, and raises on anything else or on a failed
-    launch.  Float32 at n <= ``REG_MAX_N`` runs with each system in one
-    warp's registers, float64 and larger n with each system in a block's
-    shared memory, and a system too large for the card's shared memory per
-    block (n > 239 in float32, n > 168 in float64 on an H100) by blocked
-    Gauss-Jordan on a scratch buffer [B, n, n+1] in device memory (panels of
-    32, 16 or 8 pivots in shared memory, the kernel's choice).  Adds one to
+    launch.  :func:`k1_route` picks the route by n, the type and the card's
+    shared memory alone: each system in one or two warps' registers (n <=
+    64), blocked Gauss-Jordan with the matrix resident in a block's shared
+    memory (on an H100 to n = 161 in float32, 111 in float64), or blocked
+    Gauss-Jordan on a scratch buffer [B, n, n+1] in device memory above.  No route stands in for another.  Adds one to
     ``solve_gauss_jordan_cuda.launch_count`` per launch, and to
-    ``solve_gauss_jordan_cuda.launches[path]`` for the path that ran
+    ``solve_gauss_jordan_cuda.launches[route]`` for the route that ran
     (``"regs"``, ``"smem"``, ``"blocked"``).
     """
     if not (A.is_cuda and b.is_cuda) or A.device != b.device:
@@ -79,22 +119,25 @@ def solve_gauss_jordan_cuda(A, b):
 
     lib = load_library()
     f64 = A.dtype == torch.float64
+    route, panel = k1_route(n, A.dtype, lib.gj_smem_limit_bytes())
     x = torch.empty_like(b)
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
-        if not f64 and n <= REG_MAX_N:
-            path, rc = "regs", lib.gj_solve_f32_regs(A.data_ptr(), b.data_ptr(), x.data_ptr(), B, n, stream)
-        elif smem_bytes(n, A.element_size()) <= lib.gj_smem_limit_bytes():
-            fn = lib.gj_solve_f64 if f64 else lib.gj_solve_f32
-            path, rc = "smem", fn(A.data_ptr(), b.data_ptr(), x.data_ptr(), B, n, stream)
+        if route == "regs":
+            fn = lib.gj_solve_f64_regs if f64 else lib.gj_solve_f32_regs
+            rc = fn(A.data_ptr(), b.data_ptr(), x.data_ptr(), B, n, stream)
+        elif route == "smem":
+            fn = lib.gj_solve_f64_resident if f64 else lib.gj_solve_f32_resident
+            rc = fn(A.data_ptr(), b.data_ptr(), x.data_ptr(), B, n, panel, stream)
         else:
             scratch = torch.empty(B, n, n + 1, dtype=A.dtype, device=A.device)
             fn = lib.gj_solve_f64_blocked if f64 else lib.gj_solve_f32_blocked
-            path, rc = "blocked", fn(A.data_ptr(), b.data_ptr(), x.data_ptr(), scratch.data_ptr(), B, n, 0, stream)
+            rc = fn(A.data_ptr(), b.data_ptr(), x.data_ptr(), scratch.data_ptr(), B, n, panel, stream)
     if rc != 0:
-        raise RuntimeError(f"gauss_jordan kernel launch failed with CUDA error {rc} (B={B}, n={n}, {A.dtype})")
+        raise RuntimeError(f"gauss_jordan kernel launch failed with CUDA error {rc} "
+                           f"(B={B}, n={n}, {A.dtype}, route {route}, panel {panel})")
     solve_gauss_jordan_cuda.launch_count += 1
-    solve_gauss_jordan_cuda.launches[path] += 1
+    solve_gauss_jordan_cuda.launches[route] += 1
     return x
 
 

@@ -16,8 +16,11 @@ from gym_anm_torch.bench import kernel_probes
 def test_probes_instrument_the_current_kernel_sources():
     chord = kernel_probes.instrument_chord((_build.CSRC_DIR / "chord_newton.cu").read_text())
     assert chord.count("clock64()") == 10 and "g_probe[10]" in chord and 'extern "C" int probe_read' in chord
-    gj = kernel_probes.instrument_gj((_build.CSRC_DIR / "gauss_jordan.cu").read_text())
+    gj = kernel_probes.instrument_gj(
+        kernel_probes.gj_source("gauss_jordan_regs_f32.cu", "gauss_jordan_regs_f32_high.cu"))
     assert gj.count("clock64()") == 2 and "g_probe[1]" in gj
+    panels = kernel_probes.instrument_panels(kernel_probes.gj_source("gauss_jordan.cu", "gauss_jordan_f64.cu"))
+    assert panels.count("clock64()") == 5 and "g_probe[4]" in panels and 'extern "C" int probe_read' in panels
     admm = kernel_probes.instrument_admm((_build.CSRC_DIR / "admm_dcopf.cu").read_text())
     assert admm.count("clock64()") == 6 and "g_probe[6]" in admm and 'extern "C" int probe_read' in admm
     wide = kernel_probes.instrument_wide((_build.CSRC_DIR / "chord_newton_wide.cu").read_text())

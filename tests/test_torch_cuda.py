@@ -1,5 +1,5 @@
-"""gym_anm_torch on a CUDA card: the Gauss-Jordan kernel (K1, with its
-blocked route for systems above a block's shared memory), the fused
+"""gym_anm_torch on a CUDA card: the Gauss-Jordan kernel (K1: its register,
+shared-memory and blocked routes, at their edges), the fused
 chord-Newton kernels (K2, and its wide kernel above 33 buses) and the ADMM
 kernel (K5) against their plain versions, and
 the float32 and float64 steps on the card against the CPU, random feeders
@@ -33,9 +33,13 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("B,n", [(512, 64), (33, 10), (7, 2), (3, 130)])
-def test_kernel_matches_plain_version(cuda, dtype, rtol, B, n):
+def test_kernel_matches_plain_version(cuda, dtype, B, n):
+    """Every route (registers at n <= 64, the matrix resident in shared
+    memory above) rounds as the plain version:
+    bitwise equal on every finite lane, and the zero-pivot lane non-finite
+    in both."""
     g = torch.Generator(device=cuda).manual_seed(n)
     A = torch.randn(B, n, n, generator=g, device=cuda, dtype=dtype) + n * torch.eye(n, device=cuda, dtype=dtype)
     b = torch.randn(B, n, generator=g, device=cuda, dtype=dtype)
@@ -47,7 +51,46 @@ def test_kernel_matches_plain_version(cuda, dtype, rtol, B, n):
     assert solve_gauss_jordan_cuda.launch_count == before + 1
     assert not torch.isfinite(xk[1]).all() and not torch.isfinite(xp[1]).all()
     keep = torch.arange(B, device=cuda) != 1
-    torch.testing.assert_close(xk[keep], xp[keep], rtol=rtol, atol=rtol * float(xp[keep].abs().max()))
+    assert torch.isfinite(xp[keep]).all() and torch.equal(xk[keep], xp[keep])
+
+
+@pytest.mark.parametrize("dtype,n,route", [
+    (torch.float32, 64, "regs"), (torch.float32, 65, "smem"), (torch.float32, 94, "smem"),
+    (torch.float32, 126, "smem"), (torch.float32, 161, "smem"), (torch.float32, 162, "blocked"),
+    (torch.float64, 10, "regs"), (torch.float64, 33, "regs"), (torch.float64, 64, "regs"),
+    (torch.float64, 65, "smem"), (torch.float64, 94, "smem"), (torch.float64, 111, "smem"),
+    (torch.float64, 112, "blocked"), (torch.float64, 126, "blocked")])
+@pytest.mark.parametrize("B", [7, 300])
+def test_routes_at_their_edges_are_bitwise_the_plain_version(cuda, dtype, n, route, B):
+    """Both sides of each route edge (registers | resident in shared memory
+    | blocked in device memory, at the H100's edges; the card's own limit
+    decides through ``k1_route``): bitwise equal to the plain version, the
+    zero-pivot lane and the lane with an inf entry non-finite as the plain
+    version has them, and the route's counter moved.  B = 300 gives the
+    persistent grid more systems than blocks at large n."""
+    from gym_anm_torch._build import load_library
+    from gym_anm_torch.physics.linsolve_cuda import H100_SMEM_OPTIN, k1_route
+
+    limit = load_library().gj_smem_limit_bytes()
+    got = k1_route(n, dtype, limit)[0]
+    if limit == H100_SMEM_OPTIN:
+        assert got == route
+    g = torch.Generator(device=cuda).manual_seed(10 * n + B)
+    A = torch.randn(B, n, n, generator=g, device=cuda, dtype=dtype) + n * torch.eye(n, device=cuda, dtype=dtype)
+    b = torch.randn(B, n, generator=g, device=cuda, dtype=dtype)
+    A[1, 0, 0] = 0.0
+    A[2, n // 2, 3] = float("inf")
+    before = dict(solve_gauss_jordan_cuda.launches)
+    xk = solve_gauss_jordan_cuda(A, b)
+    xp = solve_gauss_jordan(A, b)
+    torch.cuda.synchronize()
+    assert solve_gauss_jordan_cuda.launches[got] == before[got] + 1
+    for lane in (1, 2):
+        assert not torch.isfinite(xk[lane]).all() and not torch.isfinite(xp[lane]).all()
+    assert torch.equal(torch.isnan(xk), torch.isnan(xp))
+    keep = torch.arange(B, device=cuda) > 2
+    keep[0] = True
+    assert torch.isfinite(xp[keep]).all() and torch.equal(xk[keep], xp[keep])
 
 
 @pytest.mark.parametrize("n", [2, 5, 10, 16, 17, 33, 64])
@@ -483,9 +526,9 @@ def test_wide_chord_kernel_refuses_networks_above_its_limit(cuda):
 def test_kernel_in_device_memory_matches_plain_version(cuda, dtype, n):
     """K1 on systems too large for a block's shared memory (blocked
     Gauss-Jordan on a device scratch buffer; none of these n is a multiple
-    of the panel width): bitwise equal to the plain version at float32,
-    within 1e-10 at float64; the zero-pivot lane and the lane with an inf
-    entry non-finite in both, as the plain version has them."""
+    of the panel width): bitwise equal to the plain version at float32 and
+    float64; the zero-pivot lane and the lane with an inf entry non-finite
+    in both, as the plain version has them."""
     B = 3 if n > 512 else 5
     g = torch.Generator(device=cuda).manual_seed(n)
     A = torch.randn(B, n, n, generator=g, device=cuda, dtype=dtype) + n * torch.eye(n, device=cuda, dtype=dtype)
@@ -502,10 +545,7 @@ def test_kernel_in_device_memory_matches_plain_version(cuda, dtype, n):
     assert torch.equal(torch.isnan(xk), torch.isnan(xp))
     keep = torch.arange(B, device=cuda) > 2
     keep[0] = True
-    if dtype == torch.float32:
-        assert torch.equal(xk[keep], xp[keep])
-    else:
-        torch.testing.assert_close(xk[keep], xp[keep], rtol=1e-10, atol=1e-10 * float(xp[keep].abs().max()))
+    assert torch.equal(xk[keep], xp[keep])
 
 
 @pytest.mark.parametrize("n_bus,scale", [(48, 0.6), (130, 0.15)])
@@ -513,8 +553,8 @@ def test_kernel_in_device_memory_matches_plain_version(cuda, dtype, n):
 def test_feeder_step_on_card_matches_cpu(cuda, n_bus, scale, dtype):
     """A random radial feeder above 33 buses steps on the card at float32
     (the wide chord kernel, and the Newton fallback from bad-basin warm
-    starts) and at float64 (Newton with K1; above 85 buses in device
-    memory), and matches the same step on the CPU: voltages within 5e-6 at
+    starts) and at float64 (Newton with K1; resident in shared memory up to
+    56 buses, blocked in device memory above), and matches the same step on the CPU: voltages within 5e-6 at
     float32 (the solver's tolerance) and 1e-9 at float64."""
     from gym_anm_torch.networks.random_feeder import feeder_vars, make_feeder_task, random_radial_network
 

@@ -273,15 +273,20 @@ def test_butterfly_sum_follows_the_wide_kernels_fold(n):
     np.testing.assert_array_equal(tpf._butterfly_sum(torch.as_tensor(a)).numpy(), w[:, 0])
 
 
-@pytest.mark.parametrize("itemsize,n_max", [(4, 239), (8, 168)])
-def test_gauss_jordan_switches_to_device_memory_above_the_cards_shared_memory(itemsize, n_max):
-    """With an H100's 227 KB of opt-in shared memory per block, the
-    shared-memory path takes n <= 239 in float32 and n <= 168 in float64;
-    larger systems go to the path with the matrix in device memory."""
-    from gym_anm_torch.physics.linsolve_cuda import smem_bytes
+@pytest.mark.parametrize("dtype,n_max", [(torch.float32, 161), (torch.float64, 111)])
+def test_gauss_jordan_switches_to_device_memory_above_the_cards_shared_memory(dtype, n_max):
+    """With an H100's 227 KB of opt-in shared memory per block, the route
+    with the matrix resident in shared memory takes n while two of its
+    blocks fit an SM (n <= 161 in float32, n <= 111 in float64, with panels
+    of 8 pivots); larger systems go to the blocked route with the matrix in
+    device memory."""
+    from gym_anm_torch.physics.linsolve_cuda import H100_SMEM_OPTIN, blocks_per_sm, k1_route, panel_smem_bytes
 
-    h100 = 232448
-    assert smem_bytes(n_max, itemsize) <= h100 < smem_bytes(n_max + 1, itemsize)
+    itemsize = dtype.itemsize
+    assert blocks_per_sm(panel_smem_bytes(n_max, itemsize, 8, True), H100_SMEM_OPTIN) == 2
+    assert blocks_per_sm(panel_smem_bytes(n_max + 1, itemsize, 8, True), H100_SMEM_OPTIN) == 1
+    assert k1_route(n_max, dtype, H100_SMEM_OPTIN) == ("smem", 8)
+    assert k1_route(n_max + 1, dtype, H100_SMEM_OPTIN)[0] == "blocked"
 
 
 def test_chord_acceptance_rate_is_total(ttb32):
