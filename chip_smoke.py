@@ -95,7 +95,31 @@ non-zero at the first failure:
    design, the blocked route in device memory and ``solve_ex``; each
    feeder's float32 ``VecEnv`` for 5 steps, the last from bad-basin warm
    starts (the Newton fallback, K1's blocked route on the 130-bus feeder),
-   held against the float64 tier on the card.
+   held against the float64 tier on the card;
+11. PPO through ``gym_anm_torch.scripts.train_ppo_online.main``, every
+   update under ``torch.cuda.set_sync_debug_mode("error")``:
+   11a. base IEEE33 at B = 8192, rollout 16, 10 iterations: env-steps/s of
+   the train loop, the split of an iteration between rollout and update
+   (CUDA events), the device's idle share over a torch.profiler window of 2
+   iterations, GPU ops and host syncs of the rollout and of the update (0);
+   then a short run without a process group and under nccl at world size 1,
+   bitwise equal;
+   11b. the multicap17 run of ``docs/distributed.md:52-55`` (B = 4096,
+   rollout 16, 2 epochs × 2 × 2 minibatches, hidden 64) for 150 iterations:
+   every loss and reward finite, the mean reward of iterations 140-149 above
+   that of 0-9, the reward trajectory, the deterministic policy against
+   random (256 lanes × 50 steps without autoreset), the saved TrainState
+   restored bit for bit, and one update of the card against the CPU at
+   float64 from the card's trajectory and parameters (within 1e-10);
+12. CQL through ``gym_anm_torch.scripts.train_cql_offline.main``
+   (``docs/distributed.md:79-83``): the L0-L5 dataset on multicap17 (512
+   lanes × 50 steps × 6 controllers), 3000 updates of 512 under
+   ``set_sync_debug_mode("error")``, updates/s, the final loss and Bellman
+   error, the deterministic policy against random and L5 (256 lanes × 50
+   steps without autoreset; CQL above random), and one update of the card
+   against the CPU at float64 (within 1e-10).
+
+K1 and K2 launches of phases 11 and 12 count in the kernels' line.
 
 Every kernel time is device time: ``cuda_ms`` puts N_LAUNCH back-to-back
 launches between one pair of CUDA events behind a sleep kernel, so the host
@@ -1853,6 +1877,219 @@ def phase10_k1_routes(lin, base):
     return resident
 
 
+PPO_TIMED = ["--task", "ieee33", "--lanes", str(B_MAIN), "--rollout", "16", "--iters", "10"]
+PPO_DOC = ["--task", "multicap", "--lanes", "4096", "--rollout", "16", "--epochs", "2", "--minibatches", "2",
+           "--lane-minibatches", "2", "--iters", "150"]  # docs/distributed.md:52-55, hidden 64 (the default)
+CQL_DOC = ["--lanes", "512", "--steps", "50", "--train-steps", "3000"]  # docs/distributed.md:79-83
+
+
+def rel_err(a, b):
+    """max |a - b| over max |b| (norm-wise relative; over 1 where b is 0)."""
+    scale = float(b.abs().max())
+    return float((a.cpu() - b.cpu()).abs().max()) / (scale if scale > 0 else 1.0)
+
+
+def counted(kernel, chord_k, fn):
+    """``fn()`` with the K1 and K2 counts set to 0 just before and read just
+    after: (fn's result, K1 launches, K2 launches)."""
+    kernel.launch_count = 0
+    chord_k.launch_count = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, kernel.launch_count, chord_k.launch_count
+
+
+def ppo_profile(run, n_iter=2):
+    """A torch.profiler window of ``n_iter`` train iterations after the run:
+    the device's idle share (1 − busy / wall, busy the union of the card's
+    kernel and copy spans), then GPU ops and host syncs of one rollout and
+    of one update apart."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step, ts, state, obs, g = (run[k] for k in ("train_step", "ts", "state", "obs", "generator"))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_iter):
+            ts, state, obs, _ = step(ts, state, obs, g)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy, last = 0.0, float("-inf")
+    for start, end in sorted((e.time_range.start, e.time_range.end) for e in evs):
+        busy += max(0.0, end - max(start, last))
+        last = max(last, end)
+    busy_ms = busy / 1e3 / n_iter
+    idle = 1.0 - busy_ms / (1e3 * wall / n_iter)
+    empty = count_ops(lambda: None)
+    holder = {}
+    ops_c, syncs_c = count_ops(lambda: holder.update(out=step.collect(ts, state, obs, g)), empty)
+    traj = holder["out"][2]
+    perms = step.permutations(ts.step)
+    ops_u, syncs_u = count_ops(lambda: step.update(ts, traj, perms), empty)
+    log(f"PPO profile ({n_iter} iterations): wall {1e3 * wall / n_iter:.3f} ms/iteration, device busy "
+        f"{busy_ms:.3f} ms/iteration, idle share {idle:.4f}; GPU ops per iteration {ops_c + ops_u} (rollout "
+        f"{ops_c}, update {ops_u}), host syncs per iteration {syncs_c + syncs_u} (rollout {syncs_c}, update "
+        f"{syncs_u})")
+    assert syncs_u == 0, f"the update synchronized {syncs_u} times"
+    return idle
+
+
+def nccl_equals_alone(ppo_main, args):
+    """The same short PPO run without a process group and under nccl at
+    world size 1: bitwise equal parameters."""
+    import socket
+
+    import torch.distributed as dist
+
+    from gym_anm_torch.parallel import init_distributed
+
+    alone = [p.detach().clone() for p in ppo_main(args)["ts"].params.parameters()]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert init_distributed(0, 1, port) == "nccl"
+    try:
+        grouped = [p.detach().clone() for p in ppo_main(args)["ts"].params.parameters()]
+    finally:
+        dist.destroy_process_group()
+    same = all(torch.equal(a, b) for a, b in zip(alone, grouped))
+    log(f"PPO without a process group and under nccl at world size 1 ({' '.join(args)}): parameters bitwise "
+        f"equal: {same}")
+    assert same
+
+
+def ppo_update_card_vs_cpu(VecEnv, run, task):
+    """One PPO update of the card against the same update on the CPU: the
+    card's next trajectory batch and parameters cast to float64, the same
+    permutations; parameters and metrics within 1e-10 (norm-wise)."""
+    from gym_anm_torch.parallel import ppo
+    from gym_anm_torch.utils import forbid_host_syncs
+
+    step, ts, state, obs, g = (run[k] for k in ("train_step", "ts", "state", "obs", "generator"))
+    _, _, traj = step.collect(ts, state, obs, g)
+    traj = tuple(x.double() for x in traj)
+    ts64 = ts.to(dtype=torch.float64)
+    perms = step.permutations(ts.step)
+    step_c = ppo.make_train_step(VecEnv(task, dtype=torch.float64, device="cpu"), step.cfg)
+    ts_c, m_c = step_c.update(ts64.to("cpu"), tuple(x.cpu() for x in traj), perms)
+    torch.cuda.synchronize()
+    with forbid_host_syncs():
+        ts_g, m_g = step.update(ts64, traj, perms)
+    err = max(rel_err(p.detach(), q.detach()) for p, q in zip(ts_g.params.parameters(), ts_c.params.parameters()))
+    err_m = max(rel_err(m_g[k], m_c[k]) for k in m_c)
+    log(f"PPO update at float64, card vs CPU (trajectory [{traj[2].shape[0]}, {traj[2].shape[1]}], the card's "
+        f"parameters): parameters max rel err {err:.3e}, metrics {err_m:.3e}")
+    assert err <= 1e-10 and err_m <= 1e-10
+    return err
+
+
+def phase11_ppo(VecEnv, make_ieee33_multicap_task, kernel, chord_k):
+    """PPO through ``python -m gym_anm_torch.scripts.train_ppo_online``'s
+    ``main``: the timed base IEEE33 run, the documented multicap17 run, the
+    card against the CPU, nccl against no process group.  Returns (K1, K2)
+    launches of the two runs."""
+    import tempfile
+
+    from gym_anm_torch.scripts.train_ppo_online import main as ppo_main
+    from gym_anm_torch.utils import restore_checkpoint
+
+    log(f"== phase 11a: PPO on base IEEE33, f32, B={B_MAIN}, rollout 16, 10 iterations, every update under "
+        f"set_sync_debug_mode('error')")
+    t0 = time.perf_counter()
+    run, k1a, k2a = counted(kernel, chord_k, lambda: ppo_main(PPO_TIMED + ["--forbid-syncs"]))
+    t_run = time.perf_counter() - t0
+    losses = [m["loss"] for m in run["metrics"]]
+    assert all(math.isfinite(x) for x in losses), "a non-finite PPO loss"
+    iter_ms = run["rollout_ms"] + run["update_ms"]
+    log(f"PPO base IEEE33: {run['env_steps_per_s']:.1f} env-steps/s (train loop, iterations 1-9); an iteration "
+        f"{iter_ms:.3f} ms on the card's timeline: rollout {run['rollout_ms']:.3f} ms "
+        f"({run['rollout_ms'] / iter_ms:.3f}), update {run['update_ms']:.3f} ms ({run['update_ms'] / iter_ms:.3f}); "
+        f"K2 launches {k2a}, K1 launches {k1a}; the run took {t_run:.1f} s")
+    assert k2a > 0, "K2 never launched in the PPO rollout"
+    t0 = time.perf_counter()
+    ppo_profile(run)
+    t1 = time.perf_counter()
+    nccl_equals_alone(ppo_main, ["--task", "ieee33", "--lanes", "1024", "--rollout", "8", "--iters", "2",
+                                 "--minibatches", "2", "--lane-minibatches", "2", "--forbid-syncs"])
+    log(f"(profile {t1 - t0:.1f} s, nccl check {time.perf_counter() - t1:.1f} s)")
+
+    log("== phase 11b: PPO on multicap17 (docs/distributed.md:52-55): B=4096, rollout 16, 2 epochs x 2 x 2 "
+        "minibatches, hidden 64, 150 iterations, --eval, --save")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        run, k1b, k2b = counted(kernel, chord_k,
+                                lambda: ppo_main(PPO_DOC + ["--eval", "--save", tmp, "--forbid-syncs"]))
+        ts = run["ts"]
+        restored = restore_checkpoint(tmp, ts, step=len(run["metrics"]))
+    same = (all(torch.equal(p, q) for p, q in zip(ts.params.parameters(), restored.params.parameters()))
+            and all(torch.equal(ts.opt_m[k], restored.opt_m[k]) and torch.equal(ts.opt_v[k], restored.opt_v[k])
+                    for k in ts.opt_m) and restored.step == ts.step)
+    rewards = [m["mean_reward"] for m in run["metrics"]]
+    assert all(math.isfinite(m[k]) for m in run["metrics"] for k in m), "a non-finite loss or reward"
+    early, late = statistics.mean(rewards[:10]), statistics.mean(rewards[-10:])
+    log(f"PPO multicap17 mean reward by iteration: {[float(f'{r:.4g}') for r in rewards]}")
+    log(f"PPO multicap17: mean reward of iterations 0-9 {early:.4f}, of 140-149 {late:.4f}; "
+        f"{run['env_steps_per_s']:.1f} env-steps/s; rollout {run['rollout_ms']:.3f} ms, update "
+        f"{run['update_ms']:.3f} ms an iteration; K2 launches {k2b}, K1 launches {k1b}; the run (150 iterations, "
+        f"eval, save and restore) took {time.perf_counter() - t0:.1f} s")
+    log(f"PPO multicap17 eval (deterministic, 256 lanes x 50 steps, no autoreset): PPO {run['eval']['ppo']:+.4f}, "
+        f"random {run['eval']['random']:+.4f} per step; checkpoint restored bit for bit: {same}")
+    assert late > early, "PPO did not improve its mean reward"
+    assert same, "the restored TrainState differs"
+    t0 = time.perf_counter()
+    ppo_update_card_vs_cpu(VecEnv, run, make_ieee33_multicap_task())
+    log(f"(card against CPU {time.perf_counter() - t0:.1f} s)")
+    return k1a + k1b, k2a + k2b
+
+
+def phase12_cql(kernel, chord_k):
+    """CQL through ``python -m gym_anm_torch.scripts.train_cql_offline``'s
+    ``main`` (docs/distributed.md:79-83), every update under
+    set_sync_debug_mode('error'), then one update of the card against the CPU
+    at float64.  Returns (K1, K2) launches of the run."""
+    from gym_anm_torch.parallel import cql
+    from gym_anm_torch.scripts.train_cql_offline import main as cql_main
+    from gym_anm_torch.utils import forbid_host_syncs
+
+    log("== phase 12: CQL on multicap17: L0-L5 dataset 512 lanes x 50 steps x 6, 3000 updates of 512, "
+        "CQLConfig(hidden=128, cql_weight=2.0)")
+    run, k1, k2 = counted(kernel, chord_k, lambda: cql_main(CQL_DOC + ["--forbid-syncs"]))
+    m, ev = run["metrics"], run["eval"]
+    assert run["transitions"] == 153_600
+    assert all(math.isfinite(v) for v in m.values()), "a non-finite CQL metric"
+    log(f"CQL: {run['transitions']} transitions collected in {run['collect_s']:.1f} s; {run['updates_per_s']:.1f} "
+        f"updates/s ({run['train_s']:.1f} s for 3000); final loss {m['loss']:.4f}, bellman {m['bellman']:.4f}; "
+        f"K2 launches {k2}, K1 launches {k1}")
+    log(f"CQL eval (deterministic, 256 lanes x 50 steps, no autoreset): CQL {ev['cql']:+.4f}, random "
+        f"{ev['random']:+.4f}, L5 {ev['L5']:+.4f} per step")
+    assert ev["cql"] > ev["random"], "CQL does not beat random"
+
+    # One update at float64, card against CPU.
+    env, data = run["env"], run["dataset"]
+    idx = torch.randint(0, run["transitions"], (512,), generator=torch.Generator().manual_seed(3)).to("cuda")
+    keys = {"obs": "states", "actions": "actions", "rewards": "rewards", "next_obs": "next_states", "dones": "dones"}
+    batch = {k: data[v][idx].double() for k, v in keys.items()}
+    cfg = cql.CQLConfig(hidden=128, cql_weight=2.0)
+    lo, hi = env.action_low.double(), env.action_high.double()
+    upd_g, upd_c = cql.make_cql_update(cfg, lo, hi), cql.make_cql_update(cfg, lo.cpu(), hi.cpu())
+    noise = upd_c.draw(torch.Generator().manual_seed(4), 512, torch.float64)
+    state = run["state"].to(dtype=torch.float64)
+    new_c, m_c = upd_c(state.to("cpu"), None, {k: v.cpu() for k, v in batch.items()}, noise)
+    noise = {k: v.to("cuda") for k, v in noise.items()}
+    torch.cuda.synchronize()
+    with forbid_host_syncs():
+        new_g, m_g = upd_g(state, None, batch, noise)
+    pairs = list(zip(new_g.train.params.parameters(), new_c.train.params.parameters())) + list(
+        zip(new_g.target_q.parameters(), new_c.target_q.parameters()))
+    err = max(rel_err(p.detach(), q.detach()) for p, q in pairs)
+    err_m = max(rel_err(m_g[k], m_c[k]) for k in m_c)
+    log(f"CQL update at float64, card vs CPU (the trained networks, 512 rows of the dataset): parameters and "
+        f"targets max rel err {err:.3e}, metrics {err_m:.3e}")
+    assert err <= 1e-10 and err_m <= 1e-10
+    return k1, k2
+
+
 def log_ptxas(report):
     """One line per kernel of ptxas's report: registers and spill bytes."""
     b = {"0": "false", "1": "true", "f": "float", "d": "double"}
@@ -1936,14 +2173,16 @@ def main():
                                       chord_solve_cuda)
     run(phase9d_replay, mpc, VecEnv, make_anm6easy_task, farm_record)
     k2w, k1g, k1s = run(phase10_feeders, pf, lin, chord_solve_cuda, VecEnv, base)
+    ppo_k1, ppo_k2 = run(phase11_ppo, VecEnv, make_ieee33_multicap_task, kernel, chord_solve_cuda)
+    cql_k1, cql_k2 = run(phase12_cql, kernel, chord_solve_cuda)
 
-    # Launches: the runs of the base, multicap17, collection and ANM6Easy paths together.
+    # Launches: the runs of the base, multicap17, collection, ANM6Easy and the learners' paths together.
     print(json.dumps({"kernels": [{
         "name": "gauss_jordan",
         "route": "cuda",
         "source": "gym_anm_torch/csrc/gauss_jordan.cu",
         "replaces": "gym_anm_tpu/physics/linsolve_pallas.py:31",
-        "launches": launches + mc_launches + col_launches + a6_launches,
+        "launches": launches + mc_launches + col_launches + a6_launches + ppo_k1 + cql_k1,
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -1955,7 +2194,7 @@ def main():
         "route": "cuda",
         "source": "gym_anm_torch/csrc/chord_newton.cu",
         "replaces": "scripts/chord_pallas_prototype.py:168",
-        "launches": chord_launches + mc_chord_launches + col_chord_launches + a6_chord_launches,
+        "launches": chord_launches + mc_chord_launches + col_chord_launches + a6_chord_launches + ppo_k2 + cql_k2,
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],

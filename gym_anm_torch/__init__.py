@@ -9,9 +9,14 @@ projections, the chord-Newton load flow (on the card one launch of the CUDA
 kernel ``csrc/chord_newton.cu``) with its exact Newton-Raphson fallback
 (whose linear solve is the CUDA kernel ``csrc/gauss_jordan.cu``), the
 transition, :class:`~gym_anm_torch.vec.VecEnv` with observation plans,
-autoreset and rollouts, and the offline-RL collection path: the L0-L5
+autoreset and rollouts, the offline-RL collection path: the L0-L5
 controllers and the expert zoo (``vec.controllers``, ``vec.experts``) and
-the dataset collectors (``offline_vec``).
+the dataset collectors (``offline_vec``), the batched DC-OPF MPC farm
+(``vec.mpc``), and the learners: data-parallel PPO over the env farm and
+offline CQL over ``torch.distributed`` (``parallel``), with the utilities
+they save and trace through (``utils``: checkpoints, metrics, debugging,
+profiling) and their entry points (``scripts``: ``python -m
+gym_anm_torch.scripts.train_ppo_online``, ``train_cql_offline``).
 """
 
 from . import errors

@@ -1,5 +1,5 @@
-"""Carry tables, environment state and controller carries over from the JAX
-package.
+"""Carry tables, environment state, controller carries and learner states
+over from the JAX package.
 
 Every function takes the JAX objects' fields as numpy arrays (``np.asarray``
 reads a JAX array without importing jax), so a test can run
@@ -7,9 +7,14 @@ reads a JAX array without importing jax), so a test can run
 and the same controller carries, mid-rollout.
 """
 
+import copy
+
 import numpy as np
 import torch
+from torch import nn
 
+from .parallel.cql import CQLNet, CQLState
+from .parallel.ppo import ActorCritic, TrainState
 from .physics.power_flow import ChordConst
 from .physics.transition import HOST_FIELDS, GridTables, tables_from_host
 from .vec import controllers
@@ -66,3 +71,58 @@ def carry_from_jax(controller_carry, device="cuda"):
             return getattr(controllers, type(controller_carry).__name__)(*leaves)
         return tuple(leaves)
     return torch.as_tensor(np.array(controller_carry), device=device)
+
+
+def param_from_jax(tree, name):
+    """The leaf of a JAX parameter pytree (nested dicts of numpy-readable
+    arrays) that the port's parameter ``name`` holds, in the port's layout: a
+    ``"<layer>.weight"`` is the layer's ``"w"`` transposed ([out, in] against
+    [in, out]), a ``"<layer>.bias"`` its ``"b"``, any other name a path of
+    dict keys (``"log_std"``)."""
+    *path, last = name.split(".")
+    leaf = {"weight": "w", "bias": "b"}.get(last, last)
+    for key in path + [leaf]:
+        tree = tree[key]
+    a = np.array(tree)
+    return a.T if last == "weight" else a
+
+
+def _load_from_jax(module: nn.Module, tree, device):
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            p.copy_(torch.as_tensor(param_from_jax(tree, name)))
+    return module.to(device)
+
+
+def _moments_from_jax(module, tree, device):
+    return {name: torch.as_tensor(param_from_jax(tree, name), device=device) for name, _ in module.named_parameters()}
+
+
+def _train_state_from_jax(module, ts, device):
+    module = _load_from_jax(module, ts.params, device)
+    return TrainState(module, _moments_from_jax(module, ts.opt_m, device),
+                      _moments_from_jax(module, ts.opt_v, device), int(np.asarray(ts.step)))
+
+
+def ppo_state_from_jax(ts, device="cuda") -> TrainState:
+    """The port's PPO :class:`TrainState` (an :class:`ActorCritic`, Adam's
+    moments, the step) from a ``gym_anm_tpu.parallel.TrainState``, at its
+    dtype."""
+    w1 = np.asarray(ts.params["pi1"]["w"])
+    module = ActorCritic(w1.shape[0], np.asarray(ts.params["mu"]["w"]).shape[1], w1.shape[1],
+                         torch.from_numpy(np.zeros(0, w1.dtype)).dtype)
+    return _train_state_from_jax(module, ts, device)
+
+
+def cql_state_from_jax(state, device="cuda") -> CQLState:
+    """The port's :class:`CQLState` (a :class:`CQLNet` with its moments and
+    step, and the target twins) from a ``gym_anm_tpu.parallel.CQLState``."""
+    params = state.train.params
+    w1 = np.asarray(params["pi"]["l1"]["w"])
+    obs_dim, hidden = w1.shape
+    act_dim = np.asarray(params["pi"]["mu"]["w"]).shape[1]
+    module = CQLNet(obs_dim, act_dim, hidden, torch.from_numpy(np.zeros(0, w1.dtype)).dtype)
+    ts = _train_state_from_jax(module, state.train, device)
+    target = nn.ModuleDict({"q1": copy.deepcopy(module.q1), "q2": copy.deepcopy(module.q2)})
+    target = _load_from_jax(target, state.target_q, device)
+    return CQLState(ts, target)

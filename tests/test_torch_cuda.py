@@ -1,9 +1,10 @@
 """gym_anm_torch on a CUDA card: the Gauss-Jordan kernel (K1: its register,
 shared-memory and blocked routes, at their edges), the fused
 chord-Newton kernels (K2, and its wide kernel above 33 buses) and the ADMM
-kernel (K5) against their plain versions, and
+kernel (K5) against their plain versions,
 the float32 and float64 steps on the card against the CPU, random feeders
-above 33 buses among them.
+above 33 buses among them, and the learners' updates (PPO, CQL) on the card
+against the CPU at float64, without a host sync, and under nccl.
 
 Every test here needs a card and skips without one.  The file imports no
 JAX, so on a machine with a card and no JAX it runs on its own:
@@ -656,3 +657,129 @@ def test_admm_kernel_on_nan_bounds(cuda):
     sk, sp = _admm_agree(dc, l, u, mpc.init_warm(dc, B))
     assert not bool(sk.bounds_ok[2]) and not bool(sk.bounds_ok[7]) and int(sk.bounds_ok.sum()) == B - 2
     assert torch.equal(torch.isinf(sk.r_prim), torch.isinf(sp.r_prim))
+
+
+# ----------------------------------------------------------------------
+# The learners on the card
+# ----------------------------------------------------------------------
+
+def _rel(a, b):
+    scale = float(b.abs().max())
+    return float((a.cpu() - b.cpu()).abs().max()) / (scale if scale > 0 else 1.0)
+
+
+def test_ppo_update_on_the_card_matches_cpu_f64_without_syncing(cuda):
+    """One PPO update (GAE, losses, backward, Adam) on the card from a
+    trajectory rolled out there, cast to float64, against the same update
+    on the CPU with the same permutations: parameters and metrics within
+    1e-10; the update on the card synchronizes nothing with the host."""
+    from gym_anm_torch.parallel import ppo
+    from gym_anm_torch.utils import forbid_host_syncs
+
+    cfg = ppo.PPOConfig(hidden=32, rollout_len=8, n_epochs=2, n_minibatches=2, n_lane_minibatches=2)
+    env_g = VecEnv(make_ieee33_task(), dtype=torch.float32, device=cuda)
+    env_c = VecEnv(make_ieee33_task(), dtype=torch.float64, device="cpu")
+    ts = ppo.init_train_state(0, env_g.n_state, env_g.n_action, cfg, device=cuda)
+    step_g, step_c = ppo.make_train_step(env_g, cfg), ppo.make_train_step(env_c, cfg)
+    state, obs = env_g.reset(256)
+    _, _, traj = step_g.collect(ts, state, obs)
+    traj = tuple(x.double() for x in traj)
+    ts = ts.to(dtype=torch.float64)
+    perms = step_g.permutations(ts.step)
+    ts_c, m_c = step_c.update(ts.to("cpu"), tuple(x.cpu() for x in traj), perms)
+    torch.cuda.synchronize()
+    with forbid_host_syncs():
+        ts_g, m_g = step_g.update(ts, traj, perms)
+    for (name, p), q in zip(ts_g.params.named_parameters(), ts_c.params.parameters()):
+        assert _rel(p.detach(), q.detach()) <= 1e-10, name
+    for k in m_c:
+        assert _rel(m_g[k], m_c[k]) <= 1e-10, k
+
+
+def test_cql_update_on_the_card_matches_cpu_f64_without_syncing(cuda):
+    """One CQL update at float64 on the card against the CPU from the same
+    state, minibatch and draws: networks, targets and metrics within 1e-10;
+    no host sync on the card."""
+    from gym_anm_torch.parallel import cql
+    from gym_anm_torch.utils import forbid_host_syncs
+
+    cfg = cql.CQLConfig(hidden=64, cql_weight=2.0)
+    rng = np.random.default_rng(0)
+    batch = {"obs": rng.normal(size=(512, 12)), "actions": rng.uniform(-1, 1, (512, 4)),
+             "rewards": rng.normal(size=512), "next_obs": rng.normal(size=(512, 12)),
+             "dones": (rng.random(512) < 0.2).astype(np.float64)}
+    batch_c = {k: torch.as_tensor(v) for k, v in batch.items()}
+    lo, hi = -torch.ones(4, dtype=torch.float64), torch.ones(4, dtype=torch.float64)
+    state_c = cql.init_cql_state(0, 12, 4, cfg, dtype=torch.float64, device="cpu")
+    state_g = state_c.to(cuda)
+    upd_c, upd_g = cql.make_cql_update(cfg, lo, hi), cql.make_cql_update(cfg, lo.to(cuda), hi.to(cuda))
+    noise = upd_c.draw(torch.Generator().manual_seed(1), 512, torch.float64)
+    noise_g, batch_g = ({k: v.to(cuda) for k, v in d.items()} for d in (noise, batch_c))
+    new_c, m_c = upd_c(state_c, None, batch_c, noise)
+    torch.cuda.synchronize()
+    with forbid_host_syncs():
+        new_g, m_g = upd_g(state_g, None, batch_g, noise_g)
+    for (name, p), q in zip(new_g.train.params.named_parameters(), new_c.train.params.parameters()):
+        assert _rel(p.detach(), q.detach()) <= 1e-10, name
+    for p, q in zip(new_g.target_q.parameters(), new_c.target_q.parameters()):
+        assert _rel(p.detach(), q.detach()) <= 1e-10
+    for k in m_c:
+        assert _rel(m_g[k], m_c[k]) <= 1e-10, k
+
+
+def test_nccl_world_size_one_equals_no_process_group(cuda):
+    """Two PPO train steps without a process group and under nccl at world
+    size 1 (broadcast and all-reduce as identities): bitwise equal
+    parameters."""
+    import socket
+
+    import torch.distributed as dist
+
+    from gym_anm_torch.parallel import init_distributed, ppo
+
+    cfg = ppo.PPOConfig(hidden=32, rollout_len=4, n_epochs=2, n_minibatches=2, n_lane_minibatches=2)
+    env = VecEnv(make_ieee33_task(), dtype=torch.float32, device=cuda)
+
+    def run():
+        ts = ppo.init_train_state(0, env.n_state, env.n_action, cfg, device=cuda)
+        step = ppo.make_train_step(env, cfg)
+        state, obs = env.reset(128)
+        for _ in range(2):
+            ts, state, obs, _ = step(ts, state, obs)
+        return [p.detach().clone() for p in ts.params.parameters()]
+
+    alone = run()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert init_distributed(0, 1, port) == "nccl"
+    try:
+        grouped = run()
+    finally:
+        dist.destroy_process_group()
+    assert all(torch.equal(a, b) for a, b in zip(alone, grouped))
+
+
+def test_cql_graph_replays_equal_eager_updates(cuda, monkeypatch):
+    """``train_cql`` on the card replays one CUDA graph of an update after its
+    eager warm-up; twelve updates give bitwise the networks, targets and
+    metrics of twelve eager ones (the draws and the bias corrections fed as
+    the eager updates take them)."""
+    from gym_anm_torch.parallel import cql
+
+    rng = np.random.default_rng(0)
+    data = {"states": rng.normal(size=(4096, 12)), "actions": rng.uniform(-1, 1, (4096, 4)),
+            "rewards": rng.normal(size=4096), "next_states": rng.normal(size=(4096, 12)),
+            "dones": (rng.random(4096) < 0.2).astype(np.float32)}
+    lo, hi = -np.ones(4, np.float32), np.ones(4, np.float32)
+    cfg = cql.CQLConfig(hidden=64, cql_weight=2.0)
+    graphed, m_graph, _ = cql.train_cql(0, data, lo, hi, cfg, steps=12, batch_size=256, device=cuda,
+                                        forbid_syncs=True)
+    monkeypatch.setattr(cql, "GRAPH_WARMUP", 100)
+    eager, m_eager, _ = cql.train_cql(0, data, lo, hi, cfg, steps=12, batch_size=256, device=cuda)
+    assert graphed.train.step == eager.train.step == 12
+    for a, b in zip(list(graphed.train.params.parameters()) + list(graphed.target_q.parameters()),
+                    list(eager.train.params.parameters()) + list(eager.target_q.parameters())):
+        assert torch.equal(a, b)
+    for k in m_eager:
+        assert torch.equal(m_graph[k], m_eager[k]), k
