@@ -191,10 +191,7 @@ def behavior_cloning_vec(obs, actions, action_low, action_high):
     return policy, w
 
 
-def evaluate_controller_vec(env: VecEnv, controller: Controller, generator, batch: int, steps: int,
-                            autoreset: bool = True):
-    """Mean per-step reward of a controller over a fresh batch.  Without
-    ``autoreset`` (the offline-evaluation protocol) a collapsed lane absorbs
-    at reward 0 after its terminal penalty."""
-    _, _, rewards, _, _ = generate_dataset_vec(env, controller, generator, batch, steps, autoreset)
+def evaluate_controller_vec(env: VecEnv, controller: Controller, generator, batch: int, steps: int):
+    """Mean per-step reward of a controller over a fresh batch."""
+    _, _, rewards, _, _ = generate_dataset_vec(env, controller, generator, batch, steps)
     return float(torch.mean(rewards))

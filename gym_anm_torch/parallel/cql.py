@@ -146,22 +146,34 @@ class CQLUpdate:
         self.act_high = torch.as_tensor(act_high)
         self.span = self.act_high - self.act_low
 
-    def draw(self, generator, n_local, dtype, out=None):
-        """The update's draws for this rank's ``n_local`` rows: ``next`` and
-        ``actor`` [n, A] standard normal, ``unif`` [n_cql, n, A] uniform,
-        ``pol`` [n_cql, n, A] standard normal; drawn in that order for the
-        global batch and sliced, so they do not depend on the world size.
-        ``out`` (a previous call's result at world size 1) is drawn into in
-        place."""
-        rank, world = mesh.world()
-        n, A, k = n_local * world, self.act_low.shape[0], self.cfg.n_cql_actions
+    def buffers(self, n, dtype):
+        """Empty buffers for the draws of a global batch of ``n`` rows:
+        ``next`` [n, A], ``unif`` and ``pol`` [n_cql, n, A], ``actor`` [n, A]."""
+        A, k = self.act_low.shape[0], self.cfg.n_cql_actions
         shapes = {"next": (n, A), "unif": (k, n, A), "pol": (k, n, A), "actor": (n, A)}
-        if out is None:
-            out = {key: torch.empty(shape, dtype=dtype, device=self.act_low.device) for key, shape in shapes.items()}
-        for key, shape in shapes.items():
-            (torch.rand if key == "unif" else torch.randn)(shape, generator=generator, out=out[key])
-        sl = mesh.lane_slice(n, rank, world)
-        return {key: (x[sl] if x.dim() == 2 else x[:, sl]) for key, x in out.items()}
+        return {key: torch.empty(shape, dtype=dtype, device=self.act_low.device) for key, shape in shapes.items()}
+
+    def draw_global(self, generator, n, dtype, out=None):
+        """The update's draws for the global batch of ``n`` rows, in the
+        order of :meth:`buffers` (``unif`` uniform, the rest standard
+        normal), into ``out`` (such buffers) in place; returns them."""
+        out = self.buffers(n, dtype) if out is None else out
+        for key, x in out.items():
+            (torch.rand if key == "unif" else torch.randn)(x.shape, generator=generator, out=x)
+        return out
+
+    @staticmethod
+    def rank_rows(noise):
+        """This rank's rows of :meth:`draw_global`'s draws, as views (a later
+        draw into the same buffers shows through them)."""
+        rank, world = mesh.world()
+        sl = mesh.lane_slice(noise["next"].shape[0], rank, world)
+        return {key: (x[sl] if x.dim() == 2 else x[:, sl]) for key, x in noise.items()}
+
+    def draw(self, generator, n_local, dtype):
+        """The update's draws for this rank's ``n_local`` rows: those of the
+        global batch, sliced, so they do not depend on the world size."""
+        return self.rank_rows(self.draw_global(generator, n_local * mesh.world()[1], dtype))
 
     def loss(self, net, target_q, noise, batch):
         """(loss, metrics) of this rank's block of the minibatch; every mean
@@ -250,12 +262,13 @@ def train_cql(seed, dataset, act_low, act_high, cfg: CQLConfig = CQLConfig(), st
     Minibatch indices (with replacement) and the updates' draws come from a
     generator on ``device`` seeded from ``seed``.
 
-    On the card without a process group, the first :data:`GRAPH_WARMUP` updates run
-    eagerly and the rest replay one CUDA graph of an update: the draws are
-    made outside the graph into the buffers it reads, and Adam's bias
-    corrections are filled in before each replay, so every update computes
-    what the eager one would.  With ``forbid_syncs``, each update (each
-    replay) runs under ``torch.cuda.set_sync_debug_mode("error")``.
+    On the card, the first :data:`GRAPH_WARMUP` updates run eagerly and the
+    rest replay one CUDA graph of an update (its all-reduce included, under
+    a process group): the draws are made outside the graph into the buffers
+    it reads, and Adam's bias corrections are filled in before each replay,
+    so every update computes what the eager one would.  On the CPU every
+    update runs eagerly.  With ``forbid_syncs``, each update (each replay)
+    runs under ``torch.cuda.set_sync_debug_mode("error")``.
 
     Returns (CQLState, metrics, policy_fn): the last update's metrics and
     the deterministic deployment policy ``policy_fn(obs) -> action``.
@@ -275,18 +288,17 @@ def train_cql(seed, dataset, act_low, act_high, cfg: CQLConfig = CQLConfig(), st
     rank, world = mesh.world()
     rows = mesh.lane_slice(batch_size, rank, world)
     idx = torch.empty(batch_size, dtype=torch.long, device=device)
-    noise = None
+    full = update.buffers(batch_size, f32)  # every draw fills these
+    noise = update.rank_rows(full)
 
     def draw():
-        nonlocal noise
         torch.randint(0, n, (batch_size,), generator=g, device=device, out=idx)
-        noise = update.draw(g, rows.stop - rows.start, f32, out=None if distributed else noise)
+        update.draw_global(g, batch_size, f32, out=full)
 
     def one(state, bias_correction=None):
         return update(state, None, {k: v[idx[rows]] for k, v in data.items()}, noise, bias_correction)
 
-    distributed = torch.distributed.is_available() and torch.distributed.is_initialized()
-    graphed = torch.device(device).type == "cuda" and not distributed and steps > GRAPH_WARMUP
+    graphed = torch.device(device).type == "cuda" and steps > GRAPH_WARMUP
     eager = GRAPH_WARMUP if graphed else steps
     side = torch.cuda.Stream() if graphed else None
     if graphed:  # warm up on a side stream, as CUDA graph capture asks
@@ -300,7 +312,8 @@ def train_cql(seed, dataset, act_low, act_high, cfg: CQLConfig = CQLConfig(), st
         torch.cuda.current_stream().wait_stream(side)
         bias = [torch.zeros((), dtype=f32, device=device) for _ in range(2)]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        # thread_local: nccl's watchdog thread may query its events while this one captures
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             captured, metrics = one(state, bias)
         for step in range(state.train.step + 1, steps + 1):
             with forbid_host_syncs(forbid_syncs):

@@ -11,6 +11,8 @@ the world is one rank and every helper is the identity.  Backends: gloo on
 the CPU, nccl on the card (:func:`init_distributed`).
 """
 
+import os
+
 import torch
 import torch.distributed as dist
 
@@ -79,8 +81,13 @@ def all_reduce_sum(tensors):
 
 def init_distributed(rank: int, world_size: int, port: int, backend=None):
     """Join the process group at ``tcp://localhost:<port>``: nccl when a card
-    is visible, gloo otherwise (or ``backend``)."""
+    is visible, gloo otherwise (or ``backend``).  Under nccl the rank's card
+    becomes the current device first: card ``LOCAL_RANK`` where the launcher
+    sets it, else ``rank % device_count``, so that ranks on one node hold
+    one card each (``"cuda"`` then names it)."""
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if backend == "nccl":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank % torch.cuda.device_count())))
     dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", rank=rank, world_size=world_size)
     return backend

@@ -26,7 +26,7 @@ from ..offline_vec import generate_dataset_vec
 from ..parallel import CQLConfig, train_cql
 from ..vec import VecEnv, make_ieee33_multicap_task
 from ..vec.controllers import make_l0, make_suite
-from .train_ppo_online import device_for, evaluate, policy_controller
+from .train_ppo_online import device_for, device_name, evaluate, on_card, policy_controller
 
 
 def parser():
@@ -60,7 +60,7 @@ def main(argv=None):
     CQLState) and ``policy``."""
     args = parser().parse_args(argv)
     device = device_for(args.cpu)
-    print(f"device: {device} ({torch.cuda.get_device_name(0) if device == 'cuda' else 'host'})")
+    print(f"device: {device} ({device_name(device)})")
     env = VecEnv(make_ieee33_multicap_task(), dtype=torch.float32, device=device)
 
     print("Collecting mixed dataset...")
@@ -72,7 +72,7 @@ def main(argv=None):
 
     print(f"Training CQL for {args.train_steps} steps...")
     cfg = CQLConfig(hidden=128, cql_weight=2.0)
-    if device == "cuda":
+    if on_card(device):
         torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, metrics, policy = train_cql(42, dataset, env.action_low, env.action_high, cfg, steps=args.train_steps,

@@ -19,7 +19,7 @@ import time
 
 import torch
 
-from ..offline_vec import evaluate_controller_vec
+from ..offline_vec import generate_dataset_vec
 from ..parallel import PPOConfig, init_train_state, make_train_step, mesh
 from ..parallel.ppo import policy_dist
 from ..utils import Throughput, forbid_host_syncs, save_checkpoint
@@ -27,13 +27,23 @@ from ..vec import VecEnv, make_ieee33_multicap_task, make_ieee33_task
 from ..vec.controllers import Controller, make_l0
 
 
-def device_for(cpu: bool):
-    """``"cpu"`` when asked for, else ``"cuda"``; raises without a card."""
+def device_for(cpu: bool) -> str:
+    """``"cpu"`` when asked for, else the current card, ``"cuda:<index>"``
+    (the rank's, once :func:`~gym_anm_torch.parallel.init_distributed` has
+    pinned it); raises without a card."""
     if cpu:
         return "cpu"
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is visible; pass --cpu to run on the CPU")
-    return "cuda"
+    return f"cuda:{torch.cuda.current_device()}"
+
+
+def on_card(device: str) -> bool:
+    return torch.device(device).type == "cuda"
+
+
+def device_name(device: str) -> str:
+    return torch.cuda.get_device_name(device) if on_card(device) else "host"
 
 
 def policy_controller(name, policy):
@@ -46,7 +56,8 @@ def evaluate(env, controller, seed, lanes=256, steps=50):
     without autoreset (a collapsed lane absorbs at 0 after its terminal
     penalty)."""
     g = torch.Generator(device=env.device).manual_seed(seed)
-    return evaluate_controller_vec(env, controller, g, lanes, steps, autoreset=False)
+    rewards = generate_dataset_vec(env, controller, g, lanes, steps, autoreset=False)[2]
+    return float(torch.mean(rewards))
 
 
 class _Split:
@@ -54,7 +65,7 @@ class _Split:
     host clock on the CPU (whose work is synchronous)."""
 
     def __init__(self, device):
-        self.cuda = torch.device(device).type == "cuda"
+        self.cuda = on_card(device)
         self.marks = []
 
     def mark(self):
@@ -111,7 +122,7 @@ def main(argv=None):
     lanes = mesh.lane_slice(args.lanes, rank, world)
     n_local = lanes.stop - lanes.start
     if rank == 0:
-        print(f"{world} rank(s), {device} ({torch.cuda.get_device_name(0) if device == 'cuda' else 'host'}), "
+        print(f"{world} rank(s), {device} ({device_name(device)}), "
               f"batch {args.lanes}")
 
     factory = make_ieee33_task if args.task == "ieee33" else make_ieee33_multicap_task

@@ -783,3 +783,84 @@ def test_cql_graph_replays_equal_eager_updates(cuda, monkeypatch):
         assert torch.equal(a, b)
     for k in m_eager:
         assert torch.equal(m_graph[k], m_eager[k]), k
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_cql_graph_under_nccl_world_size_one_equals_no_process_group(cuda):
+    """``train_cql`` captures its all-reduce in the CUDA graph under a
+    process group: under nccl at world size 1, eight updates (five of them
+    replays) give bitwise the networks and metrics of eight without one."""
+    import torch.distributed as dist
+
+    from gym_anm_torch.parallel import cql, init_distributed
+
+    rng = np.random.default_rng(1)
+    data = {"states": rng.normal(size=(2048, 12)), "actions": rng.uniform(-1, 1, (2048, 4)),
+            "rewards": rng.normal(size=2048), "next_states": rng.normal(size=(2048, 12)),
+            "dones": (rng.random(2048) < 0.2).astype(np.float32)}
+    lo, hi = -np.ones(4, np.float32), np.ones(4, np.float32)
+
+    def run():
+        state, m, _ = cql.train_cql(0, data, lo, hi, cql.CQLConfig(hidden=64), steps=8, batch_size=256,
+                                    device=cuda, forbid_syncs=True)
+        return [p.detach().clone() for p in state.train.params.parameters()], {k: v.clone() for k, v in m.items()}
+
+    alone, m_alone = run()
+    assert init_distributed(0, 1, _free_port()) == "nccl"
+    try:
+        grouped, m_grouped = run()
+    finally:
+        dist.destroy_process_group()
+    assert all(torch.equal(a, b) for a, b in zip(alone, grouped))
+    assert all(torch.equal(m_alone[k], m_grouped[k]) for k in m_alone)
+
+
+def test_multihost_worker_on_two_cards(cuda, tmp_path):
+    """``python -m gym_anm_torch.scripts.multihost_smoke`` as two ranks on
+    two cards over nccl (PPO with a lane chunk across the ranks, graphed
+    ``train_cql``, the MPC farm) against the same functions on one card
+    without a process group, at the tolerances of
+    ``tests/test_torch_distributed.py``; the ranks' metrics identical."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from gym_anm_torch._build import load_library
+    from gym_anm_torch.scripts import multihost_smoke as worker
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    load_library()  # built once, before the ranks start
+    one = {"ppo": worker.run_ppo(cuda), "cql": worker.run_cql(cuda), "mpc": worker.run_mpc(cuda)}
+    port = str(_free_port())
+    procs = [subprocess.Popen([sys.executable, "-m", "gym_anm_torch.scripts.multihost_smoke", str(r), "2", port,
+                               "--out", str(tmp_path / f"rank{r}.pt")], cwd=Path(__file__).resolve().parents[1],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, f"worker failed:\n{log[-3000:]}"
+    r0, r1 = (torch.load(tmp_path / f"rank{r}.pt") for r in range(2))
+    for learner in ("ppo", "cql"):
+        assert r0[learner]["metrics"] == r1[learner]["metrics"]
+        for n, p in one[learner]["params"].items():
+            assert torch.equal(r0[learner]["params"][n], r1[learner]["params"][n]), n
+            np.testing.assert_allclose(r0[learner]["params"][n].numpy(), p.numpy(), rtol=1e-3, atol=2e-5)
+        for k, v in one[learner]["metrics"].items():
+            np.testing.assert_allclose(r0[learner]["metrics"][k], v, rtol=2e-4, atol=1e-6, err_msg=k)
+    acts = torch.cat([r0["mpc"]["acts"], r1["mpc"]["acts"]], dim=1)
+    rewards = torch.cat([r0["mpc"]["rewards"], r1["mpc"]["rewards"]], dim=1)
+    np.testing.assert_allclose(acts.numpy(), one["mpc"]["acts"].numpy(), rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(rewards.numpy(), one["mpc"]["rewards"].numpy(), rtol=2e-4, atol=1e-5)

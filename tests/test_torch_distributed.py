@@ -2,9 +2,10 @@
 against two gloo ranks on the CPU.
 
 The two-rank run is ``python -m gym_anm_torch.scripts.multihost_smoke``
-spawned as two processes, once for the module (each with a 120 s timeout,
-killed past it).  Each runs PPO train steps on base IEEE33 (a lane chunk
-crosses the rank boundary), CQL updates on a split minibatch and the
+spawned as two processes with ``--cpu`` (gloo), once for the module (each
+with a 120 s timeout, killed past it).  Each runs PPO train steps on base
+IEEE33 (a lane chunk crosses the rank boundary), ``train_cql`` on split
+minibatches and the
 ANM6Easy MPC farm on its lanes; this process runs the same functions at
 world size 1 (no process group).  A silent sharding fault (a missing sum,
 a local instead of a global mean, a wrong lane offset) changes the numbers
@@ -42,7 +43,7 @@ def two_ranks(tmp_path_factory):
     out = tmp_path_factory.mktemp("ranks")
     port = str(_free_port())
     procs = [subprocess.Popen([sys.executable, "-m", "gym_anm_torch.scripts.multihost_smoke", str(r), "2", port,
-                               "--out", str(out / f"rank{r}.pt")], cwd=ROOT, stdout=subprocess.PIPE,
+                               "--out", str(out / f"rank{r}.pt"), "--cpu"], cwd=ROOT, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True) for r in range(2)]
     logs = []
     try:
@@ -60,7 +61,7 @@ def two_ranks(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def one_rank():
-    return {"ppo": worker.run_ppo(), "cql": worker.run_cql(), "mpc": worker.run_mpc()}
+    return {"ppo": worker.run_ppo("cpu"), "cql": worker.run_cql("cpu"), "mpc": worker.run_mpc("cpu")}
 
 
 def _assert_learner_equal(one, two):
