@@ -119,7 +119,20 @@ non-zero at the first failure:
    steps without autoreset; CQL above random), and one update of the card
    against the CPU at float64 (within 1e-10).
 
-K1 and K2 launches of phases 11 and 12 count in the kernels' line.
+13. the compat tier's ``Simulator`` (float64, one lane) on the card: 96
+   steps of ANM6 (ANM6Easy's daily profiles, uniform set-points) and of
+   IEEE33 (diurnal loads with 2% noise, uniform capacitor and tap
+   set-points) through ``Simulator(device="cuda")`` and the same sequence
+   through ``Simulator(device="cpu")``: equal ``pfe_converged`` flags, bus
+   voltages, device P/Q, branch flows, reward, e_loss and penalty within
+   1e-8, K1 launched on its register route (float64, B = 1, n = 10 and 64);
+   ms per transition on both devices, GPU ops and host syncs of one; K1 at
+   B = 1, n = 64 and 10, float64, timed beside ``torch.linalg.solve_ex``
+   and its bound.  The Gymnasium
+   shells over it (``gym_anm_torch.compat``, ``vec.GymVectorEnv``) need
+   gymnasium, which the card's machine lacks: they are held on the CPU only.
+
+K1 and K2 launches of phases 11, 12 and 13 count in the kernels' line.
 
 Every kernel time is device time: ``cuda_ms`` puts N_LAUNCH back-to-back
 launches between one pair of CUDA events behind a sleep kernel, so the host
@@ -2090,6 +2103,124 @@ def phase12_cql(kernel, chord_k):
     return k1, k2
 
 
+def simulator_inputs(sim, n_steps, seed, anm6):
+    """A reset state and ``n_steps`` transitions' inputs for a compat
+    ``Simulator``, from numpy: on ANM6 ANM6Easy's daily profiles from a random
+    start (loads, generation maxima) with uniform set-points from
+    ``get_action_space()``; on IEEE33 the renewable family's diurnal loads
+    (0.8 + 0.3 sin of the hour, 2% noise) with uniform capacitor and tap
+    set-points."""
+    from gym_anm_torch.networks.anm6 import anm6easy_gen_time_series, anm6easy_load_time_series
+
+    rng = np.random.default_rng(seed)
+    spec = sim.spec
+    ids = lambda pos: [int(spec.dev_ids[p]) for p in pos]  # noqa: E731
+    loads, gens, des, caps, oltcs = (ids(spec.load_pos), ids(spec.gen_nonslack_pos), ids(spec.des_pos),
+                                     ids(spec.cap_pos), ids(spec.oltc_pos))
+    bounds = sim.get_action_space()
+    P_gen_b, Q_gen_b, P_des_b, Q_des_b = bounds[:4]
+    Q_cap_b = bounds[4] if len(bounds) > 4 else {}
+    tap_b = bounds[5] if len(bounds) > 5 else {}
+    u = lambda b, i: float(rng.uniform(*b[i]))  # noqa: E731
+    if anm6:
+        P_loads, P_maxs = anm6easy_load_time_series(), anm6easy_gen_time_series()
+        t0 = int(rng.integers(0, 96))
+        load_at = lambda t: dict(zip(loads, P_loads[:, (t0 + t) % 96]))  # noqa: E731
+        pot_at = lambda t: dict(zip(gens, P_maxs[:, (t0 + t) % 96]))  # noqa: E731
+    else:
+        nominal = np.abs(spec.p_min[spec.load_pos]) * spec.baseMVA
+        hour = rng.uniform(0, 24)
+        load_at = lambda t: dict(zip(loads, -nominal * (0.8 + 0.3 * np.sin((hour + t - 3) * np.pi / 12))  # noqa: E731
+                                     * (1 + 0.02 * rng.standard_normal(len(loads)))))
+        pot_at = lambda t: {i: 0.0 for i in gens}  # noqa: E731
+    s0 = np.zeros(2 * spec.n_dev + spec.n_des + spec.n_gen)
+    for i, p in zip(loads, load_at(0).values()):
+        s0[spec.dev_ids.tolist().index(i)] = p
+    steps = []
+    for t in range(1, n_steps + 1):
+        P_set = {i: u(P_gen_b, i) for i in gens} | {i: u(P_des_b, i) for i in des}
+        Q_set = {i: u(Q_gen_b, i) for i in gens} | {i: u(Q_des_b, i) for i in des} | {i: u(Q_cap_b, i)
+                                                                                    for i in caps}
+        steps.append((load_at(t), pot_at(t), P_set, Q_set, {i: u(tap_b, i) for i in oltcs}))
+    return s0, steps
+
+
+def run_simulator(sim, s0, steps):
+    """Reset and step ``sim`` through ``steps``: (per-step outputs, ms per
+    transition on the host clock, the reset's flag)."""
+    ok = sim.reset(s0)
+    outs = []
+    t0 = time.perf_counter()
+    for P_load, P_pot, P_set, Q_set, taps in steps:
+        _, r, e_loss, penalty, conv = sim.transition(P_load, P_pot, P_set, Q_set, taps)
+        outs.append((sim._last, r, e_loss, penalty, conv))
+    return outs, 1e3 * (time.perf_counter() - t0) / len(steps), ok
+
+
+def phase13_simulator(lin, kernel):
+    """The compat ``Simulator`` (float64, one lane) on the card against the
+    CPU, its GPU ops and host syncs per transition, and K1 at its launch
+    configuration (B = 1, float64)."""
+    from gym_anm_torch.env import Simulator
+    from gym_anm_torch.networks import anm6_network, ieee33_network
+
+    T = 96
+    log(f"== phase 13a: the compat Simulator, float64, one lane: {T} steps of ANM6 and of IEEE33 on the card "
+        "against the CPU")
+    launches, errs = 0, []
+    for name, net, delta_t, anm6 in (("ANM6", anm6_network, 0.25, True), ("IEEE33", ieee33_network, 1.0, False)):
+        card, cpu = Simulator(net, delta_t, 100), Simulator(net, delta_t, 100, device="cpu")
+        assert card._tables.device.type == "cuda"
+        s0, steps = simulator_inputs(cpu, T, seed=13, anm6=anm6)
+        run_simulator(card, s0, steps[:2])  # warm
+        kernel.launch_count = 0
+        regs0 = kernel.launches["regs"]
+        out_card, ms_card, ok_card = run_simulator(card, s0, steps)
+        torch.cuda.synchronize()
+        n_k1, n_regs = kernel.launch_count, kernel.launches["regs"] - regs0
+        out_cpu, ms_cpu, ok_cpu = run_simulator(cpu, s0, steps)
+        assert ok_card == ok_cpu, "the reset's load flow converged on one device only"
+        assert n_k1 > 0 and n_regs == n_k1, f"{name}: K1 launched {n_k1} times, {n_regs} on the register route"
+        launches += n_k1
+        err, n_stable = 0.0, 0
+        for t, (a, b) in enumerate(zip(out_card, out_cpu)):
+            assert a[4] == b[4], f"{name} step {t}: pfe_converged {a[4]} on the card, {b[4]} on the CPU"
+            if not a[4]:
+                continue
+            n_stable += 1
+            for f in ("bus_v_re", "bus_v_im", "dev_p", "dev_q", "br_p_from", "br_q_from", "br_p_to", "br_q_to",
+                      "br_s_signed"):
+                err = max(err, float(np.max(np.abs(getattr(a[0], f) - getattr(b[0], f)))))
+            err = max(err, *(abs(x - y) for x, y in zip(a[1:4], b[1:4])))
+        errs.append(err)
+        log(f"13a {name}: {n_stable} of {T} steps converged on both devices (flags equal on all); max |card - CPU| "
+            f"over bus voltages, device P/Q, branch flows, reward, e_loss and penalty {err:.3e}; K1 launches "
+            f"{n_k1} ({n_k1 / T:.2f} per step, all on the register route); ms per transition: card "
+            f"{ms_card:.3f}, CPU {ms_cpu:.3f} (host clock, {T} steps)")
+        assert err <= 1e-8, f"{name}: the card's Simulator is {err:.3e} from the CPU's"
+        assert n_stable > T // 2, f"{name}: only {n_stable} of {T} steps converged"
+        ops, syncs = count_ops(lambda: card.transition(*steps[-1]), count_ops(lambda: None))
+        log(f"13a {name}: GPU ops {ops} and host syncs {syncs} in one transition on the card")
+
+    for n in (64, 10):
+        g = torch.Generator(device="cuda").manual_seed(n)
+        A = torch.randn(1, n, n, generator=g, device="cuda", dtype=torch.float64)
+        A += n * torch.eye(n, device="cuda", dtype=torch.float64)
+        b = torch.randn(1, n, generator=g, device="cuda", dtype=torch.float64)
+        xk, xp = kernel(A, b), lin.solve_gauss_jordan(A, b)
+        assert torch.equal(xk, xp), f"K1 at B = 1, n = {n} is not bitwise its plain version"
+        torch.linalg.solve_ex(A, b)
+        t = {k: statistics.median(cuda_ms(fn, c) for _ in range(N_REPS)) for k, fn, c in (
+            ("ms", lambda: kernel(A, b), N_LAUNCH),
+            ("library_ms", lambda: torch.linalg.solve_ex(A, b), N_LAUNCH),
+            ("plain_ms", lambda: lin.solve_gauss_jordan(A, b), 3))}
+        bound_ms, bound_by = k1_bound(1, n, 8)
+        log(f"13a K1 at B=1 n={n} float64 (device time, {N_LAUNCH} launches per reading, median of {N_REPS}): "
+            f"kernel {t['ms']:.4f} ms, torch.linalg.solve_ex {t['library_ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+            f"ms; bound {1e3 * bound_ms:.4f} µs ({bound_by}); bitwise equal to the plain version")
+    return launches, max(errs)
+
+
 def log_ptxas(report):
     """One line per kernel of ptxas's report: registers and spill bytes."""
     b = {"0": "false", "1": "true", "f": "float", "d": "double"}
@@ -2175,14 +2306,16 @@ def main():
     k2w, k1g, k1s = run(phase10_feeders, pf, lin, chord_solve_cuda, VecEnv, base)
     ppo_k1, ppo_k2 = run(phase11_ppo, VecEnv, make_ieee33_multicap_task, kernel, chord_solve_cuda)
     cql_k1, cql_k2 = run(phase12_cql, kernel, chord_solve_cuda)
+    sim_k1, _ = run(phase13_simulator, lin, kernel)
 
-    # Launches: the runs of the base, multicap17, collection, ANM6Easy and the learners' paths together.
+    # Launches: the runs of the base, multicap17, collection, ANM6Easy, the learners' and the compat Simulator's
+    # paths together.
     print(json.dumps({"kernels": [{
         "name": "gauss_jordan",
         "route": "cuda",
         "source": "gym_anm_torch/csrc/gauss_jordan.cu",
         "replaces": "gym_anm_tpu/physics/linsolve_pallas.py:31",
-        "launches": launches + mc_launches + col_launches + a6_launches + ppo_k1 + cql_k1,
+        "launches": launches + mc_launches + col_launches + a6_launches + ppo_k1 + cql_k1 + sim_k1,
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],

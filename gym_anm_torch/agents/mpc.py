@@ -21,6 +21,12 @@ rows that the receding-horizon warm-start shift relies on
 
 :func:`solve_highs` solves the LP on the host with scipy's HiGHS, as
 ``MPCAgent._solve`` does: the ground truth of the batched ADMM solver.
+
+:class:`MPCAgent` and its two forecasters (``MPCAgentConstant``,
+``MPCAgentPerfect``; JAX ``agents/mpc.py:57-365``) are the host policies over
+a compat :class:`~gym_anm_torch.env.Simulator`: they assemble the LP with
+:func:`build_dcopf_structure` at the simulator's branch rates and Y-bus and
+solve it with :func:`solve_highs`.
 """
 
 from typing import NamedTuple, Optional
@@ -32,7 +38,7 @@ from scipy.sparse import coo_matrix
 from ..specs.constants import DEV_TYPE_LOAD, DEV_TYPE_STORAGE
 
 __all__ = ["DCOPFStructure", "DCOPFLayout", "dcopf_layout", "susceptance_matrix", "build_dcopf_structure",
-           "solve_highs"]
+           "solve_highs", "MPCAgent", "MPCAgentConstant", "MPCAgentPerfect"]
 
 
 class DCOPFStructure(NamedTuple):
@@ -125,11 +131,14 @@ def susceptance_matrix(spec):
     return Y.imag.copy()
 
 
-def build_dcopf_structure(spec, delta_t, lamb, gamma, safety_margin=0.9, planning_steps=1) -> DCOPFStructure:
+def build_dcopf_structure(spec, delta_t, lamb, gamma, safety_margin=0.9, planning_steps=1, branch_rate=None,
+                          B_bus=None) -> DCOPFStructure:
     """Assemble the ``planning_steps``-stage DC-OPF of network ``spec`` once,
     recording the per-call slots (:class:`DCOPFStructure`).  ``delta_t`` and
-    ``lamb`` are the task's; branch rates are the spec's, as the
-    ``Simulator`` has them."""
+    ``lamb`` are the task's; branch rates are the spec's and B_bus is
+    :func:`susceptance_matrix`, as a fresh ``Simulator`` has them, unless
+    ``branch_rate`` [n_branch] and ``B_bus`` [N_bus, N_bus] give a
+    simulator's current ones."""
     lay = dcopf_layout(spec)
     N = planning_steps
     n_bus, n_dev, n_des, n_load = spec.n_bus, spec.n_dev, spec.n_des, spec.n_load
@@ -142,8 +151,8 @@ def build_dcopf_structure(spec, delta_t, lamb, gamma, safety_margin=0.9, plannin
     soc_min = [float(spec.soc_min[pos[i]]) for i in lay.des_ids]
     soc_max = [float(spec.soc_max[pos[i]]) for i in lay.des_ids]
     des_eff = [float(spec.eff[pos[i]]) for i in lay.des_ids]
-    branch_rate = [float(r) for r in spec.br_rate]
-    B_bus = susceptance_matrix(spec)
+    branch_rate = [float(r) for r in (spec.br_rate if branch_rate is None else branch_rate)]
+    B_bus = susceptance_matrix(spec) if B_bus is None else np.asarray(B_bus)
 
     # Variable layout per stage: [theta (n_bus), P_dev (n_dev), pch (n_des),
     # pdis (n_des), soc (n_des), t_br (n_branch)].
@@ -313,3 +322,108 @@ def solve_highs(structure: DCOPFStructure, P_load, P_gen, init_soc):
         return np.zeros(2 * n_g + 2 * n_d), res
     P = res.x[st.act_idx] * st.baseMVA  # [gens..., des...]
     return np.concatenate((P[:n_g], np.zeros(n_g), P[n_g:], np.zeros(n_d))), res
+
+
+class MPCAgent:
+    """Base N-stage DC-OPF agent over a compat ``Simulator``; subclasses
+    implement :meth:`forecast`.  The LP is built on the first call from the
+    simulator's branch rates and Y-bus as they were at construction."""
+
+    def __init__(self, simulator, action_space, gamma, safety_margin=0.9, planning_steps=1):
+        self.safety_margin = safety_margin
+        self.baseMVA = simulator.baseMVA
+        self.lamb = simulator.lamb
+        self.action_space = action_space
+        self.planning_steps = planning_steps
+        self.gamma = gamma
+
+        self.spec = simulator.spec
+        self.n_bus = simulator.N_bus
+        self.n_dev = simulator.N_device
+        self.n_branch = len(simulator.branches)
+        self.delta_t = simulator.delta_t
+        self.n_gen = simulator.N_non_slack_gen + 1
+        self.n_des = simulator.N_des
+        self.n_load = simulator.N_load
+
+        # The ID orders and maps (devices and buses sorted by ID, branches in
+        # input order), as the simulator's object maps have them.
+        lay = dcopf_layout(self.spec)
+        for name in DCOPFLayout._fields:
+            setattr(self, name, getattr(lay, name))
+        self.B_bus = simulator.Y_bus.imag.toarray()
+        self.branch_rate = [br.rate for br in simulator.branches.values()]
+
+        # Variables per stage: [theta (n_bus), P_dev (n_dev), pch (n_des),
+        # pdis (n_des), soc (n_des), t_br (n_branch)].
+        self._stage_n = self.n_bus + self.n_dev + 3 * self.n_des + self.n_branch
+        self._structure = None
+        # Solution cache for tests/inspection.
+        self.last_solution = None
+
+    @property
+    def structure(self) -> DCOPFStructure:
+        if self._structure is None:
+            self._structure = build_dcopf_structure(
+                self.spec, self.delta_t, self.lamb, self.gamma, self.safety_margin, self.planning_steps,
+                branch_rate=self.branch_rate, B_bus=self.B_bus)
+        return self._structure
+
+    def act(self, env):
+        """Solve the N-stage DC OPF and return the stage-0 action."""
+        P_load_forecasts, P_gen_forecasts = self.forecast(env)
+        a = self._solve(env.simulator, P_load_forecasts, P_gen_forecasts)
+        return np.clip(a, self.action_space.low, self.action_space.high)
+
+    def forecast(self, env):
+        """Return (P_load [n_load, N], P_gen_max [n_gen-1, N]) in p.u."""
+        raise NotImplementedError()
+
+    def _solve(self, simulator, load_forecasts, gen_forecasts):
+        init_soc = [simulator.state["des_soc"]["pu"][i] for i in self.des_ids]
+        a, res = solve_highs(self.structure, load_forecasts, gen_forecasts, init_soc)
+        if not res.success:
+            print("OPF problem is " + res.message)
+            return a  # the idle fallback
+        x = res.x
+        n = self._stage_n
+        stage = lambda s, o, k: x[s * n + o: s * n + o + k]  # noqa: E731
+        N = self.planning_steps
+        self.last_solution = {
+            "x": x,
+            "theta": [stage(s, 0, self.n_bus) for s in range(N)],
+            "P_dev": [stage(s, self.n_bus, self.n_dev) for s in range(N)],
+            "soc": [stage(s, self.n_bus + self.n_dev + 2 * self.n_des, self.n_des) for s in range(N)],
+        }
+        return a
+
+
+class MPCAgentConstant(MPCAgent):
+    """pi_MPC-N^constant: current demand/generation held constant over the
+    horizon (mpc_constant.py:7-35)."""
+
+    def forecast(self, env):
+        full_state = env.simulator.state
+        P_load = [full_state["dev_p"]["pu"][i] for i in self.load_ids]
+        P_gen = [full_state["gen_p_max"]["pu"][i] for i in self.non_slack_gen_ids]
+        P_load = np.array([P_load for _ in range(self.planning_steps)]).T
+        P_gen = np.array([P_gen for _ in range(self.planning_steps)]).T
+        return P_load, P_gen
+
+
+class MPCAgentPerfect(MPCAgent):
+    """pi_MPC-N^perfect: exact knowledge of ANM6Easy's fixed daily profiles
+    (mpc_perfect.py:7-40)."""
+
+    def forecast(self, env):
+        t_start = int(env.state[-1]) + 1
+        t_end = t_start + self.planning_steps
+        P_loads = env.P_loads
+        P_gen_pot = env.P_maxs
+        while t_end > P_loads.shape[1]:
+            P_loads = np.concatenate((P_loads, env.P_loads), axis=-1)
+            P_gen_pot = np.concatenate((P_gen_pot, env.P_maxs), axis=-1)
+        return (
+            P_loads[:, t_start:t_end] / self.baseMVA,
+            P_gen_pot[:, t_start:t_end] / self.baseMVA,
+        )

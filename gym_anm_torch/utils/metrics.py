@@ -23,7 +23,7 @@ class RolloutMetrics(NamedTuple):
     nr_iter_sum: torch.Tensor      # total load-flow iterations
 
     @classmethod
-    def zero(cls, dtype=torch.float32, device="cpu"):
+    def zero(cls, dtype=torch.float32, device="cuda"):
         z = torch.zeros((), dtype=dtype, device=device)
         return cls(z, z, z, z, z, z, z)
 

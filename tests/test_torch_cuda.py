@@ -4,7 +4,8 @@ chord-Newton kernels (K2, and its wide kernel above 33 buses) and the ADMM
 kernel (K5) against their plain versions,
 the float32 and float64 steps on the card against the CPU, random feeders
 above 33 buses among them, and the learners' updates (PPO, CQL) on the card
-against the CPU at float64, without a host sync, and under nccl.
+against the CPU at float64, without a host sync, and under nccl, and the
+compat tier's float64 ``Simulator`` on the card against the CPU.
 
 Every test here needs a card and skips without one.  The file imports no
 JAX, so on a machine with a card and no JAX it runs on its own:
@@ -864,3 +865,52 @@ def test_multihost_worker_on_two_cards(cuda, tmp_path):
     rewards = torch.cat([r0["mpc"]["rewards"], r1["mpc"]["rewards"]], dim=1)
     np.testing.assert_allclose(acts.numpy(), one["mpc"]["acts"].numpy(), rtol=2e-4, atol=2e-5)
     np.testing.assert_allclose(rewards.numpy(), one["mpc"]["rewards"].numpy(), rtol=2e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("net,delta_t", [(anm6_network, 0.25), (ieee33_network, 1.0)])
+def test_simulator_on_card_equals_cpu(cuda, net, delta_t):
+    """The compat ``Simulator`` (float64, one lane; no gymnasium) on the card
+    against the CPU over 16 steps of random loads and uniform set-points:
+    equal ``pfe_converged`` flags, the state dict, reward, e_loss and
+    penalty within 1e-8, and K1 launched on its register route."""
+    from gym_anm_torch.env import Simulator
+
+    card, cpu = Simulator(net, delta_t, 100), Simulator(net, delta_t, 100, device="cpu")
+    spec = cpu.spec
+    rng = np.random.default_rng(3)
+    bounds = cpu.get_action_space()
+    flat = {}
+    for b in bounds:
+        flat.update(b)
+    loads = [int(spec.dev_ids[p]) for p in spec.load_pos]
+    gens = [int(spec.dev_ids[p]) for p in spec.gen_nonslack_pos]
+    oltcs = [int(spec.dev_ids[p]) for p in spec.oltc_pos]
+    s0 = np.zeros(2 * spec.n_dev + spec.n_des + spec.n_gen)
+    assert card.reset(s0) == cpu.reset(s0)
+    regs0, n0 = solve_gauss_jordan_cuda.launches["regs"], solve_gauss_jordan_cuda.launch_count
+    for t in range(16):
+        P_load = {i: spec.p_min[spec.dev_ids.tolist().index(i)] * spec.baseMVA * rng.uniform(0.3, 1.0)
+                  for i in loads}
+        P_pot = {i: rng.uniform(*flat[i]) for i in gens}
+        P_set = {i: rng.uniform(*bounds[0][i]) for i in bounds[0]} | {i: rng.uniform(*bounds[2][i]) for i in bounds[2]}
+        Q_set = {i: rng.uniform(*bounds[1][i]) for i in bounds[1]} | {i: rng.uniform(*bounds[3][i]) for i in bounds[3]}
+        if len(bounds) > 4:
+            Q_set |= {i: rng.uniform(*bounds[4][i]) for i in bounds[4]}
+        taps = {i: rng.uniform(*bounds[5][i]) for i in oltcs} if len(bounds) > 5 else None
+        sa, ra, ea, pa, ca = card.transition(P_load, P_pot, P_set, Q_set, taps)
+        sb, rb, eb, pb, cb = cpu.transition(P_load, P_pot, P_set, Q_set, taps)
+        assert ca == cb, f"step {t}: pfe_converged differs"
+        if not ca:
+            continue
+        for x, y in ((ra, rb), (ea, eb), (pa, pb)):
+            assert abs(x - y) <= 1e-8
+        for key in sa:
+            if key.endswith("_i_ang"):  # compared through the complex currents
+                continue
+            for unit in sa[key]:
+                for i, v in sa[key][unit].items():
+                    assert abs(v - sb[key][unit][i]) <= 1e-8, (t, key, unit, i)
+        for bus_a, bus_b in zip(card.buses.values(), cpu.buses.values()):
+            assert abs(bus_a.v - bus_b.v) <= 1e-8 and abs(bus_a.i - bus_b.i) <= 1e-8
+    assert solve_gauss_jordan_cuda.launch_count > n0
+    assert solve_gauss_jordan_cuda.launches["regs"] - regs0 == solve_gauss_jordan_cuda.launch_count - n0

@@ -89,7 +89,7 @@ def test_checkpoint_roundtrip(tmp_path, what):
 
 
 def test_rollout_metrics():
-    m = RolloutMetrics.zero()
+    m = RolloutMetrics.zero(device="cpu")
     info = {"e_loss": torch.tensor([0.5, 0.5]), "penalty": torch.tensor([0.0, 1.5]), "n_iter": torch.tensor([3, 4])}
     m = m.update(torch.tensor([-1.0, -2.0]), torch.tensor([False, True]), info)
     s = m.summary()
