@@ -128,11 +128,37 @@ non-zero at the first failure:
    1e-8, K1 launched on its register route (float64, B = 1, n = 10 and 64);
    ms per transition on both devices, GPU ops and host syncs of one; K1 at
    B = 1, n = 64 and 10, float64, timed beside ``torch.linalg.solve_ex``
-   and its bound.  The Gymnasium
-   shells over it (``gym_anm_torch.compat``, ``vec.GymVectorEnv``) need
-   gymnasium, which the card's machine lacks: they are held on the CPU only.
+   and its bound.
+14. the host tier over the compat environments on the card (float64, one
+   lane; ``gym_anm_torch.compat`` through gymnasium, or where the machine
+   lacks it through this script's stand-in module: ``Env``, ``spaces.Box``,
+   ``envs.registration``, no physics and no controller logic; the line
+   ``14 gymnasium:`` says which):
+   14a. every controller hierarchy of ``gym_anm_torch.agents`` on the
+   environment its test uses (Corrected L0-L5 and the algorithmic and
+   experimental sets on ``IEEE33RenewableEnv``, the multi-capacitor
+   controllers on ``IEEE33MultiCapacitorEnv``, ``L5_EnhancedSwitchingAware``
+   on ``IEEE33UnequalCapacitorsEnv``, the diversity and ready sets on
+   ``IEEE33ProperEnvironment(load_scale=0.9)``), a fresh pair of
+   environments each, for 24 steps on the card and on the CPU from the same
+   seed and global ``np.random`` state: actions and rewards within 1e-8 (the
+   two SLSQP L5s' actions within 1e-6; ``L5_ScipyOptimal``'s capacitor tie,
+   where SLSQP splits its two 1.0-rated capacitors 0.5/0.5 and the last
+   digits switch them, ends its comparison and is logged), K1 launched on
+   every step, all on its register route, 0 GPU ops and 0 host syncs in an
+   ``act`` (every card ``act`` under ``set_sync_debug_mode("error")``, the
+   second counted by torch.profiler), ms per step split into ``act`` and
+   ``step`` on both devices;
+   14b. ``offline.generate_mixed_dataset`` over Corrected L0-L5 with unequal
+   weights on ``IEEE33RenewableEnv`` for 96 steps, ``behavior_cloning`` on
+   it and ``evaluate_policy`` of the fitted policy (2 episodes × 10 steps),
+   card against CPU within 1e-8 (states, actions, coefficients, returns);
+   each of the 31 heuristics of the expert zoo for 4 steps, card against
+   CPU within 1e-8;
+   14c. ``gym_anm_torch.scripts.create_algorithmic_diversity.run`` for each
+   of its controllers on the card at 5 steps, beside the same on the CPU.
 
-K1 and K2 launches of phases 11, 12 and 13 count in the kernels' line.
+K1 and K2 launches of phases 11, 12, 13 and 14 count in the kernels' line.
 
 Every kernel time is device time: ``cuda_ms`` puts N_LAUNCH back-to-back
 launches between one pair of CUDA events behind a sleep kernel, so the host
@@ -2221,6 +2247,331 @@ def phase13_simulator(lin, kernel):
     return launches, max(errs)
 
 
+def gymnasium_module():
+    """``"gymnasium <version>"``, or ``"stand-in"`` after registering this
+    script's stand-in for the part of gymnasium that ``gym_anm_torch.compat``
+    uses, where the machine has no gymnasium: ``Env`` (``reset(seed=)`` seeds
+    ``np_random`` as ``np.random.default_rng(seed)``; ``unwrapped``),
+    ``spaces.Box`` (``low``, ``high``, ``shape``, ``dtype``, ``seed``,
+    ``contains``, and ``sample`` uniform in the box, as gymnasium draws a
+    bounded float box) and ``envs.registration`` (``register``,
+    ``registry``).  It holds no physics and no controller logic; the card's
+    and the CPU's runs both go through it."""
+    import types
+
+    try:
+        import gymnasium
+
+        return f"gymnasium {gymnasium.__version__}"
+    except ImportError:
+        pass
+
+    class Env:
+        _np_random = None
+
+        @property
+        def np_random(self):
+            if self._np_random is None:
+                self._np_random = np.random.default_rng()
+            return self._np_random
+
+        def reset(self, *, seed=None, options=None):
+            if seed is not None:
+                self._np_random = np.random.default_rng(seed)
+
+        @property
+        def unwrapped(self):
+            return self
+
+    class Box:
+        def __init__(self, low, high, dtype=np.float32):
+            self.dtype = np.dtype(dtype)
+            self.low, self.high = np.asarray(low, dtype=self.dtype), np.asarray(high, dtype=self.dtype)
+            self.shape = self.low.shape
+            self.np_random = np.random.default_rng()
+
+        def seed(self, seed=None):
+            self.np_random = np.random.default_rng(seed)
+            return [seed]
+
+        def sample(self):
+            if not (np.all(np.isfinite(self.low)) and np.all(np.isfinite(self.high))):
+                raise ValueError("the stand-in samples bounded boxes only")
+            return self.np_random.uniform(low=self.low, high=self.high, size=self.shape).astype(self.dtype)
+
+        def contains(self, x):
+            if not isinstance(x, np.ndarray):
+                try:
+                    x = np.asarray(x, dtype=self.dtype)
+                except (ValueError, TypeError):
+                    return False
+            return bool(np.can_cast(x.dtype, self.dtype) and x.shape == self.shape
+                        and np.all(x >= self.low) and np.all(x <= self.high))
+
+    gym, spaces = types.ModuleType("gymnasium"), types.ModuleType("gymnasium.spaces")
+    envs, registration = types.ModuleType("gymnasium.envs"), types.ModuleType("gymnasium.envs.registration")
+    registration.registry = {}
+    registration.register = lambda id, entry_point, **kwargs: registration.registry.setdefault(id, entry_point)
+    spaces.Box, gym.Env, gym.spaces, gym.envs, envs.registration = Box, Env, spaces, envs, registration
+    gym.__version__ = "stand-in"
+    sys.modules.update({"gymnasium": gym, "gymnasium.spaces": spaces, "gymnasium.envs": envs,
+                        "gymnasium.envs.registration": registration})
+    return "stand-in"
+
+
+def host_twin(f_card, f_cpu):
+    """``f_card()`` and ``f_cpu()`` from the same global numpy RNG state; the
+    state after them is the one ``f_cpu`` leaves (both draw alike)."""
+    st = np.random.get_state()
+    a = f_card()
+    np.random.set_state(st)
+    return a, f_cpu()
+
+
+def env_pair(factory, seed=0):
+    """The card's and the CPU's environment of ``factory(device)`` from the
+    same global RNG state."""
+    np.random.seed(seed)
+    return host_twin(lambda: factory("cuda"), lambda: factory("cpu"))
+
+
+def spy_on_solutions(agent, xs):
+    """Record each SLSQP solution ``x`` that ``agent`` (the diversity set's
+    ``L5_ScipyOptimal``) turns into an action."""
+    inner = agent._action_from_x
+    agent._action_from_x = lambda x: (xs.append(np.array(x)), inner(x))[1]
+    return agent
+
+
+def scipy_tie(x_c, x_h, a_c, a_h, atol):
+    """Whether a disagreement of ``L5_ScipyOptimal`` is its capacitor tie:
+    both SLSQP solutions put the two 1.0-rated capacitors (x[5], x[6]) at
+    0.5 within 1e-9, and the actions differ beyond ``atol`` only in those
+    two capacitors' switch (entries 10 and 11)."""
+    rest = np.r_[0:10, 12:17]
+    return bool(np.all(np.abs(x_c[5:7] - 0.5) <= 1e-9) and np.all(np.abs(x_h[5:7] - 0.5) <= 1e-9)
+                and np.max(np.abs(a_c[rest] - a_h[rest])) <= atol)
+
+
+def card_vs_cpu(kernel, ec, eh, cls, steps, seed, op_step, op_base, atol=1e-8, tie=False):
+    """``cls`` on the card's environment ``ec`` and on the CPU's ``eh`` in
+    closed loop for ``steps`` steps from ``seed``, each agent's action
+    clipped to the box stepping its own environment.  Every card ``act``
+    runs under ``set_sync_debug_mode("error")``; the one of step ``op_step``
+    is counted by torch.profiler, less ``op_base`` (``count_ops`` of an
+    empty call).  With ``tie``, a first disagreement beyond
+    ``atol`` that is ``L5_ScipyOptimal``'s capacitor tie (``scipy_tie``)
+    ends the comparison there: from that step on the two devices run
+    different discrete decisions.  Returns a dict: ``da``/``dr`` (max |card
+    - CPU| of actions and rewards over the compared steps), ``steps`` (how
+    many), ``tie`` (the tie's step, or None), ``k1``/``regs`` (launches in
+    those steps), ``k1_min`` (the fewest in one step), ``ops``/``syncs`` (of
+    the counted act, or None), ``act``/``step`` ({"card", "cpu"}: host ms
+    per call), ``r_card`` (the card's mean reward) and ``finite``."""
+    np.random.seed(seed)
+    host_twin(lambda: ec.reset(seed=seed), lambda: eh.reset(seed=seed))
+    ec.action_space.seed(seed)
+    eh.action_space.seed(seed)
+    ac, ah = host_twin(lambda: cls(ec), lambda: cls(eh))
+    xs_c, xs_h = [], []
+    if tie:
+        spy_on_solutions(ac, xs_c)
+        spy_on_solutions(ah, xs_h)
+    pc = ac.act if hasattr(ac, "act") else ac.get_base_action
+    ph = ah.act if hasattr(ah, "act") else ah.get_base_action
+    lo, hi = eh.action_space.low, eh.action_space.high
+    out = {"da": 0.0, "dr": 0.0, "steps": 0, "tie": None, "k1": 0, "regs": 0, "k1_min": None, "ops": None,
+           "syncs": None, "finite": True, "act": {"card": [], "cpu": []}, "step": {"card": [], "cpu": []},
+           "r_card": []}
+
+    def timed(key, dev, fn):
+        t0 = time.perf_counter()
+        x = fn()
+        out[key][dev].append(1e3 * (time.perf_counter() - t0))
+        return x
+
+    def card_act():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return np.asarray(pc(ec), float)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    for t in range(steps):
+        st = np.random.get_state()
+        n_x = len(xs_c)
+        if t == op_step:
+            got = {}
+            out["ops"], out["syncs"] = count_ops(lambda: got.setdefault("a", card_act()), op_base)
+            a_c = got["a"]
+        else:
+            a_c = timed("act", "card", card_act)
+        np.random.set_state(st)
+        a_h = timed("act", "cpu", lambda: np.asarray(ph(eh), float))
+        da = float(np.max(np.abs(a_c - a_h)))
+        if tie and da > atol and len(xs_c) > n_x and scipy_tie(xs_c[-1], xs_h[-1], a_c, a_h, atol):
+            out["tie"] = t
+            log(f"   {cls.__name__} step {t}: the capacitor tie, x[5:7] card {xs_c[-1][5:7].tolist()} CPU "
+                f"{xs_h[-1][5:7].tolist()}, capacitors 1-2 card {a_c[10:12].tolist()} CPU {a_h[10:12].tolist()}")
+            break
+        st = np.random.get_state()
+        n0, r0 = kernel.launch_count, kernel.launches["regs"]
+        _, r_c, term_c, _, _ = timed("step", "card", lambda: ec.step(np.clip(a_c, lo, hi)))
+        n_k1, n_regs = kernel.launch_count - n0, kernel.launches["regs"] - r0
+        np.random.set_state(st)
+        _, r_h, term_h, _, _ = timed("step", "cpu", lambda: eh.step(np.clip(a_h, lo, hi)))
+        assert term_c == term_h, f"{cls.__name__} step {t}: terminated {term_c} on the card, {term_h} on the CPU"
+        out["steps"] += 1
+        out["da"] = max(out["da"], da)
+        out["dr"] = max(out["dr"], abs(r_c - r_h))
+        out["k1"] += n_k1
+        out["regs"] += n_regs
+        out["k1_min"] = n_k1 if out["k1_min"] is None else min(out["k1_min"], n_k1)
+        out["finite"] &= bool(np.all(np.isfinite(a_c)) and np.isfinite(r_c))
+        out["r_card"].append(r_c)
+        if term_c:
+            np.random.seed(seed)
+            host_twin(lambda: ec.reset(seed=seed), lambda: eh.reset(seed=seed))
+    for key in ("act", "step"):
+        out[key] = {d: statistics.mean(v) if v else float("nan") for d, v in out[key].items()}
+    out["r_card"] = statistics.mean(out["r_card"]) if out["r_card"] else float("nan")
+    return out
+
+
+T_HIER = 24  # one day at delta_t = 1 h
+# The SLSQP L5s (diversity, ready): SLSQP's finite-difference gradients turn
+# the load flow's last-digit differences between the card and the CPU into
+# iterate differences (5.1e-8 measured on the card): held at 1e-6.
+SLSQP_ATOL = 1e-6
+
+
+def phase14_host_tier(kernel):
+    """The controller hierarchies, the offline tools and the expert zoo over
+    the compat environments on the card, against the CPU."""
+    log("== phase 14: the host tier over the compat environments, float64, one lane, card against CPU")
+    log(f"14 gymnasium: {gymnasium_module()}")
+    import gym_anm_torch.compat as tc
+    from gym_anm_torch import agents, offline
+    from gym_anm_torch.agents import (algorithmic_hierarchy as ah, diversity_hierarchy as dh,
+                                      experimental_hierarchies as xh, multicap_controllers as mc,
+                                      ready_hierarchy as rh)
+    from gym_anm_torch.scripts import create_algorithmic_diversity as cad
+
+    op_base = count_ops(lambda: None)
+    t_phase = time.perf_counter()
+    kernel.launch_count = 0
+    renewable = lambda d: tc.IEEE33RenewableEnv(device=d)  # noqa: E731
+    proper = lambda d: tc.IEEE33ProperEnvironment(load_scale=0.9, device=d)  # noqa: E731
+    corrected = [getattr(agents, n) for n in agents.__all__ if n.startswith("Corrected")]
+    sets = (
+        ("Corrected", renewable, corrected),
+        ("algorithmic", renewable, [ah.L0_RandomControl, ah.L1_BangBangControl, ah.L2_ProportionalControl,
+                                    ah.L3_PIControl, ah.L4_MPCControl, ah.L5_HierarchicalMPCControl]),
+        ("multicap", lambda d: tc.IEEE33MultiCapacitorEnv(device=d),
+         [mc.L2_ProportionalControl_MultiCap, mc.L2_DiscreteDroop, mc.L5_HierarchicalMPC_MultiCap,
+          mc.L5_SwitchingAwareMPC, mc.L5_TrueMPC]),
+        ("unequal", lambda d: tc.IEEE33UnequalCapacitorsEnv(device=d), [mc.L5_EnhancedSwitchingAware]),
+        ("diversity", proper, [dh.L0_Random, dh.L1_BangBang, dh.L2_Proportional, dh.L3_PI_Controller,
+                               dh.L4_RuleBasedExpert, dh.L5_ScipyOptimal]),
+        ("ready", proper, [rh.L0_Random, rh.L1_BangBang, rh.L2_Proportional, rh.L3_Coordinated,
+                           rh.L4_Predictive, rh.L5_MathematicalOptimization]),
+        ("experimental", renewable, [c for n, c in vars(xh).items()
+                                     if isinstance(c, type) and n[:1] in "IFM" and "_" in n]),
+    )
+    failures, worst = [], {"da": 0.0, "dr": 0.0, "ops": 0, "syncs": 0}
+    for set_name, factory, classes in sets:
+        acts, steps_ = {"card": [], "cpu": []}, {"card": [], "cpu": []}
+        for cls in classes:
+            # A fresh pair a class: an env carries its taps across resets.
+            ec, eh_ = env_pair(factory)
+            assert ec.simulator.device.type == "cuda" and eh_.simulator.device.type == "cpu"
+            slsqp = cls in (dh.L5_ScipyOptimal, rh.L5_MathematicalOptimization)
+            atol = SLSQP_ATOL if slsqp else 1e-8
+            o = card_vs_cpu(kernel, ec, eh_, cls, T_HIER, 0, 1, op_base, atol=atol, tie=cls is dh.L5_ScipyOptimal)
+            for d in ("card", "cpu"):
+                acts[d].append(o["act"][d])
+                steps_[d].append(o["step"][d])
+            for k in ("da", "dr", "ops", "syncs"):
+                worst[k] = max(worst[k], o[k])
+            tie = "" if o["tie"] is None else f" (the capacitor tie at step {o['tie']} ends the comparison)"
+            log(f"14a {set_name} {cls.__name__}: {o['steps']} steps compared{tie}, max |card - CPU| actions "
+                f"{o['da']:.3e} (tolerance {atol:.0e}), rewards {o['dr']:.3e}; mean reward {o['r_card']:+.5f}; "
+                f"K1 {o['k1'] / max(o['steps'], 1):.2f} per step (at least {o['k1_min']}), {o['regs']} of "
+                f"{o['k1']} on the register route; one act: {o['ops']} GPU ops, {o['syncs']} host syncs; ms per "
+                f"step: act card {o['act']['card']:.3f} CPU {o['act']['cpu']:.3f}, step card "
+                f"{o['step']['card']:.3f} CPU {o['step']['cpu']:.3f}")
+            if not (o["finite"] and o["steps"] > 0 and o["da"] <= atol and o["dr"] <= 1e-8 and o["k1_min"] > 0
+                    and o["regs"] == o["k1"] and o["ops"] == 0 and o["syncs"] == 0):
+                failures.append(f"{set_name} {cls.__name__}")
+        log(f"14a {set_name} ({len(classes)} classes, up to {T_HIER} steps): mean ms per step act card "
+            f"{statistics.mean(acts['card']):.3f} CPU {statistics.mean(acts['cpu']):.3f}, step card "
+            f"{statistics.mean(steps_['card']):.3f} CPU {statistics.mean(steps_['cpu']):.3f} (host clock)")
+    log(f"14a: {sum(len(c) for _, _, c in sets)} classes; worst |card - CPU| actions {worst['da']:.3e}, rewards "
+        f"{worst['dr']:.3e}; most GPU ops {worst['ops']} and host syncs {worst['syncs']} in one act; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    # 14b: the offline tools over the Corrected hierarchy, then the zoo.
+    ec, eh_ = env_pair(renewable)
+    weights = [6.0, 1.0, 1.0, 2.0, 1.0, 3.0]
+    np.random.seed(2)
+    host_twin(lambda: ec.reset(seed=2), lambda: eh_.reset(seed=2))
+    ec.action_space.seed(2)
+    eh_.action_space.seed(2)
+    ag_c, ag_h = host_twin(lambda: [c(ec) for c in corrected], lambda: [c(eh_) for c in corrected])
+    n0, st = kernel.launch_count, np.random.get_state()
+    t0 = time.perf_counter()
+    d_c = offline.generate_mixed_dataset(ec, ag_c, 96, weights=weights)
+    ms_c = 1e3 * (time.perf_counter() - t0) / 96
+    n_mix = kernel.launch_count - n0
+    np.random.set_state(st)
+    t0 = time.perf_counter()
+    d_h = offline.generate_mixed_dataset(eh_, ag_h, 96, weights=weights)
+    ms_h = 1e3 * (time.perf_counter() - t0) / 96
+    d_err = max(float(np.max(np.abs(x - y))) for x, y in zip(d_c, d_h))
+    p_c, p_h = offline.behavior_cloning(*d_c, ec.action_space), offline.behavior_cloning(*d_h, eh_.action_space)
+    coef = lambda p: [c.cell_contents for n, c in zip(p.__code__.co_freevars, p.__closure__)  # noqa: E731
+                      if n in ("W", "b")]
+    c_err = max(float(np.max(np.abs(x - y))) for x, y in zip(coef(p_c), coef(p_h)))
+    np.random.seed(5)
+    r_c, r_h = host_twin(lambda: offline.evaluate_policy(ec, p_c, episodes=2, max_steps=10),
+                         lambda: offline.evaluate_policy(eh_, p_h, episodes=2, max_steps=10))
+    log(f"14b generate_mixed_dataset (Corrected L0-L5, weights {weights}, 96 steps): states {d_c[0].shape}, "
+        f"max |card - CPU| of states and actions {d_err:.3e}; K1 {n_mix / 96:.2f} per step; ms per step card "
+        f"{ms_c:.3f} CPU {ms_h:.3f}; behavior_cloning coefficients {c_err:.3e}; evaluate_policy (2 x 10 steps) "
+        f"card {r_c:+.6f} CPU {r_h:+.6f}")
+    if not (d_err <= 1e-8 and c_err <= 1e-8 and abs(r_c - r_h) <= 1e-8 and np.isfinite(r_c) and n_mix > 0):
+        failures.append("offline tools")
+    zoo = [c for n, c in vars(offline).items() if isinstance(c, type) and c.__module__ == offline.__name__
+           and n == c.__name__]
+    assert len(zoo) == 31, len(zoo)
+    zoo_worst, t0 = {"da": 0.0, "dr": 0.0, "ops": 0}, time.perf_counter()
+    for cls in zoo:
+        o = card_vs_cpu(kernel, ec, eh_, cls, 4, 4, 3, op_base)
+        for k in zoo_worst:
+            zoo_worst[k] = max(zoo_worst[k], o[k])
+        if not (o["finite"] and o["da"] <= 1e-8 and o["dr"] <= 1e-8 and o["k1_min"] > 0 and o["regs"] == o["k1"]
+                and o["ops"] == 0 and o["syncs"] == 0):
+            failures.append(f"zoo {cls.__name__}")
+            log(f"14b zoo {cls.__name__}: actions {o['da']:.3e}, rewards {o['dr']:.3e}, K1 {o['k1']} "
+                f"({o['regs']} regs, at least {o['k1_min']} a step), ops {o['ops']}, syncs {o['syncs']}")
+    log(f"14b zoo: {len(zoo)} heuristics x 4 steps, worst |card - CPU| actions {zoo_worst['da']:.3e}, rewards "
+        f"{zoo_worst['dr']:.3e}, most GPU ops in one act {zoo_worst['ops']}; {time.perf_counter() - t0:.1f} s")
+
+    # 14c: the script's entry point on the card, beside the CPU.
+    for name, cls in cad.CONTROLLERS:
+        avg_c = cad.run(cls, load_scale=1.0, steps=5)
+        avg_h = cad.run(cls, load_scale=1.0, steps=5, device="cpu")
+        log(f"14c create_algorithmic_diversity.run({name}, load_scale=1.0, steps=5): card {avg_c:+.6f}, "
+            f"CPU {avg_h:+.6f}")
+        if not np.isfinite(avg_c):
+            failures.append(f"script {name}")
+    torch.cuda.synchronize()
+    launches = kernel.launch_count
+    log(f"14: K1 launches {launches}; {time.perf_counter() - t_phase:.1f} s")
+    assert not failures, f"phase 14 failed for: {', '.join(failures)}"
+    return launches
+
+
 def log_ptxas(report):
     """One line per kernel of ptxas's report: registers and spill bytes."""
     b = {"0": "false", "1": "true", "f": "float", "d": "double"}
@@ -2307,15 +2658,16 @@ def main():
     ppo_k1, ppo_k2 = run(phase11_ppo, VecEnv, make_ieee33_multicap_task, kernel, chord_solve_cuda)
     cql_k1, cql_k2 = run(phase12_cql, kernel, chord_solve_cuda)
     sim_k1, _ = run(phase13_simulator, lin, kernel)
+    host_k1 = run(phase14_host_tier, kernel)
 
-    # Launches: the runs of the base, multicap17, collection, ANM6Easy, the learners' and the compat Simulator's
-    # paths together.
+    # Launches: the runs of the base, multicap17, collection, ANM6Easy, the learners', the compat Simulator's and
+    # the host tier's paths together.
     print(json.dumps({"kernels": [{
         "name": "gauss_jordan",
         "route": "cuda",
         "source": "gym_anm_torch/csrc/gauss_jordan.cu",
         "replaces": "gym_anm_tpu/physics/linsolve_pallas.py:31",
-        "launches": launches + mc_launches + col_launches + a6_launches + ppo_k1 + cql_k1 + sim_k1,
+        "launches": launches + mc_launches + col_launches + a6_launches + ppo_k1 + cql_k1 + sim_k1 + host_k1,
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],

@@ -21,9 +21,14 @@ single-env tier sits over the same transition: the float64
 :class:`~gym_anm_torch.env.Simulator`, the Gymnasium environments of
 :mod:`gym_anm_torch.compat` (ANM6Easy, IEEE33 and its variants, registered
 as ``gym_anm_torch/ANM6Easy-v0`` and ``gym_anm_torch/IEEE33-v0``), the host
-MPC agents (``agents.MPCAgent*``) and the Gymnasium vector adapter
-``vec.GymVectorEnv``; the modules that subclass Gymnasium's classes import
-it, and ``import gym_anm_torch`` does not.
+MPC agents (``agents.MPCAgent*``), the host controller hierarchies
+(``agents``: ``CorrectedL0``-``L5``, the multi-capacitor controllers and
+the variant L0-L5 sets), the offline tools and expert zoo over the compat
+environments (``offline``: ``generate_dataset``, ``generate_mixed_dataset``,
+``behavior_cloning``, ``evaluate_policy``, exported here lazily) and the
+Gymnasium vector adapter ``vec.GymVectorEnv``; the modules that subclass
+Gymnasium's classes import it, and ``import gym_anm_torch``, ``.agents``
+and ``.offline`` do not.
 """
 
 from . import errors
@@ -52,4 +57,8 @@ def __getattr__(name):
         from . import agents
 
         return getattr(agents, name)
+    if name in ("generate_dataset", "generate_mixed_dataset", "behavior_cloning", "evaluate_policy"):
+        from . import offline
+
+        return getattr(offline, name)
     raise AttributeError(f"module 'gym_anm_torch' has no attribute {name!r}")

@@ -1,1 +1,3 @@
-"""Entry points of the port: the learners' training scripts and the distributed smoke worker."""
+"""Entry points of the port: the learners' training scripts, the distributed
+smoke worker, and the compat tier's controller benchmarks
+(``create_algorithmic_diversity``, ``diverse_load_patterns``)."""

@@ -323,6 +323,10 @@ def test_registered_ids(env_id, name):
 
 def test_import_needs_no_gymnasium():
     code = ("import sys, gym_anm_torch, gym_anm_torch.env, gym_anm_torch.vec, gym_anm_torch.agents; "
+            "import gym_anm_torch.offline, gym_anm_torch.agents.algorithmic_hierarchy; "
+            "import gym_anm_torch.agents.diversity_hierarchy, gym_anm_torch.agents.ready_hierarchy; "
+            "import gym_anm_torch.agents.experimental_hierarchies; "
+            "gym_anm_torch.generate_mixed_dataset, gym_anm_torch.behavior_cloning; "
             "assert 'gymnasium' not in sys.modules, 'gymnasium imported'; "
             "assert 'jax' not in sys.modules and 'gym_anm_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
