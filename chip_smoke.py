@@ -157,8 +157,37 @@ non-zero at the first failure:
    CPU within 1e-8;
    14c. ``gym_anm_torch.scripts.create_algorithmic_diversity.run`` for each
    of its controllers on the card at 5 steps, beside the same on the CPU.
+15. the renderer, the examples and the scripts on the card (the browser tab
+   suppressed; the gymnasium stand-in of phase 14 where gymnasium is
+   missing, which also provides ``make``):
+   15a. ANM6Easy with ``render()`` after each of 96 steps of seeded uniform
+   actions on the card and on the CPU: a ``WsClient`` on each env's server
+   gets equal init frames and update frames within 1e-8 (``time``,
+   ``yearCount`` and ``networkCollapsed`` equal); ``render()`` on the card
+   runs 0 GPU ops and 0 host syncs (torch.profiler; every other call under
+   ``set_sync_debug_mode("error")``); the page fetched over HTTP from the
+   card's server and executed by ``tests/minijs.py`` shows 6 buses, 5
+   branches, 7 device cards and voltage labels equal to the card's
+   ``bus_v_magn``; ms of a step with and without ``render()``;
+   15b. the examples of ``gym_anm_torch.examples`` at the JAX examples'
+   defaults on the card, each beside the same run on the CPU from the same
+   seed and global ``np.random`` state: ``simple_env``, ``custom_anm6``,
+   ``random_agent`` (rendering, no sleep), ``offline_mixed`` within 1e-8;
+   ``mpc_constant`` and ``mpc_perfect`` (100 steps, N = 10) within 1e-6;
+   ``mpc_vec`` (float32, B = 16, 96 steps, N = 1 constant and 2/4/8
+   perfect) within F32_REWARD_ATOL; ``gym_vector_interop`` where
+   ``gymnasium.wrappers.vector`` exists (the log says when it does not);
+   15c. through each script's ``main``: ``generate_final_offline_datasets``
+   in vec mode at its default 6 x 1024 lanes x 100 steps (finite, actions
+   in the box, L0 below the informed controllers, transitions/s) and in
+   compat mode at ``--episodes 2`` against the CPU within 1e-8,
+   ``quick_dataset_test``, ``l0l5_quality_table --skip-reference`` at
+   L0L5_TABLE_STEPS steps, ``exp_rti_budget`` at budgets 24, 32, 48, 96
+   and 200, ``scaling_bench`` at world size 1 (one rank spawned on the
+   card) and ``verify_h100`` (every probe PASS, the clean build timed).
 
-K1 and K2 launches of phases 11, 12, 13 and 14 count in the kernels' line.
+K1 and K2 launches of phases 11 to 15 and K5's of phase 15 count in the
+kernels' line.
 
 Every kernel time is device time: ``cuda_ms`` puts N_LAUNCH back-to-back
 launches between one pair of CUDA events behind a sleep kernel, so the host
@@ -177,8 +206,10 @@ JAX.
 """
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import importlib
+import io
 import json
 import math
 import re
@@ -2254,9 +2285,10 @@ def gymnasium_module():
     ``np_random`` as ``np.random.default_rng(seed)``; ``unwrapped``),
     ``spaces.Box`` (``low``, ``high``, ``shape``, ``dtype``, ``seed``,
     ``contains``, and ``sample`` uniform in the box, as gymnasium draws a
-    bounded float box) and ``envs.registration`` (``register``,
-    ``registry``).  It holds no physics and no controller logic; the card's
-    and the CPU's runs both go through it."""
+    bounded float box), ``envs.registration`` (``register``, ``registry``)
+    and ``make`` (the registry's entry point called with the keyword
+    arguments, no wrappers).  It holds no physics and no controller logic;
+    the card's and the CPU's runs both go through it."""
     import types
 
     try:
@@ -2312,7 +2344,13 @@ def gymnasium_module():
     envs, registration = types.ModuleType("gymnasium.envs"), types.ModuleType("gymnasium.envs.registration")
     registration.registry = {}
     registration.register = lambda id, entry_point, **kwargs: registration.registry.setdefault(id, entry_point)
+
+    def make(id, **kwargs):
+        module, attr = registration.registry[id].split(":")
+        return getattr(importlib.import_module(module), attr)(**kwargs)
+
     spaces.Box, gym.Env, gym.spaces, gym.envs, envs.registration = Box, Env, spaces, envs, registration
+    gym.make = make
     gym.__version__ = "stand-in"
     sys.modules.update({"gymnasium": gym, "gymnasium.spaces": spaces, "gymnasium.envs": envs,
                         "gymnasium.envs.registration": registration})
@@ -2572,6 +2610,337 @@ def phase14_host_tier(kernel):
     return launches
 
 
+def quietly(fn):
+    """``fn()`` with its standard output kept out of the log; returns (its
+    result, what it printed)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    return out, buf.getvalue()
+
+
+@contextlib.contextmanager
+def no_browser():
+    """The dashboard's browser tab suppressed: the card's machine is
+    headless."""
+    import gym_anm_torch.render.rendering as rendering
+
+    orig = rendering.webbrowser.open
+    rendering.webbrowser.open = lambda *a, **k: None
+    try:
+        yield
+    finally:
+        rendering.webbrowser.open = orig
+
+
+def minijs_module():
+    """``tests/minijs.py``, the repository's pure-Python JS interpreter."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent / "tests" / "minijs.py"
+    spec = importlib.util.spec_from_file_location("minijs", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def frames_differ(fc, fh):
+    """The largest |card - CPU| over an update frame's float fields (none
+    where the network collapsed: such a frame shows the load flow's last
+    iterate, not a solution), or inf where a field that must be equal
+    (``time``, ``yearCount``, ``networkCollapsed``) or the set of fields
+    differs."""
+    exact = ("messageLabel", "time", "yearCount", "networkCollapsed")
+    if fc.keys() != fh.keys() or any(fc[k] != fh[k] for k in exact):
+        return math.inf
+    floats = [] if fc["networkCollapsed"] else fc.keys() - set(exact)
+    return max((float(np.max(np.abs(np.asarray(fc[k], float) - np.asarray(fh[k], float)))) for k in floats),
+               default=0.0)
+
+
+T_RENDER = 96  # one day of ANM6Easy at delta_t = 15 min
+# mpc_vec runs float32 on both devices: their transitions' elementwise float32
+# arithmetic rounds apart (CUDA's and the CPU's sin, exp), so a policy's mean
+# reward per step is held within 1e-4.
+F32_REWARD_ATOL = 1e-4
+
+
+def phase15a_renderer(op_base):
+    """ANM6Easy with ``render()`` every step on the card and on the CPU: equal
+    frames, no GPU op and no sync in ``render()``, the page executed by
+    ``tests/minijs.py`` against the card's servers."""
+    import urllib.request
+
+    import gym_anm_torch.compat as tc
+    from gym_anm_torch.render import WsClient
+
+    minijs = minijs_module()
+    ec, eh = env_pair(lambda d: tc.ANM6Easy(device=d))
+    clients, browser, ms_render = [], None, []
+    try:
+        np.random.seed(15)
+        host_twin(lambda: ec.reset(seed=15), lambda: eh.reset(seed=15))
+        with no_browser():
+            quietly(lambda: host_twin(ec.render, eh.render))
+        clients = [WsClient(ec.ws_server.address), WsClient(eh.ws_server.address)]
+        init_c, init_h = (json.loads(c.recv()) for c in clients)
+        assert init_c == init_h, "the init frames differ between the card and the CPU"
+        rng = np.random.default_rng(15)
+        lo, hi = eh.action_space.low, eh.action_space.high
+        err, ops, syncs, n_term = 0.0, None, None, 0
+        for t in range(T_RENDER):
+            a = rng.uniform(lo, hi)
+            (_, _, term_c, _, _), (_, _, term_h, _, _) = host_twin(lambda: ec.step(a), lambda: eh.step(a))
+            t1 = time.perf_counter()
+            if t == 1:
+                ops, syncs = count_ops(ec.render, op_base)
+            else:
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    ec.render()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            t2 = time.perf_counter()
+            eh.render()
+            if t != 1:
+                ms_render.append(1e3 * (t2 - t1))
+            fc, fh = (json.loads(c.recv()) for c in clients)
+            assert fc["messageLabel"] == "update" and term_c == term_h, f"step {t}: frames or terms differ"
+            err = max(err, frames_differ(fc, fh))
+            if term_c:
+                n_term += 1
+                host_twin(ec.reset, eh.reset)
+        # The card's step alone, for its time beside render(), from a reset
+        # under zero set-points.
+        ec.reset()
+        ms_alone = []
+        for _ in range(8):
+            t0 = time.perf_counter()
+            ec.step(np.zeros_like(lo))
+            ms_alone.append(1e3 * (time.perf_counter() - t0))
+        # The page, fetched over HTTP from the card's server, executed by minijs.
+        html = urllib.request.urlopen(ec.http_server.address, timeout=10).read().decode()
+        page = minijs.MiniJSPage(html)
+        browser = WsClient(page.sockets[-1].address)
+        page.deliver(browser.recv())  # the init frame, replayed
+        ec.render()
+        page.deliver(browser.recv())
+        v_card = [f"{v:.3f}" for v in ec.simulator.state["bus_v_magn"]["pu"].values()]
+        labels = [e.js_get("textContent") for e in page.query("#net text.vlbl") if e.js_get("textContent")]
+        counts = (len(page.query("#net circle.bus")), len(page.query("#net line.branch")),
+                  len(page.query("#devpanel .card")))
+    finally:
+        for c in clients + ([browser] if browser is not None else []):
+            c.close()
+        ec.close()
+        eh.close()
+    ms_step, ms_render = statistics.mean(ms_alone), statistics.mean(ms_render)
+    log(f"15a renderer: ANM6Easy, {T_RENDER} steps with render() on the card and the CPU ({n_term} terminal, each "
+        f"followed by a reset of both): init frames equal, update frames max |card - CPU| {err:.3e} (time, "
+        f"yearCount, networkCollapsed equal; float fields where the network stands); render() on the card: {ops} "
+        f"GPU ops, {syncs} host syncs; ms per step on the card {ms_step:.3f} without render(), "
+        f"{ms_step + ms_render:.3f} with it (render() {ms_render:.3f}, host clock); the page over HTTP in "
+        f"tests/minijs.py: {counts[0]} buses, {counts[1]} branches, {counts[2]} device cards, voltage labels "
+        f"{labels} (card bus_v_magn {v_card})")
+    assert err <= 1e-8, f"the card's frames are {err:.3e} from the CPU's"
+    assert ops == 0 and syncs == 0, f"render() on the card ran {ops} GPU ops and {syncs} host syncs"
+    assert counts == (6, 5, 7) and labels == v_card, "the page does not show the card's network"
+    assert all(0.5 < float(v) < 1.5 for v in labels), f"voltage labels {labels} far from 1 p.u."
+
+
+def phase15b_examples():
+    """The examples of ``gym_anm_torch.examples`` at their JAX defaults on the
+    card, each beside the same example on the CPU."""
+    from gym_anm_torch.examples import (custom_anm6, mpc_constant, mpc_perfect, mpc_vec, offline_mixed, random_agent,
+                                        simple_env)
+
+    failures = []
+    runs = (
+        ("simple_env", simple_env.run, dict(seed=15), 1e-8),
+        ("custom_anm6", custom_anm6.run, dict(seed=15), 1e-8),
+        ("random_agent", random_agent.run, dict(render=True, sleep=0, seed=15), 1e-8),
+        ("mpc_constant", mpc_constant.run, dict(seed=15), 1e-6),
+        ("mpc_perfect", mpc_perfect.run, dict(seed=15), 1e-6),
+        ("offline_mixed", offline_mixed.run, dict(seed=15), 1e-8),
+        ("mpc_vec", mpc_vec.run, {}, F32_REWARD_ATOL),
+    )
+    for name, run, kw, atol in runs:
+        np.random.seed(15)
+        t0 = time.perf_counter()
+        with no_browser():
+            (res_c, _), (res_h, _) = host_twin(lambda: quietly(lambda: run(device="cuda", **kw)),
+                                               lambda: quietly(lambda: run(device="cpu", **kw)))
+        torch.cuda.synchronize()
+        if name == "mpc_vec":
+            assert res_c.keys() == res_h.keys()
+            res_c, res_h = list(res_c.values()), list(res_h.values())
+            what = "mean reward per step of constant N=1, perfect N=2/4/8"
+        elif name == "offline_mixed":
+            res_c, res_h = np.concatenate([x.ravel() for x in res_c]), np.concatenate([x.ravel() for x in res_h])
+            what = "states and actions"
+        else:
+            what = "rewards"
+        res_c, res_h = np.asarray(res_c, float), np.asarray(res_h, float)
+        err = float(np.max(np.abs(res_c - res_h)))
+        log(f"15b {name}: {res_c.size} values ({what}); max |card - CPU| {err:.3e} (tolerance {atol:.0e}); card "
+            f"mean {res_c.mean():+.6f}; {time.perf_counter() - t0:.1f} s for both")
+        if not (res_c.shape == res_h.shape and np.all(np.isfinite(res_c)) and err <= atol):
+            failures.append(name)
+    try:
+        import gymnasium.wrappers.vector  # noqa: F401
+
+        from gym_anm_torch.examples import gym_vector_interop
+
+        total, episodes = quietly(lambda: gym_vector_interop.run(device="cuda"))[0]
+        log(f"15b gym_vector_interop: total reward {total:+.4f}, {episodes} episodes")
+        if not np.isfinite(total):
+            failures.append("gym_vector_interop")
+    except ImportError as e:
+        log(f"15b gym_vector_interop: not run: it needs gymnasium.wrappers.vector, which this machine lacks ({e})")
+    assert not failures, f"phase 15b failed for: {', '.join(failures)}"
+
+
+L0L5_TABLE_STEPS = 100  # of the script's 300: the phase's time
+
+
+def seeded_action_spaces(module):
+    """``module.IEEE33ProperEnvironment`` replaced by a factory whose
+    environments' action spaces are seeded with 0 (the dataset script's
+    compat mode leaves them unseeded, and its L0 samples them); returns the
+    function that restores it."""
+    cls = module.IEEE33ProperEnvironment
+
+    def make(*args, **kwargs):
+        env = cls(*args, **kwargs)
+        env.action_space.seed(0)
+        return env
+
+    module.IEEE33ProperEnvironment = make
+    return lambda: setattr(module, "IEEE33ProperEnvironment", cls)
+
+
+def phase15c_scripts(smi_line):
+    """The dataset, quality-table and bench scripts through their ``main`` on
+    the card."""
+    import pickle
+    import tempfile
+
+    import gym_anm_torch.compat as tc
+    from gym_anm_torch import _build
+    from gym_anm_torch.scripts import exp_rti_budget as rti
+    from gym_anm_torch.scripts import generate_final_offline_datasets as gfod
+    from gym_anm_torch.scripts import l0l5_quality_table as l0l5
+    from gym_anm_torch.scripts import quick_dataset_test as quick
+    from gym_anm_torch.scripts import scaling_bench as scaling
+    from gym_anm_torch.scripts import verify_h100 as verify
+    from gym_anm_torch.vec import VecEnv, make_ieee33_multicap_task
+
+    def load(d, name):
+        with open(f"{d}/{name}.pkl", "rb") as f:
+            return pickle.load(f)
+
+    with tempfile.TemporaryDirectory(prefix="phase15_", dir=_build.BUILD_DIR.parent) as tmp:
+        t0 = time.perf_counter()
+        _, printed = quietly(lambda: gfod.main(["--out", f"{tmp}/vec"]))
+        dt = time.perf_counter() - t0
+        rate = float(re.search(r"\(([\d,]+) transitions/s", printed).group(1).replace(",", ""))
+        combined, summary = load(f"{tmp}/vec", "combined_dataset"), load(f"{tmp}/vec", "summary")
+        box = VecEnv(make_ieee33_multicap_task(), device="cpu")
+        lo, hi = box.action_low.numpy(), box.action_high.numpy()
+        finite = all(np.all(np.isfinite(combined[k])) for k in ("states", "actions", "rewards", "next_states"))
+        in_box = bool(np.all(combined["actions"] >= lo) and np.all(combined["actions"] <= hi))
+        returns = {s["controller"]: s["avg_return"] for s in summary}
+        log(f"15c generate_final_offline_datasets (vec, 6 x 1024 lanes x 100 steps, multicap17 float32): "
+            f"{len(combined['rewards'])} transitions, finite {finite}, actions in the box {in_box}; "
+            f"{rate:,.0f} transitions/s in the collection, {dt:.1f} s in main with the pickles ({smi_line}); "
+            f"avg return per lane {', '.join(f'{k} {v:+.4f}' for k, v in returns.items())}")
+        assert finite and in_box and len(combined["rewards"]) == 6 * 1024 * gfod.VEC_STEPS
+        assert returns["L0"] < min(v for k, v in returns.items() if k != "L0"), "L0 beats an informed controller"
+
+        restore = seeded_action_spaces(tc)
+        try:
+            np.random.seed(15)
+            t0 = time.perf_counter()
+            host_twin(lambda: quietly(lambda: gfod.main(["--compat", "--episodes", "2", "--out", f"{tmp}/c"])),
+                      lambda: quietly(lambda: gfod.main(["--compat", "--episodes", "2", "--out", f"{tmp}/h",
+                                                         "--cpu"])))
+        finally:
+            restore()
+        err, n = 0.0, 0
+        for cls in gfod.CONTROLLERS:
+            dc, dh = load(f"{tmp}/c", f"{cls.name}_data"), load(f"{tmp}/h", f"{cls.name}_data")
+            for k in ("states", "actions", "rewards", "next_states", "episode_returns"):
+                assert np.shape(dc[k]) == np.shape(dh[k]), (cls.name, k)
+                err = max(err, float(np.max(np.abs(np.asarray(dc[k]) - np.asarray(dh[k])))))
+            assert np.array_equal(dc["dones"], dh["dones"]), cls.name
+            n += len(dc["rewards"])
+        log(f"15c generate_final_offline_datasets --compat --episodes 2: {n} transitions of the six Simple "
+            f"controllers on the card and the CPU, max |card - CPU| {err:.3e}; {time.perf_counter() - t0:.1f} s "
+            "for both")
+        assert err <= 1e-8, f"the compat datasets differ by {err:.3e}"
+
+    out, _ = quietly(lambda: quick.main([]))
+    runs = [f"{k} {len(d['rewards'])} transitions, avg return {np.mean(d['episode_returns']):+.4f}"
+            for k, d in out.items()]
+    log(f"15c quick_dataset_test: {', '.join(runs)}")
+    assert all(np.all(np.isfinite(d["rewards"])) for d in out.values())
+
+    t0 = time.perf_counter()
+    table, _ = quietly(lambda: l0l5.main(["--steps", str(L0L5_TABLE_STEPS), "--skip-reference"]))
+    ours = table["ours"]
+    log(f"15c l0l5_quality_table --steps {L0L5_TABLE_STEPS} (cut from 300 for the phase's time) --skip-reference: "
+        f"{', '.join(f'{k} {ours[k]:+.4f}' for k in l0l5.ORDER)}; ranking "
+        f"{' > '.join(sorted(ours, key=ours.get, reverse=True))}; {time.perf_counter() - t0:.1f} s")
+    assert all(np.isfinite(v) for v in ours.values())
+
+    t0 = time.perf_counter()
+    budgets, _ = quietly(lambda: rti.main(["--budgets", "24,32,48,96,200"]))
+    log(f"15c exp_rti_budget (ANM6Easy float32, quality {rti.QUALITY[0]} lanes x {rti.QUALITY[1]} steps, "
+        f"throughput {rti.THROUGHPUT[0]} lanes x {rti.THROUGHPUT[1]} steps, median of {rti.THROUGHPUT[2]}; "
+        f"{smi_line}): " + "; ".join(f"budget {b}: {tp:,.0f} env-steps/s, reward/step {q:+.5f}"
+                                      for b, (tp, q) in budgets.items()) + f"; {time.perf_counter() - t0:.1f} s")
+    assert all(tp > 0 and np.isfinite(q) for tp, q in budgets.values())
+
+    t0 = time.perf_counter()
+    sc, _ = quietly(lambda: scaling.main([]))
+    r = sc["results"][0]
+    log(f"15c scaling_bench (one rank spawned on the card, per-rank batch {sc['per_device_batch']}, its kernel "
+        f"launches not counted here): world size {r['ranks']}: {r['steps_per_s']:,.0f} env-steps/s; "
+        f"{time.perf_counter() - t0:.1f} s")
+    assert [x["ranks"] for x in sc["results"]] == [1] and r["steps_per_s"] > 0
+
+    t0 = time.perf_counter()
+    ok, printed = quietly(lambda: verify.main([]))
+    lines = printed.splitlines()
+    n_pass, fails = sum(x.startswith("PASS") for x in lines), [x for x in lines if x.startswith(("FAIL", "SKIP"))]
+    build_s = next((x.split()[-1] for x in lines if x.startswith("BUILD_WALL_SECONDS")), "?")
+    log(f"15c verify_h100: {n_pass} PASS, {len(fails)} FAIL or SKIP {fails}; clean build {build_s} s; "
+        f"{lines[-1]}; {time.perf_counter() - t0:.1f} s")
+    assert ok and not fails and n_pass == 15, "verify_h100 did not pass every probe"
+
+
+def phase15_render_examples_scripts(kernel, chord_k, admm_k, smi_line):
+    """The renderer, the examples and the scripts on the card (15a-c); returns
+    the launches of K1, K2 and K5 in its runs on the card."""
+    log("== phase 15: the renderer, the examples and the scripts on the card, against the CPU")
+    log(f"15 gymnasium: {gymnasium_module()}")
+    op_base = count_ops(lambda: None)
+    t_phase = time.perf_counter()
+    kernel.launch_count = chord_k.launch_count = admm_k.launch_count = 0
+    regs0 = kernel.launches["regs"]
+    for part in (lambda: phase15a_renderer(op_base), phase15b_examples, lambda: phase15c_scripts(smi_line)):
+        t0 = time.perf_counter()
+        part()
+        log(f"15: part done in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    launches = (kernel.launch_count, chord_k.launch_count, admm_k.launch_count)
+    log(f"15: K1 launches {launches[0]} ({kernel.launches['regs'] - regs0} on the register route), K2 {launches[1]}, "
+        f"K5 {launches[2]}; {time.perf_counter() - t_phase:.1f} s")
+    assert all(n > 0 for n in launches), f"a kernel of phase 15's path never launched: {launches}"
+    return launches
+
+
 def log_ptxas(report):
     """One line per kernel of ptxas's report: registers and spill bytes."""
     b = {"0": "false", "1": "true", "f": "float", "d": "double"}
@@ -2613,7 +2982,8 @@ def main():
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
-    log(f"nvidia-smi: {smi.stdout.strip().splitlines()[0]}")
+    smi_line = smi.stdout.strip().splitlines()[0]
+    log(f"nvidia-smi: {smi_line}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     lib_path = _build.library_path()
@@ -2659,15 +3029,18 @@ def main():
     cql_k1, cql_k2 = run(phase12_cql, kernel, chord_solve_cuda)
     sim_k1, _ = run(phase13_simulator, lin, kernel)
     host_k1 = run(phase14_host_tier, kernel)
+    tail_k1, tail_k2, tail_k5 = run(phase15_render_examples_scripts, kernel, chord_solve_cuda, solve_dcopf_cuda,
+                                    smi_line)
 
-    # Launches: the runs of the base, multicap17, collection, ANM6Easy, the learners', the compat Simulator's and
-    # the host tier's paths together.
+    # Launches: the runs of the base, multicap17, collection, ANM6Easy, the learners', the compat Simulator's, the
+    # host tier's and phase 15's paths together.
     print(json.dumps({"kernels": [{
         "name": "gauss_jordan",
         "route": "cuda",
         "source": "gym_anm_torch/csrc/gauss_jordan.cu",
         "replaces": "gym_anm_tpu/physics/linsolve_pallas.py:31",
-        "launches": launches + mc_launches + col_launches + a6_launches + ppo_k1 + cql_k1 + sim_k1 + host_k1,
+        "launches": (launches + mc_launches + col_launches + a6_launches + ppo_k1 + cql_k1 + sim_k1 + host_k1
+                     + tail_k1),
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -2679,7 +3052,8 @@ def main():
         "route": "cuda",
         "source": "gym_anm_torch/csrc/chord_newton.cu",
         "replaces": "scripts/chord_pallas_prototype.py:168",
-        "launches": chord_launches + mc_chord_launches + col_chord_launches + a6_chord_launches + ppo_k2 + cql_k2,
+        "launches": (chord_launches + mc_chord_launches + col_chord_launches + a6_chord_launches + ppo_k2 + cql_k2
+                     + tail_k2),
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],
@@ -2691,7 +3065,7 @@ def main():
         "route": "cuda",
         "source": "gym_anm_torch/csrc/admm_dcopf.cu",
         "replaces": "gym_anm_tpu/vec/mpc.py:357",
-        "launches": k5_launches,  # the MPC farm's run (phase 9c)
+        "launches": k5_launches + tail_k5,  # the MPC farm's run (phase 9c) and phase 15's
         "max_abs_err": k5["max_abs_err"],
         "ms": k5["ms"],
         "plain_ms": k5["plain_ms"],

@@ -28,7 +28,11 @@ environments (``offline``: ``generate_dataset``, ``generate_mixed_dataset``,
 ``behavior_cloning``, ``evaluate_policy``, exported here lazily) and the
 Gymnasium vector adapter ``vec.GymVectorEnv``; the modules that subclass
 Gymnasium's classes import it, and ``import gym_anm_torch``, ``.agents``
-and ``.offline`` do not.
+and ``.offline`` do not.  ``render`` is the ANM6 environments' browser
+dashboard (stdlib HTTP and WebSocket servers), ``examples`` the documented
+entry points (``python -m gym_anm_torch.examples.<name> [--cpu]``), and
+``scripts`` also holds the offline dataset, quality-table, RTI-budget,
+scaling and verification scripts.
 """
 
 from . import errors

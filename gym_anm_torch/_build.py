@@ -69,16 +69,17 @@ def _nvcc():
     return found
 
 
-def library_path(sources=None, stem="libgym_anm_kernels"):
+def library_path(sources=None, stem="libgym_anm_kernels", build_dir=None):
     """Path of the shared library for ``sources`` (default: every
-    ``csrc/*.cu``), the headers beside them and the flags."""
+    ``csrc/*.cu``), the headers beside them and the flags, under
+    ``build_dir`` (default ``BUILD_DIR``)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     sources = sorted(sources or CSRC_DIR.glob("*.cu"))
     headers = sorted({hdr for src in sources for hdr in Path(src).parent.glob("*.cuh")})
     for src in sources + headers:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
+    return (build_dir or BUILD_DIR) / f"{stem}_{h.hexdigest()[:16]}.so"
 
 
 def ptxas_report():
@@ -92,15 +93,15 @@ def _check(cmd, stderr, returncode):
         raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}\n{stderr}")
 
 
-def build_library(sources, stem):
+def build_library(sources, stem, build_dir=None):
     """Compile ``sources`` (one nvcc per source, all started together) and
-    link them into one shared library under ``build/kernels/``, unless it is
-    there already; returns its path."""
+    link them into one shared library under ``build_dir`` (default
+    ``build/kernels/``), unless it is there already; returns its path."""
     sources = sorted(sources)
-    out = library_path(sources, stem)
+    out = library_path(sources, stem, build_dir)
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
     jobs = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(sources, objs)]

@@ -8,8 +8,10 @@ auxiliary variable, Δt=15min, γ=0.995, λ=100 and cost clipping (1, 100).
 
 The daily profiles are :func:`gym_anm_torch.networks.anm6.anm6easy_load_time_series`
 and its generator counterpart, the tables the batched task reads too.  The
-browser renderer of the JAX package (``gym_anm_tpu.render``) is not ported
-yet: :meth:`ANM6.render` raises ``NotImplementedError`` until it is.
+browser rendering hooks are provided by :mod:`gym_anm_torch.render` (HTTP +
+WebSocket servers); rendering is lazy and entirely optional.  A frame reads
+the host views the transition has already copied out, so ``render()``
+launches no work on the card and waits for none.
 """
 
 import datetime as dt
@@ -23,9 +25,6 @@ from .anm_env import ANMEnv
 # The names of the JAX package's compat module for the fixed profiles.
 _get_load_time_series = anm6easy_load_time_series
 _get_gen_time_series = anm6easy_gen_time_series
-
-_NO_RENDERER = ("ANM6 rendering needs the web renderer (the JAX package's gym_anm_tpu.render), "
-                "which gym_anm_torch does not carry yet")
 
 
 def random_date(np_random, year):
@@ -77,20 +76,85 @@ class ANM6(ANMEnv):
         self.date_init = date_init
         self.date = date_init
 
-    # --- rendering (anm6.py:46-111) --------------------------------------
+    # --- rendering (lazy import; anm6.py:46-111) -----------------------
     def render(self, mode="human", skip_frames=0):
-        if (self.render_mode or mode) not in ["human"]:
-            raise NotImplementedError()
-        self._init_render(self.network_specs)
+        # Init keys on is_rendering, NOT `render_mode is None`: Gymnasium
+        # users routinely set env.render_mode = "human" themselves, which
+        # must not skip server startup (it left skipped_frames=None and
+        # crashed the frame branch).
+        if not self.is_rendering:
+            if (self.render_mode or mode) not in ["human"]:
+                raise NotImplementedError()
+            self.render_mode = self.render_mode or mode
+            self.skipped_frames = 0
+            rendered = ["dev_type", "dev_p", "dev_q", "branch_s", "bus_v", "des_soc"]
+            specs = {s: self.network_specs[s] for s in rendered}
+            self._init_render(specs)
+            self.is_rendering = True
+            self.render(mode=self.render_mode, skip_frames=skip_frames)
+        else:
+            self.skipped_frames = (self.skipped_frames + 1) % (skip_frames + 1)
+            if self.skipped_frames:
+                return
+            fs = self.simulator.state
+            self._update_render(
+                list(fs["dev_p"]["MW"].values()),
+                list(fs["dev_q"]["MVAr"].values()),
+                list(fs["branch_s"]["MVA"].values()),
+                list(fs["des_soc"]["MWh"].values()),
+                list(fs["gen_p_max"]["MW"].values()),
+                list(fs["bus_v_magn"]["pu"].values()),
+                [self.e_loss, self.penalty],
+                not self.simulator.pfe_converged,
+            )
 
     def _init_render(self, network_specs):
-        raise NotImplementedError(_NO_RENDERER)
+        from ..render import rendering
+
+        title = type(self).__name__
+        dev_type = list(network_specs["dev_type"].values())
+        ps, qs = [], []
+        for i in network_specs["dev_p"].keys():
+            ps.append(np.max(np.abs([network_specs["dev_p"][i]["MW"][j] for j in [0, 1]])))
+            qs.append(np.max(np.abs([network_specs["dev_q"][i]["MVAr"][j] for j in [0, 1]])))
+        branch_rate = [network_specs["branch_s"][br]["MVA"][1] for br in network_specs["branch_s"]]
+        bus_v_min = [network_specs["bus_v"][i]["pu"][0] for i in network_specs["bus_v"]]
+        bus_v_max = [network_specs["bus_v"][i]["pu"][1] for i in network_specs["bus_v"]]
+        soc_max = [network_specs["des_soc"][i]["MWh"][1] for i in network_specs["des_soc"]]
+        c1 = 100 if self.costs_clipping[0] is None else self.costs_clipping[0]
+        c2 = 10000 if self.costs_clipping[1] is None else self.costs_clipping[1]
+        sim = self.simulator
+        topology = {
+            "busIds": list(sim.buses.keys()),
+            "devBus": [dev.bus_id for dev in sim.devices.values()],
+            "branchFrom": [f for f, _ in sim.branches.keys()],
+            "branchTo": [t for _, t in sim.branches.keys()],
+            # The hand-tuned ANM6 diagram arrangement (reference artwork
+            # equivalent, render/rendering.py:ANM6_LAYOUT).
+            "busXY": rendering.ANM6_LAYOUT,
+        }
+        self.http_server, self.ws_server = rendering.start(
+            title, dev_type, ps, qs, branch_rate, bus_v_min, bus_v_max, soc_max,
+            (c1, c2), topology=topology,
+        )
 
     def _update_render(self, dev_p, dev_q, branch_s, des_soc, gen_p_max,
                        bus_v_magn, costs, network_collapsed):
-        raise NotImplementedError(_NO_RENDERER)
+        from ..render import rendering
+
+        rendering.update(
+            self.ws_server, self.date, self.year_count, dev_p, dev_q,
+            branch_s, des_soc, gen_p_max, bus_v_magn, costs, network_collapsed,
+        )
 
     def close(self):
+        if self.is_rendering:
+            from ..render import rendering
+
+            try:
+                rendering.close(self.http_server, self.ws_server)
+            except AttributeError:
+                pass
         self.render_mode = None
         self.is_rendering = False
 

@@ -246,14 +246,24 @@ for name in ("CorrectedL0_Random", "CorrectedL3_Coordinated"):
     for _ in range(6):
         obs, r, term, trunc, _ = env.step(np.clip(agent.act(env), env.action_space.low, env.action_space.high))
         out.append([float(r), bool(term)] + obs.tolist())
+import gymnasium as gym
+for env_id in ("gym_anm_torch/ANM6Easy-v0", "gym_anm_torch/IEEE33-v0"):
+    np.random.seed(0)
+    env = gym.make(env_id, device="cpu")
+    obs, _ = env.reset(seed=0)
+    env.action_space.seed(0)
+    for _ in range(4):
+        obs, r, term, trunc, _ = env.step(env.action_space.sample())
+        out.append([env_id, float(r), bool(term)] + np.asarray(obs).tolist())
 print(json.dumps(out))
 """
 
 
 def test_chip_smoke_gymnasium_stand_in_equals_gymnasium():
-    """``chip_smoke.py``'s stand-in for gymnasium (phase 14 on a machine
-    without it) runs the port's compat env and the Corrected controllers,
-    random actions included, bit for bit as gymnasium does."""
+    """``chip_smoke.py``'s stand-in for gymnasium (phases 14 and 15 on a
+    machine without it) runs the port's compat env and the Corrected
+    controllers, random actions included, and ``make`` of both registered
+    IDs, bit for bit as gymnasium does."""
     import json
     import os
     import subprocess

@@ -515,9 +515,22 @@ def test_cross_tier_trajectory_anm6easy():
 
 
 def test_anm6_render_names_the_missing_renderer():
+    """The renderer is ported (``gym_anm_torch.render``): a mode other than
+    "human" raises ``NotImplementedError``, as the JAX env does; "human"
+    starts the dashboard, and ``close`` stops it and resets the flags."""
+    import gym_anm_torch.render.rendering as rendering
+
     env = tc.ANM6Easy(device="cpu")
     env.reset(seed=0)
-    with pytest.raises(NotImplementedError, match="renderer"):
+    with pytest.raises(NotImplementedError):
+        env.render(mode="rgb_array")
+    assert not env.is_rendering
+    orig = rendering.webbrowser.open
+    rendering.webbrowser.open = lambda *a, **k: None
+    try:
         env.render()
-    env.close()
+        assert env.is_rendering and env.render_mode == "human"
+    finally:
+        rendering.webbrowser.open = orig
+        env.close()
     assert not env.is_rendering and env.render_mode is None
