@@ -24,19 +24,29 @@ non-zero at the first failure:
 2. the base path: the base IEEE33 ``VecEnv`` at float32, reset at B = 8192
    and 128 steps of uniform-random actions, then one step from warm starts
    in a bad basin (a restored state whose guesses are far off), which sends
-   every lane through the Newton fallback and its K1 solve.  Outputs are
-   finite, residuals within 1e-4, no lane terminates, K2 and K1 launch, and
-   the first 8 steps of 256 lanes match the port's float64 rollout on the
-   CPU;
+   every lane through the Newton fallback, K3, and K1's solves inside it.
+   Outputs are finite, residuals within 1e-4, no lane terminates, K2 and K3
+   launch and K3 runs Newton iterations, and the first 8 steps of 256 lanes
+   match the port's float64 rollout on the CPU;
 3. the chord solve and the Newton fallback called directly on bad-basin
-   inputs tiled to B = 8192: every lane ends stable, K1 launches, and the
-   voltages match the same call on the CPU (plain solve);
+   inputs tiled to B = 8192: every lane ends stable, K3 launches once, and
+   the voltages match the same call on the CPU (plain loop);
+3b. the exact-Newton kernel (K3) against its plain version
+   (``power_flow._newton_loop`` with the plain Gauss-Jordan solve) on the
+   card: (a) IEEE33 float32 after the chord from the bad-basin guesses, every
+   lane unaccepted, random taps; (b) ANM6Easy float32 (n = 10) at a real
+   step's fallback inputs; (c) IEEE33 and ANM6 float64 from the flat start
+   with a dense Y (nr_solve's route), B = 8192 and B = 1; (d) a batch with no
+   unaccepted lane (the launch's own time); (e) a ragged B = 1001 with a
+   zero-pivot lane (non-finite in both): stable and converged equal on every
+   lane, n_iter on >= 99.5%, stable lanes' x within 1e-5 (float32) / 1e-10
+   (float64), the bitwise-equal share, times of both and the bound;
 4. TF32 allowed globally changes no step output, bit for bit;
 5. the multicap17 path: ``make_ieee33_multicap_task`` at float32, reset at
    B = 8192, 128 steps of uniform-random 17-dim actions through
    ``step_autoreset_batch``, halfway through from bad-basin warm starts and
    with 64 lanes already terminated: outputs finite, live lanes' residuals
-   within 1e-4, reset lanes back at t = 0, K2 and K1 launched; the first 8
+   within 1e-4, reset lanes back at t = 0, K2 and K3 launched; the first 8
    steps of 256 lanes replayed through the port's float64 transition on the
    CPU;
 6. times: env-steps/s of the base path at B = 8192 and 32768 and of the
@@ -58,14 +68,14 @@ non-zero at the first failure:
 8. ANM6Easy at float32, B = 8192, 96 steps (one day) of uniform-random
    actions through ``step_autoreset_batch`` with an observation plan of
    every state variable in its non-default unit, halfway through from
-   bad-basin warm starts and with 64 lanes terminated: K2 (n = 5) and K1
+   bad-basin warm starts and with 64 lanes terminated: K2 (n = 5) and K3
    (n = 10) launched, outputs finite, live residuals within 1e-4, reset
    lanes at t = 0 with a time index in [0, 96), the entries the clip to the
    plan's bounds moved; the first 8 steps of 256 lanes replayed through the
    float64 step on the CPU, before the clip, with per-entry tolerances from
    the load flow's accuracy and the entry's sensitivity to the voltages, and
    two controls that must fail them; its env-steps/s, and the share of a
-   step spent in the Newton fallback;
+   step spent in the Newton fallback (K3);
 9. the MPC farm (``bench.py`` workload 4) and its ADMM kernel K5:
    9a. K5 against its plain version at B = 8192 on the LPs of ANM6Easy reset
    states (N = 1 cold at max_iter 4000, the same lanes warm from their own
@@ -125,10 +135,10 @@ non-zero at the first failure:
    set-points) through ``Simulator(device="cuda")`` and the same sequence
    through ``Simulator(device="cpu")``: equal ``pfe_converged`` flags, bus
    voltages, device P/Q, branch flows, reward, e_loss and penalty within
-   1e-8, K1 launched on its register route (float64, B = 1, n = 10 and 64);
-   ms per transition on both devices, GPU ops and host syncs of one; K1 at
-   B = 1, n = 64 and 10, float64, timed beside ``torch.linalg.solve_ex``
-   and its bound.
+   1e-8, K3 launched with nr_solve's dense Y (float64, B = 1, n = 10 and
+   64); ms per transition on both devices, GPU ops and host syncs of one
+   beside PR 10's (before K3); K1 at B = 1, n = 64 and 10, float64, timed
+   beside ``torch.linalg.solve_ex`` and its bound.
 14. the host tier over the compat environments on the card (float64, one
    lane; ``gym_anm_torch.compat`` through gymnasium, or where the machine
    lacks it through this script's stand-in module: ``Env``, ``spaces.Box``,
@@ -144,8 +154,8 @@ non-zero at the first failure:
    seed and global ``np.random`` state: actions and rewards within 1e-8 (the
    two SLSQP L5s' actions within 1e-6; ``L5_ScipyOptimal``'s capacitor tie,
    where SLSQP splits its two 1.0-rated capacitors 0.5/0.5 and the last
-   digits switch them, ends its comparison and is logged), K1 launched on
-   every step, all on its register route, 0 GPU ops and 0 host syncs in an
+   digits switch them, ends its comparison and is logged), K3 launched on
+   every step, all with the dense Y, 0 GPU ops and 0 host syncs in an
    ``act`` (every card ``act`` under ``set_sync_debug_mode("error")``, the
    second counted by torch.profiler), ms per step split into ``act`` and
    ``step`` on both devices;
@@ -186,8 +196,11 @@ non-zero at the first failure:
    and 200, ``scaling_bench`` at world size 1 (one rank spawned on the
    card) and ``verify_h100`` (every probe PASS, the clean build timed).
 
-K1 and K2 launches of phases 11 to 15 and K5's of phase 15 count in the
-kernels' line.
+K3 and K2 launches of phases 11 to 15 and K5's of phase 15 count in the
+kernels' line.  On the paths of networks up to 33 buses K1's register route
+runs inside K3, one solve a lane-iteration: K1's count in the line is those
+solves on the main paths (K3's n_iter out - n_iter in, read from K3's own
+outputs after each run).
 
 Every kernel time is device time: ``cuda_ms`` puts N_LAUNCH back-to-back
 launches between one pair of CUDA events behind a sleep kernel, so the host
@@ -196,8 +209,8 @@ such readings.  Bounds are the larger of the bytes a call must move (each
 input read once, each output written once) over 3.35 TB/s and its
 operations over the H100 SXM's peak for their type (67 TFLOP/s float32 on
 the CUDA cores; 67 TFLOP/s float64 on the tensor cores, where K2 and K5
-run their products; 34 TFLOP/s float64 on the CUDA cores, where K1 rounds
-each product and difference apart).
+run their products; 34 TFLOP/s float64 on the CUDA cores, where K1 and K3
+round each product and difference apart).
 
 Prints the card's name and power limit and ptxas's register and spill
 report of every kernel first, a JSON line of the kernels next to last, and
@@ -330,6 +343,44 @@ def phase1_kernel_vs_plain(lin, base):
             del result["one_block_ms"]
     result["max_abs_err"] = max(errs)
     return result
+
+
+class K3Counts:
+    """K3's counts on a main path, installed in place of
+    ``power_flow.newton_fallback_cuda`` (the name the load flow calls): its
+    launches (the wrapper's own count) and K1's solves that ran inside it,
+    the sum over its calls of n_iter out - n_iter in (the Newton iterations
+    past the chord's), from the calls' own outputs, kept by reference and
+    summed when read, so the run gains no GPU op and no host sync.  Setting
+    ``launch_count`` resets both."""
+
+    def __init__(self, pf):
+        self.real, self.calls = pf.newton_fallback_cuda, []
+        pf.newton_fallback_cuda = self
+
+    def __call__(self, x, F, diff, n_iter, *args, **kwargs):
+        out = self.real(x, F, diff, n_iter, *args, **kwargs)
+        self.calls.append((n_iter, out[3]))
+        return out
+
+    @property
+    def launch_count(self):
+        return self.real.launch_count
+
+    @launch_count.setter
+    def launch_count(self, value):
+        self.real.launch_count = value
+        self.calls.clear()
+
+    @property
+    def launches(self):
+        return self.real.launches
+
+    @property
+    def solves(self):
+        if not self.calls:
+            return 0
+        return int(sum((o - i).sum(dtype=torch.int64) for i, o in self.calls))
 
 
 def bad_guesses(B, n, which=(0, 1, 2, 3)):
@@ -523,10 +574,10 @@ def phase2_main_path(VecEnv, make_ieee33_task, kernel, chord_k):
         if k < N_CHECK_STEPS:
             lanes = slice(0, N_CHECK_LANES)
             record.append((a[lanes].cpu(), r[lanes].cpu(), state.bus_vm[lanes].cpu()))
-    launches_plain = kernel.launch_count
+    launches_plain, solves_plain = kernel.launch_count, kernel.solves
     # A restored state whose warm starts are far off (wild angles, overflowing
     # magnitudes): the chord exit is reset to the flat start, unaccepted, and
-    # every lane goes through the Newton fallback (K1).  (The two near-zero
+    # every lane goes through the Newton fallback (K3).  (The two near-zero
     # and negative-magnitude guesses are left out here: under the task's real
     # loads they strand the fallback in a low-voltage basin, in the JAX
     # package as in the port.)
@@ -535,15 +586,16 @@ def phase2_main_path(VecEnv, make_ieee33_task, kernel, chord_k):
     state2, obs, r, d, info = env.step(bad, uniform_actions(env, B_MAIN, g))
     check_step(obs, r, d, info, "bad-basin step")
     torch.cuda.synchronize()
-    launches = kernel.launch_count
+    launches, solves = kernel.launch_count, kernel.solves
     chord_launches = chord_k.launch_count
     it = torch.stack(iters).float()
-    log(f"base path: K2 launches {chord_launches}; K1 launches {launches} ({launches_plain} in the {N_STEPS} "
-        f"random-action steps, {launches - launches_plain} in the bad-basin step, fallback iterations max "
-        f"{int(info['n_iter'].max())})")
+    log(f"base path: K2 launches {chord_launches}; K3 launches {launches} ({launches_plain} in the reset and the "
+        f"{N_STEPS} random-action steps, {launches - launches_plain} in the bad-basin step); K1 solves inside K3 "
+        f"{solves} ({solves_plain} in the reset and the steps, {solves - solves_plain} in the bad-basin step, "
+        f"fallback iterations max {int(info['n_iter'].max())})")
     log(f"chord iterations per step over {N_STEPS} steps: mean {float(it.mean()):.3f}, "
         f"worst lane {int(it.max())}, mean of per-step worst {float(it.max(dim=1).values.mean()):.3f}")
-    assert launches > 0, "K1 never launched on the base path"
+    assert launches > 0 and solves > 0, "K3 never launched, or ran no Newton iteration, on the base path"
     assert chord_launches > 0, "K2 never launched on the base path"
 
     # The first steps of the first lanes against the port's f64 CPU rollout:
@@ -573,11 +625,11 @@ def phase2_main_path(VecEnv, make_ieee33_task, kernel, chord_k):
     log(f"f32 card vs f64 CPU ({N_CHECK_STEPS} steps x {N_CHECK_LANES} lanes): bus_vm max abs diff "
         f"{worst_vm:.3e}; reward max abs diff {worst_r:.3e} over {n_checked} lane-steps "
         f"({n_near_zero} lane-steps with a slack-branch flow below 1e-4 p.u. not reward-compared)")
-    return launches, chord_launches
+    return launches, chord_launches, solves
 
 
 def phase3_fallback(env_cls, make_ieee33_task, pf, ybus, kernel):
-    log(f"== phase 3: chord + Newton fallback through K1 on bad-basin inputs, B={B_MAIN}")
+    log(f"== phase 3: chord + Newton fallback through K3 on bad-basin inputs, B={B_MAIN}")
     results = {}
     for device in ("cuda", "cpu"):
         B = B_MAIN if device == "cuda" else 8
@@ -588,24 +640,223 @@ def phase3_fallback(env_cls, make_ieee33_task, pf, ybus, kernel):
         z = torch.zeros(B, device=device)
         x0 = bad_guesses(B, n).to(device)
 
-        def ybus_fn(idx, tb=tb):
-            taps = tb.tap0.expand(len(idx), -1)
-            return ybus.build_ybus(tb.n_bus, tb.br_f, tb.br_t, tb.series_re, tb.series_im,
-                                   tb.shunt_im, tb.shift_cos, tb.shift_sin, taps)
-
-        before = kernel.launch_count
+        ybus_fn = ybus.LaneYbus(tb.n_bus, tb.br_f, tb.br_t, tb.series_re, tb.series_im, tb.shunt_im,
+                                tb.shift_cos, tb.shift_sin, tb.tap0.expand(B, -1).contiguous())
+        kernel.launch_count = 0
         init = pf.chord_solve(p, q, z, z, z, z, tb.chord_t, x0=x0)
         r = pf.nr_solve_lazy(ybus_fn, p, q, init=init)
         assert r.stable.all(), f"{device}: {int((~r.stable).sum())} lanes unstable"
         assert float(r.diff.max()) <= 1e-4
         if device == "cuda":
-            assert kernel.launch_count > before, "the fallback did not launch K1"
-            log(f"fallback on the card: K1 launches {kernel.launch_count - before}, "
+            assert kernel.launch_count == 1 and kernel.solves > 0, "the fallback did not launch K3 once"
+            log(f"fallback on the card: K3 launches {kernel.launch_count}, K1 solves inside it {kernel.solves}, "
                 f"iterations max {int(r.n_iter.max())}, residual max {float(r.diff.max()):.3e}")
         results[device] = (r.v_re[:8].cpu(), r.v_im[:8].cpu())
     err = max(float((results["cuda"][i] - results["cpu"][i]).abs().max()) for i in range(2))
     log(f"fallback voltages card vs CPU (plain solve): max abs diff {err:.3e}")
     assert err <= 5e-6
+
+
+def lane_iteration_flops(n):
+    """Operations of one lane-iteration of the Newton loop at n unknowns
+    (N = n / 2 + 1 buses): the Jacobian (~14 an entry), two mismatches (the
+    complex matvec, 8 N^2, and ~10 a bus), and the Gauss-Jordan sweeps (n^2
+    (n + 1) multiply-subtract pairs, n^2 divides and mask multiplies)."""
+    N = n // 2 + 1
+    return 14 * n * n + 2 * (8 * N * N + 10 * n) + 2 * n * n * (n + 1) + 2 * n * n
+
+
+def k3_bound(B, n, itemsize, lane_iters, y_bytes):
+    """K3's bound from a run's lane-iterations (the elimination's operations
+    at the type's CUDA-core peak: the kernel rounds each product and
+    difference apart), or the bytes: x, F, diff, n_iter, accepted, p, q read
+    once, x, F, diff, n_iter and stall written once, and the Y source."""
+    n_bytes = B * (itemsize * (3 * n + 1) + 5) + B * (itemsize * (2 * n + 1) + 8) + y_bytes
+    return bound(lane_iters * lane_iteration_flops(n), PEAK_F64 if itemsize == 8 else PEAK_F32, n_bytes)
+
+
+def bitwise_rows(a, b):
+    """Rows of a and b equal bit for bit (NaN where both are NaN)."""
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    return same.all(1) if same.dim() > 1 else same
+
+
+def k3_vs_plain(pf, lin, nc, name, args, ybus, plain_ybus, tol, xtol=1e-5, lim_iter=100, time_it=True):
+    """K3 and its plain version (``power_flow._newton_loop`` with the plain
+    Gauss-Jordan solve, no kernel in the oracle) on the same card inputs
+    ``args`` = (x, F, diff, n_iter, accepted or None, p, q), their results
+    through the shared epilogue ``_nr_result``.  Gates: ``stable`` and
+    ``converged`` equal on every lane, ``n_iter`` equal on >= 99.5% of
+    lanes, x within ``tol`` on the lanes stable in both.  Returns a dict
+    of the readings (bitwise share, times, bound)."""
+    x, F, diff, it, acc, p, q = args
+    B, n = x.shape
+    f32 = p.dtype == torch.float32
+    before = nc.launch_count
+    xk, Fk, dk, ik, sk = nc(x, F, diff, it, acc, p, q, ybus, xtol, lim_iter)
+    torch.cuda.synchronize()
+    assert nc.launch_count == before + 1, "K3 did not launch once"
+    acc0 = torch.zeros(B, dtype=torch.bool, device="cuda") if acc is None else acc
+    xp, Fp, dp, ip, sp = pf._newton_loop(x, F, diff, it, ~acc0, plain_ybus, p, q, xtol, lim_iter, f32,
+                                         lin.solve_gauss_jordan)
+    rk = pf._nr_result(xk, Fk, dk, ik, sk, acc0, xtol, f32)
+    rp = pf._nr_result(xp, Fp, dp, ip, sp, acc0, xtol, f32)
+    torch.cuda.synchronize()
+    both = rk.stable & rp.stable
+    err = float((xk - xp)[both].abs().max()) if bool(both.any()) else 0.0
+    n_it = int((ik == ip).sum())
+    n_bit = int((bitwise_rows(xk, xp) & bitwise_rows(Fk, Fp) & bitwise_rows(dk, dp) & (ik == ip)
+                 & (sk == sp)).sum())
+    lane_iters = int((ik - it).sum())
+    n_go = int(((ik - it) > 0).sum())
+    out = dict(max_abs_err=err, bitwise=n_bit / B, n_iter_equal=n_it / B, lane_iters=lane_iters)
+    log(f"K3 {name} B={B} n={n} {p.dtype}: {n_go} lanes iterated, {lane_iters} lane-iterations (max "
+        f"{int((ik - it).max())}); stable {int(rk.stable.sum())} / plain {int(rp.stable.sum())}, converged "
+        f"{int(rk.converged.sum())} / {int(rp.converged.sum())}; n_iter equal on {n_it} of {B}; max|dx| on lanes "
+        f"stable in both {err:.3e}; bitwise equal (x, F, diff, n_iter, stall) on {n_bit} of {B} lanes "
+        f"({n_bit / B:.4f})")
+    assert torch.equal(rk.stable, rp.stable), "K3 and its plain version disagree on stable"
+    assert torch.equal(rk.converged, rp.converged), "K3 and its plain version disagree on converged"
+    assert n_it >= math.ceil(0.995 * B), f"K3 n_iter differs on {B - n_it} lanes"
+    assert err <= tol, f"K3 x differs by {err:.3e} > {tol:.0e} on a stable lane"
+    if time_it:
+        out["ms"] = statistics.median(cuda_ms(lambda: nc(x, F, diff, it, acc, p, q, ybus, xtol, lim_iter))
+                                      for _ in range(N_REPS))
+        out["plain_ms"] = statistics.median(
+            cuda_ms(lambda: pf._newton_loop(x, F, diff, it, ~acc0, plain_ybus, p, q, xtol, lim_iter, f32,
+                                            lin.solve_gauss_jordan), 3) for _ in range(N_REPS))
+        if hasattr(ybus, "tap_magn"):  # a LaneYbus: the taps and the branch tables
+            y_bytes = x.element_size() * (ybus.tap_magn.numel() + 5 * ybus.f.numel()) + 16 * ybus.f.numel()
+        else:
+            y_bytes = x.element_size() * sum(t.numel() for t in ybus)
+        out["bound_ms"], out["bound_by"] = k3_bound(B, n, x.element_size(), lane_iters, y_bytes)
+        log(f"K3 {name} time (device time, {N_LAUNCH} launches per reading, median of {N_REPS}): kernel "
+            f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms; bound {out['bound_ms']:.4f} ms "
+            f"({out['bound_by']}, {lane_iters} lane-iterations), kernel at {out['bound_ms'] / out['ms']:.4f} of it")
+    return out
+
+
+def task_newton_inputs(VecEnv, task, n_steps, seed):
+    """The Newton fallback's inputs at the last of ``n_steps`` steps of
+    ``task`` at B_MAIN lanes on the card (uniform-random actions through
+    ``step_autoreset_batch``), taken at the call: (LaneYbus, p, q, the
+    chord's result)."""
+    tm = importlib.import_module("gym_anm_torch.physics.transition")
+    env = VecEnv(task, dtype=torch.float32, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    state, _ = env.reset(B_MAIN, g)
+    real, seen = tm.nr_solve_lazy, []
+
+    def capture(ybus_fn, p, q, **kw):
+        if p.shape[0] == B_MAIN:  # the step's solve (a reset's takes the done lanes)
+            seen.append((ybus_fn, p, q, kw["init"]))
+        return real(ybus_fn, p, q, **kw)
+
+    tm.nr_solve_lazy = capture
+    try:
+        for _ in range(n_steps):
+            state, *_ = env.step_autoreset_batch(state, uniform_actions(env, B_MAIN, g), g)
+    finally:
+        tm.nr_solve_lazy = real
+    return seen[-1]
+
+
+def flat_start(pf, Yre, Yim, p, q):
+    """nr_solve's start: (x, F, diff, n_iter) at the flat start, no lane accepted."""
+    B, nb = p.shape
+    x = torch.cat([torch.zeros(B, nb, dtype=p.dtype, device="cuda"), torch.ones(B, nb, dtype=p.dtype, device="cuda")],
+                  dim=1)
+    F, _ = pf._mismatch(x, p, q, Yre, Yim, nb)
+    return x, F, torch.amax(torch.abs(F), dim=1), torch.zeros(B, dtype=torch.int32, device="cuda")
+
+
+def dense_oracle(Yre, Yim):
+    return (lambda idx: (Yre, Yim)) if Yre.dim() == 2 else (lambda idx: (Yre[idx], Yim[idx]))
+
+
+def phase3b_newton_kernel(pf, lin, nc, VecEnv, make_ieee33_task, make_anm6easy_task, LaneYbus):
+    """K3 against its plain version on the card, sets (a)-(e): (a) IEEE33
+    float32 after the chord from the bad-basin guesses (every lane
+    unaccepted) under random loads, random taps through the LaneYbus; (b) ANM6Easy float32 (n =
+    10) at a real step's fallback inputs (its collapsing lanes); (c) IEEE33
+    and ANM6 float64 from the flat start with a dense Y (nr_solve's route), at
+    B = 8192 and at B = 1; (d) a batch with no unaccepted lane (the launch's
+    own time); (e) a ragged B = 1001 from the flat start with lane 1's Y
+    zero (a zero pivot: non-finite in both).  Returns the (a) set's numbers
+    for the kernels' line."""
+    log(f"== phase 3b: K3 (the exact-Newton fallback) against its plain version, B={B_MAIN}")
+    g = torch.Generator(device="cuda").manual_seed(31)
+    env32 = VecEnv(make_ieee33_task(), dtype=torch.float32, device="cuda")
+    tb = env32.tables
+    n = tb.n_bus - 1
+    B = B_MAIN
+    # Phase 3's loads, each bus's drawn in [0.01, 0.02] p.u., and random
+    # taps: the chord accepts none of the bad-basin lanes (the mirrored
+    # negative-magnitude solution is not in reach of these loads).
+    p = -0.01 * (1.0 + torch.rand(B, n, generator=g, device="cuda"))
+    q = 0.5 * p
+    a = 0.9 + 0.2 * torch.rand(B, generator=g, device="cuda")
+    inv_da = 1.0 / a - 1.0 / tb.chord_a0
+    dr, di = -tb.chord_y_re * inv_da, -tb.chord_y_im * inv_da
+    tap = tb.tap0.expand(B, -1).clone()
+    tap[:, tb.oltc_branch] = a.unsqueeze(1)
+    ybus = LaneYbus(tb.n_bus, tb.br_f, tb.br_t, tb.series_re, tb.series_im, tb.shunt_im, tb.shift_cos,
+                    tb.shift_sin, tap)
+    results, errs = {}, []
+
+    # (a) every lane unaccepted by the chord.
+    init = pf.chord_solve(p, q, di, dr, dr, di, tb.chord_t, x0=bad_guesses(B, n).to("cuda"))
+    assert not bool(init[4].any()), "set (a): a lane was accepted by the chord"
+    results["a"] = k3_vs_plain(pf, lin, nc, "(a) IEEE33 after the chord from bad-basin guesses", init + (p, q),
+                               ybus, ybus, 1e-5)
+
+    # (b) ANM6Easy at a real step's fallback inputs.
+    a6_ybus, a6_p, a6_q, a6_init = task_newton_inputs(VecEnv, make_anm6easy_task(), 8, 12)
+    log(f"K3 (b): {int((~a6_init[4]).sum())} of {B} ANM6Easy lanes unaccepted by the chord at step 8")
+    results["b"] = k3_vs_plain(pf, lin, nc, "(b) ANM6Easy at a step's injections", tuple(a6_init) + (a6_p, a6_q),
+                               a6_ybus, a6_ybus, 1e-5)
+
+    # (c) float64 from the flat start, dense Y, at B = 8192 and B = 1.
+    tb64 = VecEnv(make_ieee33_task(), dtype=torch.float64, device="cuda").tables
+    a6tb64 = VecEnv(make_anm6easy_task(), dtype=torch.float64, device="cuda").tables
+    for net, t64, yb, pp, qq in (("IEEE33", tb64, ybus, p, q), ("ANM6", a6tb64, a6_ybus, a6_p, a6_q)):
+        Yre, Yim = LaneYbus(t64.n_bus, t64.br_f, t64.br_t, t64.series_re, t64.series_im, t64.shunt_im,
+                            t64.shift_cos, t64.shift_sin, yb.tap_magn.double())(slice(None))
+        p64, q64 = pp.double(), qq.double()
+        for BB in (B, 1):
+            Y = (Yre[:BB].contiguous(), Yim[:BB].contiguous())
+            start = flat_start(pf, *Y, p64[:BB].contiguous(), q64[:BB].contiguous())
+            results[f"c {net} {BB}"] = k3_vs_plain(
+                pf, lin, nc, f"(c) {net} float64 from the flat start", start + (None, p64[:BB].contiguous(),
+                                                                                 q64[:BB].contiguous()),
+                Y, dense_oracle(*Y), 1e-10)
+
+    # (d) no lane unaccepted: the chord from the flat start accepts every lane.
+    init = pf.chord_solve(p, q, di, dr, dr, di, tb.chord_t)
+    assert bool(init[4].all()), "set (d): the chord left a lane unaccepted"
+    xk, Fk, dk, ik, sk = nc(*init, p, q, ybus)
+    assert torch.equal(xk, init[0]) and torch.equal(Fk, init[1]) and torch.equal(dk, init[2]) and \
+        torch.equal(ik, init[3]) and not bool(sk.any()), "set (d): a lane that does not iterate moved"
+    results["d"] = k3_vs_plain(pf, lin, nc, "(d) no lane unaccepted", init + (p, q), ybus, ybus, 1e-5)
+
+    # (e) ragged B with a zero pivot: lane 1's Y is zero, its Jacobian too.
+    Be = min(1001, B)
+    Yre, Yim = ybus(slice(0, Be))
+    Yre[1], Yim[1] = 0.0, 0.0
+    start = flat_start(pf, Yre, Yim, p[:Be].contiguous(), q[:Be].contiguous())
+    xk = nc(*start, None, p[:Be].contiguous(), q[:Be].contiguous(), (Yre, Yim))[0]
+    xp = pf._newton_loop(*start, torch.ones(Be, dtype=torch.bool, device="cuda"), dense_oracle(Yre, Yim),
+                         p[:Be], q[:Be], 1e-5, 100, True, lin.solve_gauss_jordan)[0]
+    assert not bool(torch.isfinite(xk[1]).all()) and not bool(torch.isfinite(xp[1]).all()), "zero pivot repaired"
+    results["e"] = k3_vs_plain(pf, lin, nc, "(e) ragged B with a zero-pivot lane", start + (None, p[:Be].contiguous(),
+                                                                                          q[:Be].contiguous()),
+                               (Yre, Yim), dense_oracle(Yre, Yim), 1e-5)
+    log("K3 sets: " + ", ".join(f"{k}: bitwise {v['bitwise']:.4f}, n_iter equal {v['n_iter_equal']:.4f}, "
+                                f"{v['ms']:.4f} ms (plain {v['plain_ms']:.4f})" for k, v in results.items()))
+    ra = results["a"]
+    return dict(max_abs_err=max(v["max_abs_err"] for k, v in results.items() if not k.startswith("c")),
+                ms=ra["ms"], plain_ms=ra["plain_ms"], bound_ms=ra["bound_ms"], bound_by=ra["bound_by"],
+                zero_ms=results["d"]["ms"])
 
 
 def run_steps(env, B, actions):
@@ -699,7 +950,7 @@ def phase5_multicap(VecEnv, make_ieee33_multicap_task, transition, kernel, chord
         a = uniform_actions(env, B_MAIN, g)
         if k == N_STEPS // 2:
             # As from a restored state: far-off warm starts on every lane
-            # (the chord resets them to flat and the Newton fallback, K1,
+            # (the chord resets them to flat and the Newton fallback, K3,
             # solves them) and 64 lanes already terminated (they absorb the
             # step and come back reset).
             state = state._replace(v_guess=bad_guesses(B_MAIN, n, which=(2, 3)).to("cuda"),
@@ -717,17 +968,18 @@ def phase5_multicap(VecEnv, make_ieee33_multicap_task, transition, kernel, chord
             record[k] += [a[lanes].cpu(), r[lanes].cpu(), state.bus_vm[lanes].cpu(), d[lanes].cpu(),
                           info["e_loss"][lanes].cpu(), info["penalty"][lanes].cpu()]
     torch.cuda.synchronize()
-    launches, chord_launches = kernel.launch_count, chord_k.launch_count
+    launches, chord_launches, solves = kernel.launch_count, chord_k.launch_count, kernel.solves
     it = torch.stack(iters).float()
-    log(f"multicap17 path: K2 launches {chord_launches}, K1 launches {launches}; {n_term} lane terminations "
+    log(f"multicap17 path: K2 launches {chord_launches}, K3 launches {launches} (K1 solves inside it {solves}); "
+        f"{n_term} lane terminations "
         f"(reset) in {N_STEPS} steps; chord iterations mean {float(it.mean()):.3f}, worst lane {int(it.max())}, "
         f"mean of per-step worst {float(it.max(dim=1).values.mean()):.3f}")
     assert chord_launches > 0, "K2 never launched on the multicap17 path"
-    assert launches > 0, "K1 never launched on the multicap17 path"
+    assert launches > 0 and solves > 0, "K3 never launched, or ran no Newton iteration, on the multicap17 path"
     assert n_term >= 64
 
     replay_multicap(VecEnv, make_ieee33_multicap_task, transition, record, "multicap17")
-    return launches, chord_launches
+    return launches, chord_launches, solves
 
 
 def time_path(env, B, step, seed):
@@ -892,7 +1144,7 @@ def phase7_collection(VecEnv, make_ieee33_multicap_task, transition, kernel, cho
     chord_k.launch_count = 0
     obs, act, rew, nobs, done = collect(torch.Generator(device="cuda").manual_seed(70))
     torch.cuda.synchronize()
-    launches, chord_launches = kernel.launch_count, chord_k.launch_count
+    launches, chord_launches, solves = kernel.launch_count, chord_k.launch_count, kernel.solves
 
     assert obs.shape == nobs.shape == (T, B, env.n_obs) and act.shape == (T, B, env.n_action)
     assert rew.shape == done.shape == (T, B)
@@ -907,7 +1159,8 @@ def phase7_collection(VecEnv, make_ieee33_multicap_task, transition, kernel, cho
     taps = torch.tensor(ctrl.TAP_POSITIONS, dtype=torch.float32, device="cuda")
     assert torch.isin(act[:, blk[5], tap_sl], taps).all(), "L5: a tap off its positions"
     assert chord_launches > 0, "K2 never launched on the collection path"
-    log(f"collection: K2 launches {chord_launches}, K1 launches {launches}; {int(n_done.sum())} lane terminations; "
+    log(f"collection: K2 launches {chord_launches}, K3 launches {launches} (K1 solves inside it {solves}); "
+        f"{int(n_done.sum())} lane terminations; "
         f"chord iterations mean {float(it_mean.mean()):.3f}, worst lane {int(it_max.max())}; worst live residual "
         f"{float(res.max()):.3e}; trajectories [{T}, {B}, ...] stay on {obs.device}")
     log("per-controller mean reward per step (the card's L0-L5 quality table):")
@@ -1020,7 +1273,7 @@ def phase7_collection(VecEnv, make_ieee33_multicap_task, transition, kernel, cho
     ms_m, ms_t = cuda_ms(lambda: ctrl._lane_mean(vm), 64), cuda_ms(lambda: vm.mean(-1), 64)
     log(f"lane mean of bus_vm [{vm.shape[0]}, {vm.shape[1]}] in the reference's order: {ops_m} GPU ops, {ms_m:.4f} ms "
         f"per call; torch's mean: {ops_t} ops, {ms_t:.4f} ms (2 calls per collector step)")
-    return launches, chord_launches
+    return launches, chord_launches, solves
 
 
 def other_unit_plan(STATE_VARIABLES):
@@ -1277,7 +1530,7 @@ def phase8_anm6easy(VecEnv, make_anm6easy_task, STATE_VARIABLES, build_ybus, ker
         a = uniform_actions(env, B, g)
         if k == T // 2:
             # As phase 5: far-off warm starts on every lane (the chord resets
-            # them to flat, the Newton fallback solves them with K1 at n = 10)
+            # them to flat, the Newton fallback solves them with K3 at n = 10)
             # and 64 lanes already terminated.
             state = state._replace(v_guess=bad_guesses(B, n, which=(2, 3)).to("cuda"),
                                    terminated=torch.arange(B, device="cuda") % (B // 64) == 0)
@@ -1299,11 +1552,12 @@ def phase8_anm6easy(VecEnv, make_anm6easy_task, STATE_VARIABLES, build_ybus, ker
             record.append((pre, a[:N_CHECK_LANES].cpu(), x[:N_CHECK_LANES].cpu(), r[:N_CHECK_LANES].cpu(),
                            d[:N_CHECK_LANES].cpu(), info["diff"][:N_CHECK_LANES].cpu()))
     torch.cuda.synchronize()
-    launches, chord_launches = kernel.launch_count, chord_k.launch_count
+    launches, chord_launches, solves = kernel.launch_count, chord_k.launch_count, kernel.solves
     it = torch.stack(iters).float()
-    log(f"ANM6Easy: K2 launches {chord_launches} (n = {n}), K1 launches {launches} (n = {2 * n}); {n_term} lane "
+    log(f"ANM6Easy: K2 launches {chord_launches} (n = {n}), K3 launches {launches} (n = {2 * n}; K1 solves inside "
+        f"it {solves}); {n_term} lane "
         f"terminations (reset) in {T} steps; chord iterations mean {float(it.mean()):.3f}, worst lane {int(it.max())}")
-    assert chord_launches > 0 and launches > 0, "K2 or K1 never launched on the ANM6Easy path"
+    assert chord_launches > 0 and launches > 0 and solves > 0, "K2 or K3 never launched on the ANM6Easy path"
     clipped = clipped.cpu()
     log("live-lane entries the clip to the plan's bounds moved, by segment: " + ", ".join(
         f"{var} {int(clipped[sl].sum())}" for var, _, sl, _ in plan_segments(env._obs_plan, env.spec)))
@@ -1313,9 +1567,9 @@ def phase8_anm6easy(VecEnv, make_anm6easy_task, STATE_VARIABLES, build_ybus, ker
     rate, _ = time_path(env, B, env.step_autoreset_batch, 9)
 
     # Where a step's time goes: wall time inside the Newton fallback (the
-    # step's and the resets'; the card synchronized at its entry and exit)
-    # against the whole step, and the fallback's Newton iterations (one K1
-    # launch each) per step.
+    # step's and the resets'; the card synchronized at its entry and exit:
+    # one K3 launch a call) against the whole step, and the fallback's Newton
+    # iterations (K1's solves inside K3) per step.
     # (by import_module: the package's ``transition`` attribute is the function)
     transition_module = importlib.import_module("gym_anm_torch.physics.transition")
     real_nr, in_nr = transition_module.nr_solve_lazy, [0.0]
@@ -1342,9 +1596,10 @@ def phase8_anm6easy(VecEnv, make_anm6easy_task, STATE_VARIABLES, build_ybus, ker
     finally:
         transition_module.nr_solve_lazy = real_nr
     log(f"ANM6Easy step split ({n_split} steps): wall {1e3 * wall:.3f} ms/step, of which the Newton fallback "
-        f"{1e3 * in_nr[0] / n_split:.3f} ms ({in_nr[0] / n_split / wall:.3f}); {kernel.launch_count / n_split:.2f} "
-        f"Newton iterations (K1 launches) per step")
-    return launches, chord_launches, rate
+        f"(K3) {1e3 * in_nr[0] / n_split:.3f} ms ({in_nr[0] / n_split / wall:.3f}); "
+        f"{kernel.launch_count / n_split:.2f} K3 launches and {kernel.solves / n_split:.2f} lane-iterations of "
+        f"Newton (K1's solves inside K3) per step")
+    return launches, chord_launches, rate, solves
 
 
 FEEDERS = ((48, 0.6), (64, 0.5), (130, 0.15))  # (buses, load scale): the f64 tier converges at these loads
@@ -1748,8 +2003,8 @@ def phase9c_farm(mpc, cuda_k, VecEnv, make_anm6easy_task, kernel, chord_k):
     conv = torch.stack([s[1] for s in sols]).float()
     assert torch.isfinite(rew).all() and torch.isfinite(obs).all()
     assert launches == T, f"K5 launched {launches} times in {T} steps"
-    log(f"farm: K5 launches {launches}, K2 {chord_k.launch_count}, K1 {kernel.launch_count} (Newton iterations of "
-        f"the fallback); mean reward {float(rew.mean()):.6f}, {n_done} lane terminations; ADMM iterations per lane "
+    log(f"farm: K5 launches {launches}, K2 {chord_k.launch_count}, K3 {kernel.launch_count} (K1 solves inside it "
+        f"{kernel.solves}); mean reward {float(rew.mean()):.6f}, {n_done} lane terminations; ADMM iterations per lane "
         f"per step mean {float(its.mean()):.3f}, max {int(its.max())}; converged share {float(conv.mean()):.4f}; no "
         f"host sync inside act")
     assert float(rew.mean()) > -5.0, "the farm's mean reward is not at an informed controller's level"
@@ -1960,13 +2215,13 @@ def rel_err(a, b):
 
 
 def counted(kernel, chord_k, fn):
-    """``fn()`` with the K1 and K2 counts set to 0 just before and read just
-    after: (fn's result, K1 launches, K2 launches)."""
+    """``fn()`` with the K3 and K2 counts set to 0 just before and read just
+    after: (fn's result, K3 launches, K2 launches, K1 solves inside K3)."""
     kernel.launch_count = 0
     chord_k.launch_count = 0
     out = fn()
     torch.cuda.synchronize()
-    return out, kernel.launch_count, chord_k.launch_count
+    return out, kernel.launch_count, chord_k.launch_count, kernel.solves
 
 
 def ppo_profile(run, n_iter=2):
@@ -2057,8 +2312,8 @@ def ppo_update_card_vs_cpu(VecEnv, run, task):
 def phase11_ppo(VecEnv, make_ieee33_multicap_task, kernel, chord_k):
     """PPO through ``python -m gym_anm_torch.scripts.train_ppo_online``'s
     ``main``: the timed base IEEE33 run, the documented multicap17 run, the
-    card against the CPU, nccl against no process group.  Returns (K1, K2)
-    launches of the two runs."""
+    card against the CPU, nccl against no process group.  Returns the K3
+    and K2 launches and K1's solves inside K3 of the two runs."""
     import tempfile
 
     from gym_anm_torch.scripts.train_ppo_online import main as ppo_main
@@ -2067,7 +2322,7 @@ def phase11_ppo(VecEnv, make_ieee33_multicap_task, kernel, chord_k):
     log(f"== phase 11a: PPO on base IEEE33, f32, B={B_MAIN}, rollout 16, 10 iterations, every update under "
         f"set_sync_debug_mode('error')")
     t0 = time.perf_counter()
-    run, k1a, k2a = counted(kernel, chord_k, lambda: ppo_main(PPO_TIMED + ["--forbid-syncs"]))
+    run, k3a, k2a, k1a = counted(kernel, chord_k, lambda: ppo_main(PPO_TIMED + ["--forbid-syncs"]))
     t_run = time.perf_counter() - t0
     losses = [m["loss"] for m in run["metrics"]]
     assert all(math.isfinite(x) for x in losses), "a non-finite PPO loss"
@@ -2075,7 +2330,7 @@ def phase11_ppo(VecEnv, make_ieee33_multicap_task, kernel, chord_k):
     log(f"PPO base IEEE33: {run['env_steps_per_s']:.1f} env-steps/s (train loop, iterations 1-9); an iteration "
         f"{iter_ms:.3f} ms on the card's timeline: rollout {run['rollout_ms']:.3f} ms "
         f"({run['rollout_ms'] / iter_ms:.3f}), update {run['update_ms']:.3f} ms ({run['update_ms'] / iter_ms:.3f}); "
-        f"K2 launches {k2a}, K1 launches {k1a}; the run took {t_run:.1f} s")
+        f"K2 launches {k2a}, K3 launches {k3a} (K1 solves inside it {k1a}); the run took {t_run:.1f} s")
     assert k2a > 0, "K2 never launched in the PPO rollout"
     t0 = time.perf_counter()
     ppo_profile(run)
@@ -2088,7 +2343,7 @@ def phase11_ppo(VecEnv, make_ieee33_multicap_task, kernel, chord_k):
         "minibatches, hidden 64, 150 iterations, --eval, --save")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        run, k1b, k2b = counted(kernel, chord_k,
+        run, k3b, k2b, k1b = counted(kernel, chord_k,
                                 lambda: ppo_main(PPO_DOC + ["--eval", "--save", tmp, "--forbid-syncs"]))
         ts = run["ts"]
         restored = restore_checkpoint(tmp, ts, step=len(run["metrics"]))
@@ -2101,8 +2356,8 @@ def phase11_ppo(VecEnv, make_ieee33_multicap_task, kernel, chord_k):
     log(f"PPO multicap17 mean reward by iteration: {[float(f'{r:.4g}') for r in rewards]}")
     log(f"PPO multicap17: mean reward of iterations 0-9 {early:.4f}, of 140-149 {late:.4f}; "
         f"{run['env_steps_per_s']:.1f} env-steps/s; rollout {run['rollout_ms']:.3f} ms, update "
-        f"{run['update_ms']:.3f} ms an iteration; K2 launches {k2b}, K1 launches {k1b}; the run (150 iterations, "
-        f"eval, save and restore) took {time.perf_counter() - t0:.1f} s")
+        f"{run['update_ms']:.3f} ms an iteration; K2 launches {k2b}, K3 launches {k3b} (K1 solves inside it "
+        f"{k1b}); the run (150 iterations, eval, save and restore) took {time.perf_counter() - t0:.1f} s")
     log(f"PPO multicap17 eval (deterministic, 256 lanes x 50 steps, no autoreset): PPO {run['eval']['ppo']:+.4f}, "
         f"random {run['eval']['random']:+.4f} per step; checkpoint restored bit for bit: {same}")
     assert late > early, "PPO did not improve its mean reward"
@@ -2110,27 +2365,28 @@ def phase11_ppo(VecEnv, make_ieee33_multicap_task, kernel, chord_k):
     t0 = time.perf_counter()
     ppo_update_card_vs_cpu(VecEnv, run, make_ieee33_multicap_task())
     log(f"(card against CPU {time.perf_counter() - t0:.1f} s)")
-    return k1a + k1b, k2a + k2b
+    return k3a + k3b, k2a + k2b, k1a + k1b
 
 
 def phase12_cql(kernel, chord_k):
     """CQL through ``python -m gym_anm_torch.scripts.train_cql_offline``'s
     ``main`` (docs/distributed.md:79-83), every update under
     set_sync_debug_mode('error'), then one update of the card against the CPU
-    at float64.  Returns (K1, K2) launches of the run."""
+    at float64.  Returns the K3 and K2 launches and K1's solves inside K3
+    of the run."""
     from gym_anm_torch.parallel import cql
     from gym_anm_torch.scripts.train_cql_offline import main as cql_main
     from gym_anm_torch.utils import forbid_host_syncs
 
     log("== phase 12: CQL on multicap17: L0-L5 dataset 512 lanes x 50 steps x 6, 3000 updates of 512, "
         "CQLConfig(hidden=128, cql_weight=2.0)")
-    run, k1, k2 = counted(kernel, chord_k, lambda: cql_main(CQL_DOC + ["--forbid-syncs"]))
+    run, k3, k2, k1 = counted(kernel, chord_k, lambda: cql_main(CQL_DOC + ["--forbid-syncs"]))
     m, ev = run["metrics"], run["eval"]
     assert run["transitions"] == 153_600
     assert all(math.isfinite(v) for v in m.values()), "a non-finite CQL metric"
     log(f"CQL: {run['transitions']} transitions collected in {run['collect_s']:.1f} s; {run['updates_per_s']:.1f} "
         f"updates/s ({run['train_s']:.1f} s for 3000); final loss {m['loss']:.4f}, bellman {m['bellman']:.4f}; "
-        f"K2 launches {k2}, K1 launches {k1}")
+        f"K2 launches {k2}, K3 launches {k3} (K1 solves inside it {k1})")
     log(f"CQL eval (deterministic, 256 lanes x 50 steps, no autoreset): CQL {ev['cql']:+.4f}, random "
         f"{ev['random']:+.4f}, L5 {ev['L5']:+.4f} per step")
     assert ev["cql"] > ev["random"], "CQL does not beat random"
@@ -2157,7 +2413,7 @@ def phase12_cql(kernel, chord_k):
     log(f"CQL update at float64, card vs CPU (the trained networks, 512 rows of the dataset): parameters and "
         f"targets max rel err {err:.3e}, metrics {err_m:.3e}")
     assert err <= 1e-10 and err_m <= 1e-10
-    return k1, k2
+    return k3, k2, k1
 
 
 def simulator_inputs(sim, n_steps, seed, anm6):
@@ -2214,31 +2470,40 @@ def run_simulator(sim, s0, steps):
     return outs, 1e3 * (time.perf_counter() - t0) / len(steps), ok
 
 
+# GPU ops and host syncs of one Simulator transition on the card before the
+# Newton loop ran in K3 (PR 10's phase 13: one K1 launch an iteration and the
+# plain loop's host reads around it).
+PR10_TRANSITION = {"ANM6": (1340, 7), "IEEE33": (630, 7)}
+
+
 def phase13_simulator(lin, kernel):
     """The compat ``Simulator`` (float64, one lane) on the card against the
-    CPU, its GPU ops and host syncs per transition, and K1 at its launch
-    configuration (B = 1, float64)."""
+    CPU, its GPU ops and host syncs per transition (its Newton loop one K3
+    launch with the dense Y of ``nr_solve``), and K1 at B = 1, float64 (the
+    size of its solves inside K3), beside ``solve_ex``."""
     from gym_anm_torch.env import Simulator
     from gym_anm_torch.networks import anm6_network, ieee33_network
 
     T = 96
     log(f"== phase 13a: the compat Simulator, float64, one lane: {T} steps of ANM6 and of IEEE33 on the card "
         "against the CPU")
-    launches, errs = 0, []
+    launches, solves, errs = 0, 0, []
     for name, net, delta_t, anm6 in (("ANM6", anm6_network, 0.25, True), ("IEEE33", ieee33_network, 1.0, False)):
         card, cpu = Simulator(net, delta_t, 100), Simulator(net, delta_t, 100, device="cpu")
         assert card._tables.device.type == "cuda"
         s0, steps = simulator_inputs(cpu, T, seed=13, anm6=anm6)
         run_simulator(card, s0, steps[:2])  # warm
         kernel.launch_count = 0
-        regs0 = kernel.launches["regs"]
+        dense0 = kernel.launches["dense"]
         out_card, ms_card, ok_card = run_simulator(card, s0, steps)
         torch.cuda.synchronize()
-        n_k1, n_regs = kernel.launch_count, kernel.launches["regs"] - regs0
+        n_k3, n_dense, n_solves = kernel.launch_count, kernel.launches["dense"] - dense0, kernel.solves
         out_cpu, ms_cpu, ok_cpu = run_simulator(cpu, s0, steps)
         assert ok_card == ok_cpu, "the reset's load flow converged on one device only"
-        assert n_k1 > 0 and n_regs == n_k1, f"{name}: K1 launched {n_k1} times, {n_regs} on the register route"
-        launches += n_k1
+        assert n_k3 > 0 and n_dense == n_k3 and n_solves > 0, \
+            f"{name}: K3 launched {n_k3} times, {n_dense} with the dense Y, {n_solves} solves inside"
+        launches += n_k3
+        solves += n_solves
         err, n_stable = 0.0, 0
         for t, (a, b) in enumerate(zip(out_card, out_cpu)):
             assert a[4] == b[4], f"{name} step {t}: pfe_converged {a[4]} on the card, {b[4]} on the CPU"
@@ -2251,31 +2516,33 @@ def phase13_simulator(lin, kernel):
             err = max(err, *(abs(x - y) for x, y in zip(a[1:4], b[1:4])))
         errs.append(err)
         log(f"13a {name}: {n_stable} of {T} steps converged on both devices (flags equal on all); max |card - CPU| "
-            f"over bus voltages, device P/Q, branch flows, reward, e_loss and penalty {err:.3e}; K1 launches "
-            f"{n_k1} ({n_k1 / T:.2f} per step, all on the register route); ms per transition: card "
+            f"over bus voltages, device P/Q, branch flows, reward, e_loss and penalty {err:.3e}; K3 launches "
+            f"{n_k3} ({n_k3 / T:.2f} per step, all with nr_solve's dense Y), K1 solves inside it {n_solves} "
+            f"({n_solves / n_k3:.2f} per launch); ms per transition: card "
             f"{ms_card:.3f}, CPU {ms_cpu:.3f} (host clock, {T} steps)")
         assert err <= 1e-8, f"{name}: the card's Simulator is {err:.3e} from the CPU's"
         assert n_stable > T // 2, f"{name}: only {n_stable} of {T} steps converged"
         ops, syncs = count_ops(lambda: card.transition(*steps[-1]), count_ops(lambda: None))
-        log(f"13a {name}: GPU ops {ops} and host syncs {syncs} in one transition on the card")
+        log(f"13a {name}: GPU ops {ops} and host syncs {syncs} in one transition on the card (before K3, PR 10: "
+            f"{PR10_TRANSITION[name][0]} ops, {PR10_TRANSITION[name][1]} syncs)")
 
     for n in (64, 10):
         g = torch.Generator(device="cuda").manual_seed(n)
         A = torch.randn(1, n, n, generator=g, device="cuda", dtype=torch.float64)
         A += n * torch.eye(n, device="cuda", dtype=torch.float64)
         b = torch.randn(1, n, generator=g, device="cuda", dtype=torch.float64)
-        xk, xp = kernel(A, b), lin.solve_gauss_jordan(A, b)
+        xk, xp = lin.solve_gauss_jordan_cuda(A, b), lin.solve_gauss_jordan(A, b)
         assert torch.equal(xk, xp), f"K1 at B = 1, n = {n} is not bitwise its plain version"
         torch.linalg.solve_ex(A, b)
         t = {k: statistics.median(cuda_ms(fn, c) for _ in range(N_REPS)) for k, fn, c in (
-            ("ms", lambda: kernel(A, b), N_LAUNCH),
+            ("ms", lambda: lin.solve_gauss_jordan_cuda(A, b), N_LAUNCH),
             ("library_ms", lambda: torch.linalg.solve_ex(A, b), N_LAUNCH),
             ("plain_ms", lambda: lin.solve_gauss_jordan(A, b), 3))}
         bound_ms, bound_by = k1_bound(1, n, 8)
         log(f"13a K1 at B=1 n={n} float64 (device time, {N_LAUNCH} launches per reading, median of {N_REPS}): "
             f"kernel {t['ms']:.4f} ms, torch.linalg.solve_ex {t['library_ms']:.4f} ms, plain {t['plain_ms']:.4f} "
             f"ms; bound {1e3 * bound_ms:.4f} µs ({bound_by}); bitwise equal to the plain version")
-    return launches, max(errs)
+    return launches, max(errs), solves
 
 
 def gymnasium_module():
@@ -2402,8 +2669,8 @@ def card_vs_cpu(kernel, ec, eh, cls, steps, seed, op_step, op_base, atol=1e-8, t
     ends the comparison there: from that step on the two devices run
     different discrete decisions.  Returns a dict: ``da``/``dr`` (max |card
     - CPU| of actions and rewards over the compared steps), ``steps`` (how
-    many), ``tie`` (the tie's step, or None), ``k1``/``regs`` (launches in
-    those steps), ``k1_min`` (the fewest in one step), ``ops``/``syncs`` (of
+    many), ``tie`` (the tie's step, or None), ``k3``/``dense`` (K3's launches in
+    those steps, and those with the dense Y), ``k3_min`` (the fewest in one step), ``ops``/``syncs`` (of
     the counted act, or None), ``act``/``step`` ({"card", "cpu"}: host ms
     per call), ``r_card`` (the card's mean reward) and ``finite``."""
     np.random.seed(seed)
@@ -2418,7 +2685,7 @@ def card_vs_cpu(kernel, ec, eh, cls, steps, seed, op_step, op_base, atol=1e-8, t
     pc = ac.act if hasattr(ac, "act") else ac.get_base_action
     ph = ah.act if hasattr(ah, "act") else ah.get_base_action
     lo, hi = eh.action_space.low, eh.action_space.high
-    out = {"da": 0.0, "dr": 0.0, "steps": 0, "tie": None, "k1": 0, "regs": 0, "k1_min": None, "ops": None,
+    out = {"da": 0.0, "dr": 0.0, "steps": 0, "tie": None, "k3": 0, "dense": 0, "k3_min": None, "ops": None,
            "syncs": None, "finite": True, "act": {"card": [], "cpu": []}, "step": {"card": [], "cpu": []},
            "r_card": []}
 
@@ -2453,18 +2720,18 @@ def card_vs_cpu(kernel, ec, eh, cls, steps, seed, op_step, op_base, atol=1e-8, t
                 f"{xs_h[-1][5:7].tolist()}, capacitors 1-2 card {a_c[10:12].tolist()} CPU {a_h[10:12].tolist()}")
             break
         st = np.random.get_state()
-        n0, r0 = kernel.launch_count, kernel.launches["regs"]
+        n0, r0 = kernel.launch_count, kernel.launches["dense"]
         _, r_c, term_c, _, _ = timed("step", "card", lambda: ec.step(np.clip(a_c, lo, hi)))
-        n_k1, n_regs = kernel.launch_count - n0, kernel.launches["regs"] - r0
+        n_k3, n_dense = kernel.launch_count - n0, kernel.launches["dense"] - r0
         np.random.set_state(st)
         _, r_h, term_h, _, _ = timed("step", "cpu", lambda: eh.step(np.clip(a_h, lo, hi)))
         assert term_c == term_h, f"{cls.__name__} step {t}: terminated {term_c} on the card, {term_h} on the CPU"
         out["steps"] += 1
         out["da"] = max(out["da"], da)
         out["dr"] = max(out["dr"], abs(r_c - r_h))
-        out["k1"] += n_k1
-        out["regs"] += n_regs
-        out["k1_min"] = n_k1 if out["k1_min"] is None else min(out["k1_min"], n_k1)
+        out["k3"] += n_k3
+        out["dense"] += n_dense
+        out["k3_min"] = n_k3 if out["k3_min"] is None else min(out["k3_min"], n_k3)
         out["finite"] &= bool(np.all(np.isfinite(a_c)) and np.isfinite(r_c))
         out["r_card"].append(r_c)
         if term_c:
@@ -2534,12 +2801,12 @@ def phase14_host_tier(kernel):
             tie = "" if o["tie"] is None else f" (the capacitor tie at step {o['tie']} ends the comparison)"
             log(f"14a {set_name} {cls.__name__}: {o['steps']} steps compared{tie}, max |card - CPU| actions "
                 f"{o['da']:.3e} (tolerance {atol:.0e}), rewards {o['dr']:.3e}; mean reward {o['r_card']:+.5f}; "
-                f"K1 {o['k1'] / max(o['steps'], 1):.2f} per step (at least {o['k1_min']}), {o['regs']} of "
-                f"{o['k1']} on the register route; one act: {o['ops']} GPU ops, {o['syncs']} host syncs; ms per "
+                f"K3 {o['k3'] / max(o['steps'], 1):.2f} per step (at least {o['k3_min']}), {o['dense']} of "
+                f"{o['k3']} with the dense Y; one act: {o['ops']} GPU ops, {o['syncs']} host syncs; ms per "
                 f"step: act card {o['act']['card']:.3f} CPU {o['act']['cpu']:.3f}, step card "
                 f"{o['step']['card']:.3f} CPU {o['step']['cpu']:.3f}")
-            if not (o["finite"] and o["steps"] > 0 and o["da"] <= atol and o["dr"] <= 1e-8 and o["k1_min"] > 0
-                    and o["regs"] == o["k1"] and o["ops"] == 0 and o["syncs"] == 0):
+            if not (o["finite"] and o["steps"] > 0 and o["da"] <= atol and o["dr"] <= 1e-8 and o["k3_min"] > 0
+                    and o["dense"] == o["k3"] and o["ops"] == 0 and o["syncs"] == 0):
                 failures.append(f"{set_name} {cls.__name__}")
         log(f"14a {set_name} ({len(classes)} classes, up to {T_HIER} steps): mean ms per step act card "
             f"{statistics.mean(acts['card']):.3f} CPU {statistics.mean(acts['cpu']):.3f}, step card "
@@ -2574,7 +2841,7 @@ def phase14_host_tier(kernel):
     r_c, r_h = host_twin(lambda: offline.evaluate_policy(ec, p_c, episodes=2, max_steps=10),
                          lambda: offline.evaluate_policy(eh_, p_h, episodes=2, max_steps=10))
     log(f"14b generate_mixed_dataset (Corrected L0-L5, weights {weights}, 96 steps): states {d_c[0].shape}, "
-        f"max |card - CPU| of states and actions {d_err:.3e}; K1 {n_mix / 96:.2f} per step; ms per step card "
+        f"max |card - CPU| of states and actions {d_err:.3e}; K3 {n_mix / 96:.2f} per step; ms per step card "
         f"{ms_c:.3f} CPU {ms_h:.3f}; behavior_cloning coefficients {c_err:.3e}; evaluate_policy (2 x 10 steps) "
         f"card {r_c:+.6f} CPU {r_h:+.6f}")
     if not (d_err <= 1e-8 and c_err <= 1e-8 and abs(r_c - r_h) <= 1e-8 and np.isfinite(r_c) and n_mix > 0):
@@ -2587,11 +2854,11 @@ def phase14_host_tier(kernel):
         o = card_vs_cpu(kernel, ec, eh_, cls, 4, 4, 3, op_base)
         for k in zoo_worst:
             zoo_worst[k] = max(zoo_worst[k], o[k])
-        if not (o["finite"] and o["da"] <= 1e-8 and o["dr"] <= 1e-8 and o["k1_min"] > 0 and o["regs"] == o["k1"]
+        if not (o["finite"] and o["da"] <= 1e-8 and o["dr"] <= 1e-8 and o["k3_min"] > 0 and o["dense"] == o["k3"]
                 and o["ops"] == 0 and o["syncs"] == 0):
             failures.append(f"zoo {cls.__name__}")
-            log(f"14b zoo {cls.__name__}: actions {o['da']:.3e}, rewards {o['dr']:.3e}, K1 {o['k1']} "
-                f"({o['regs']} regs, at least {o['k1_min']} a step), ops {o['ops']}, syncs {o['syncs']}")
+            log(f"14b zoo {cls.__name__}: actions {o['da']:.3e}, rewards {o['dr']:.3e}, K3 {o['k3']} "
+                f"({o['dense']} dense, at least {o['k3_min']} a step), ops {o['ops']}, syncs {o['syncs']}")
     log(f"14b zoo: {len(zoo)} heuristics x 4 steps, worst |card - CPU| actions {zoo_worst['da']:.3e}, rewards "
         f"{zoo_worst['dr']:.3e}, most GPU ops in one act {zoo_worst['ops']}; {time.perf_counter() - t0:.1f} s")
 
@@ -2604,10 +2871,10 @@ def phase14_host_tier(kernel):
         if not np.isfinite(avg_c):
             failures.append(f"script {name}")
     torch.cuda.synchronize()
-    launches = kernel.launch_count
-    log(f"14: K1 launches {launches}; {time.perf_counter() - t_phase:.1f} s")
+    launches, solves = kernel.launch_count, kernel.solves
+    log(f"14: K3 launches {launches} (K1 solves inside it {solves}); {time.perf_counter() - t_phase:.1f} s")
     assert not failures, f"phase 14 failed for: {', '.join(failures)}"
-    return launches
+    return launches, solves
 
 
 def quietly(fn):
@@ -2922,23 +3189,25 @@ def phase15c_scripts(smi_line):
 
 def phase15_render_examples_scripts(kernel, chord_k, admm_k, smi_line):
     """The renderer, the examples and the scripts on the card (15a-c); returns
-    the launches of K1, K2 and K5 in its runs on the card."""
+    the launches of K3, K2 and K5 in its runs on the card and K1's solves
+    inside K3."""
     log("== phase 15: the renderer, the examples and the scripts on the card, against the CPU")
     log(f"15 gymnasium: {gymnasium_module()}")
     op_base = count_ops(lambda: None)
     t_phase = time.perf_counter()
     kernel.launch_count = chord_k.launch_count = admm_k.launch_count = 0
-    regs0 = kernel.launches["regs"]
+    dense0 = kernel.launches["dense"]
     for part in (lambda: phase15a_renderer(op_base), phase15b_examples, lambda: phase15c_scripts(smi_line)):
         t0 = time.perf_counter()
         part()
         log(f"15: part done in {time.perf_counter() - t0:.1f} s")
     torch.cuda.synchronize()
     launches = (kernel.launch_count, chord_k.launch_count, admm_k.launch_count)
-    log(f"15: K1 launches {launches[0]} ({kernel.launches['regs'] - regs0} on the register route), K2 {launches[1]}, "
-        f"K5 {launches[2]}; {time.perf_counter() - t_phase:.1f} s")
-    assert all(n > 0 for n in launches), f"a kernel of phase 15's path never launched: {launches}"
-    return launches
+    solves = kernel.solves
+    log(f"15: K3 launches {launches[0]} ({kernel.launches['dense'] - dense0} with the dense Y; K1 solves inside it "
+        f"{solves}), K2 {launches[1]}, K5 {launches[2]}; {time.perf_counter() - t_phase:.1f} s")
+    assert all(n > 0 for n in launches) and solves > 0, f"a kernel of phase 15's path never launched: {launches}"
+    return launches + (solves,)
 
 
 def log_ptxas(report):
@@ -2948,7 +3217,8 @@ def log_ptxas(report):
              (r"gj_panelsI([fd])Li(\d+)ELb([01])E", lambda t, k, r: f"gj_panels<{b[t]}, {k}, {b[r]}>"),
              (r"chord_kernelILi(\d+)ELi(\d+)E", lambda a, c: f"chord_kernel<{a}, {c}>"),
              (r"chord_wide_kernelILi(\d+)E", lambda k: f"chord_wide_kernel<{k}>"),
-             (r"admm_kernelILb([01])ELb([01])E", lambda m, g: f"admm_kernel<{b[m]}, {b[g]}>"))
+             (r"admm_kernelILb([01])ELb([01])E", lambda m, g: f"admm_kernel<{b[m]}, {b[g]}>"),
+             (r"newton_kernelI([fd])Li(\d+)ELb([01])E", lambda t, k, y: f"newton_kernel<{b[t]}, {k}, {b[y]}>"))
     name = spill = None
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -2993,11 +3263,12 @@ def main():
         base = pool.submit(load_baselines)
         lib = _build.load_library()
         base = base.result()
-    log(f"K1, K2 (tile and wide), K5 and the baselines built/loaded in {time.perf_counter() - t0:.1f} s: "
+    log(f"K1, K2 (tile and wide), K3, K5 and the baselines built/loaded in {time.perf_counter() - t0:.1f} s: "
         f"{lib_path.name}")
     log_ptxas(_build.ptxas_report())
 
-    kernel = lin.solve_gauss_jordan_cuda
+    nc = pf.newton_fallback_cuda
+    kernel = K3Counts(pf)  # the main paths' Newton loop: K3's launches and K1's solves inside it
     t_run = time.perf_counter()
 
     def run(phase, *args):
@@ -3008,16 +3279,18 @@ def main():
     k1 = run(phase1_kernel_vs_plain, lin, base)
     k2 = run(phase1b_chord_kernel, pf, chord_solve_cuda, VecEnv, make_ieee33_task, make_ieee33_multicap_task,
              make_anm6easy_task)
-    launches, chord_launches = run(phase2_main_path, VecEnv, make_ieee33_task, kernel, chord_solve_cuda)
+    launches, chord_launches, solves = run(phase2_main_path, VecEnv, make_ieee33_task, kernel, chord_solve_cuda)
     run(phase3_fallback, VecEnv, make_ieee33_task, pf, ybus, kernel)
+    k3 = run(phase3b_newton_kernel, pf, lin, nc, VecEnv, make_ieee33_task, make_anm6easy_task, ybus.LaneYbus)
     run(phase4_tf32, VecEnv, make_ieee33_task)
-    mc_launches, mc_chord_launches = run(phase5_multicap, VecEnv, make_ieee33_multicap_task, transition, kernel,
-                                         chord_solve_cuda)
+    mc_launches, mc_chord_launches, mc_solves = run(phase5_multicap, VecEnv, make_ieee33_multicap_task, transition,
+                                                    kernel, chord_solve_cuda)
     bare_rate = run(phase6_times, VecEnv, make_ieee33_task, make_ieee33_multicap_task)
-    col_launches, col_chord_launches = run(phase7_collection, VecEnv, make_ieee33_multicap_task, transition, kernel,
-                                           chord_solve_cuda, bare_rate)
-    a6_launches, a6_chord_launches, a6_rate = run(phase8_anm6easy, VecEnv, make_anm6easy_task, STATE_VARIABLES,
-                                                  ybus.build_ybus, kernel, chord_solve_cuda)
+    col_launches, col_chord_launches, col_solves = run(phase7_collection, VecEnv, make_ieee33_multicap_task,
+                                                       transition, kernel, chord_solve_cuda, bare_rate)
+    a6_launches, a6_chord_launches, a6_rate, a6_solves = run(phase8_anm6easy, VecEnv, make_anm6easy_task,
+                                                             STATE_VARIABLES, ybus.build_ybus, kernel,
+                                                             chord_solve_cuda)
     cold_set, k5 = run(phase9a_admm_kernel, mpc, solve_dcopf_cuda, VecEnv, make_anm6easy_task,
                        make_ieee33_renewable_task)
     run(phase9b_highs, mpc, cold_set)
@@ -3025,28 +3298,41 @@ def main():
                                       chord_solve_cuda)
     run(phase9d_replay, mpc, VecEnv, make_anm6easy_task, farm_record)
     k2w, k1g, k1s = run(phase10_feeders, pf, lin, chord_solve_cuda, VecEnv, base)
-    ppo_k1, ppo_k2 = run(phase11_ppo, VecEnv, make_ieee33_multicap_task, kernel, chord_solve_cuda)
-    cql_k1, cql_k2 = run(phase12_cql, kernel, chord_solve_cuda)
-    sim_k1, _ = run(phase13_simulator, lin, kernel)
-    host_k1 = run(phase14_host_tier, kernel)
-    tail_k1, tail_k2, tail_k5 = run(phase15_render_examples_scripts, kernel, chord_solve_cuda, solve_dcopf_cuda,
-                                    smi_line)
+    ppo_k3, ppo_k2, ppo_k1 = run(phase11_ppo, VecEnv, make_ieee33_multicap_task, kernel, chord_solve_cuda)
+    cql_k3, cql_k2, cql_k1 = run(phase12_cql, kernel, chord_solve_cuda)
+    sim_k3, _, sim_k1 = run(phase13_simulator, lin, kernel)
+    host_k3, host_k1 = run(phase14_host_tier, kernel)
+    tail_k3, tail_k2, tail_k5, tail_k1 = run(phase15_render_examples_scripts, kernel, chord_solve_cuda,
+                                             solve_dcopf_cuda, smi_line)
 
     # Launches: the runs of the base, multicap17, collection, ANM6Easy, the learners', the compat Simulator's, the
-    # host tier's and phase 15's paths together.
+    # host tier's and phase 15's paths together.  On these paths (n <= 64) K1's register route runs inside K3, one
+    # solve a lane-iteration: its "launches" count those solves (K3's n_iter out - n_iter in, from K3's outputs).
     print(json.dumps({"kernels": [{
         "name": "gauss_jordan",
         "route": "cuda",
         "source": "gym_anm_torch/csrc/gauss_jordan.cu",
         "replaces": "gym_anm_tpu/physics/linsolve_pallas.py:31",
-        "launches": (launches + mc_launches + col_launches + a6_launches + ppo_k1 + cql_k1 + sim_k1 + host_k1
-                     + tail_k1),
+        "launches": (solves + mc_solves + col_solves + a6_solves + ppo_k1 + cql_k1 + sim_k1 + host_k1 + tail_k1),
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"],
         "library_ms": k1["library_ms"],
+    }, {
+        "name": "newton_fallback",
+        "route": "cuda",
+        "source": "gym_anm_torch/csrc/newton_fallback.cu",
+        "replaces": "gym_anm_tpu/physics/power_flow.py:699",
+        "launches": (launches + mc_launches + col_launches + a6_launches + ppo_k3 + cql_k3 + sim_k3 + host_k3
+                     + tail_k3),
+        "max_abs_err": k3["max_abs_err"],
+        "ms": k3["ms"],
+        "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"],
+        "library_ms": None,  # no single PyTorch call runs the Newton loop
     }, {
         "name": "chord_newton",
         "route": "cuda",

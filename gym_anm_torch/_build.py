@@ -26,7 +26,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _D, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double, ctypes.c_longlong
 # C entry points, returning a cudaError_t as int unless _RESTYPES says otherwise.
 _SIGNATURES = {
     # (A, b, x, B, n, stream)
@@ -54,6 +54,12 @@ _SIGNATURES = {
     "admm_dcopf_f32": [_P] * 28 + [_F] * 10 + [_I] * 6 + [_P],
     # (B, n, m) -> bytes, not an error code
     "admm_scratch_bytes": [_I, _I, _I],
+    # (x_in, F_in, diff_in, it_in, accepted, p, q, Yre, Yim, y_stride, br_f,
+    #  br_t, series_re, series_im, shunt_im, shift_cos, shift_sin, tap_magn,
+    #  n_branch, xtol, lim_iter, x, F, diff, n_iter, stall, next_lane, B, nb,
+    #  stream)
+    "newton_fallback_f32": [_P] * 9 + [_L] + [_P] * 8 + [_I, _D, _I] + [_P] * 6 + [_I, _I, _P],
+    "newton_fallback_f64": [_P] * 9 + [_L] + [_P] * 8 + [_I, _D, _I] + [_P] * 6 + [_I, _I, _P],
 }
 _RESTYPES = {"admm_scratch_bytes": ctypes.c_longlong}  # every other entry point returns an int
 

@@ -14,7 +14,8 @@ from .power_flow import (
 )
 from .projection import make_box_slopes_projector
 from .transition import GridTables, TransitionOut, branch_flows, make_tables, solution_guess, transition
-from .ybus import build_ybus
+from .newton_cuda import newton_fallback_cuda
+from .ybus import LaneYbus, build_ybus
 
 __all__ = [
     "batched_solve",
@@ -30,6 +31,8 @@ __all__ = [
     "nr_solve",
     "nr_solve_lazy",
     "build_ybus",
+    "LaneYbus",
+    "newton_fallback_cuda",
     "GridTables",
     "TransitionOut",
     "make_tables",

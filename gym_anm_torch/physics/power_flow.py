@@ -16,9 +16,10 @@ new carry only where the lane's condition holds.  On the card the chord
 phase is one CUDA kernel whose lanes iterate until their own exit
 (:mod:`.chord_cuda`); its plain version :func:`chord_solve_plain` does what
 the reference does with a per-lane mask, ending on a host-side ``any()`` of
-the mask once per iteration.  The Newton loops gather the lanes that still
-iterate, solve only those and scatter them back, which per lane is the same
-program.
+the mask once per iteration.  The exact-Newton loop is one CUDA kernel on
+the card too (:mod:`.newton_cuda`, n <= 64); its plain version
+:func:`_newton_loop` gathers the lanes that still iterate, solves only those
+and scatters them back, which per lane is the same program.
 
 Host-side tables (:class:`ChordConst` and the functions building it) are
 numpy float64, as in the reference.
@@ -32,6 +33,8 @@ import torch
 from .chord_cuda import chord_solve_cuda
 from .complexops import cmatvec, matmul_full
 from .linsolve_cuda import batched_solve, solve_gauss_jordan  # noqa: F401  (re-export)
+from .newton_cuda import MAX_N as K3_MAX_N, newton_fallback_cuda
+from .ybus import LaneYbus
 
 
 class NRResult(NamedTuple):
@@ -56,15 +59,46 @@ def _assemble_v(theta, vm):
     return v_re, v_im
 
 
+def _fold_sum(P):
+    """Sum over the last axis of ``P`` in the exact-Newton kernel's order
+    (``csrc/newton_fallback.cuh:fold_node``): padded with zeros to a power
+    of two, then the two halves added until one entry is left, each sum
+    rounded on its own."""
+    w = 1 << (P.shape[-1] - 1).bit_length()
+    P = torch.nn.functional.pad(P, (0, w - P.shape[-1]))
+    while w > 1:
+        w //= 2
+        P = P[..., :w] + P[..., w:]
+    return P[..., 0]
+
+
+def _ybus_matvec(Yre, Yim, v_re, v_im):
+    """Y·V of the load flow: float32 through :func:`cmatvec` (float64 sums
+    rounded once, which TF32 cannot reach).  Float64 on the card as the
+    products summed by :func:`_fold_sum`, the CUDA kernel's order, so that
+    the kernel and this version agree bit for bit where cuBLAS's own order
+    would move an ulp (and a diverging lane would amplify it); on the CPU
+    through :func:`cmatvec`, BLAS's product, to which the parity tests
+    against the JAX package hold the float64 tier (its SLSQP controllers
+    break ties on the last digits)."""
+    if v_re.dtype != torch.float64 or not v_re.is_cuda:
+        return cmatvec(Yre, Yim, v_re, v_im)
+
+    def dot(M, v):
+        return _fold_sum(M * v.unsqueeze(-2))
+
+    return dot(Yre, v_re) - dot(Yim, v_im), dot(Yre, v_im) + dot(Yim, v_re)
+
+
 def _mismatch(x, p, q, Yre, Yim, n):
     """F(x) = [Re(S−s); Im(S−s)] with S = V ∘ conj(YV), rows 1..N−1.
 
     x [B, 2n], p/q [B, n], Y [B, N, N] or [N, N].  The matvec runs at full
-    precision (:func:`matmul_full`): F is the convergence criterion.
+    precision (:func:`_ybus_matvec`): F is the convergence criterion.
     """
     theta, vm = x[..., :n], x[..., n:]
     v_re, v_im = _assemble_v(theta, vm)
-    yv_re, yv_im = cmatvec(Yre, Yim, v_re, v_im)
+    yv_re, yv_im = _ybus_matvec(Yre, Yim, v_re, v_im)
     # V * conj(YV)
     s_re = v_re * yv_re + v_im * yv_im
     s_im = v_im * yv_re - v_re * yv_im
@@ -528,7 +562,8 @@ def chord_solve_plain(p, q, w_a, w_b, dtf_re, dtf_im, const,
 # Exact Newton-Raphson
 # ---------------------------------------------------------------------------
 def _newton_loop(x, F, diff, it, may_iterate, ybus_at, p, q, xtol, lim_iter, f32_mode, linsolve):
-    """Run Newton iterations on the lanes that still iterate.
+    """Run Newton iterations on the lanes that still iterate: the plain
+    version of the CUDA kernel :func:`~.newton_cuda.newton_fallback_cuda`.
 
     Per lane this is the reference's while loop: continue while
     diff > xtol, it < lim_iter (and, in f32, stall < 3).  Only the lanes
@@ -570,23 +605,51 @@ def _nr_result(x, F, diff, n_iter, stall, accepted, xtol, f32_mode):
                     converged=converged, stable=converged & ok, F=F)
 
 
+# Calls whose Newton loop the card ran as the plain loop around K1's panel
+# routes because n is above K3's largest body (K3's own launches are counted
+# by its wrapper).
+newton_routes = {"wide": 0}
+
+
+def _card_route(n):
+    """The card's Newton loop at n unknowns: ``"k3"`` up to ``K3_MAX_N``,
+    else ``"wide"`` (counted in ``newton_routes``)."""
+    if n <= K3_MAX_N:
+        return "k3"
+    newton_routes["wide"] += 1
+    return "wide"
+
+
 def nr_solve_lazy(ybus_fn, p, q, xtol=1e-5, lim_iter=100, init=None) -> NRResult:
     """Exact-NR fallback after the chord phase, on the unaccepted lanes only.
 
     ``init`` is the chord's ``(x, F, diff, n_iter, accepted)``: the
     iteration counter continues from the chord's ``n_iter`` (``lim_iter``
     counts both phases), the stall counter restarts at 0, and accepted
-    lanes never enter.  ``ybus_fn(idx) -> (Yre, Yim)`` builds the
-    admittance matrices [len(idx), N, N] of the lanes ``idx`` only when a
-    Newton iteration runs.  The linear solve is :func:`batched_solve`.
+    lanes never enter.  ``ybus_fn`` is a :class:`~.ybus.LaneYbus`, or on the
+    CPU any ``ybus_fn(idx) -> (Yre, Yim)`` that builds the admittance
+    matrices [len(idx), N, N] of the lanes ``idx``, called only when a
+    Newton iteration runs.  On the CPU the loop is :func:`_newton_loop` with
+    the plain Gauss-Jordan solve; on the card it is the CUDA kernel
+    (:func:`~.newton_cuda.newton_fallback_cuda`, one launch, no host sync)
+    up to n = 64, which builds each lane's Y from the ``LaneYbus`` itself,
+    and above that :func:`_newton_loop` around K1 (:func:`batched_solve`).
     """
     if init is None:
         raise ValueError("nr_solve_lazy is the post-chord fallback; pass init")
     x, F, diff, it0, accepted = init
+    it0 = it0.to(torch.int32)
     f32_mode = p.dtype != torch.float64
-    x, F, diff, n_iter, stall = _newton_loop(
-        x, F, diff, it0.to(torch.int32), ~accepted, ybus_fn, p, q, xtol, lim_iter,
-        f32_mode, batched_solve)
+    if p.is_cuda and _card_route(2 * p.shape[-1]) == "k3":
+        if not isinstance(ybus_fn, LaneYbus):
+            raise TypeError("on the card nr_solve_lazy takes the Y-bus as a LaneYbus, whose fields the kernel "
+                            f"reads; got {type(ybus_fn).__name__}")
+        c = lambda t: t.contiguous()  # noqa: E731
+        x, F, diff, n_iter, stall = newton_fallback_cuda(c(x), c(F), c(diff), c(it0), c(accepted), c(p), c(q),
+                                                         ybus_fn, xtol, lim_iter)
+    else:
+        x, F, diff, n_iter, stall = _newton_loop(
+            x, F, diff, it0, ~accepted, ybus_fn, p, q, xtol, lim_iter, f32_mode, batched_solve)
     return _nr_result(x, F, diff, n_iter, stall, accepted, xtol, f32_mode)
 
 
@@ -595,7 +658,8 @@ def nr_solve(Yre, Yim, p, q, xtol=1e-5, lim_iter=100, init=None) -> NRResult:
 
     Parameters
     ----------
-    Yre, Yim : [B, N, N] — split-complex admittance matrices.
+    Yre, Yim : [B, N, N] or one [N, N] for every lane — split-complex
+        admittance matrices.
     p, q : [B, N-1] — net injections at buses 1..N−1 (p.u.).
     xtol : ‖F‖∞ convergence tolerance.
     lim_iter : iteration cap.
@@ -604,9 +668,11 @@ def nr_solve(Yre, Yim, p, q, xtol=1e-5, lim_iter=100, init=None) -> NRResult:
 
     In float32 a lane whose residual plateaus is accepted within 10·xtol
     after 3 non-halving iterations; float64 keeps the reference's exact
-    loop.  The linear solve is LAPACK for float64 on the CPU (as the
-    reference's ``jnp.linalg.solve``) and :func:`batched_solve` otherwise:
-    the plain Gauss-Jordan on the CPU, the CUDA kernel on the card.
+    loop.  On the CPU the loop is :func:`_newton_loop`, its linear solve
+    LAPACK for float64 (as the reference's ``jnp.linalg.solve``) and the
+    plain Gauss-Jordan for float32.  On the card it is the CUDA kernel
+    (:func:`~.newton_cuda.newton_fallback_cuda`) up to n = 64, and above
+    :func:`_newton_loop` around K1 (:func:`batched_solve`).
     """
     dtype, device = p.dtype, p.device
     B, n = p.shape
@@ -621,10 +687,16 @@ def nr_solve(Yre, Yim, p, q, xtol=1e-5, lim_iter=100, init=None) -> NRResult:
         diff = torch.amax(torch.abs(F), dim=1)
         it0 = torch.zeros(B, dtype=torch.int32, device=device)
         accepted = torch.zeros(B, dtype=torch.bool, device=device)
-    linsolve = _lapack_solve if dtype == torch.float64 and device.type == "cpu" else batched_solve
-    x, F, diff, n_iter, stall = _newton_loop(
-        x, F, diff, it0, ~accepted, lambda idx: (Yre[idx], Yim[idx]), p, q, xtol, lim_iter,
-        f32_mode, linsolve)
+    if p.is_cuda and _card_route(2 * n) == "k3":
+        c = lambda t: t.contiguous()  # noqa: E731
+        x, F, diff, n_iter, stall = newton_fallback_cuda(
+            c(x), c(F), c(diff), c(it0), None if init is None else c(accepted), c(p), c(q), (c(Yre), c(Yim)),
+            xtol, lim_iter)
+    else:
+        linsolve = _lapack_solve if dtype == torch.float64 and device.type == "cpu" else batched_solve
+        ybus_at = (lambda idx: (Yre, Yim)) if Yre.dim() == 2 else (lambda idx: (Yre[idx], Yim[idx]))
+        x, F, diff, n_iter, stall = _newton_loop(
+            x, F, diff, it0, ~accepted, ybus_at, p, q, xtol, lim_iter, f32_mode, linsolve)
     return _nr_result(x, F, diff, n_iter, stall, accepted, xtol, f32_mode)
 
 

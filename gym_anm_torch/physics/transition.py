@@ -29,7 +29,7 @@ from .power_flow import (
     nr_solve,
     nr_solve_lazy,
 )
-from .ybus import build_ybus
+from .ybus import LaneYbus, build_ybus
 
 
 class GridTables(NamedTuple):
@@ -489,13 +489,13 @@ def transition(
     p_ns = bus_p[:, tb.nonslack_bus]
     q_ns = bus_q[:, tb.nonslack_bus]
 
-    def ybus_at(idx):
-        return build_ybus(tb.n_bus, tb.br_f, tb.br_t, tb.series_re, tb.series_im,
-                          tb.shunt_im, tb.shift_cos, tb.shift_sin, tap_magn[idx])
+    ybus_at = LaneYbus(tb.n_bus, tb.br_f, tb.br_t, tb.series_re, tb.series_im, tb.shunt_im, tb.shift_cos,
+                       tb.shift_sin, tap_magn)
 
     if dt != torch.float64 and tb.chord is not None:
         # f32 throughput tier: chord-Newton fast path + exact-NR fallback on
-        # the unaccepted lanes only, whose Y-bus is built only for them.
+        # the unaccepted lanes only, whose Y-bus is built only for them (on
+        # the card inside the fallback's kernel).
         zero = torch.zeros(B, dtype=dt, device=dev)
         if tb.chord_has_oltc:
             # ΔY entries for the lane's tap a vs nominal a0:

@@ -6,6 +6,8 @@ Y-bus as a pure function of the static branch tables and the per-lane
 branch tap magnitudes.
 """
 
+from typing import NamedTuple
+
 import torch
 
 from .complexops import cdiv, matmul_full
@@ -64,3 +66,26 @@ def build_ybus(n_bus, f, t, series_re, series_im, shunt_im, shift_cos, shift_sin
     Yre[:, idx, idx] += diag_re
     Yim[:, idx, idx] += diag_im
     return Yre, Yim
+
+
+class LaneYbus(NamedTuple):
+    """The lanes' Y-bus as data: the static branch tables (as
+    :func:`build_ybus` takes them) and each lane's tap magnitudes
+    ``tap_magn`` [B, Ne].  Calling it with lane indices builds those lanes'
+    matrices; the card's Newton kernel (:mod:`.newton_cuda`) reads the
+    fields and builds each lane's matrix itself, by the same formulas."""
+
+    n_bus: int
+    f: torch.Tensor
+    t: torch.Tensor
+    series_re: torch.Tensor
+    series_im: torch.Tensor
+    shunt_im: torch.Tensor
+    shift_cos: torch.Tensor
+    shift_sin: torch.Tensor
+    tap_magn: torch.Tensor
+
+    def __call__(self, idx):
+        """(Yre, Yim) [len(idx), N, N] of the lanes ``idx``."""
+        return build_ybus(self.n_bus, self.f, self.t, self.series_re, self.series_im, self.shunt_im,
+                          self.shift_cos, self.shift_sin, self.tap_magn[idx])

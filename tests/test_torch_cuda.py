@@ -1,7 +1,8 @@
 """gym_anm_torch on a CUDA card: the Gauss-Jordan kernel (K1: its register,
 shared-memory and blocked routes, at their edges), the fused
-chord-Newton kernels (K2, and its wide kernel above 33 buses) and the ADMM
-kernel (K5) against their plain versions,
+chord-Newton kernels (K2, and its wide kernel above 33 buses), the
+exact-Newton kernel (K3) and the ADMM kernel (K5) against their plain
+versions, 16 steps at B = 8192 without a host sync,
 the float32 and float64 steps on the card against the CPU, random feeders
 above 33 buses among them, and the learners' updates (PPO, CQL) on the card
 against the CPU at float64, without a host sync, and under nccl, and the
@@ -872,7 +873,10 @@ def test_simulator_on_card_equals_cpu(cuda, net, delta_t):
     """The compat ``Simulator`` (float64, one lane; no gymnasium) on the card
     against the CPU over 16 steps of random loads and uniform set-points:
     equal ``pfe_converged`` flags, the state dict, reward, e_loss and
-    penalty within 1e-8, and K1 launched on its register route."""
+    penalty within 1e-8, and its Newton loop launched as K3 (nr_solve's
+    dense Y), whose K1 sweeps run inside it."""
+    from gym_anm_torch.physics.newton_cuda import newton_fallback_cuda
+
     from gym_anm_torch.env import Simulator
 
     card, cpu = Simulator(net, delta_t, 100), Simulator(net, delta_t, 100, device="cpu")
@@ -887,7 +891,7 @@ def test_simulator_on_card_equals_cpu(cuda, net, delta_t):
     oltcs = [int(spec.dev_ids[p]) for p in spec.oltc_pos]
     s0 = np.zeros(2 * spec.n_dev + spec.n_des + spec.n_gen)
     assert card.reset(s0) == cpu.reset(s0)
-    regs0, n0 = solve_gauss_jordan_cuda.launches["regs"], solve_gauss_jordan_cuda.launch_count
+    dense0, n0 = newton_fallback_cuda.launches["dense"], newton_fallback_cuda.launch_count
     for t in range(16):
         P_load = {i: spec.p_min[spec.dev_ids.tolist().index(i)] * spec.baseMVA * rng.uniform(0.3, 1.0)
                   for i in loads}
@@ -912,5 +916,211 @@ def test_simulator_on_card_equals_cpu(cuda, net, delta_t):
                     assert abs(v - sb[key][unit][i]) <= 1e-8, (t, key, unit, i)
         for bus_a, bus_b in zip(card.buses.values(), cpu.buses.values()):
             assert abs(bus_a.v - bus_b.v) <= 1e-8 and abs(bus_a.i - bus_b.i) <= 1e-8
-    assert solve_gauss_jordan_cuda.launch_count > n0
-    assert solve_gauss_jordan_cuda.launches["regs"] - regs0 == solve_gauss_jordan_cuda.launch_count - n0
+    assert newton_fallback_cuda.launch_count > n0
+    assert newton_fallback_cuda.launches["dense"] - dense0 == newton_fallback_cuda.launch_count - n0
+
+
+# ---------------------------------------------------------------------------
+# K3: the exact-Newton fallback
+# ---------------------------------------------------------------------------
+def _k3_lanes(net, dtype, B, seed, cuda):
+    """Lanes of ``net`` with random taps (IEEE33's OLTC in [0.9, 1.1]),
+    loads p in [-0.02, -0.01] p.u. on IEEE33 (a quarter on ANM6), q = p / 2,
+    and the four bad-basin warm starts tiled: (tables, LaneYbus, p, q, x0)."""
+    from gym_anm_torch.physics.ybus import LaneYbus
+
+    spec, delta_t = {"ieee33": (ieee33_network, 1.0), "anm6": (anm6_network, 0.25)}[net]
+    tb = make_tables(load_network(spec), delta_t, 100, dtype=dtype, device=cuda)
+    n = tb.n_bus - 1
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    tap = tb.tap0.expand(B, -1).clone()
+    if len(tb.oltc_branch):
+        tap[:, tb.oltc_branch] = 0.9 + 0.2 * torch.rand(B, 1, generator=g, device=cuda, dtype=dtype)
+    p = -(0.01 if n > 8 else 0.0025) * (1.0 + torch.rand(B, n, generator=g, device=cuda, dtype=dtype))
+    pats = torch.stack([
+        torch.cat([torch.zeros(n), torch.full((n,), 1e-6)]),
+        torch.cat([torch.zeros(n), torch.full((n,), -1.0)]),
+        torch.cat([torch.full((n,), 30.0), torch.ones(n)]),
+        torch.cat([torch.zeros(n), torch.ones(n) * 1e15]),
+    ]).to(cuda, dtype)
+    ybus = LaneYbus(tb.n_bus, tb.br_f, tb.br_t, tb.series_re, tb.series_im, tb.shunt_im, tb.shift_cos,
+                    tb.shift_sin, tap)
+    return tb, ybus, p, 0.5 * p, pats.repeat(B // 4 + 1, 1)[:B].contiguous()
+
+
+def _k3_chord_init(tb, ybus, p, q, x0):
+    """The chord's exit: K2 in float32, the plain chord in float64 (the
+    card's chord is the float32 tier's)."""
+    B = p.shape[0]
+    if tb.chord_has_oltc:
+        a = ybus.tap_magn[:, int(tb.oltc_branch[0])]
+        inv_da = 1.0 / a - 1.0 / tb.chord_a0
+        dr, di = -tb.chord_y_re * inv_da, -tb.chord_y_im * inv_da
+    else:
+        dr = di = torch.zeros(B, device=p.device, dtype=p.dtype)
+    chord = pf.chord_solve if p.dtype == torch.float32 else pf.chord_solve_plain
+    return chord(p, q, di, dr, dr, di, tb.chord_t, x0=x0)
+
+
+def _k3_against_plain(args, ybus, plain_ybus, tol):
+    """K3 and its plain version (``_newton_loop`` with the plain solve) on
+    the same card inputs: flags equal on every lane, n_iter on >= 99.5%, x
+    within ``tol`` where both are stable."""
+    from gym_anm_torch.physics.newton_cuda import newton_fallback_cuda
+
+    x, F, diff, it, acc, p, q = args
+    B = x.shape[0]
+    f32 = p.dtype == torch.float32
+    acc0 = torch.zeros(B, dtype=torch.bool, device=x.device) if acc is None else acc
+    before = newton_fallback_cuda.launch_count
+    out_k = newton_fallback_cuda(x, F, diff, it, acc, p, q, ybus)
+    assert newton_fallback_cuda.launch_count == before + 1
+    out_p = pf._newton_loop(x, F, diff, it, ~acc0, plain_ybus, p, q, 1e-5, 100, f32, solve_gauss_jordan)
+    rk, rp = pf._nr_result(*out_k, acc0, 1e-5, f32), pf._nr_result(*out_p, acc0, 1e-5, f32)
+    assert torch.equal(rk.stable, rp.stable) and torch.equal(rk.converged, rp.converged)
+    assert int((out_k[3] == out_p[3]).sum()) >= 0.995 * B
+    both = rk.stable & rp.stable
+    if bool(both.any()):
+        assert float((out_k[0] - out_p[0])[both].abs().max()) <= tol
+    return out_k, out_p
+
+
+@pytest.mark.parametrize("net", ["ieee33", "anm6"])
+@pytest.mark.parametrize("B", [1, 7, 1001])
+def test_newton_kernel_matches_plain_version_after_the_chord(cuda, net, B):
+    """Sets (a) and (b): float32 lanes after the chord from bad-basin starts
+    (none accepted), Y from the LaneYbus."""
+    tb, ybus, p, q, x0 = _k3_lanes(net, torch.float32, B, 3, cuda)
+    init = _k3_chord_init(tb, ybus, p, q, x0)
+    _k3_against_plain(tuple(init) + (p, q), ybus, ybus, 1e-5)
+
+
+@pytest.mark.parametrize("net", ["ieee33", "anm6"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("B,broadcast", [(1, False), (1001, False), (33, True)])
+def test_newton_kernel_matches_plain_version_from_the_flat_start(cuda, net, dtype, tol, B, broadcast):
+    """Set (c): nr_solve's route, a dense Y [B, N, N] or one [N, N]."""
+    tb, ybus, p, q, _ = _k3_lanes(net, dtype, B, 4, cuda)
+    Yre, Yim = ybus(slice(None))
+    Y = (Yre[0], Yim[0]) if broadcast else (Yre, Yim)
+    x = torch.cat([torch.zeros_like(p), torch.ones_like(p)], dim=1)
+    F, _ = pf._mismatch(x, p, q, *Y, p.shape[1])
+    start = (x, F, torch.amax(F.abs(), dim=1), torch.zeros(B, dtype=torch.int32, device=cuda), None, p, q)
+    oracle = (lambda idx: Y) if broadcast else (lambda idx: (Yre[idx], Yim[idx]))
+    _k3_against_plain(start, Y, oracle, tol)
+    r = pf.nr_solve(*Y, p, q)
+    assert bool(r.stable.all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_newton_kernel_leaves_accepted_lanes_as_they_came(cuda, dtype):
+    """Set (d): every lane accepted by the chord: outputs equal inputs."""
+    tb, ybus, p, q, _ = _k3_lanes("ieee33", dtype, 513, 5, cuda)
+    init = _k3_chord_init(tb, ybus, p, q, None)
+    assert bool(init[4].all())
+    x, F, diff, it, stall = _k3_against_plain(tuple(init) + (p, q), ybus, ybus, 0.0)[0]
+    assert torch.equal(x, init[0]) and torch.equal(F, init[1]) and torch.equal(diff, init[2])
+    assert torch.equal(it, init[3]) and not bool(stall.any())
+
+
+def test_newton_kernel_keeps_a_zero_pivot_non_finite(cuda):
+    """Set (e): a ragged batch, lane 1's Y zero (so its Jacobian): non-finite
+    in both versions, converged false."""
+    tb, ybus, p, q, _ = _k3_lanes("ieee33", torch.float32, 1001, 6, cuda)
+    Yre, Yim = ybus(slice(None))
+    Yre[1], Yim[1] = 0.0, 0.0
+    x = torch.cat([torch.zeros_like(p), torch.ones_like(p)], dim=1)
+    F, _ = pf._mismatch(x, p, q, Yre, Yim, p.shape[1])
+    start = (x, F, torch.amax(F.abs(), dim=1), torch.zeros(1001, dtype=torch.int32, device=cuda), None, p, q)
+    out_k, out_p = _k3_against_plain(start, (Yre, Yim), lambda idx: (Yre[idx], Yim[idx]), 1e-5)
+    assert not bool(torch.isfinite(out_k[0][1]).all()) and not bool(torch.isfinite(out_p[0][1]).all())
+
+
+def test_newton_kernel_rejects_what_it_does_not_take(cuda):
+    from gym_anm_torch.physics.newton_cuda import newton_fallback_cuda
+
+    tb, ybus, p, q, x0 = _k3_lanes("anm6", torch.float32, 8, 7, cuda)
+    init = tuple(_k3_chord_init(tb, ybus, p, q, x0))
+    good = init + (p, q)
+    Y = ybus(slice(None))
+    newton_fallback_cuda(*good, ybus)
+    newton_fallback_cuda(*good, Y)
+    bad_calls = [
+        init + (p.cpu(), q.cpu()),                                   # a CPU tensor
+        (init[0].half(),) + init[1:] + (p, q),                        # another type
+        (init[0], init[1]) + (init[2], init[3].long(), init[4], p, q),  # n_iter not int32
+        init + (p.t().contiguous().t(), q),                           # not contiguous
+        init + (p[:, :4].contiguous(), q[:, :4].contiguous()),        # shapes
+        tuple(t[:0] for t in init) + (p[:0], q[:0]),                  # an empty batch
+    ]
+    for args in bad_calls:
+        with pytest.raises(ValueError):
+            newton_fallback_cuda(*args, ybus if args[5].shape[0] == 8 else Y)
+    with pytest.raises(ValueError):
+        newton_fallback_cuda(*good, ybus._replace(tap_magn=ybus.tap_magn.double()))
+    with pytest.raises(ValueError):
+        newton_fallback_cuda(*good, (Y[0][:, :5, :5], Y[1][:, :5, :5]))
+    n = 33  # n = 66 unknowns: above the kernel's bodies
+    x = torch.cat([torch.zeros(8, n, device=cuda), torch.ones(8, n, device=cuda)], dim=1)
+    Yw = (torch.zeros(8, n + 1, n + 1, device=cuda),) * 2
+    with pytest.raises(ValueError, match="n <= 64"):
+        newton_fallback_cuda(x, x, torch.ones(8, device=cuda), torch.zeros(8, dtype=torch.int32, device=cuda), None,
+                             torch.zeros(8, n, device=cuda), torch.zeros(8, n, device=cuda), Yw)
+
+
+def test_nr_solve_lazy_on_the_card_takes_a_lane_ybus(cuda):
+    """No silent host loop hides the kernel: a bare callable is refused."""
+    tb, ybus, p, q, x0 = _k3_lanes("ieee33", torch.float32, 8, 8, cuda)
+    init = _k3_chord_init(tb, ybus, p, q, x0)
+    with pytest.raises(TypeError, match="LaneYbus"):
+        pf.nr_solve_lazy(lambda idx: ybus(idx), p, q, init=init)
+
+
+def test_newton_above_64_unknowns_takes_the_wide_route(cuda):
+    """n > 64 (a 48-bus feeder, n = 94): the plain loop around K1's panel
+    routes, counted as the route "wide"; K3 does not launch."""
+    from gym_anm_torch.networks.random_feeder import random_radial_network
+    from gym_anm_torch.physics.newton_cuda import newton_fallback_cuda
+
+    net = random_radial_network(np.random.default_rng(48), 48)
+    tb = make_tables(load_network(net), 1.0, 100, dtype=torch.float64, device=cuda)
+    n, B = tb.n_bus - 1, 4
+    Yre, Yim = (t.expand(B, -1, -1).contiguous() for t in (tb.chord_t.Y0re, tb.chord_t.Y0im))
+    p = torch.full((B, n), -0.002, dtype=torch.float64, device=cuda)
+    k3, wide, k1 = newton_fallback_cuda.launch_count, pf.newton_routes["wide"], solve_gauss_jordan_cuda.launch_count
+    r = pf.nr_solve(Yre, Yim, p, 0.5 * p)
+    assert bool(r.stable.all())
+    assert newton_fallback_cuda.launch_count == k3 and pf.newton_routes["wide"] == wide + 1
+    assert solve_gauss_jordan_cuda.launch_count > k1
+
+
+@pytest.mark.parametrize("task", ["ieee33", "anm6easy"])
+def test_vec_env_steps_on_the_card_without_a_host_sync(cuda, task):
+    """16 steps of VecEnv.step at B = 8192 under set_sync_debug_mode("error"):
+    the chord (K2) and the Newton loop (K3, one launch a step) read no flag
+    on the host; the 9th step starts from bad-basin warm starts, so K3 runs
+    Newton iterations."""
+    from gym_anm_torch.physics.newton_cuda import newton_fallback_cuda
+    from gym_anm_torch.vec import make_anm6easy_task
+
+    env = VecEnv(make_ieee33_task() if task == "ieee33" else make_anm6easy_task(), dtype=torch.float32, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(16)
+    B = 8192
+    state, obs = env.reset(B, g)
+    n = env.spec.n_bus - 1
+    bad = torch.cat([torch.full((B, n), 30.0, device=cuda), torch.ones(B, n, device=cuda)], dim=1)
+    policy = env.random_policy()
+    before = newton_fallback_cuda.launch_count
+    actions = [policy(g, obs, k) for k in range(16)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for k, a in enumerate(actions):
+            if k == 8:
+                state = state._replace(v_guess=bad)
+            state, obs, r, d, info = env.step(state, a, g)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert newton_fallback_cuda.launch_count == before + 16
+    assert bool(torch.isfinite(obs).all())
