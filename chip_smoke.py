@@ -38,9 +38,15 @@ non-zero at the first failure:
    step's fallback inputs; (c) IEEE33 and ANM6 float64 from the flat start
    with a dense Y (nr_solve's route), B = 8192 and B = 1; (d) a batch with no
    unaccepted lane (the launch's own time); (e) a ragged B = 1001 with a
-   zero-pivot lane (non-finite in both): stable and converged equal on every
-   lane, n_iter on >= 99.5%, stable lanes' x within 1e-5 (float32) / 1e-10
-   (float64), the bitwise-equal share, times of both and the bound;
+   zero-pivot lane (non-finite in both); (f) the tail: one lane of (a) among
+   (d)'s accepted ones: stable and converged equal on every lane, n_iter on
+   >= 99.5%, stable lanes' x within 1e-5 (float32) / 1e-10 (float64), the
+   bitwise-equal share, times of the kernel and of PR 13's design
+   (``bench/newton_fallback_pr13.cuh``, in turns, in this call, through the
+   wrapper's checks and allocations) and of the plain version, the lanes
+   that iterate (the 64-row body takes 4 threads a row where they fit the
+   card at once at that width, else 2), the slowest lane's iterations and
+   µs an iteration, and the bound;
 4. TF32 allowed globally changes no step output, bit for bit;
 5. the multicap17 path: ``make_ieee33_multicap_task`` at float32, reset at
    B = 8192, 128 steps of uniform-random 17-dim actions through
@@ -75,7 +81,8 @@ non-zero at the first failure:
    float64 step on the CPU, before the clip, with per-entry tolerances from
    the load flow's accuracy and the entry's sensitivity to the voltages, and
    two controls that must fail them; its env-steps/s, and the share of a
-   step spent in the Newton fallback (K3);
+   step spent in the Newton fallback (K3), beside the same steps with PR
+   13's design of K3 in its place (twice each, in turns);
 9. the MPC farm (``bench.py`` workload 4) and its ADMM kernel K5:
    9a. K5 against its plain version at B = 8192 on the LPs of ANM6Easy reset
    states (N = 1 cold at max_iter 4000, the same lanes warm from their own
@@ -137,8 +144,9 @@ non-zero at the first failure:
    voltages, device P/Q, branch flows, reward, e_loss and penalty within
    1e-8, K3 launched with nr_solve's dense Y (float64, B = 1, n = 10 and
    64); ms per transition on both devices, GPU ops and host syncs of one
-   beside PR 10's (before K3); K1 at B = 1, n = 64 and 10, float64, timed
-   beside ``torch.linalg.solve_ex`` and its bound.
+   beside PR 10's (before K3); ms per transition on the card with PR 13's
+   design of K3 in its place (twice each, in turns); K1 at B = 1, n = 64 and
+   10, float64, timed beside ``torch.linalg.solve_ex`` and its bound.
 14. the host tier over the compat environments on the card (float64, one
    lane; ``gym_anm_torch.compat`` through gymnasium, or where the machine
    lacks it through this script's stand-in module: ``Env``, ``spaces.Box``,
@@ -681,21 +689,29 @@ def bitwise_rows(a, b):
     return same.all(1) if same.dim() > 1 else same
 
 
-def k3_vs_plain(pf, lin, nc, name, args, ybus, plain_ybus, tol, xtol=1e-5, lim_iter=100, time_it=True):
+def k3_vs_plain(pf, lin, nc, base, name, args, ybus, plain_ybus, tol, xtol=1e-5, lim_iter=100):
     """K3 and its plain version (``power_flow._newton_loop`` with the plain
     Gauss-Jordan solve, no kernel in the oracle) on the same card inputs
     ``args`` = (x, F, diff, n_iter, accepted or None, p, q), their results
-    through the shared epilogue ``_nr_result``.  Gates: ``stable`` and
-    ``converged`` equal on every lane, ``n_iter`` equal on >= 99.5% of
-    lanes, x within ``tol`` on the lanes stable in both.  Returns a dict
-    of the readings (bitwise share, times, bound)."""
+    through the shared epilogue ``_nr_result``, and PR 13's design
+    (``base``, ``bench/newton_fallback_pr13.cuh``) on the same inputs.
+    Gates: ``stable`` and ``converged`` equal on every lane, ``n_iter``
+    equal on >= 99.5% of lanes, x within ``tol`` on the lanes stable in
+    both (PR 13's design's agreement is logged).  Returns a dict of the
+    readings (bitwise share, the slowest lane's iterations, times of the
+    kernel, of PR 13's design (timed in turns, in the same call, through
+    the wrapper's checks and allocations) and of the plain version, µs an
+    iteration of the slowest lane, the bound)."""
+    from gym_anm_torch.bench.kernel_probes import pr13_newton
+
     x, F, diff, it, acc, p, q = args
     B, n = x.shape
     f32 = p.dtype == torch.float32
     before = nc.launch_count
-    xk, Fk, dk, ik, sk = nc(x, F, diff, it, acc, p, q, ybus, xtol, lim_iter)
+    out_k = nc(x, F, diff, it, acc, p, q, ybus, xtol, lim_iter)
     torch.cuda.synchronize()
     assert nc.launch_count == before + 1, "K3 did not launch once"
+    xk, Fk, dk, ik, sk = out_k
     acc0 = torch.zeros(B, dtype=torch.bool, device="cuda") if acc is None else acc
     xp, Fp, dp, ip, sp = pf._newton_loop(x, F, diff, it, ~acc0, plain_ybus, p, q, xtol, lim_iter, f32,
                                          lin.solve_gauss_jordan)
@@ -705,13 +721,18 @@ def k3_vs_plain(pf, lin, nc, name, args, ybus, plain_ybus, tol, xtol=1e-5, lim_i
     both = rk.stable & rp.stable
     err = float((xk - xp)[both].abs().max()) if bool(both.any()) else 0.0
     n_it = int((ik == ip).sum())
-    n_bit = int((bitwise_rows(xk, xp) & bitwise_rows(Fk, Fp) & bitwise_rows(dk, dp) & (ik == ip)
-                 & (sk == sp)).sum())
+
+    def same(a, b):  # lanes equal bit for bit on every output
+        return (bitwise_rows(a[0], b[0]) & bitwise_rows(a[1], b[1]) & bitwise_rows(a[2], b[2]) & (a[3] == b[3])
+                & (a[4] == b[4]))
+
+    n_bit = int(same(out_k, (xp, Fp, dp, ip, sp)).sum())
     lane_iters = int((ik - it).sum())
     n_go = int(((ik - it) > 0).sum())
-    out = dict(max_abs_err=err, bitwise=n_bit / B, n_iter_equal=n_it / B, lane_iters=lane_iters)
+    max_it = int((ik - it).max())
+    out = dict(max_abs_err=err, bitwise=n_bit / B, n_iter_equal=n_it / B, lane_iters=lane_iters, max_it=max_it)
     log(f"K3 {name} B={B} n={n} {p.dtype}: {n_go} lanes iterated, {lane_iters} lane-iterations (max "
-        f"{int((ik - it).max())}); stable {int(rk.stable.sum())} / plain {int(rp.stable.sum())}, converged "
+        f"{max_it}); stable {int(rk.stable.sum())} / plain {int(rp.stable.sum())}, converged "
         f"{int(rk.converged.sum())} / {int(rp.converged.sum())}; n_iter equal on {n_it} of {B}; max|dx| on lanes "
         f"stable in both {err:.3e}; bitwise equal (x, F, diff, n_iter, stall) on {n_bit} of {B} lanes "
         f"({n_bit / B:.4f})")
@@ -719,20 +740,30 @@ def k3_vs_plain(pf, lin, nc, name, args, ybus, plain_ybus, tol, xtol=1e-5, lim_i
     assert torch.equal(rk.converged, rp.converged), "K3 and its plain version disagree on converged"
     assert n_it >= math.ceil(0.995 * B), f"K3 n_iter differs on {B - n_it} lanes"
     assert err <= tol, f"K3 x differs by {err:.3e} > {tol:.0e} on a stable lane"
-    if time_it:
-        out["ms"] = statistics.median(cuda_ms(lambda: nc(x, F, diff, it, acc, p, q, ybus, xtol, lim_iter))
-                                      for _ in range(N_REPS))
-        out["plain_ms"] = statistics.median(
-            cuda_ms(lambda: pf._newton_loop(x, F, diff, it, ~acc0, plain_ybus, p, q, xtol, lim_iter, f32,
-                                            lin.solve_gauss_jordan), 3) for _ in range(N_REPS))
-        if hasattr(ybus, "tap_magn"):  # a LaneYbus: the taps and the branch tables
-            y_bytes = x.element_size() * (ybus.tap_magn.numel() + 5 * ybus.f.numel()) + 16 * ybus.f.numel()
-        else:
-            y_bytes = x.element_size() * sum(t.numel() for t in ybus)
-        out["bound_ms"], out["bound_by"] = k3_bound(B, n, x.element_size(), lane_iters, y_bytes)
-        log(f"K3 {name} time (device time, {N_LAUNCH} launches per reading, median of {N_REPS}): kernel "
-            f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms; bound {out['bound_ms']:.4f} ms "
-            f"({out['bound_by']}, {lane_iters} lane-iterations), kernel at {out['bound_ms'] / out['ms']:.4f} of it")
+    pr13 = lambda: pr13_newton(base, x, F, diff, it, acc, p, q, ybus, xtol, lim_iter)  # noqa: E731
+    n_pr13 = int(same(pr13(), out_k).sum())
+    torch.cuda.synchronize()
+    t_new, t_pr13 = [], []
+    for _ in range(N_REPS):  # in turns, in this call
+        t_new.append(cuda_ms(lambda: nc(x, F, diff, it, acc, p, q, ybus, xtol, lim_iter)))
+        t_pr13.append(cuda_ms(pr13))
+    out["ms"], out["pr13_ms"] = statistics.median(t_new), statistics.median(t_pr13)
+    out["plain_ms"] = statistics.median(
+        cuda_ms(lambda: pf._newton_loop(x, F, diff, it, ~acc0, plain_ybus, p, q, xtol, lim_iter, f32,
+                                        lin.solve_gauss_jordan), 3) for _ in range(N_REPS))
+    if hasattr(ybus, "tap_magn"):  # a LaneYbus: the taps and the branch tables
+        y_bytes = x.element_size() * (ybus.tap_magn.numel() + 5 * ybus.f.numel()) + 16 * ybus.f.numel()
+    else:
+        y_bytes = x.element_size() * sum(t.numel() for t in ybus)
+    out["bound_ms"], out["bound_by"] = k3_bound(B, n, x.element_size(), lane_iters, y_bytes)
+    per_it = f"{1e3 * out['ms'] / max_it:.2f} µs (PR 13's {1e3 * out['pr13_ms'] / max_it:.2f})" if max_it else "-"
+    log(f"K3 {name} time (device time, {N_LAUNCH} launches per reading, median of {N_REPS}, in turns with PR 13's "
+        f"design): kernel {out['ms']:.4f} ms ({n_go} lanes iterate), PR 13's design {out['pr13_ms']:.4f} "
+        f"ms ({out['pr13_ms'] / out['ms']:.2f}x), plain {out['plain_ms']:.4f} ms; bound {out['bound_ms']:.4f} ms "
+        f"({1e3 * out['bound_ms']:.4g} µs, {out['bound_by']}, {lane_iters} lane-iterations), kernel at "
+        f"{out['bound_ms'] / out['ms']:.4f} of it; "
+        f"slowest lane {max_it} iterations, {per_it} an iteration; PR 13's design bitwise the kernel on "
+        f"{n_pr13} of {B}")
     return out
 
 
@@ -774,16 +805,17 @@ def dense_oracle(Yre, Yim):
     return (lambda idx: (Yre, Yim)) if Yre.dim() == 2 else (lambda idx: (Yre[idx], Yim[idx]))
 
 
-def phase3b_newton_kernel(pf, lin, nc, VecEnv, make_ieee33_task, make_anm6easy_task, LaneYbus):
-    """K3 against its plain version on the card, sets (a)-(e): (a) IEEE33
+def phase3b_newton_kernel(pf, lin, nc, base, VecEnv, make_ieee33_task, make_anm6easy_task, LaneYbus):
+    """K3 against its plain version on the card, sets (a)-(f): (a) IEEE33
     float32 after the chord from the bad-basin guesses (every lane
     unaccepted) under random loads, random taps through the LaneYbus; (b) ANM6Easy float32 (n =
     10) at a real step's fallback inputs (its collapsing lanes); (c) IEEE33
     and ANM6 float64 from the flat start with a dense Y (nr_solve's route), at
     B = 8192 and at B = 1; (d) a batch with no unaccepted lane (the launch's
     own time); (e) a ragged B = 1001 from the flat start with lane 1's Y
-    zero (a zero pivot: non-finite in both).  Returns the (a) set's numbers
-    for the kernels' line."""
+    zero (a zero pivot: non-finite in both); (f) the tail: one lane of (a)
+    among (d)'s accepted ones.  Each set is timed beside PR 13's design
+    (``base``).  Returns the (a) set's numbers for the kernels' line."""
     log(f"== phase 3b: K3 (the exact-Newton fallback) against its plain version, B={B_MAIN}")
     g = torch.Generator(device="cuda").manual_seed(31)
     env32 = VecEnv(make_ieee33_task(), dtype=torch.float32, device="cuda")
@@ -807,13 +839,14 @@ def phase3b_newton_kernel(pf, lin, nc, VecEnv, make_ieee33_task, make_anm6easy_t
     # (a) every lane unaccepted by the chord.
     init = pf.chord_solve(p, q, di, dr, dr, di, tb.chord_t, x0=bad_guesses(B, n).to("cuda"))
     assert not bool(init[4].any()), "set (a): a lane was accepted by the chord"
-    results["a"] = k3_vs_plain(pf, lin, nc, "(a) IEEE33 after the chord from bad-basin guesses", init + (p, q),
+    init_a = init
+    results["a"] = k3_vs_plain(pf, lin, nc, base, "(a) IEEE33 after the chord from bad-basin guesses", init + (p, q),
                                ybus, ybus, 1e-5)
 
     # (b) ANM6Easy at a real step's fallback inputs.
     a6_ybus, a6_p, a6_q, a6_init = task_newton_inputs(VecEnv, make_anm6easy_task(), 8, 12)
     log(f"K3 (b): {int((~a6_init[4]).sum())} of {B} ANM6Easy lanes unaccepted by the chord at step 8")
-    results["b"] = k3_vs_plain(pf, lin, nc, "(b) ANM6Easy at a step's injections", tuple(a6_init) + (a6_p, a6_q),
+    results["b"] = k3_vs_plain(pf, lin, nc, base, "(b) ANM6Easy at a step's injections", tuple(a6_init) + (a6_p, a6_q),
                                a6_ybus, a6_ybus, 1e-5)
 
     # (c) float64 from the flat start, dense Y, at B = 8192 and B = 1.
@@ -827,7 +860,7 @@ def phase3b_newton_kernel(pf, lin, nc, VecEnv, make_ieee33_task, make_anm6easy_t
             Y = (Yre[:BB].contiguous(), Yim[:BB].contiguous())
             start = flat_start(pf, *Y, p64[:BB].contiguous(), q64[:BB].contiguous())
             results[f"c {net} {BB}"] = k3_vs_plain(
-                pf, lin, nc, f"(c) {net} float64 from the flat start", start + (None, p64[:BB].contiguous(),
+                pf, lin, nc, base, f"(c) {net} float64 from the flat start", start + (None, p64[:BB].contiguous(),
                                                                                  q64[:BB].contiguous()),
                 Y, dense_oracle(*Y), 1e-10)
 
@@ -837,7 +870,14 @@ def phase3b_newton_kernel(pf, lin, nc, VecEnv, make_ieee33_task, make_anm6easy_t
     xk, Fk, dk, ik, sk = nc(*init, p, q, ybus)
     assert torch.equal(xk, init[0]) and torch.equal(Fk, init[1]) and torch.equal(dk, init[2]) and \
         torch.equal(ik, init[3]) and not bool(sk.any()), "set (d): a lane that does not iterate moved"
-    results["d"] = k3_vs_plain(pf, lin, nc, "(d) no lane unaccepted", init + (p, q), ybus, ybus, 1e-5)
+    results["d"] = k3_vs_plain(pf, lin, nc, base, "(d) no lane unaccepted", init + (p, q), ybus, ybus, 1e-5)
+
+    # (f) the tail: (a)'s lane 1 (the vm < 0 guess) among (d)'s accepted lanes.
+    tail = torch.zeros(B, dtype=torch.bool, device="cuda")
+    tail[1] = True
+    init_f = tuple(torch.where(tail.view(-1, *[1] * (a.dim() - 1)), a, d).contiguous() for a, d in zip(init_a, init))
+    results["f"] = k3_vs_plain(pf, lin, nc, base, "(f) the tail: one lane of (a) among accepted ones",
+                               init_f + (p, q), ybus, ybus, 1e-5)
 
     # (e) ragged B with a zero pivot: lane 1's Y is zero, its Jacobian too.
     Be = min(1001, B)
@@ -848,11 +888,14 @@ def phase3b_newton_kernel(pf, lin, nc, VecEnv, make_ieee33_task, make_anm6easy_t
     xp = pf._newton_loop(*start, torch.ones(Be, dtype=torch.bool, device="cuda"), dense_oracle(Yre, Yim),
                          p[:Be], q[:Be], 1e-5, 100, True, lin.solve_gauss_jordan)[0]
     assert not bool(torch.isfinite(xk[1]).all()) and not bool(torch.isfinite(xp[1]).all()), "zero pivot repaired"
-    results["e"] = k3_vs_plain(pf, lin, nc, "(e) ragged B with a zero-pivot lane", start + (None, p[:Be].contiguous(),
-                                                                                          q[:Be].contiguous()),
-                               (Yre, Yim), dense_oracle(Yre, Yim), 1e-5)
+    results["e"] = k3_vs_plain(pf, lin, nc, base, "(e) ragged B with a zero-pivot lane",
+                               start + (None, p[:Be].contiguous(), q[:Be].contiguous()), (Yre, Yim),
+                               dense_oracle(Yre, Yim), 1e-5)
     log("K3 sets: " + ", ".join(f"{k}: bitwise {v['bitwise']:.4f}, n_iter equal {v['n_iter_equal']:.4f}, "
-                                f"{v['ms']:.4f} ms (plain {v['plain_ms']:.4f})" for k, v in results.items()))
+                                f"{v['ms']:.4f} ms (PR 13's design {v['pr13_ms']:.4f}, plain {v['plain_ms']:.4f}; "
+                                f"bound {v['bound_ms']:.4f}, {v['bound_by']}; slowest lane {v['max_it']} iterations"
+                                + (f", {1e3 * v['ms'] / v['max_it']:.2f} µs an iteration)" if v["max_it"] else ")")
+                                for k, v in results.items()))
     ra = results["a"]
     return dict(max_abs_err=max(v["max_abs_err"] for k, v in results.items() if not k.startswith("c")),
                 ms=ra["ms"], plain_ms=ra["plain_ms"], bound_ms=ra["bound_ms"], bound_by=ra["bound_by"],
@@ -1500,7 +1543,7 @@ def replay_anm6easy(VecEnv, make_anm6easy_task, plan, build_ybus, record):
     assert worst_r_c1 > 1, "reward: control C1 passes its tolerance"
 
 
-def phase8_anm6easy(VecEnv, make_anm6easy_task, STATE_VARIABLES, build_ybus, kernel, chord_k):
+def phase8_anm6easy(VecEnv, make_anm6easy_task, STATE_VARIABLES, build_ybus, kernel, chord_k, base):
     from gym_anm_torch.vec.core import tree_map
 
     B, T = B_MAIN, 96
@@ -1569,8 +1612,11 @@ def phase8_anm6easy(VecEnv, make_anm6easy_task, STATE_VARIABLES, build_ybus, ker
     # Where a step's time goes: wall time inside the Newton fallback (the
     # step's and the resets'; the card synchronized at its entry and exit:
     # one K3 launch a call) against the whole step, and the fallback's Newton
-    # iterations (K1's solves inside K3) per step.
+    # iterations (K1's solves inside K3) per step; the same steps from the
+    # same state with PR 13's design of K3 in its place, in turns.
     # (by import_module: the package's ``transition`` attribute is the function)
+    from gym_anm_torch.bench.kernel_probes import pr13_newton
+
     transition_module = importlib.import_module("gym_anm_torch.physics.transition")
     real_nr, in_nr = transition_module.nr_solve_lazy, [0.0]
 
@@ -1582,23 +1628,65 @@ def phase8_anm6easy(VecEnv, make_anm6easy_task, STATE_VARIABLES, build_ybus, ker
         in_nr[0] += time.perf_counter() - t0
         return out
 
-    n_split = 32
-    state, _ = env.reset(B, g)
-    transition_module.nr_solve_lazy = timed_nr
-    try:
-        kernel.launch_count = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n_split):
-            state, *_ = env.step_autoreset_batch(state, uniform_actions(env, B, g), g)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / n_split
-    finally:
-        transition_module.nr_solve_lazy = real_nr
-    log(f"ANM6Easy step split ({n_split} steps): wall {1e3 * wall:.3f} ms/step, of which the Newton fallback "
-        f"(K3) {1e3 * in_nr[0] / n_split:.3f} ms ({in_nr[0] / n_split / wall:.3f}); "
-        f"{kernel.launch_count / n_split:.2f} K3 launches and {kernel.solves / n_split:.2f} lane-iterations of "
-        f"Newton (K1's solves inside K3) per step")
+    pr13_calls = []
+
+    def pr13_fallback(x, F, diff, n_iter, accepted, p, q, ybus, xtol=1e-5, lim_iter=100):
+        # As K3Counts around K3: through the wrapper's checks and allocations, the outputs kept.
+        out = pr13_newton(base, x, F, diff, n_iter, accepted, p, q, ybus, xtol, lim_iter)
+        pr13_calls.append((n_iter, out[3]))
+        return out
+
+    pf = importlib.import_module("gym_anm_torch.physics.power_flow")
+    n_split, splits = 32, {"K3": [], "PR 13's design": []}
+    for design in ("K3", "PR 13's design", "K3", "PR 13's design"):
+        g_split = torch.Generator(device="cuda").manual_seed(88)
+        state, _ = env.reset(B, g_split)
+        transition_module.nr_solve_lazy = timed_nr
+        if design != "K3":
+            pf.newton_fallback_cuda = pr13_fallback
+        in_nr[0] = 0.0
+        try:
+            kernel.launch_count = 0
+            pr13_calls.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n_split):
+                state, *_ = env.step_autoreset_batch(state, uniform_actions(env, B, g_split), g_split)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / n_split
+        finally:
+            transition_module.nr_solve_lazy = real_nr
+            pf.newton_fallback_cuda = kernel
+        splits[design].append((wall, in_nr[0] / n_split))
+        if design == "K3":
+            k3_launches, k3_solves = kernel.launch_count, kernel.solves
+    (wall, nr), (wall13, nr13) = ([statistics.mean(v) for v in zip(*splits[k])] for k in splits)
+    # The kernels' own device time on the same steps (torch.profiler): the
+    # host clock above also holds the wrapper's Python and the syncs.
+    from torch.profiler import ProfilerActivity, profile
+
+    k3_us, pr13 = {}, "PR 13's design"
+    for design in splits:
+        g_split = torch.Generator(device="cuda").manual_seed(88)
+        state, _ = env.reset(B, g_split)
+        if design != "K3":
+            pf.newton_fallback_cuda = pr13_fallback
+        try:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(n_split):
+                    state, *_ = env.step_autoreset_batch(state, uniform_actions(env, B, g_split), g_split)
+                torch.cuda.synchronize()
+        finally:
+            pf.newton_fallback_cuda = kernel
+        k3_us[design] = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                            if e.device_type == torch.autograd.DeviceType.CUDA and "newton_kernel" in e.name) / n_split
+    log(f"ANM6Easy step split ({n_split} steps, twice each in turns): wall {1e3 * wall:.3f} ms/step, of which the "
+        f"Newton fallback (K3) {1e3 * nr:.3f} ms ({nr / wall:.3f}); with PR 13's design of K3 in its place "
+        f"{1e3 * wall13:.3f} ms/step, the fallback {1e3 * nr13:.3f} ms ({nr13 / wall13:.3f}); K3's device time "
+        f"(torch.profiler, the same steps) {k3_us['K3']:.2f} µs a step, PR 13's design's {k3_us[pr13]:.2f}; "
+        f"{k3_launches / n_split:.2f} K3 launches and {k3_solves / n_split:.2f} lane-iterations of Newton (K1's "
+        f"solves inside K3) per step")
     return launches, chord_launches, rate, solves
 
 
@@ -2476,11 +2564,15 @@ def run_simulator(sim, s0, steps):
 PR10_TRANSITION = {"ANM6": (1340, 7), "IEEE33": (630, 7)}
 
 
-def phase13_simulator(lin, kernel):
+def phase13_simulator(lin, kernel, base):
     """The compat ``Simulator`` (float64, one lane) on the card against the
     CPU, its GPU ops and host syncs per transition (its Newton loop one K3
-    launch with the dense Y of ``nr_solve``), and K1 at B = 1, float64 (the
-    size of its solves inside K3), beside ``solve_ex``."""
+    launch with the dense Y of ``nr_solve``), the same transitions with PR
+    13's design of K3 in its place (``base``; in turns, both designs through
+    the wrapper's checks and allocations and a list of their outputs), and
+    K1 at B = 1, float64 (the size of its solves inside K3), beside
+    ``solve_ex``."""
+    from gym_anm_torch.bench.kernel_probes import pr13_newton
     from gym_anm_torch.env import Simulator
     from gym_anm_torch.networks import anm6_network, ieee33_network
 
@@ -2525,6 +2617,32 @@ def phase13_simulator(lin, kernel):
         ops, syncs = count_ops(lambda: card.transition(*steps[-1]), count_ops(lambda: None))
         log(f"13a {name}: GPU ops {ops} and host syncs {syncs} in one transition on the card (before K3, PR 10: "
             f"{PR10_TRANSITION[name][0]} ops, {PR10_TRANSITION[name][1]} syncs)")
+
+        # The host clock's A/B of K3 and PR 13's design at B = 1: the same
+        # transitions, K3 (through K3Counts) and PR 13's design (through the
+        # same checks, allocations and a list of its outputs) in turns.
+        pf = importlib.import_module("gym_anm_torch.physics.power_flow")
+        pr13 = "PR 13's design"
+        pr13_calls, ab = [], {"K3": [], pr13: []}
+
+        def pr13_fallback(x, F, diff, n_iter, accepted, p, q, ybus, xtol=1e-5, lim_iter=100):
+            out = pr13_newton(base, x, F, diff, n_iter, accepted, p, q, ybus, xtol, lim_iter)
+            pr13_calls.append((n_iter, out[3]))
+            return out
+
+        for design in ("K3", pr13) * 2:
+            kernel.launch_count = 0
+            pr13_calls.clear()
+            pf.newton_fallback_cuda = kernel if design == "K3" else pr13_fallback
+            try:
+                out_ab, ms_ab, _ = run_simulator(card, s0, steps)
+            finally:
+                pf.newton_fallback_cuda = kernel
+            assert all(a[4] == b[4] for a, b in zip(out_ab, out_card)), f"{name}: {design} moved a flag"
+            ab[design].append(ms_ab)
+        log(f"13a {name}: ms per transition with K3 / with PR 13's design in its place (host clock, {T} steps, "
+            f"twice each in turns): {', '.join(f'{t:.3f}' for t in ab['K3'])} / "
+            f"{', '.join(f'{t:.3f}' for t in ab[pr13])}")
 
     for n in (64, 10):
         g = torch.Generator(device="cuda").manual_seed(n)
@@ -3281,7 +3399,8 @@ def main():
              make_anm6easy_task)
     launches, chord_launches, solves = run(phase2_main_path, VecEnv, make_ieee33_task, kernel, chord_solve_cuda)
     run(phase3_fallback, VecEnv, make_ieee33_task, pf, ybus, kernel)
-    k3 = run(phase3b_newton_kernel, pf, lin, nc, VecEnv, make_ieee33_task, make_anm6easy_task, ybus.LaneYbus)
+    k3 = run(phase3b_newton_kernel, pf, lin, nc, base, VecEnv, make_ieee33_task, make_anm6easy_task,
+             ybus.LaneYbus)
     run(phase4_tf32, VecEnv, make_ieee33_task)
     mc_launches, mc_chord_launches, mc_solves = run(phase5_multicap, VecEnv, make_ieee33_multicap_task, transition,
                                                     kernel, chord_solve_cuda)
@@ -3290,7 +3409,7 @@ def main():
                                                        transition, kernel, chord_solve_cuda, bare_rate)
     a6_launches, a6_chord_launches, a6_rate, a6_solves = run(phase8_anm6easy, VecEnv, make_anm6easy_task,
                                                              STATE_VARIABLES, ybus.build_ybus, kernel,
-                                                             chord_solve_cuda)
+                                                             chord_solve_cuda, base)
     cold_set, k5 = run(phase9a_admm_kernel, mpc, solve_dcopf_cuda, VecEnv, make_anm6easy_task,
                        make_ieee33_renewable_task)
     run(phase9b_highs, mpc, cold_set)
@@ -3300,7 +3419,7 @@ def main():
     k2w, k1g, k1s = run(phase10_feeders, pf, lin, chord_solve_cuda, VecEnv, base)
     ppo_k3, ppo_k2, ppo_k1 = run(phase11_ppo, VecEnv, make_ieee33_multicap_task, kernel, chord_solve_cuda)
     cql_k3, cql_k2, cql_k1 = run(phase12_cql, kernel, chord_solve_cuda)
-    sim_k3, _, sim_k1 = run(phase13_simulator, lin, kernel)
+    sim_k3, _, sim_k1 = run(phase13_simulator, lin, kernel, base)
     host_k3, host_k1 = run(phase14_host_tier, kernel)
     tail_k3, tail_k2, tail_k5, tail_k1 = run(phase15_render_examples_scripts, kernel, chord_solve_cuda,
                                              solve_dcopf_cuda, smi_line)

@@ -56,10 +56,10 @@ _SIGNATURES = {
     "admm_scratch_bytes": [_I, _I, _I],
     # (x_in, F_in, diff_in, it_in, accepted, p, q, Yre, Yim, y_stride, br_f,
     #  br_t, series_re, series_im, shunt_im, shift_cos, shift_sin, tap_magn,
-    #  n_branch, xtol, lim_iter, x, F, diff, n_iter, stall, next_lane, B, nb,
-    #  stream)
-    "newton_fallback_f32": [_P] * 9 + [_L] + [_P] * 8 + [_I, _D, _I] + [_P] * 6 + [_I, _I, _P],
-    "newton_fallback_f64": [_P] * 9 + [_L] + [_P] * 8 + [_I, _D, _I] + [_P] * 6 + [_I, _I, _P],
+    #  n_branch, xtol, lim_iter, x, F, diff, n_iter, stall, counters, work,
+    #  B, nb, stream)
+    "newton_fallback_f32": [_P] * 9 + [_L] + [_P] * 8 + [_I, _D, _I] + [_P] * 7 + [_I] * 2 + [_P],
+    "newton_fallback_f64": [_P] * 9 + [_L] + [_P] * 8 + [_I, _D, _I] + [_P] * 7 + [_I] * 2 + [_P],
 }
 _RESTYPES = {"admm_scratch_bytes": ctypes.c_longlong}  # every other entry point returns an int
 
@@ -77,11 +77,13 @@ def _nvcc():
 
 def library_path(sources=None, stem="libgym_anm_kernels", build_dir=None):
     """Path of the shared library for ``sources`` (default: every
-    ``csrc/*.cu``), the headers beside them and the flags, under
-    ``build_dir`` (default ``BUILD_DIR``)."""
+    ``csrc/*.cu``), the headers beside them and in ``csrc/`` (which the
+    baselines include) and the flags, under ``build_dir`` (default
+    ``BUILD_DIR``)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     sources = sorted(sources or CSRC_DIR.glob("*.cu"))
-    headers = sorted({hdr for src in sources for hdr in Path(src).parent.glob("*.cuh")})
+    headers = sorted({hdr for src in sources for hdr in Path(src).parent.glob("*.cuh")}
+                     | set(CSRC_DIR.glob("*.cuh")))
     for src in sources + headers:
         h.update(src.name.encode())
         h.update(src.read_bytes())

@@ -34,14 +34,27 @@
    at each panel width that fits, beside the blocked route on the same
    systems, the one-block design (``gauss_jordan_smem.cu``), ``solve_ex``
    and, at float64 n = 48 and 64, the register route's float64 bodies.
+8. K3 (``csrc/newton_fallback.cuh``): copies with ``clock64`` counters, one
+   a variant of the source (:data:`NEWTON_VARIANTS`: as built, the 64-row
+   body held at 2 or at 4 threads a row whatever the worklist's length, zero
+   dividends divided), on ``chip_smoke.py`` phase 3b's sets (a), (c) at
+   B = 1 and (f): cycles of a lane's start and,
+   by lane-iteration, of the Jacobian, the sweeps, x with the vectors and F
+   with the max, a block's triage and barrier, and each copy's time beside
+   PR 13's design (``newton_fallback_pr13.cuh``).
 
 The earlier designs of K1's shared-memory route (the one-block design: a
 block per system, two block barriers a sweep) and of its route above the
-card's shared memory (the matrix swept in device memory), and of the wide
-chord kernel (one block per lane) stay in ``gauss_jordan_smem.cu``, ``gauss_jordan_gmem.cu`` and
-``chord_newton_wide_lane.cu`` as the baselines of probes 5 to 7 and of
-``chip_smoke.py`` phases 1 and 10 (:func:`load_baselines`,
-:func:`one_block_solve`, :func:`gmem_solve`, :func:`lane_chord`).
+card's shared memory (the matrix swept in device memory), of the wide chord
+kernel (one block per lane) and of K3 (PR 13's: a lane slot per system of
+K1's register route, lanes claimed one at a time) stay in
+``gauss_jordan_smem.cu``, ``gauss_jordan_gmem.cu``,
+``chord_newton_wide_lane.cu`` and ``newton_fallback_pr13.cuh`` (entry points
+in ``newton_fallback_pr13_f32.cu`` and ``_f64.cu``, the high halves of its
+bodies in ``_f32_high.cu`` and ``_f64_high.cu``) as the baselines of
+probes 5 to 8 and of ``chip_smoke.py`` phases 1, 3b and 10
+(:func:`load_baselines`, :func:`one_block_solve`, :func:`gmem_solve`,
+:func:`lane_chord`, :func:`pr13_newton`).
 
 The copies are built into ``build/kernels/probe/``; the counters cost
 registers, so the instrumented K2 runs ~15% slower than the kernel itself
@@ -143,6 +156,185 @@ def instrument_gj(src):
                   " atomicAdd(&g_probe[0], (unsigned long long)(clock64() - t0));"
                   " atomicAdd(&g_probe[1], 1ull); }\n" + b)
     return s.replace("namespace {\n", COUNTERS, 1) + READOUT
+
+
+NEWTON_STEPS = ["lane start (Y, vectors)", "Jacobian", "sweeps", "x, vectors", "F, max, exit test"]
+# The bodies the probe builds: n = 10's (one warp a lane) and the 64-row body.
+NEWTON_BODIES = (10, 64)
+
+
+def instrument_newton(src):
+    """K3's device code (``newton_fallback.cuh``) with cycle counters: thread 0
+    of every group sums its lanes' start (claim to the first vectors), and by
+    lane-iteration the Jacobian, the sweeps, x with the vectors, and F with
+    the max and the exit test; thread 0 of every block its triage and grid
+    barrier.  Then an entry ``k3_probe`` for :data:`NEWTON_BODIES`."""
+    marks = ("    const int i = claim<GW>(P.counters + 1, count, cell, g, bar);\n",
+             "    while (true) {\n      // Thread (r, t)'s entries",
+             "      // The elimination, then x <- x - J^-1 F",
+             "      sweep_rounds<T, NP, TW>(std::make_integer_sequence<int, SS::U>{}, m, r, t, pb, src0, bar);\n",
+             "      T vmax = T(0);\n",
+             "      const bool improving = vmax < mul_rn(diff, T(0.5));",
+             "  triage(P, NP <= 32 ? NP : 2 * P.nb);\n",
+             "  const int count = __ldcg(P.counters);\n",
+             "  const int bar = 1 + gi;\n")
+    assert all(src.count(m) == 1 for m in marks), "K3's layout changed"
+    clk = lambda q: f"{{ const long long tq = clock64(); T_[{q}] += tq - t_; t_ = tq; }}\n"  # noqa: E731
+    s = src.replace(marks[6], "  const long long tk_ = clock64();\n" + marks[6])
+    s = s.replace(marks[7], marks[7] + "  if (threadIdx.x == 0) { atomicAdd(&g_probe[8], (unsigned long long)"
+                  "(clock64() - tk_)); atomicAdd(&g_probe[9], 1ull); }\n")
+    s = s.replace(marks[8], marks[8] + "  long long T_[5] = {}, t_ = 0;\n  unsigned long long its_ = 0, lanes_ = 0;\n")
+    s = s.replace(marks[0], "    t_ = clock64();\n" + marks[0])
+    s = s.replace(marks[1], "    " + clk(0) + "    ++lanes_;\n" + marks[1])
+    s = s.replace(marks[2], "      " + clk(1) + marks[2])
+    s = s.replace(marks[3], marks[3] + "      " + clk(2))
+    s = s.replace(marks[4], "      " + clk(3) + marks[4])
+    s = s.replace(marks[5], "      " + clk(4) + "      ++its_;\n" + marks[5])
+    tail = "      P.stall[b] = stall;\n    }\n  }\n}\n"
+    assert s.count(tail) == 1, "K3's layout changed"
+    s = s.replace(tail, "      P.stall[b] = stall;\n    }\n  }\n  if (g == 0) {\n    for (int q = 0; q < 5; ++q) "
+                  "atomicAdd(&g_probe[q], (unsigned long long)T_[q]);\n    atomicAdd(&g_probe[5], its_);\n"
+                  "    atomicAdd(&g_probe[6], lanes_);\n  }\n}\n")
+    s = s.replace('#include "gauss_jordan.cuh"\n',
+                  '#include "gauss_jordan.cuh"\n__device__ unsigned long long g_probe[16];\n')
+    entry = ['\ntemplate <typename T>\nint k3_probe_t(bool lane_y, int np, void** a, long long y_stride, '
+             'int n_branch, double xtol, int lim_iter, int B, int nb, cudaStream_t st) {\n'
+             '  const NewtonParams<T> P{(const T*)a[0], (const T*)a[1], (const T*)a[2], (const int*)a[3], '
+             '(const unsigned char*)a[4], (const T*)a[5], (const T*)a[6], (const T*)a[7], (const T*)a[8], y_stride, '
+             '(const long long*)a[9], (const long long*)a[10], (const T*)a[11], (const T*)a[12], (const T*)a[13], '
+             '(const T*)a[14], (const T*)a[15], (const T*)a[16], n_branch, (T)xtol, lim_iter, (T*)a[17], (T*)a[18], '
+             '(T*)a[19], (int*)a[20], (int*)a[21], (int*)a[22], (int*)a[23], B, nb};\n']
+    for n in NEWTON_BODIES:
+        for y in ("true", "false"):
+            entry.append(f"  if (np == {n} && lane_y == {y}) return launch_newton<T, {n}, {y}>(P, st);\n")
+    entry.append("  return -1;\n}\n}  // namespace\n\n"
+                 'extern "C" int k3_probe(int f64, int lane_y, int np, void** a, long long y_stride, int n_branch, '
+                 "double xtol, int lim_iter, int B, int nb, void* st) {\n"
+                 "  const cudaStream_t s = static_cast<cudaStream_t>(st);\n"
+                 "  return f64 ? k3_probe_t<double>(lane_y, np, a, y_stride, n_branch, xtol, lim_iter, B, nb, s)\n"
+                 "             : k3_probe_t<float>(lane_y, np, a, y_stride, n_branch, xtol, lim_iter, B, nb, s);\n}\n")
+    end = "\n}  // namespace\n"
+    assert s.endswith(end)
+    return s[: -len(end)] + "".join(entry) + READOUT
+
+
+def newton_probe_call(lib, args, ybus):
+    """One launch of the instrumented K3 (``lib``) on ``newton_fallback_cuda``'s
+    arguments; returns its five outputs."""
+    x, F, diff, it, acc, p, q = args
+    B, nb = p.shape
+    outs = [torch.empty_like(x), torch.empty_like(F), torch.empty_like(diff), torch.empty_like(it),
+            torch.empty_like(it)]
+    scratch = torch.zeros(3 + B, dtype=torch.int32, device=p.device)  # the counters, then the worklist
+    lane_y = hasattr(ybus, "tap_magn")
+    if lane_y:
+        y = [None, None, ybus.f, ybus.t, ybus.series_re, ybus.series_im, ybus.shunt_im, ybus.shift_cos,
+             ybus.shift_sin, ybus.tap_magn]
+        y_stride, n_branch = 0, ybus.f.shape[0]
+    else:
+        y = [ybus[0], ybus[1]] + [None] * 8
+        y_stride, n_branch = (ybus[0].shape[-1] ** 2 if ybus[0].dim() == 3 else 0), 0
+    tensors = [x, F, diff, it, acc, p, q] + y + outs + [scratch]
+    ptrs = [None if t is None else t.data_ptr() for t in tensors] + [scratch.data_ptr() + 12]
+    ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    rc = lib.k3_probe(int(p.dtype == torch.float64), int(lane_y), 2 * nb, ptrs, y_stride, n_branch,
+                      ctypes.c_double(1e-5), 100, B, nb, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    assert rc == 0, f"the instrumented K3 failed with {rc}"
+    return outs
+
+
+def probe_newton_sets():
+    """Phase 3b's IEEE33 sets (a), (c) at B = 8192 and 1, (d) and (f): name ->
+    (args, ybus)."""
+    from ..physics import power_flow as pf
+    from ..physics.ybus import LaneYbus
+
+    sets = {}
+    for dtype in (torch.float32, torch.float64):
+        tb = VecEnv(make_ieee33_task(), dtype=dtype).tables
+        n, B = tb.n_bus - 1, 8192
+        g = torch.Generator(device="cuda").manual_seed(31)
+        p = (-0.01 * (1.0 + torch.rand(B, n, generator=g, device="cuda"))).to(dtype)
+        q = 0.5 * p
+        a = (0.9 + 0.2 * torch.rand(B, generator=g, device="cuda")).to(dtype)
+        tap = tb.tap0.expand(B, -1).clone()
+        tap[:, tb.oltc_branch] = a.unsqueeze(1)
+        ybus = LaneYbus(tb.n_bus, tb.br_f, tb.br_t, tb.series_re, tb.series_im, tb.shunt_im, tb.shift_cos,
+                        tb.shift_sin, tap)
+        if dtype == torch.float32:
+            inv_da = 1.0 / a - 1.0 / tb.chord_a0
+            dr, di = -tb.chord_y_re * inv_da, -tb.chord_y_im * inv_da
+            pats = torch.stack([torch.cat([torch.zeros(n), torch.full((n,), v)]) for v in (1e-6, -1.0)]
+                               + [torch.cat([torch.full((n,), 30.0), torch.ones(n)])]).to("cuda")
+            bad = pf.chord_solve(p, q, di, dr, dr, di, tb.chord_t, x0=pats.repeat(B // 3 + 1, 1)[:B].contiguous())
+            good = pf.chord_solve(p, q, di, dr, dr, di, tb.chord_t)
+            sets["(a) IEEE33 f32 B=8192"] = (tuple(bad) + (p, q), ybus)
+            sets["(d) IEEE33 f32 no lane iterates"] = (tuple(good) + (p, q), ybus)
+            tail = torch.zeros(B, dtype=torch.bool, device="cuda")
+            tail[1] = True
+            init = tuple(torch.where(tail.view(-1, *[1] * (u.dim() - 1)), u, v).contiguous() for u, v in zip(bad, good))
+            sets["(f) IEEE33 f32 tail"] = (init + (p, q), ybus)
+        else:
+            for b in (B, 1):
+                Y = tuple(t[:b].contiguous() for t in ybus(slice(0, b)))
+                x = torch.cat([torch.zeros(b, n, dtype=dtype, device="cuda"),
+                               torch.ones(b, n, dtype=dtype, device="cuda")], dim=1)
+                pb, qb = p[:b].contiguous(), q[:b].contiguous()
+                F, _ = pf._mismatch(x, pb, qb, *Y, n)
+                sets[f"(c) IEEE33 f64 B={b}"] = ((x, F, torch.amax(F.abs(), 1),
+                                                  torch.zeros(b, dtype=torch.int32, device="cuda"), None, pb, qb), Y)
+    return sets
+
+
+# Variants of K3's source the probe builds beside it: name -> edit.  The
+# width variants hold the 64-row body at one width whatever the worklist's
+# length (the kernel picks 4 threads a row where the lanes that iterate fit
+# its groups at once, else 2).
+_K3_RULE = "    if (count <= static_cast<int>(gridDim.x) * BB::G_HI) {\n"
+_K3_FACTOR = ("    const T q = div_rn(zero ? T(1) : mk, piv);\n"
+              "    const T f = mul_rn(zero ? mul_rn(mk, copysign(T(1), piv)) : q, r == k ? T(0) : T(1));\n")
+NEWTON_VARIANTS = {
+    "as built": lambda s: s,
+    "2 threads a row throughout": lambda s: s.replace(_K3_RULE, "    if (false) {\n"),
+    "4 threads a row throughout": lambda s: s.replace(_K3_RULE, "    if (true) {\n"),
+    "zero dividends divided": lambda s: s.replace(
+        _K3_FACTOR, "    const T f = mul_rn(div_rn(mk, piv), r == k ? T(0) : T(1));\n"),
+}
+
+
+def probe_newton(variants=NEWTON_VARIANTS):
+    """K3 by step (instrumented copies, one a variant of the source): cycles
+    of a lane-iteration in the Jacobian, the sweeps, x with the vectors, and
+    F with the max, and of a lane's start and a block's triage, on phase
+    3b's sets (a), (c) at B = 1 and (f); each copy's time beside PR 13's
+    design's."""
+    import concurrent.futures
+
+    src = (_build.CSRC_DIR / "newton_fallback.cuh").read_text()
+    assert all(edit(src) != src for name, edit in variants.items() if name != "as built"), "K3's layout changed"
+    with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:
+        libs = dict(zip(variants, pool.map(lambda iv: load(instrument_newton(iv[1](src)), f"k3_probe_{iv[0]}"),
+                                           enumerate(variants.values()))))
+    for lib in libs.values():
+        lib.k3_probe.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                                                       ctypes.c_double] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.k3_probe.restype = ctypes.c_int
+    base = load_baselines()
+    for name, (args, ybus) in probe_newton_sets().items():
+        ref = pr13_newton(base, *args, ybus)
+        t_pr13 = statistics.median(device_ms(lambda: pr13_newton(base, *args, ybus)) for _ in range(5))
+        for variant, lib in libs.items():
+            lib.probe_zero()
+            out = newton_probe_call(lib, args, ybus)
+            torch.cuda.synchronize()
+            assert all(torch.equal(u, v) for u, v in zip(out[3:], ref[3:])), "the instrumented copy's n_iter moved"
+            T = read(lib)
+            its, lanes = max(T[5], 1), max(T[6], 1)
+            t_new = statistics.median(device_ms(lambda: newton_probe_call(lib, args, ybus)) for _ in range(5))
+            steps = ", ".join(f"{s} {T[q] / (lanes if q == 0 else its):.0f}" for q, s in enumerate(NEWTON_STEPS))
+            print(f"K3 {name} ({variant}, instrumented): {t_new:.4f} ms (PR 13's design {t_pr13:.4f}); cycles a "
+                  f"lane ({int(T[6])} lanes) / a lane-iteration ({int(T[5])}): {steps}; a block's triage and "
+                  f"barrier {T[8] / max(T[9], 1):.0f}", flush=True)
 
 
 PANEL_STEPS = ["load the panels", "(1) diagonal block", "(2) panel rows and columns", "(3) trailing update"]
@@ -275,10 +467,18 @@ def probe_gj():
         print(f"K1 n=64 B={B}: {ms:.4f} ms (instrumented copy); {cyc / warps / 64:.0f} cycles per sweep of a warp")
 
 
-# The baselines: K1 with the matrix in device memory, and the wide chord
-# kernel with one block per lane.
-BASELINE_SOURCES = ("gauss_jordan_smem.cu", "gauss_jordan_gmem.cu", "chord_newton_wide_lane.cu")
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# The baselines: K1 with the matrix in device memory, the wide chord kernel
+# with one block per lane, and PR 13's K3 (a lane slot per system of K1's
+# register route, lanes claimed one at a time).
+BASELINE_SOURCES = ("gauss_jordan_smem.cu", "gauss_jordan_gmem.cu", "chord_newton_wide_lane.cu",
+                    "newton_fallback_pr13_f32.cu", "newton_fallback_pr13_f32_high.cu", "newton_fallback_pr13_f64.cu",
+                    "newton_fallback_pr13_f64_high.cu")
+_P, _I, _F, _D, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double, ctypes.c_longlong
+# PR 13's newton_fallback_f32/_f64: (x_in, F_in, diff_in, it_in, accepted, p,
+# q, Yre, Yim, y_stride, br_f, br_t, series_re, series_im, shunt_im,
+# shift_cos, shift_sin, tap_magn, n_branch, xtol, lim_iter, x, F, diff,
+# n_iter, stall, next_lane, B, nb, stream)
+_PR13_ARGS = [_P] * 9 + [_L] + [_P] * 8 + [_I, _D, _I] + [_P] * 6 + [_I, _I, _P]
 BASELINE_SIGNATURES = {
     "gj_solve_f32_one_block": [_P, _P, _P, _I, _I, _P],  # (A, b, x, B, n, stream)
     "gj_solve_f64_one_block": [_P, _P, _P, _I, _I, _P],
@@ -286,6 +486,8 @@ BASELINE_SIGNATURES = {
     "gj_solve_f64_gmem": [_P, _P, _P, _P, _I, _I, _P],
     # chord_newton_f32's arguments without next_lane
     "chord_newton_wide_lane_f32": [_P] * 16 + [_F] * 6 + [_I] + [_P] * 5 + [_I, _I, _P],
+    "newton_fallback_pr13_f32": _PR13_ARGS,
+    "newton_fallback_pr13_f64": _PR13_ARGS,
 }
 
 
@@ -307,6 +509,28 @@ def one_block_solve(lib, A, b):
     rc = fn(A.data_ptr(), b.data_ptr(), x.data_ptr(), B, n, torch.cuda.current_stream().cuda_stream)
     assert rc == 0, f"the one-block design failed with CUDA error {rc}"
     return x
+
+
+def pr13_newton(lib, x, F, diff, n_iter, accepted, p, q, ybus, xtol=1e-5, lim_iter=100):
+    """PR 13's K3 on the arguments of
+    :func:`~gym_anm_torch.physics.newton_cuda.newton_fallback_cuda` (tensors
+    on the card, contiguous), through what that wrapper does around its
+    launch (its checks and outputs, ``k3_arguments``; the device's context;
+    one fill of the design's work counter), so that the two designs also
+    compare on the host clock: (x, F, diff, n_iter, stall)."""
+    from ..physics.newton_cuda import k3_arguments
+
+    kind, args, outs = k3_arguments(x, F, diff, n_iter, accepted, p, q, ybus)
+    B, nb = p.shape
+    fn = lib.newton_fallback_pr13_f64 if p.dtype == torch.float64 else lib.newton_fallback_pr13_f32
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        next_lane = torch.zeros(1, dtype=torch.int32, device=p.device)
+        rc = fn(*args, float(xtol), int(lim_iter), *(t.data_ptr() for t in outs), next_lane.data_ptr(), B, nb,
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"PR 13's K3 failed with CUDA error {rc} (B={B}, n={2 * nb}, {p.dtype}, {kind})")
+    return outs
 
 
 def panel_solve(lib, A, b, panel, resident):
@@ -683,6 +907,7 @@ if __name__ == "__main__":
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"nvidia-smi: {smi}")
+    probe_newton()
     probe_resident()
     probe_wide()
     probe_blocked()

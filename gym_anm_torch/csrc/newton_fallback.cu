@@ -24,29 +24,57 @@
 // tables and each lane's taps (ybus.py:LaneYbus, nr_solve_lazy), built by
 // the formulas of ybus.py:build_ybus with the diagonal summed per bus over the
 // incident branches in branch order in float64; or a dense Y [B, N, N] or
-// [N, N] (nr_solve).  A lane's Y is built once, when its slot takes the lane
+// [N, N] (nr_solve).  A lane's Y is built once, when a group takes the lane
 // (the reference rebuilds the same matrix each iteration).
 //
-// Design.  The threads of a lane are those of a system of K1's register
-// route (gauss_jordan.cuh:gj_regs): one warp for n <= 32, floor(32 / n)
-// lanes a warp at n <= 16 (3 at ANM6's n = 10), two warps with a 64-thread
-// named barrier for n = 34..64 (IEEE33's n = 64), 4 warps a block.  Thread r
-// owns unknown r, its residual F_r and row r of the Jacobian.  A lane's Y,
-// V, Y V and V / |V| live in the block's shared memory (IEEE33: ~9 KB float32,
-// ~17 KB float64 for Y).  An iteration: thread r builds its row of J from
-// row i of Y (i the row's bus) into K1's staging rows in shared memory and
-// loads it into registers as K1 loads a system (rows and columns from n to
-// the body's size are the identity's), K1's own sweeps (gauss_jordan.cuh:
-// sweep/sweeps, unrolled per size) eliminate, thread r updates x_r, then
-// threads 0..nb form V and V / |V| of their bus, threads r < n the real or
-// imaginary part of (Y V)_i, threads r < n their F_r, and the lane's max |F|
-// is a butterfly over the warp (a scan of shared memory where a warp holds
-// several lanes).  Lanes come from a work counter (an atomicAdd on a device
-// int the wrapper zeroes, as K2 takes them): a lane that does not iterate is
-// copied through at its claim, and a slot whose lane exits takes the next
-// at the start of the next round.  The grid is persistent (SMs x resident
-// blocks).  The host reads no flag: a call is one launch, whatever the
-// number of lanes that iterate, zero included.
+// Design.  One cooperative launch of a persistent grid (as many blocks as
+// the card holds at once, fewer for a small batch), in two phases.
+//   1. Triage, by every thread of the grid: a thread a lane reads accepted,
+//      diff_in and it_in; a lane that does not iterate gets its diff, n_iter
+//      and stall; a lane that iterates joins a worklist in device memory,
+//      one atomicAdd a warp (ballot, popc); x and F are copied through for
+//      all lanes as flat 16-byte vectors.  The blocks then meet at a grid
+//      barrier: arrivals counted by an atomic in device memory, awaited by a
+//      spin, which the cooperative launch (cudaLaunchCooperativeKernel)
+//      makes safe, since it refuses a grid that is not resident at once; a
+//      grid of one block meets at its own barrier.  The wrapper zeroes the
+//      three counters (worklist length, next item, arrivals) with one fill.
+//   2. Groups of threads take lanes from the worklist (an atomicAdd on the
+//      next item) and run each to its exit.  A group spreads its lane's
+//      system over TW threads a row: thread (r, t) holds columns t, t + TW,
+//      t + 2 TW, ... of row r of [J | F] in registers, so sweep k's pivot
+//      column is thread k % TW's register k / TW, a static index when the
+//      sweeps run in rounds of TW.  Up to n = 32 a group is one warp, TW =
+//      floor(32 / n) (3 at ANM6's n = 10), four groups a block.  The 48- and
+//      64-row bodies (n = 34..64, IEEE33's 64) run one block an SM that holds
+//      as many groups of TW = 2 (4 warps at n = 64) as fit by registers, or
+//      half as many of TW = 4 (8 warps, a lane's sweeps on all four of an
+//      SM's schedulers); after the triage every block reads the worklist's
+//      length and takes TW = 4 where the lanes that iterate all fit the
+//      grid's groups of that width at once (a single lane, the tail, a small
+//      batch: each lane's chain is then the kernel's time, and TW = 4
+//      shortens it), else TW = 2 (twice the lanes an SM, for batches in
+//      which the lanes that iterate outnumber the groups).  Both widths do
+//      the same operations on every entry, so the choice moves no bit.  A
+//      sweep: the row's TW threads publish their segments to a pivot-row
+//      buffer in shared memory (double-buffered by the sweep's parity), the
+//      group meets once (the warp's barrier, or the group's named barrier),
+//      each thread takes its factor (its row's column k by a shuffle from
+//      the thread that holds it, over the pivot) and updates its segment
+//      from its segment of the buffer.  An exact zero dividend takes its
+//      quotient, the signed zero, by a select: in a sparse Jacobian most
+//      rows' column-k entries are zeros, and one such lane sends the warp's
+//      division into its slow path (~100 cycles a sweep).  The Jacobian is
+//      built entry by entry into the registers that hold it, from the lane's
+//      Y, V, Y V and V / |V| in shared memory, both of an entry's formulas
+//      (theta or |V| column) formed from unconditional loads and one
+//      selected, so that the loads of a thread's entries overlap.  The row's
+//      owner, thread (r, NP % TW) (it holds column NP, the residual), keeps
+//      x_r and F_r, forms V and V / |V| of bus r and Re or Im of (Y V) of
+//      its row's bus, one thread a bus; the lane's max |F| is a butterfly
+//      over each warp and a scan of the warps' maxima.
+// The host reads no flag: a call is one launch, whatever the number of
+// lanes that iterate, zero included.
 //
 // Numerics follow the plain version op for op.  Every elementwise product,
 // sum and quotient is rounded one by one (mul_rn, add_rn, sub_rn, div_rn), so
@@ -58,20 +86,27 @@
 // another, which can move a float32 rounding, rarely).  The float64 ones sum
 // in the tree order of power_flow.py:_fold_sum, which the plain version
 // follows on the card: cuBLAS's own order moved an ulp, and a diverging lane
-// amplified it into another exit.  The elimination is K1's, bitwise the plain
-// solve_gauss_jordan.  sin, cos and sqrt are CUDA's correctly rounded or libm
-// functions, as torch's on the card.
+// amplified it into another exit.  The elimination does solve_gauss_jordan's
+// operations on each entry in its order (the factor a quotient, then the
+// mask's product; each update a product, then a difference), the rows and
+// columns from n to the body's size padded as K1's register route pads
+// them, so K3 is bitwise the plain version.  sin, cos and sqrt are CUDA's
+// correctly rounded or libm functions, as torch's on the card.
 //
 // Bound (IEEE33, n = 64, float32, H100 SXM): a lane iteration costs the
-// Jacobian (~16 operations an entry, 65 K), two mismatches (8 N^2 + ~60 n,
-// 9 K) and the elimination (n^2 (n + 1) multiply-subtract pairs, 0.54 M), so
-// the elimination dominates and the kernel is bound by operations: a lane
-// iteration is ~0.6 MFLOP, 9 ns at 67 TFLOP/s; device memory sees each lane's
-// inputs and outputs once (~1.6 KB).  Float64 runs on the CUDA cores' 34
-// TFLOP/s.
+// Jacobian (~14 operations an entry, 57 K), two mismatches (8 N^2 + ~10 n,
+// 18 K) and the elimination (n^2 (n + 1) multiply-subtract pairs, 0.54 M), so
+// the elimination dominates and a call that iterates is bound by operations
+// (~0.6 MFLOP a lane-iteration, 9 ns at 67 TFLOP/s); device memory sees each
+// lane's inputs and outputs once (~1.6 KB), which bounds a call where few
+// lanes iterate.  Float64 runs on the CUDA cores' 34 TFLOP/s.  Where few
+// lanes iterate the kernel is bound by one lane's chain instead: n sweeps a
+// lane-iteration, each a meeting of the group, a shared-memory load, a
+// shuffle, a division and S = (n + 1) / TW updates a thread.
 
 #include "newton_fallback.cuh"
 
+using NewtonHalf = int (*)(const void*, int, void*);
 extern "C" int newton_f32_low(const void* params, int lane_ybus, void* stream);
 extern "C" int newton_f32_high(const void* params, int lane_ybus, void* stream);
 extern "C" int newton_f64_low(const void* params, int lane_ybus, void* stream);
@@ -85,15 +120,17 @@ int newton_entry(const T* x_in, const T* F_in, const T* diff_in, const int* it_i
                  const T* p, const T* q, const T* Yre, const T* Yim, long long y_stride, const long long* br_f,
                  const long long* br_t, const T* series_re, const T* series_im, const T* shunt_im,
                  const T* shift_cos, const T* shift_sin, const T* tap_magn, int n_branch, double xtol,
-                 int lim_iter, T* x, T* F, T* diff, int* n_iter, int* stall, int* next_lane, int B, int nb,
-                 void* stream, int (*low)(const void*, int, void*), int (*high)(const void*, int, void*)) {
-  if (B <= 0 || nb < 1 || nb > 32) return static_cast<int>(cudaErrorInvalidValue);
+                 int lim_iter, T* x, T* F, T* diff, int* n_iter, int* stall, int* counters, int* work, int B,
+                 int nb, void* stream, NewtonHalf low, NewtonHalf high) {
+  if (B <= 0 || nb < 1 || nb > 32 || counters == nullptr || work == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const bool lane_y = Yre == nullptr;
   if (lane_y && (tap_magn == nullptr || n_branch <= 0)) return static_cast<int>(cudaErrorInvalidValue);
   const NewtonParams<T> P{x_in, F_in, diff_in, it_in, accepted, p, q, Yre, Yim, y_stride, br_f, br_t,
                           series_re, series_im, shunt_im, shift_cos, shift_sin, tap_magn, n_branch,
-                          static_cast<T>(xtol), lim_iter, x, F, diff, n_iter, stall, next_lane, B, nb};
-  return newton_low(2 * nb) ? low(&P, lane_y, stream) : high(&P, lane_y, stream);
+                          static_cast<T>(xtol), lim_iter, x, F, diff, n_iter, stall, counters, work, B, nb};
+  return (newton_low(2 * nb) ? low : high)(&P, lane_y, stream);
 }
 
 }  // namespace
@@ -104,11 +141,11 @@ extern "C" int newton_fallback_f32(const float* x_in, const float* F_in, const f
                                    const long long* br_t, const float* series_re, const float* series_im,
                                    const float* shunt_im, const float* shift_cos, const float* shift_sin,
                                    const float* tap_magn, int n_branch, double xtol, int lim_iter, float* x,
-                                   float* F, float* diff, int* n_iter, int* stall, int* next_lane, int B, int nb,
-                                   void* stream) {
+                                   float* F, float* diff, int* n_iter, int* stall, int* counters, int* work, int B,
+                                   int nb, void* stream) {
   return newton_entry<float>(x_in, F_in, diff_in, it_in, accepted, p, q, Yre, Yim, y_stride, br_f, br_t, series_re,
                              series_im, shunt_im, shift_cos, shift_sin, tap_magn, n_branch, xtol, lim_iter, x, F,
-                             diff, n_iter, stall, next_lane, B, nb, stream, newton_f32_low, newton_f32_high);
+                             diff, n_iter, stall, counters, work, B, nb, stream, newton_f32_low, newton_f32_high);
 }
 
 extern "C" int newton_fallback_f64(const double* x_in, const double* F_in, const double* diff_in,
@@ -118,9 +155,10 @@ extern "C" int newton_fallback_f64(const double* x_in, const double* F_in, const
                                    const double* series_im, const double* shunt_im, const double* shift_cos,
                                    const double* shift_sin, const double* tap_magn, int n_branch, double xtol,
                                    int lim_iter, double* x, double* F, double* diff, int* n_iter, int* stall,
-                                   int* next_lane, int B, int nb, void* stream) {
+                                   int* counters, int* work, int B, int nb, void* stream) {
   return newton_entry<double>(x_in, F_in, diff_in, it_in, accepted, p, q, Yre, Yim, y_stride, br_f, br_t,
                               series_re, series_im, shunt_im, shift_cos, shift_sin, tap_magn, n_branch, xtol,
-                              lim_iter, x, F, diff, n_iter, stall, next_lane, B, nb, stream, newton_f64_low,
+                              lim_iter, x, F, diff, n_iter, stall, counters, work, B, nb, stream, newton_f64_low,
                               newton_f64_high);
 }
+

@@ -1,22 +1,25 @@
-// K3's device code (csrc/newton_fallback.cu describes the kernel): the
-// exact Newton loop of the load-flow fallback, a lane slot per system of
-// K1's register route, whose sweeps (gauss_jordan.cuh:sweep/sweeps) solve
-// each iteration's system in registers.  Four translation units instantiate
-// it, so that nvcc builds the unrolled bodies in parallel:
-// newton_fallback_f32.cu and newton_fallback_f64.cu (n = 2..26 and the
-// 48-row body) and newton_fallback_f32_high.cu and newton_fallback_f64_high.cu
-// (n = 28..32 and the 64-row body); newton_fallback.cu holds the entry points.
+// K3's device code (csrc/newton_fallback.cu describes the kernel): a
+// coalesced triage pass over every lane, a grid barrier, then the exact
+// Newton loop of the lanes that iterate, taken from a device worklist by
+// groups of threads that spread each lane's system over TW threads a row.
+// Four translation units instantiate it, so that nvcc builds the bodies in
+// parallel: newton_fallback_f32.cu and newton_fallback_f64.cu (n = 2..26 and
+// the 48-row body) and newton_fallback_f32_high.cu and
+// newton_fallback_f64_high.cu (n = 28..32 and the 64-row body);
+// newton_fallback.cu holds the entry points.
 
 #pragma once
 
 #include <math.h>
+#include <stdint.h>
 
 #include "gauss_jordan.cuh"
 
 namespace {
 
 constexpr unsigned kWarpMask = 0xffffffffu;
-constexpr int kStallLimit = 3;  // power_flow.py:_STALL_LIMIT, the float32 tier's plateau rule
+constexpr int kStallLimit = 3;    // power_flow.py:_STALL_LIMIT, the float32 tier's plateau rule
+constexpr int kSmallGroups = 4;   // lanes (one a warp) a block of the bodies to n = 32 holds at once
 
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
@@ -94,39 +97,163 @@ struct NewtonParams {
   T* diff;                        // [B]
   int* n_iter;                    // [B]
   int* stall;                     // [B]
-  int* next_lane;                 // the work counter, zeroed by the wrapper
+  int* counters;                  // [3] zeroed by the wrapper: worklist length, next item, barrier arrivals
+  int* work;                      // [B] the worklist: the lanes that iterate
   int B, nb;
 };
 
-// A block's shared memory: K1's buffers a warp (RegShape::SMEM: the staging
-// rows, then the pivot rows), a region a lane slot (its Y-bus Yre, Yim [N][N]
-// with N <= NP / 2 + 1, its V, V / |V| and Y V, its x, the max's scratch),
-// and an int a system of two warps (the claim's broadcast).
-template <typename T, int NP>
-struct NewtonShape {
-  using S = RegShape<T, NP>;
-  static constexpr int NMAX = NP / 2 + 1;
+// A lane's system at body size NP spread over TW threads a row: thread
+// (r, t) holds the columns t, t + TW, t + 2 TW, ... (S of them; those from
+// NP + 1 on are padding) of row r of the augmented matrix [J | F], so sweep
+// k's pivot column lives in thread k % TW's register k / TW, a static index
+// when sweeps run in rounds u = k / TW.
+template <typename T, int NP, int TW>
+struct Spread {
+  static constexpr int W = NP + 1;                             // augmented columns
+  static constexpr int S = (W + TW - 1) / TW;                  // columns a thread holds
+  static constexpr int U = (NP + TW - 1) / TW;                 // sweep rounds
+  static constexpr int V = 16 / sizeof(T);                     // entries of a 16-byte access
+  static constexpr int SP = (S + V - 1) / V * V;               // a thread's segment of a pivot-row buffer
+  static constexpr int THREADS = (NP * TW + 31) / 32 * 32;     // a group
+  static constexpr int GW = THREADS / 32;                      // its warps
+  static constexpr int NMAX = NP / 2 + 1;                      // buses
   static constexpr int YS = NMAX * NMAX;
-  static constexpr int SLOT = 2 * YS + 6 * NMAX + 2 * NP;
-  static constexpr int SLOTS = kRegWarps / S::H * S::G;  // lanes a block holds at once
-  static constexpr size_t BYTES = sizeof(T) * (static_cast<size_t>(kRegWarps) * S::SMEM +
-                                               static_cast<size_t>(SLOTS) * SLOT) + sizeof(int) * kRegWarps;
+  static constexpr int PB = 2 * TW * SP;                       // the pivot-row buffers, by sweep parity
+  // A group's shared memory: the pivot-row buffers (16-byte aligned), its
+  // lane's Y-bus Yre, Yim [N][N], V, V / |V| and Y V, its x, the max's
+  // scratch (a warp each).
+  static constexpr int SLOT = (PB + 2 * YS + 6 * NMAX + NP + GW + V - 1) / V * V;
+  // Registers a thread: its segment's and ~80 more.
+  static constexpr int REGS = S * static_cast<int>(sizeof(T) / 4) + 80;
 };
 
-// The next lane of the work counter, the same in every thread of the system.
-template <int H>
-__device__ __forceinline__ int claim(int* next_lane, int* cell, int lane, int h, int warp) {
-  if constexpr (H == 1) {
+// The block of body NP.  Up to n = 32 a group is one warp, TW = floor(32 /
+// NP) threads a row (3 at ANM6's n = 10), kSmallGroups groups a block, as
+// many blocks an SM as fit by registers.  The 48- and 64-row bodies (n =
+// 34..64, IEEE33's 64) run one block an SM of G_LO groups at 2 threads a row
+// (as many as fit by registers: 4 at float32 n = 64, 3 at float64), or, where
+// the lanes that iterate all fit the grid at once at 4 threads a row, G_HI =
+// G_LO / 2 groups at 4 (8 warps a lane at n = 64, its sweeps on all four of
+// an SM's schedulers): the kernel picks after the triage, from the
+// worklist's length.  A group's threads meet at the warp's barrier, or at the
+// group's named barrier.
+template <typename T, int NP>
+struct Body {
+  static constexpr bool WIDE = NP > 32;
+  static constexpr int TW_LO = WIDE ? 2 : 32 / NP;
+  static constexpr int TW_HI = WIDE ? 4 : TW_LO;
+  using LO = Spread<T, NP, TW_LO>;
+  using HI = Spread<T, NP, TW_HI>;
+  // Warps a scheduler holds by registers (its quarter of the SM's 64 K,
+  // the block's warps dealt round the four), then the groups of 2 threads a
+  // row that fill all four schedulers' share.
+  static constexpr int PART = 512 / LO::REGS;
+  static constexpr int FIT = 4 * PART / LO::GW;
+  static constexpr int G_LO = WIDE ? (FIT < 1 ? 1 : FIT) : kSmallGroups;
+  static constexpr int G_HI = WIDE ? G_LO * LO::THREADS / HI::THREADS : G_LO;
+  static constexpr int BLOCK = G_LO * LO::THREADS;
+  static_assert(BLOCK <= 1024 && G_HI >= 1 && G_LO <= 15, "a block of groups with a named barrier each");
+  static constexpr int SMALL_FIT = 65536 / (BLOCK * LO::REGS);
+  static constexpr int MIN_BLOCKS = WIDE ? 1 : (SMALL_FIT < 1 ? 1 : (SMALL_FIT > 8 ? 8 : SMALL_FIT));
+  static constexpr int SLOTS = G_LO * LO::SLOT > G_HI * HI::SLOT ? G_LO * LO::SLOT : G_HI * HI::SLOT;
+  // The groups' slots, then an int a group (the claim's broadcast).
+  static constexpr size_t BYTES = sizeof(T) * static_cast<size_t>(SLOTS) + sizeof(int) * G_LO;
+};
+
+// The threads of a group meet here: the warp, or the group's named barrier
+// `bar` (1 + the group's index in its block).
+__device__ __forceinline__ void bar_sync(int bar, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(bar), "r"(threads) : "memory");
+}
+template <int GW>
+__device__ __forceinline__ void group_sync(int bar) {
+  if constexpr (GW == 1) {
+    __syncwarp();
+  } else {
+    bar_sync(bar, 32 * GW);
+  }
+}
+
+// The group's next worklist item (count: none left), the same in each of
+// its threads; once the worklist is taken a group leaves on a read, without
+// an atomic.
+template <int GW>
+__device__ __forceinline__ int claim(int* head, int count, int* cell, int g, int bar) {
+  if constexpr (GW == 1) {
     int c = 0;
-    if (lane == 0) c = atomicAdd(next_lane, 1);
+    if (g == 0) c = __ldcg(head) >= count ? count : atomicAdd(head, 1);
     return __shfl_sync(kWarpMask, c, 0);
   } else {
-    if (h == 0 && lane == 0) *cell = atomicAdd(next_lane, 1);
-    system_sync<H>(warp);
+    if (g == 0) *cell = __ldcg(head) >= count ? count : atomicAdd(head, 1);
+    group_sync<GW>(bar);
     const int c = *cell;
-    system_sync<H>(warp);  // read by all before the next claim writes it
+    group_sync<GW>(bar);  // read by all before the next claim writes it
     return c;
   }
+}
+
+// Every block of the grid meets here.  The launch is cooperative, so every
+// block is resident and the arrivals counted in device memory can be awaited;
+// a grid of one block needs only its own barrier.
+__device__ __forceinline__ void grid_barrier(int* arrive) {
+  __syncthreads();
+  if (gridDim.x > 1 && threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(arrive, 1);
+    while (*reinterpret_cast<volatile int*>(arrive) < static_cast<int>(gridDim.x)) __nanosleep(32);
+    __threadfence();
+  }
+  if (gridDim.x > 1) __syncthreads();
+}
+
+// dst[e] = src[e] for e < cnt, by the grid's threads, in 16-byte vectors where
+// both are aligned (bit copies).
+template <typename T>
+__device__ __forceinline__ void copy_flat(const T* src, T* dst, long long cnt, long long tid, long long nthr) {
+  constexpr int V = 16 / sizeof(T);
+  const bool vec = ((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) & 15) == 0;
+  const long long nvec = vec ? cnt / V : 0;
+  for (long long i = tid; i < nvec; i += nthr) {
+    reinterpret_cast<int4*>(dst)[i] = reinterpret_cast<const int4*>(src)[i];
+  }
+  for (long long e = V * nvec + tid; e < cnt; e += nthr) dst[e] = src[e];
+}
+
+// The triage, by every thread of the grid: a lane a thread reads its flags;
+// a lane that does not iterate (accepted, within xtol, out of iterations or
+// NaN) gets its diff, n_iter and a stall count of 0, a lane that iterates
+// joins the worklist (one atomic a warp); x and F are copied through for
+// every lane (the worklist's lanes are overwritten at their exit).
+template <typename T>
+__device__ __forceinline__ void triage(const NewtonParams<T>& P, int n) {
+  const long long nthr = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  for (long long b0 = tid - lane; b0 < P.B; b0 += nthr) {  // warp-uniform
+    const long long b = b0 + lane;
+    bool go = false;
+    if (b < P.B) {
+      const bool acc = P.accepted != nullptr && P.accepted[b] != 0;
+      const T d0 = P.diff_in[b];
+      const int i0 = P.it_in[b];
+      go = !acc && d0 > P.xtol && i0 < P.lim_iter;  // false on a NaN residual, as in the reference
+      if (!go) {
+        P.diff[b] = d0;
+        P.n_iter[b] = i0;
+        P.stall[b] = 0;
+      }
+    }
+    const unsigned vote = __ballot_sync(kWarpMask, go);
+    if (vote != 0) {
+      int base = 0;
+      if (lane == 0) base = atomicAdd(P.counters, __popc(vote));
+      base = __shfl_sync(kWarpMask, base, 0);
+      if (go) P.work[base + __popc(vote & ((1u << lane) - 1u))] = static_cast<int>(b);
+    }
+  }
+  const long long cnt = static_cast<long long>(P.B) * n;
+  copy_flat(P.x_in, P.x, cnt, tid, nthr);
+  copy_flat(P.F_in, P.F, cnt, tid, nthr);
 }
 
 // Lane b's Y-bus from the branch tables, in a slot whose Y is zero, by the
@@ -155,310 +282,341 @@ __device__ __forceinline__ void lane_ybus(const NewtonParams<T>& P, int b, int N
     Yi[t * N + f] = tf_im;
   }
   for (int k = tid; k < N; k += nthr) {
+    // Every branch's terms formed and selected where it is incident (no
+    // branch that skips), so that the loads of successive branches overlap.
     double f_re = 0.0, f_im = 0.0, t_re = 0.0, t_im = 0.0;
+#pragma unroll 4
     for (int e = 0; e < Ne; ++e) {
-      const bool from = P.br_f[e] == k, to = P.br_t[e] == k;
-      if (!(from || to)) continue;
-      const T tot_re = P.series_re[e], tot_im = add_rn(P.series_im[e], P.shunt_im[e]);
-      if (from) {  // (y + y_sh) / a^2
-        const T a2 = mul_rn(tap[e], tap[e]);
-        f_re += static_cast<double>(div_rn(tot_re, a2));
-        f_im += static_cast<double>(div_rn(tot_im, a2));
-      }
-      if (to) {  // y + y_sh
-        t_re += static_cast<double>(tot_re);
-        t_im += static_cast<double>(tot_im);
-      }
+      const bool from = __ldg(P.br_f + e) == k, to = __ldg(P.br_t + e) == k;
+      const T tot_re = __ldg(P.series_re + e), tot_im = add_rn(__ldg(P.series_im + e), __ldg(P.shunt_im + e));
+      const T a2 = mul_rn(__ldg(tap + e), __ldg(tap + e));  // (y + y_sh) / a^2 from, y + y_sh to
+      const T q_re = div_rn(tot_re, a2), q_im = div_rn(tot_im, a2);
+      f_re = from ? __dadd_rn(f_re, static_cast<double>(q_re)) : f_re;
+      f_im = from ? __dadd_rn(f_im, static_cast<double>(q_im)) : f_im;
+      t_re = to ? __dadd_rn(t_re, static_cast<double>(tot_re)) : t_re;
+      t_im = to ? __dadd_rn(t_im, static_cast<double>(tot_im)) : t_im;
     }
     Yr[k * N + k] = add_rn(static_cast<T>(f_re), static_cast<T>(t_re));
     Yi[k * N + k] = add_rn(static_cast<T>(f_im), static_cast<T>(t_im));
   }
 }
 
-// NP: K1's register size (n itself up to 32, the 48- or 64-row body for n =
-// 34..64); kLaneY: the Y-bus from the branch tables and the lanes' taps, or
-// read from a dense Y.  Thread `row` of a lane's system owns unknown `row`
-// (theta of bus row + 1 below nb, |V| of bus row - nb + 1 from nb), its
-// residual and its row of the Jacobian, as the thread of K1's row.
-template <typename T, int NP, bool kLaneY>
-__global__ void __launch_bounds__(kRegWarps * 32, 1) newton_kernel(const NewtonParams<T> P) {
-  using S = RegShape<T, NP>;
-  using NS = NewtonShape<T, NP>;
-  constexpr int G = S::G, H = S::H, SLD = S::SLD;
-  constexpr bool kStallRule = sizeof(T) == 4;  // the float32 tier's plateau exit
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  const int nb = NP <= 32 ? NP / 2 : P.nb;
-  const int n = 2 * nb, N = nb + 1;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, h = warp % H;
-  // K1's layout: system (lane slot) s of the warp, row `row` of it.
-  const int s = G > 1 ? (lane / NP < G ? lane / NP : G - 1) : 0;
-  const bool in_sys = G > 1 ? lane < G * NP : true;
-  const int row = (G > 1 ? lane - s * NP : lane) + 32 * h;
-  const int nthr = G > 1 ? NP : 32 * H;  // threads of a slot
-  const bool own = in_sys && row < n;    // the thread holds an unknown
-  const int bus = row < nb ? row + 1 : row - nb + 1;
-  T* const wsm = smem + warp * S::SMEM;
-  T* const prow = smem + (warp - h) * S::SMEM;
-  T* const Yr = smem + kRegWarps * S::SMEM + ((warp / H) * G + s) * NS::SLOT;
-  T* const Yi = Yr + NS::YS;
-  T* const Vr = Yi + NS::YS;  // V
-  T* const Vi = Vr + NS::NMAX;
-  T* const Ur = Vi + NS::NMAX;  // V / |V|
-  T* const Ui = Ur + NS::NMAX;
-  T* const Wr = Ui + NS::NMAX;  // Y V
-  T* const Wi = Wr + NS::NMAX;
-  T* const xs = Wi + NS::NMAX;
-  T* const red = xs + NP;
-  int* const cell = reinterpret_cast<int*>(smem + kRegWarps * S::SMEM + NS::SLOTS * NS::SLOT) + warp / H;
-
-  const T xtol = P.xtol;
-  int b = -1;  // the slot's lane
-  bool exhausted = false;
-  T x_r = T(0), F_r = T(0), pq = T(0), diff = T(0);
-  int it = 0, stall = 0;
-
-  // V, V / |V| and Y V of the lanes of the slots where `act`, at their x
-  // (power_flow.py:_assemble_v, _mismatch's matvec, _jacobian's V / |V|).
-  auto vectors = [&](bool act) {
-    if (act && own) xs[row] = x_r;
-    system_sync<H>(warp);
-    if (act && in_sys && row <= nb) {  // bus `row`; the slack is 1 + 0j
-      T vr = T(1), vi = T(0);
-      if (row > 0) {
-        const T th = xs[row - 1], vm = xs[nb + row - 1];
-        vr = mul_rn(vm, cos_of(th));
-        vi = mul_rn(vm, sin_of(th));
-      }
-      const T va = sqrt_rn(add_rn(mul_rn(vr, vr), mul_rn(vi, vi)));
-      Vr[row] = vr;
-      Vi[row] = vi;
-      Ur[row] = div_rn(vr, va);
-      Ui[row] = div_rn(vi, va);
-    }
-    system_sync<H>(warp);
-    if (act && own) {  // Re (Y V) of the bus on a theta row, Im on a |V| row
-      const T* yr = Yr + bus * N;
-      const T* yi = Yi + bus * N;
-      if (row < nb) {
-        Wr[bus] = sub_rn(dot_full<NS::NMAX>(yr, Vr, N), dot_full<NS::NMAX>(yi, Vi, N));
-      } else {
-        Wi[bus] = add_rn(dot_full<NS::NMAX>(yr, Vi, N), dot_full<NS::NMAX>(yi, Vr, N));
-      }
-    }
-    system_sync<H>(warp);
-  };
-
-  while (true) {
-    // Fill the empty slots, one after another, from the work counter.  A
-    // lane that does not iterate (accepted, within xtol or out of
-    // iterations) is copied through with a stall count of 0 at its claim.
-    bool fresh = false;
-    for (int sp = 0; sp < G; ++sp) {
-      const int b_sp = G > 1 ? __shfl_sync(kWarpMask, b, sp * NP) : b;
-      if (b_sp >= 0 || exhausted) continue;
-      while (true) {
-        const int c = claim<H>(P.next_lane, cell, lane, h, warp);
-        if (c >= P.B) {
-          exhausted = true;
-          break;
-        }
-        const bool acc = P.accepted != nullptr && P.accepted[c] != 0;
-        const T d0 = P.diff_in[c];
-        const int i0 = P.it_in[c];
-        if (!acc && d0 > xtol && i0 < P.lim_iter) {  // false on a NaN residual, as in the reference
-          if (s == sp) {
-            b = c;
-            fresh = true;
-            diff = d0;
-            it = i0;
-            stall = 0;
-          }
-          break;
-        }
-        const int gt = lane + 32 * h;
-        const long long o = static_cast<long long>(c) * n;
-        for (int e = gt; e < n; e += 32 * H) {
-          P.x[o + e] = P.x_in[o + e];
-          P.F[o + e] = P.F_in[o + e];
-        }
-        if (gt == 0) {
-          P.diff[c] = d0;
-          P.n_iter[c] = i0;
-          P.stall[c] = 0;
-        }
-      }
-    }
-    const bool act = in_sys && b >= 0;
-    if (!__any_sync(kWarpMask, act)) break;  // the same in both warps of a two-warp system
-
-    // A new lane: its start, its Y-bus, its vectors.
-    if (__any_sync(kWarpMask, fresh)) {
-      const bool load = fresh && in_sys;
-      if (fresh && own) {
-        const long long o = static_cast<long long>(b) * n + row;
-        x_r = P.x_in[o];
-        F_r = P.F_in[o];
-        pq = row < nb ? P.p[static_cast<long long>(b) * nb + row] : P.q[static_cast<long long>(b) * nb + row - nb];
-      }
-      if (load) {
-        const T* gr = kLaneY ? nullptr : P.Yre + b * P.y_stride;
-        const T* gi = kLaneY ? nullptr : P.Yim + b * P.y_stride;
-        for (int e = row; e < N * N; e += nthr) {
-          Yr[e] = kLaneY ? T(0) : gr[e];
-          Yi[e] = kLaneY ? T(0) : gi[e];
-        }
-      }
-      if constexpr (kLaneY) {
-        system_sync<H>(warp);
-        if (load) lane_ybus(P, b, N, Yr, Yi, row, nthr);
-      }
-      vectors(fresh);
-    }
-
-    // Row `row` of the lane's Jacobian (power_flow.py:_jacobian, each
-    // operation rounded as the plain version rounds it, the eye factors
-    // included) into the warp's staging rows, then into registers as K1
-    // loads a system: rows and columns from n to NP are the identity's.
-    if (act && own) {
-      const T vri = Vr[bus], vii = Vi[bus];
-      const T* yr = Yr + bus * N;
-      const T* yi = Yi + bus * N;
-      T* out = wsm + lane * SLD;
-      const bool p_row = row < nb;
-      for (int c = 0; c < n; ++c) {
-        const int k = c < nb ? c + 1 : c - nb + 1;
-        const T eye = k == bus ? T(1) : T(0);
-        const T yre = yr[k], yim = yi[k];
-        T J;
-        if (c < nb) {  // dS/dtheta = j diag(V) conj(diag(YV) - Y diag(V))
-          const T M_re = add_rn(sub_rn(mul_rn(Wr[k], eye), mul_rn(yre, Vr[k])), mul_rn(yim, Vi[k]));
-          const T M_im = sub_rn(sub_rn(mul_rn(Wi[k], eye), mul_rn(yre, Vi[k])), mul_rn(yim, Vr[k]));
-          J = p_row ? -sub_rn(mul_rn(vii, M_re), mul_rn(vri, M_im)) : add_rn(mul_rn(vri, M_re), mul_rn(vii, M_im));
-        } else {  // dS/d|V| = diag(V) conj(Y diag(V/|V|)) + diag(V/|V| conj(YV))
-          const T B_re = sub_rn(mul_rn(yre, Ur[k]), mul_rn(yim, Ui[k]));
-          const T B_im = add_rn(mul_rn(yre, Ui[k]), mul_rn(yim, Ur[k]));
-          if (p_row) {
-            const T C_re = add_rn(mul_rn(vri, B_re), mul_rn(vii, B_im));
-            const T d_re = add_rn(mul_rn(Ur[k], Wr[k]), mul_rn(Ui[k], Wi[k]));
-            J = add_rn(C_re, mul_rn(d_re, eye));
-          } else {
-            const T C_im = sub_rn(mul_rn(vii, B_re), mul_rn(vri, B_im));
-            const T d_im = sub_rn(mul_rn(Ui[k], Wr[k]), mul_rn(Ur[k], Wi[k]));
-            J = add_rn(C_im, mul_rn(d_im, eye));
-          }
-        }
-        out[c] = J;
-      }
-    }
-    T m[S::W];
+// Sweeps k = TW u .. TW u + TW - 1 (below NP): the row-k threads publish
+// their segments to the pivot-row buffer of k's parity, the group meets once,
+// and every thread takes its row's factor (column k of the row, a shuffle
+// from the row's thread that holds it, over the pivot; zeroed on the pivot
+// row by a multiply) and updates its segment from its segment of the buffer:
+// gauss_jordan.cuh:sweep's operations on the same entries, in the same
+// order, spread over the group.  The quotient is IEEE division's, bit for
+// bit, exact zeros included.
+template <typename T, int NP, int TW, int u>
+__device__ __forceinline__ void sweep_round(T (&m)[Spread<T, NP, TW>::S], int r, int t, T* pb, int src0, int bar) {
+  using SS = Spread<T, NP, TW>;
+  constexpr int S = SS::S, SP = SS::SP, V = SS::V;
+#pragma unroll 1
+  for (int tp = 0; tp < TW; ++tp) {
+    const int k = TW * u + tp;
+    if (k >= NP) break;  // the same in every thread
+    T* const buf = pb + (k & 1) * (TW * SP);
+    if (r == k) {
 #pragma unroll
-    for (int j = 0; j < NP; ++j) {
-      T v = row == j ? T(1) : T(0);
-      if (act && own && j < n) v = wsm[lane * SLD + j];
-      m[j] = v;
-    }
-    m[NP] = act && own ? F_r : T(0);
-    // The pivot rows reuse the first warp's staging rows, once all are read.
-    system_sync<H>(warp);
-    sweeps<T, NP>(std::make_integer_sequence<int, NP>{}, m, row, prow, s, in_sys, warp);
-    T d = m[0];
+      for (int c = 0; c < SP / V; ++c) {
+        T vv[V];
 #pragma unroll
-    for (int j = 1; j < NP; ++j) d = row == j ? m[j] : d;
-    if (act && own) x_r = sub_rn(x_r, div_rn(m[NP], d));  // x <- x - J^-1 F
-
-    // The new mismatch and its max over the lane.
-    vectors(act);
-    T v = T(0);
-    if (act && own) {
-      const T vr = Vr[bus], vi = Vi[bus], wr = Wr[bus], wi = Wi[bus];
-      F_r = row < nb ? sub_rn(add_rn(mul_rn(vr, wr), mul_rn(vi, wi)), pq)
-                     : sub_rn(sub_rn(mul_rn(vi, wr), mul_rn(vr, wi)), pq);
-      v = abs_of(F_r);
-    }
-    if constexpr (G > 1) {
-      if (in_sys) red[row] = v;
-      __syncwarp();
-      v = T(0);
-      for (int j = 0; j < NP; ++j) v = nan_max(v, red[j]);
-    } else {
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) v = nan_max(v, __shfl_xor_sync(kWarpMask, v, o));
-      if constexpr (H == 2) {
-        if (lane == 0) red[h] = v;
-        system_sync<H>(warp);
-        v = nan_max(red[0], red[1]);
+        for (int e = 0; e < V; ++e) vv[e] = V * c + e < S ? m[V * c + e] : T(0);
+        st16(buf + t * SP + V * c, vv);
       }
     }
-
-    // The reference's stall rule and loop condition; a lane that exits
-    // writes its outputs and leaves its slot empty.
-    if (act) {
-      const bool improving = v < mul_rn(diff, T(0.5));  // false on NaN
-      stall = improving ? 0 : stall + 1;
-      diff = v;
-      ++it;
-      if (!(diff > xtol && it < P.lim_iter && (!kStallRule || stall < kStallLimit))) {
-        if (own) {
-          const long long o = static_cast<long long>(b) * n + row;
-          P.x[o] = x_r;
-          P.F[o] = F_r;
-        }
-        if (row == 0) {
-          P.diff[b] = diff;
-          P.n_iter[b] = it;
-          P.stall[b] = stall;
-        }
-        b = -1;
+    group_sync<SS::GW>(bar);
+    const T piv = buf[tp * SP + u];
+    const T mk = __shfl_sync(kWarpMask, m[u], src0 + tp);
+    // 0 / piv is the signed zero 0 * sign(piv) for piv neither 0 nor NaN:
+    // selected, so that no thread's exact zero sends the division to its
+    // slow path (most rows' entries of column k are zeros in a sparse J).
+    const bool zero = mk == T(0) && piv == piv && piv != T(0);
+    const T q = div_rn(zero ? T(1) : mk, piv);
+    const T f = mul_rn(zero ? mul_rn(mk, copysign(T(1), piv)) : q, r == k ? T(0) : T(1));
+#pragma unroll
+    for (int c = 0; c < SP / V; ++c) {
+      T vv[V];
+      ld16(buf + t * SP + V * c, vv);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        if (V * c + e < S) m[V * c + e] = sub_rn(m[V * c + e], mul_rn(f, vv[e]));
       }
     }
   }
 }
 
+template <typename T, int NP, int TW, int... Us>
+__device__ __forceinline__ void sweep_rounds(std::integer_sequence<int, Us...>, T (&m)[Spread<T, NP, TW>::S], int r,
+                                             int t, T* pb, int src0, int bar) {
+  (sweep_round<T, NP, TW, Us>(m, r, t, pb, src0, bar), ...);
+}
+
+// The Newton loop of the worklist's `count` lanes by GROUPS groups a block at
+// TW threads a row, each group taking a lane at a time.  NP: the body's size
+// (n itself up to 32, the 48- or 64-row body for n = 34..64); kLaneY: the
+// Y-bus from the branch tables and the lanes' taps, or read from a dense Y.
+// The owner of row r, thread (r, NP % TW), which holds column NP (the
+// residual), keeps unknown r (theta of bus r + 1 below nb, |V| of bus r - nb
+// + 1 from nb): x_r, F_r, its injection, and the per-bus work of bus r (V and
+// V / |V| for r <= nb, Re or Im of (Y V) of its bus).
+template <typename T, int NP, int TW, int GROUPS, bool kLaneY>
+__device__ __forceinline__ void newton_lanes(const NewtonParams<T>& P, int count, unsigned char* smem_raw) {
+  using SS = Spread<T, NP, TW>;
+  constexpr int S = SS::S, GW = SS::GW, THREADS = SS::THREADS, NMAX = SS::NMAX;
+  constexpr int OWN = NP % TW;  // the owner's column group
+  constexpr bool kStallRule = sizeof(T) == 4;  // the float32 tier's plateau exit
+  const int gi = threadIdx.x / THREADS, g = threadIdx.x - gi * THREADS;
+  if (gi >= GROUPS) return;  // a block's threads beyond its groups at 4 threads a row
+  const int bar = 1 + gi;
+  const int nb = NP <= 32 ? NP / 2 : P.nb;
+  const int n = 2 * nb, N = nb + 1;
+  const int lane = threadIdx.x & 31;
+  const int r = g / TW, t = g - r * TW;  // row r, columns t + TW v
+  const int src0 = lane - t;             // the lane of thread (r, 0)
+  const int bus = r < nb ? r + 1 : r - nb + 1;
+  const bool owner = r < n && t == OWN;  // holds unknown r
+  T* const pb = reinterpret_cast<T*>(smem_raw) + gi * SS::SLOT;
+  T* const Yr = pb + SS::PB;
+  T* const Yi = Yr + SS::YS;
+  T* const Vr = Yi + SS::YS;  // V
+  T* const Vi = Vr + NMAX;
+  T* const Ur = Vi + NMAX;  // V / |V|
+  T* const Ui = Ur + NMAX;
+  T* const Wr = Ui + NMAX;  // Y V
+  T* const Wi = Wr + NMAX;
+  T* const xs = Wi + NMAX;
+  T* const red = xs + NP;
+  int* const cell = reinterpret_cast<int*>(smem_raw + sizeof(T) * Body<T, NP>::SLOTS) + gi;
+  const T xtol = P.xtol;
+
+  // V, V / |V| and Y V of the lane at x (power_flow.py:_assemble_v,
+  // _mismatch's matvec, _jacobian's V / |V|), by the owners.
+  auto vectors = [&](T x_r) {
+    if (owner) xs[r] = x_r;
+    group_sync<GW>(bar);
+    if (t == OWN && r <= nb) {  // bus r; the slack is 1 + 0j
+      T vr = T(1), vi = T(0);
+      if (r > 0) {
+        const T th = xs[r - 1], vm = xs[nb + r - 1];
+        vr = mul_rn(vm, cos_of(th));
+        vi = mul_rn(vm, sin_of(th));
+      }
+      const T va = sqrt_rn(add_rn(mul_rn(vr, vr), mul_rn(vi, vi)));
+      Vr[r] = vr;
+      Vi[r] = vi;
+      Ur[r] = div_rn(vr, va);
+      Ui[r] = div_rn(vi, va);
+    }
+    group_sync<GW>(bar);
+    if (owner) {  // Re (Y V) of the bus on a theta row, Im on a |V| row
+      const T* yr = Yr + bus * N;
+      const T* yi = Yi + bus * N;
+      if (r < nb) {
+        Wr[bus] = sub_rn(dot_full<NMAX>(yr, Vr, N), dot_full<NMAX>(yi, Vi, N));
+      } else {
+        Wi[bus] = add_rn(dot_full<NMAX>(yr, Vi, N), dot_full<NMAX>(yi, Vr, N));
+      }
+    }
+    group_sync<GW>(bar);
+  };
+
+  while (true) {
+    const int i = claim<GW>(P.counters + 1, count, cell, g, bar);
+    if (i >= count) break;
+    const int b = __ldcg(P.work + i);
+    group_sync<GW>(bar);  // the previous lane's shared memory is read by all
+
+    // The lane's start, its Y-bus, its vectors.
+    T x_r = T(0), F_r = T(0), pq = T(0);
+    if (owner) {
+      const long long o = static_cast<long long>(b) * n + r;
+      x_r = P.x_in[o];
+      F_r = P.F_in[o];
+      pq = r < nb ? P.p[static_cast<long long>(b) * nb + r] : P.q[static_cast<long long>(b) * nb + r - nb];
+    }
+    T diff = P.diff_in[b];
+    int it = P.it_in[b], stall = 0;
+    {
+      const T* gr = kLaneY ? nullptr : P.Yre + b * P.y_stride;
+      const T* gy = kLaneY ? nullptr : P.Yim + b * P.y_stride;
+      for (int e = g; e < N * N; e += THREADS) {
+        Yr[e] = kLaneY ? T(0) : gr[e];
+        Yi[e] = kLaneY ? T(0) : gy[e];
+      }
+    }
+    if constexpr (kLaneY) {
+      group_sync<GW>(bar);
+      lane_ybus(P, b, N, Yr, Yi, g, THREADS);
+    }
+    vectors(x_r);
+
+    while (true) {
+      // Thread (r, t)'s entries of [J | F] (power_flow.py:_jacobian, each
+      // operation rounded as the plain version rounds it, the eye factors
+      // included), entry by entry; rows and columns from n to NP are the
+      // identity's, as K1's register route pads a system.
+      T m[S];
+      if (r < n) {
+        const T vri = Vr[bus], vii = Vi[bus];
+        const T* yr = Yr + bus * N;
+        const T* yi = Yi + bus * N;
+        const bool p_row = r < nb;
+#pragma unroll
+        for (int v = 0; v < S; ++v) {
+          // Both of the entry's formulas from unconditional loads (a column
+          // beyond n reads bus 1), then selected, so that the loads of all
+          // S entries can be scheduled ahead of their arithmetic.
+          const int c = t + TW * v;
+          const bool theta = c < nb;
+          const int k = theta ? c + 1 : (c < n ? c - nb + 1 : 1);
+          const T eye = k == bus ? T(1) : T(0);
+          const T yre = yr[k], yim = yi[k], vrk = Vr[k], vik = Vi[k], wrk = Wr[k], wik = Wi[k];
+          const T urk = Ur[k], uik = Ui[k];
+          // dS/dtheta = j diag(V) conj(diag(YV) - Y diag(V))
+          const T M_re = add_rn(sub_rn(mul_rn(wrk, eye), mul_rn(yre, vrk)), mul_rn(yim, vik));
+          const T M_im = sub_rn(sub_rn(mul_rn(wik, eye), mul_rn(yre, vik)), mul_rn(yim, vrk));
+          const T Jt = p_row ? -sub_rn(mul_rn(vii, M_re), mul_rn(vri, M_im))
+                             : add_rn(mul_rn(vri, M_re), mul_rn(vii, M_im));
+          // dS/d|V| = diag(V) conj(Y diag(V/|V|)) + diag(V/|V| conj(YV))
+          const T B_re = sub_rn(mul_rn(yre, urk), mul_rn(yim, uik));
+          const T B_im = add_rn(mul_rn(yre, uik), mul_rn(yim, urk));
+          const T C = p_row ? add_rn(mul_rn(vri, B_re), mul_rn(vii, B_im))
+                            : sub_rn(mul_rn(vii, B_re), mul_rn(vri, B_im));
+          const T d = p_row ? add_rn(mul_rn(urk, wrk), mul_rn(uik, wik))
+                            : sub_rn(mul_rn(uik, wrk), mul_rn(urk, wik));
+          const T Jv = add_rn(C, mul_rn(d, eye));
+          m[v] = c < n ? (theta ? Jt : Jv) : (c == NP ? F_r : T(0));  // F: the owner's column
+        }
+      } else {
+#pragma unroll
+        for (int v = 0; v < S; ++v) m[v] = t + TW * v == r ? T(1) : T(0);
+      }
+
+      // The elimination, then x <- x - J^-1 F on the owner: the row's
+      // diagonal entry comes from the row's thread that holds column r,
+      // (r, r % TW).
+      sweep_rounds<T, NP, TW>(std::make_integer_sequence<int, SS::U>{}, m, r, t, pb, src0, bar);
+      T dloc = m[0];
+#pragma unroll
+      for (int v = 1; v < S; ++v) dloc = t + TW * v == r ? m[v] : dloc;
+      const T dg = __shfl_sync(kWarpMask, dloc, src0 + r % TW);
+      if (owner) x_r = sub_rn(x_r, div_rn(m[NP / TW], dg));
+
+      // The new mismatch and its max over the lane.
+      vectors(x_r);
+      T vmax = T(0);
+      if (owner) {
+        const T vr = Vr[bus], vi = Vi[bus], wr = Wr[bus], wi = Wi[bus];
+        F_r = r < nb ? sub_rn(add_rn(mul_rn(vr, wr), mul_rn(vi, wi)), pq)
+                     : sub_rn(sub_rn(mul_rn(vi, wr), mul_rn(vr, wi)), pq);
+        vmax = abs_of(F_r);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) vmax = nan_max(vmax, __shfl_xor_sync(kWarpMask, vmax, o));
+      if constexpr (GW > 1) {
+        if (lane == 0) red[g >> 5] = vmax;
+        group_sync<GW>(bar);
+        vmax = red[0];
+#pragma unroll
+        for (int w = 1; w < GW; ++w) vmax = nan_max(vmax, red[w]);
+      }
+
+      // The reference's stall rule and loop condition, the same in every
+      // thread of the group.
+      const bool improving = vmax < mul_rn(diff, T(0.5));  // false on NaN
+      stall = improving ? 0 : stall + 1;
+      diff = vmax;
+      ++it;
+      if (!(diff > xtol && it < P.lim_iter && (!kStallRule || stall < kStallLimit))) break;
+    }
+    if (owner) {
+      const long long o = static_cast<long long>(b) * n + r;
+      P.x[o] = x_r;
+      P.F[o] = F_r;
+    }
+    if (g == 0) {
+      P.diff[b] = diff;
+      P.n_iter[b] = it;
+      P.stall[b] = stall;
+    }
+  }
+}
+
+// The kernel: the triage, a grid barrier, then the worklist's Newton loops;
+// the 48- and 64-row bodies at 4 threads a row where the worklist fits the
+// grid's groups of that width at once, else at 2.
+template <typename T, int NP, bool kLaneY>
+__global__ void __launch_bounds__(Body<T, NP>::BLOCK, Body<T, NP>::MIN_BLOCKS)
+    newton_kernel(const NewtonParams<T> P) {
+  using BB = Body<T, NP>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  triage(P, NP <= 32 ? NP : 2 * P.nb);
+  grid_barrier(P.counters + 2);
+  const int count = __ldcg(P.counters);
+  if constexpr (BB::WIDE) {
+    if (count <= static_cast<int>(gridDim.x) * BB::G_HI) {
+      newton_lanes<T, NP, BB::TW_HI, BB::G_HI, kLaneY>(P, count, smem_raw);
+      return;
+    }
+  }
+  newton_lanes<T, NP, BB::TW_LO, BB::G_LO, kLaneY>(P, count, smem_raw);
+}
+
+// One cooperative launch of a persistent grid: as many blocks as the card
+// holds at once, fewer where the lanes need fewer (a group of the bodies'
+// widest layout a lane).
 template <typename T, int NP, bool kLaneY>
 int launch_newton(const NewtonParams<T>& P, cudaStream_t stream) {
-  using NS = NewtonShape<T, NP>;
+  using BB = Body<T, NP>;
   void (*kernel)(const NewtonParams<T>) = newton_kernel<T, NP, kLaneY>;
   cudaError_t err = cudaSuccess;
-  if (NS::BYTES > 48 * 1024) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(NS::BYTES));
+  if (BB::BYTES > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(BB::BYTES));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   int device = 0, n_sm = 0, per_sm = 0;
   err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kRegWarps * 32, NS::BYTES);
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long need = (static_cast<long long>(P.B) + NS::SLOTS - 1) / NS::SLOTS;
-  const long long cap = static_cast<long long>(per_sm > 0 ? per_sm : 1) * n_sm;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BB::BLOCK, BB::BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long cap = static_cast<long long>(per_sm) * n_sm;
+  const long long need = (static_cast<long long>(P.B) + BB::G_HI - 1) / BB::G_HI;
   const int grid = static_cast<int>(need < cap ? need : cap);
-  kernel<<<grid, kRegWarps * 32, NS::BYTES, stream>>>(P);
+  NewtonParams<T> arg = P;
+  void* args[] = {&arg};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid), dim3(BB::BLOCK), args,
+                                    BB::BYTES, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Even n = LO..HI at their own size.
 template <typename T, bool kLaneY, int LO, int HI>
-int dispatch_newton(const NewtonParams<T>& P, int n, cudaStream_t stream) {
+int dispatch_small(const NewtonParams<T>& P, int n, cudaStream_t stream) {
   if (n == HI) return launch_newton<T, HI, kLaneY>(P, stream);
   if constexpr (HI > LO) {
-    return dispatch_newton<T, kLaneY, LO, HI - 2>(P, n, stream);
+    return dispatch_small<T, kLaneY, LO, HI - 2>(P, n, stream);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// The bodies in two halves of about equal build time, as K1's register
-// route splits them: the low half n = 2..26 at their own size and 34..48 in
-// the 48-row body, the high half n = 28..32 and 50..64 in the 64-row body
-// (n = 2 nb is even).
+// The bodies in two halves of about equal build time: the low half n =
+// 2..26 at their own size and 34..48 in the 48-row body, the high half n =
+// 28..32 and 50..64 in the 64-row body (n = 2 nb is even).
 inline bool newton_low(int n) { return (n >= 2 && n <= 26) || (n >= 34 && n <= 48); }
 
 template <typename T, bool kLaneY>
 int newton_low_half(const NewtonParams<T>& P, cudaStream_t stream) {
   const int n = 2 * P.nb;
   if (!newton_low(n)) return static_cast<int>(cudaErrorInvalidValue);
-  if (n <= 26) return dispatch_newton<T, kLaneY, 2, 26>(P, n, stream);
+  if (n <= 26) return dispatch_small<T, kLaneY, 2, 26>(P, n, stream);
   return launch_newton<T, 48, kLaneY>(P, stream);
 }
 
@@ -466,7 +624,7 @@ template <typename T, bool kLaneY>
 int newton_high_half(const NewtonParams<T>& P, cudaStream_t stream) {
   const int n = 2 * P.nb;
   if (n < 28 || n > 64 || newton_low(n)) return static_cast<int>(cudaErrorInvalidValue);
-  if (n <= 32) return dispatch_newton<T, kLaneY, 28, 32>(P, n, stream);
+  if (n <= 32) return dispatch_small<T, kLaneY, 28, 32>(P, n, stream);
   return launch_newton<T, 64, kLaneY>(P, stream);
 }
 

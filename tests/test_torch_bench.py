@@ -1,9 +1,10 @@
 """The kernel probes (gym_anm_torch/bench) instrument the kernels' current
 sources: every marker they place their counters at is still there; and
 their baselines (K5 with one block per lane; K1 with the matrix in device
-memory and the wide chord kernel with one block per lane) keep the C
-interfaces the probes and chip_smoke.py call."""
+memory, the wide chord kernel with one block per lane and PR 13's K3) keep
+the C interfaces the probes and chip_smoke.py call."""
 
+import ctypes
 import re
 from pathlib import Path
 
@@ -49,20 +50,39 @@ def test_pr5_baseline_keeps_the_probes_interface(f64):
     assert ("typedef double Mat;" if f64 else "typedef float Mat;") in src
 
 
+def _ctype(param):
+    """The ctypes type a C parameter takes: a scalar by its type, else a pointer."""
+    scalars = (("float ", ctypes.c_float), ("double ", ctypes.c_double), ("int ", ctypes.c_int),
+               ("long long ", ctypes.c_longlong))
+    return next((t for prefix, t in scalars if param.startswith(prefix)), ctypes.c_void_p)
+
+
 @pytest.mark.parametrize("name", sorted(kernel_probes.BASELINE_SIGNATURES))
 def test_baselines_keep_the_probes_interface(name):
-    """Each entry point of the K1 and wide chord baselines takes the
-    arguments that ``BASELINE_SIGNATURES`` declares (pointers, floats and ints in that order),
-    and the wide chord kernel's baseline takes the current kernel's
-    arguments without its work counter, its scratch buffer and the row
-    strides of its float32 constants."""
+    """Each entry point of the baselines (K1's, the wide chord kernel's and
+    PR 13's K3) takes the arguments that ``BASELINE_SIGNATURES`` declares
+    (pointers and scalars in that order), and the wide chord kernel's
+    baseline takes the current kernel's arguments without its work counter,
+    its scratch buffer and the row strides of its float32 constants."""
     here = Path(kernel_probes.__file__).parent
     src = "".join((here / f).read_text() for f in kernel_probes.BASELINE_SOURCES)
     params = _entry_params(src, name)
-    kinds = ["float" if p.startswith("float ") else "int" if p.startswith("int ") else "ptr" for p in params]
-    ctype = {"float": "c_float", "int": "c_int", "ptr": "c_void_p"}
-    assert [ctype[k] for k in kinds] == [t.__name__ for t in kernel_probes.BASELINE_SIGNATURES[name]]
+    assert [_ctype(p) for p in params] == list(kernel_probes.BASELINE_SIGNATURES[name])
     if name == "chord_newton_wide_lane_f32":
         new = _entry_params((_build.CSRC_DIR / "chord_newton_wide.cu").read_text(), "chord_newton_wide_f32")
         assert [p.split()[-1] for p in new if p.split()[-1] not in ("next_lane", "scratch", "w_ld", "u_ld")] == \
             [p.split()[-1] for p in params]
+
+
+@pytest.mark.parametrize("variant", sorted(kernel_probes.NEWTON_VARIANTS))
+def test_k3_probe_instruments_each_variant_of_the_current_source(variant):
+    """K3's probe places its counters in the current source and each of its
+    variants (the 64-row body held at one width, zero dividends divided)
+    edits it, and its entry reaches every body the probe times."""
+    src = (_build.CSRC_DIR / "newton_fallback.cuh").read_text()
+    edited = kernel_probes.NEWTON_VARIANTS[variant](src)
+    assert (edited == src) == (variant == "as built")
+    probe = kernel_probes.instrument_newton(edited)
+    assert probe.count("clock64()") == 8 and "g_probe[9]" in probe and 'extern "C" int k3_probe' in probe
+    for n in kernel_probes.NEWTON_BODIES:
+        assert f"launch_newton<T, {n}, true>" in probe and f"launch_newton<T, {n}, false>" in probe

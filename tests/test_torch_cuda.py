@@ -1124,3 +1124,121 @@ def test_vec_env_steps_on_the_card_without_a_host_sync(cuda, task):
     torch.cuda.synchronize()
     assert newton_fallback_cuda.launch_count == before + 16
     assert bool(torch.isfinite(obs).all())
+
+
+def _k3_bitwise(args, ybus, plain_ybus):
+    """K3 and its plain version on the same card inputs, equal bit for bit
+    on every lane: x, F, diff (NaN where both are NaN), n_iter and stall."""
+    from gym_anm_torch.physics.newton_cuda import newton_fallback_cuda
+
+    x, F, diff, it, acc, p, q = args
+    B = x.shape[0]
+    acc0 = torch.zeros(B, dtype=torch.bool, device=x.device) if acc is None else acc
+    out_k = newton_fallback_cuda(x, F, diff, it, acc, p, q, ybus)
+    out_p = pf._newton_loop(x, F, diff, it, ~acc0, plain_ybus, p, q, 1e-5, 100, p.dtype == torch.float32,
+                            solve_gauss_jordan)
+    for a, b in zip(out_k, out_p):
+        same = (a == b) | (torch.isnan(a) & torch.isnan(b)) if a.is_floating_point() else a == b
+        n_off = int((~same.reshape(B, -1).all(1)).sum())
+        assert n_off == 0, f"K3 differs from its plain version on {n_off} lanes"
+    return out_k
+
+
+@pytest.mark.parametrize("net", ["ieee33", "anm6"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("ysrc", ["lane", "dense"])
+@pytest.mark.parametrize("start", [0, 2])
+def test_newton_kernel_is_bitwise_at_one_lane(cuda, net, dtype, ysrc, start):
+    """B = 1 (the compat Simulator's call) at n = 64 and 10, both types, the
+    lane Y-bus and the dense Y, from the chord's exit after two bad-basin
+    guesses (vm ~ 0, wild angles): bitwise the plain version."""
+    tb, ybus, p, q, x0 = _k3_lanes(net, dtype, 3, 9, cuda)
+    sl = slice(start, start + 1)
+    ybus = ybus._replace(tap_magn=ybus.tap_magn[sl].contiguous())
+    p, q = p[sl].contiguous(), q[sl].contiguous()
+    init = tuple(t.contiguous() for t in _k3_chord_init(tb, ybus, p, q, x0[sl].contiguous()))
+    Y = ybus(slice(None))
+    _k3_bitwise(init + (p, q), ybus if ysrc == "lane" else Y, ybus if ysrc == "lane" else (lambda idx: Y))
+
+
+@pytest.mark.parametrize("n_bad", [1, 8])
+def test_newton_kernel_tail(cuda, n_bad):
+    """The tail: B = 8192 IEEE33 float32 lanes, all accepted by the chord
+    from the flat start but ``n_bad`` from the bad basin: the triage passes
+    the accepted lanes through and the worklist's lanes come out bitwise the
+    plain version's."""
+    B = 8192
+    tb, ybus, p, q, x0 = _k3_lanes("ieee33", torch.float32, B, 10, cuda)
+    good = _k3_chord_init(tb, ybus, p, q, None)
+    bad = _k3_chord_init(tb, ybus, p, q, x0)
+    assert bool(good[4].all())
+    pick = torch.zeros(B, dtype=torch.bool, device=cuda)
+    pick[torch.arange(n_bad, device=cuda) * 997 + 3] = True
+    init = tuple(torch.where(pick.view(-1, *[1] * (a.dim() - 1)), b, a).contiguous() for a, b in zip(good, bad))
+    out = _k3_bitwise(init + (p, q), ybus, ybus)
+    assert int((out[3] != init[3]).sum()) == int((pick & ~init[4]).sum()) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("per_sm", [1, 2])
+@pytest.mark.parametrize("extra", [0, 1])
+def test_newton_kernel_around_the_width_threshold(cuda, dtype, per_sm, extra):
+    """B = 8192 IEEE33 lanes of which exactly ``per_sm`` x SMs + ``extra``
+    iterate (from the bad basin, the rest accepted): the 64-row body takes
+    4 threads a row where the lanes that iterate fit the grid's groups of
+    that width at once (1 an SM in float64, 2 in float32), else 2, so these
+    counts sit on each side of the threshold at both types: bitwise the
+    plain version."""
+    B = 8192
+    go = per_sm * torch.cuda.get_device_properties(cuda).multi_processor_count + extra
+    tb, ybus, p, q, x0 = _k3_lanes("ieee33", dtype, B, 11, cuda)
+    good = _k3_chord_init(tb, ybus, p, q, None)
+    bad = _k3_chord_init(tb, ybus, p, q, x0)
+    assert bool(good[4].all())
+    iterates = ~bad[4] & (bad[2] > 1e-5) & (bad[3] < 100)
+    pick = iterates & (torch.cumsum(iterates.int(), 0) <= go)
+    assert int(pick.sum()) == go
+    init = tuple(torch.where(pick.view(-1, *[1] * (a.dim() - 1)), b, a).contiguous() for a, b in zip(good, bad))
+    out = _k3_bitwise(init + (p, q), ybus, ybus)
+    assert int((out[3] != init[3]).sum()) == go
+
+
+@pytest.mark.parametrize("n", list(range(2, 33, 2)) + [40, 58])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_newton_kernel_every_body(cuda, n, dtype):
+    """Every body the dispatch instantiates (n = 2..32 at their own size,
+    one n in each of the 48- and 64-row bodies) on a random feeder of the
+    JAX property test's generator, from the flat start (dense Y), from the
+    chord's exit after bad-basin guesses (lane Y) and with one lane left to
+    iterate: bitwise the plain version.  The 48- and 64-row bodies take
+    B = 1001 lanes, more than the card holds at once at 4 threads a row, so
+    the first two run at 2 threads a row and the third at 4."""
+    from gym_anm_torch.networks.random_feeder import random_radial_network
+    from gym_anm_torch.physics.ybus import LaneYbus
+
+    net = random_radial_network(np.random.default_rng(100 + n), n // 2 + 1)
+    tb = make_tables(load_network(net), 1.0, 100, dtype=dtype, device=cuda)
+    nb, B = tb.n_bus - 1, 37 if n <= 32 else 1001
+    assert 2 * nb == n
+    g = torch.Generator(device=cuda).manual_seed(n)
+    p = -0.02 * (1.0 + torch.rand(B, nb, generator=g, device=cuda, dtype=dtype))
+    q = 0.5 * p
+    tap = tb.tap0.expand(B, -1).clone()
+    if len(tb.oltc_branch):
+        tap[:, tb.oltc_branch] = 0.95 + 0.1 * torch.rand(B, 1, generator=g, device=cuda, dtype=dtype)
+    ybus = LaneYbus(tb.n_bus, tb.br_f, tb.br_t, tb.series_re, tb.series_im, tb.shunt_im, tb.shift_cos,
+                    tb.shift_sin, tap)
+    Yre, Yim = ybus(slice(None))
+    x = torch.cat([torch.zeros_like(p), torch.ones_like(p)], dim=1)
+    F, _ = pf._mismatch(x, p, q, Yre, Yim, nb)
+    flat = (x, F, torch.amax(F.abs(), dim=1), torch.zeros(B, dtype=torch.int32, device=cuda), None, p, q)
+    x0 = torch.cat([torch.full((B, nb), 0.5, device=cuda, dtype=dtype), torch.full((B, nb), 0.3, device=cuda,
+                                                                                    dtype=dtype)], dim=1)
+    x0[::2, nb:] = 1.0
+    F0, _ = pf._mismatch(x0, p, q, Yre, Yim, nb)
+    bad = (x0, F0, torch.amax(F0.abs(), dim=1), torch.ones(B, dtype=torch.int32, device=cuda),
+           torch.arange(B, device=cuda) % 5 == 0, p, q)
+    _k3_bitwise(flat, (Yre, Yim), lambda idx: (Yre[idx], Yim[idx]))
+    _k3_bitwise(bad, ybus, ybus)
+    one = torch.arange(B, device=cuda) != 7
+    _k3_bitwise(bad[:4] + (one,) + bad[5:], ybus, ybus)

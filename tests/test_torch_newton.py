@@ -234,3 +234,65 @@ def test_card_route_is_chosen_by_n():
     before = tpf.newton_routes["wide"]
     assert tpf._card_route(64) == "k3" and tpf._card_route(10) == "k3" and tpf._card_route(94) == "wide"
     assert tpf.newton_routes == {"wide": before + 1}
+
+
+def _wrapper_args(dtype=torch.float32):
+    tb = _tables("anm6", dtype)
+    B, n = 4, tb.n_bus - 1
+    taps, p, q, _ = _lanes(tb, B, seed=1)
+    x = torch.zeros(B, 2 * n, dtype=dtype)
+    args = [x, x.clone(), torch.ones(B, dtype=dtype), torch.zeros(B, dtype=torch.int32),
+            torch.zeros(B, dtype=torch.bool), torch.as_tensor(p, dtype=dtype), torch.as_tensor(q, dtype=dtype)]
+    return tb, taps, args
+
+
+@pytest.mark.parametrize("fault,message", [
+    ("float16", "float32 or float64"), ("x shape", "shape"), ("n_iter int64", "n_iter as int32"),
+    ("accepted uint8", "accepted as bool"), ("mixed types", "of one type"), ("dense Y shape", "Yre, Yim"),
+    ("Y type", "in the lanes' type"), ("LaneYbus buses", "LaneYbus does not match"),
+    ("LaneYbus taps", "LaneYbus does not match")])
+def test_card_wrapper_checks_its_arguments(monkeypatch, fault, message):
+    """``k3_arguments`` (the checks K3's wrapper and PR 13's design, timed
+    beside it, share) refuses each malformed argument before the library is
+    loaded and before any tensor is read on a device."""
+    from gym_anm_torch.physics.newton_cuda import k3_arguments
+
+    def no_build():
+        raise AssertionError("load_library was called")
+
+    monkeypatch.setattr(_build, "load_library", no_build)
+    tb, taps, args = _wrapper_args()
+    ybus = _lane_ybus(tb, taps)
+    if fault == "float16":
+        args = [t.half() if t.is_floating_point() else t for t in args]
+    elif fault == "x shape":
+        args[0] = args[0][:, :-1]
+    elif fault == "n_iter int64":
+        args[3] = args[3].long()
+    elif fault == "accepted uint8":
+        args[4] = args[4].to(torch.uint8)
+    elif fault == "mixed types":
+        args[1] = args[1].double()
+    elif fault == "dense Y shape":
+        ybus = tuple(t[:, :-1] for t in ybus(slice(None)))
+    elif fault == "Y type":
+        ybus = tuple(t.double() for t in ybus(slice(None)))
+    elif fault == "LaneYbus buses":
+        ybus = ybus._replace(n_bus=ybus.n_bus + 1)
+    else:
+        ybus = ybus._replace(tap_magn=ybus.tap_magn[:-1])
+    with pytest.raises(ValueError, match=message):
+        k3_arguments(*args, ybus)
+    with pytest.raises(ValueError, match=message):
+        newton_fallback_cuda(*args, ybus)
+
+
+def test_pr13_baseline_goes_through_the_wrappers_checks(monkeypatch):
+    """PR 13's design, timed beside K3 on the host clock, takes its
+    arguments through the same checks and allocations as K3's wrapper: it
+    refuses CPU tensors as the wrapper does, before reading its library."""
+    from gym_anm_torch.bench.kernel_probes import pr13_newton
+
+    tb, taps, args = _wrapper_args(torch.float64)
+    with pytest.raises(ValueError, match="CUDA device"):
+        pr13_newton(None, *args, _lane_ybus(tb, taps))
