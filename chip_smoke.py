@@ -111,8 +111,17 @@ non-zero at the first failure:
    94, 126 and float64 n = 64, 126, the latter timed beside the one-block
    design, the blocked route in device memory and ``solve_ex``; each
    feeder's float32 ``VecEnv`` for 5 steps, the last from bad-basin warm
-   starts (the Newton fallback, K1's blocked route on the 130-bus feeder),
-   held against the float64 tier on the card;
+   starts (the Newton fallback: K3 wide, resident in shared memory at 48
+   and 64 buses, its [J | F] in device memory at 130), every step under
+   ``set_sync_debug_mode("error")``, no standalone K1 launch, the bad-basin
+   step's peak device memory, held against the float64 tier on the card
+   (K3 wide too); then K3 wide against its plain version on each feeder's
+   sets: (a) the bad-basin step's fallback inputs (float32, B = 8192, the
+   LaneYbus), (c) float64 from the flat start with a dense Y at B = 1001 and
+   B = 1, (d) no lane iterating, (f) one lane of (a) among accepted ones:
+   every lane bitwise, times of the kernel and of the host loop around K1
+   that the card ran before it (``_newton_loop`` with ``batched_solve``, a
+   sync an iteration; its peak memory on (a)), the bound;
 11. PPO through ``gym_anm_torch.scripts.train_ppo_online.main``, every
    update under ``torch.cuda.set_sync_debug_mode("error")``:
    11a. base IEEE33 at B = 8192, rollout 16, 10 iterations: env-steps/s of
@@ -208,7 +217,9 @@ K3 and K2 launches of phases 11 to 15 and K5's of phase 15 count in the
 kernels' line.  On the paths of networks up to 33 buses K1's register route
 runs inside K3, one solve a lane-iteration: K1's count in the line is those
 solves on the main paths (K3's n_iter out - n_iter in, read from K3's own
-outputs after each run).
+outputs after each run).  Above 33 buses K1's panel routes run inside K3
+wide the same way: the resident and blocked rows count the solves of the
+feeders' float32 path on each route.
 
 Every kernel time is device time: ``cuda_ms`` puts N_LAUNCH back-to-back
 launches between one pair of CUDA events behind a sleep kernel, so the host
@@ -1703,7 +1714,7 @@ def feeder_env_task(n_bus, scale, n_steps=8):
     return make_feeder_task(net, feeder_vars(net, scale, n_steps, rng), name=f"feeder{n_bus}")
 
 
-def phase10_feeders(pf, lin, cuda_k, VecEnv, base):
+def phase10_feeders(pf, lin, cuda_k, VecEnv, base, kernel, nc):
     """Networks above 33 buses (ROADMAP F3): random radial feeders of 48, 64
     and 130 buses at B = 8192.  The wide chord kernel against its plain
     version on a real step's injections from flat, warm and bad-basin
@@ -1714,13 +1725,18 @@ def phase10_feeders(pf, lin, cuda_k, VecEnv, base):
     ``torch.linalg.solve_ex``; K1's routes at their edges and the feeders'
     other sizes (``phase10_k1_routes``); then the feeders' path: a float32
     VecEnv, 4 steps of uniform-random actions and one from bad-basin warm
-    starts (the Newton fallback: K1 at n = 94, 126 and 258), every output
-    finite, live residuals within 1e-4, no lane terminated, the first 256
-    lanes' voltages within 1e-4 of the float64 tier's on the card (Newton
-    with K1 in float64), and each feeder's fallback on the route
-    ``k1_route`` gives its size.  Returns the wide chord kernel's, K1's
-    blocked route's and K1's shared-memory route's numbers for the kernels'
-    line, their launches those of the float32 path alone."""
+    starts (the Newton fallback: K3 wide at n = 94, 126 and 258), each step
+    under ``set_sync_debug_mode("error")``, every output finite, live
+    residuals within 1e-4, no lane terminated, the first 256 lanes' voltages
+    within 1e-4 of the float64 tier's on the card (K3 wide in float64), each
+    feeder's fallback on the route the wrapper's rule gives its size, no
+    standalone K1 launch, the bad-basin step's peak device memory; then K3
+    wide's sets on the bad-basin step's inputs (``phase10_newton_wide``).
+    ``kernel`` is the run's K3Counts (K1's solves inside K3 wide, from its
+    outputs), ``nc`` K3's wrapper (its route tally).  Returns the wide chord
+    kernel's, K1's blocked route's, K1's shared-memory route's and K3
+    wide's numbers for the kernels' line, their launches those of the
+    float32 path alone (K1's: its solves inside K3 wide on each route)."""
     from gym_anm_torch._build import load_library
     from gym_anm_torch.bench.kernel_probes import gmem_solve, lane_chord
 
@@ -1764,14 +1780,15 @@ def phase10_feeders(pf, lin, cuda_k, VecEnv, base):
         assert torch.equal(xk[keep], xp[keep]), f"K1 {dtype} blocked is not bitwise equal to its plain version"
         if dtype == torch.float64:
             continue
+        # Since K3 wide no path launches this route on its own: its readings are cut to 5 launches, median of 3.
         t = {key: statistics.median(cuda_ms(fn, k) for _ in range(r)) for key, fn, k, r in (
-            ("ms", lambda: lin.solve_gauss_jordan_cuda(A, b), N_LAUNCH, N_REPS),
-            ("library_ms", lambda: torch.linalg.solve_ex(A, b), N_LAUNCH, N_REPS),
-            ("gmem_ms", lambda: gmem_solve(base, A, b), 2, 3),
-            ("plain_ms", lambda: lin.solve_gauss_jordan(A, b), 1, 3))}
+            ("ms", lambda: lin.solve_gauss_jordan_cuda(A, b), 5, 3),
+            ("library_ms", lambda: torch.linalg.solve_ex(A, b), 5, 3),
+            ("gmem_ms", lambda: gmem_solve(base, A, b), 1, 1),
+            ("plain_ms", lambda: lin.solve_gauss_jordan(A, b), 1, 1))}
         bound_ms, bound_by = k1_bound(B, n)
-        log(f"K1 blocked time B={B} n={n} f32 (device time; kernel and solve_ex {N_LAUNCH} launches a reading, median "
-            f"of {N_REPS}; the device-memory design 2 launches, median of 3; plain 1, median of 3): kernel "
+        log(f"K1 blocked time B={B} n={n} f32 (device time; kernel and solve_ex 5 launches a reading, median "
+            f"of 3; the device-memory design and plain 1 launch): kernel "
             f"{t['ms']:.4f} ms, the device-memory design {t['gmem_ms']:.4f} ms, torch.linalg.solve_ex {t['library_ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), kernel at {bound_ms / t['ms']:.4f} of it")
         del t["gmem_ms"]
@@ -1781,35 +1798,68 @@ def phase10_feeders(pf, lin, cuda_k, VecEnv, base):
 
     # The feeders' path, the float32 tier: the counts zeroed just before each
     # of its calls and read just after, so that the float64 tier that checks
-    # it (on the card too, K1 at n = 258 on its blocked route on the 130-bus
-    # feeder) is counted apart.
+    # it (on the card too, K3 wide) is counted apart.  Every float32 step runs
+    # under set_sync_debug_mode("error"): the Newton loop reads no flag on the
+    # host.  The bad-basin step's fallback inputs are kept for K3 wide's sets.
+    tm = importlib.import_module("gym_anm_torch.physics.transition")
     k1 = lin.solve_gauss_jordan_cuda
+    routes = nc.launches_by_route
+    keys = ("wide", "k1", "k3w", "smem", "blocked", "smem_solves", "blocked_solves")
 
-    def counted(tally, fn, *args):
-        cuda_k.launches["wide"] = k1.launches["smem"] = k1.launches["blocked"] = k1.launch_count = 0
-        out = fn(*args)
-        for key, got in (("wide", cuda_k.launches["wide"]), ("smem", k1.launches["smem"]),
-                         ("blocked", k1.launches["blocked"]), ("k1", k1.launch_count)):
+    def counted(tally, fn, *args, strict=False):
+        cuda_k.launches["wide"] = k1.launch_count = kernel.launch_count = 0
+        routes["smem"] = routes["blocked"] = 0
+        if strict:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        solves = kernel.solves  # read after the call: K3 wide's lane-iterations
+        for key, got in (("wide", cuda_k.launches["wide"]), ("k1", k1.launch_count),
+                         ("k3w", routes["smem"] + routes["blocked"]), ("smem", routes["smem"]),
+                         ("blocked", routes["blocked"]), ("smem_solves", solves if routes["smem"] else 0),
+                         ("blocked_solves", solves if routes["blocked"] else 0)):
             tally[key] += got
         return out
 
-    counts = {"wide": 0, "smem": 0, "blocked": 0}
+    counts = dict.fromkeys(keys, 0)
+    fallback_inputs = {}
+    limit = load_library().newton_wide_smem_limit()
     for n_bus, scale in FEEDERS:
         task = feeder_env_task(n_bus, scale)
         env = VecEnv(task, dtype=torch.float32, device="cuda")
         ref = VecEnv(task, dtype=torch.float64, device="cuda")
         g = torch.Generator(device="cuda").manual_seed(100 + n_bus)
         n = env.spec.n_bus - 1
-        f32, f32_bad, f64 = ({"wide": 0, "smem": 0, "blocked": 0, "k1": 0} for _ in range(3))
+        f32, f32_bad, f64 = (dict.fromkeys(keys, 0) for _ in range(3))
         t0 = time.perf_counter()
         state, obs = counted(f32, env.reset, B_MAIN, g)
         s64, _ = counted(f64, ref.reset, N_CHECK_LANES)
-        worst_vm = 0.0
+        worst_vm, peak = 0.0, None
         for k in range(5):
             a = uniform_actions(env, B_MAIN, g)
+            real, seen = tm.nr_solve_lazy, []
             if k == 4:
                 state = state._replace(v_guess=bad_guesses(B_MAIN, n, which=(2, 3)).to("cuda"))
-            state, obs, r, d, info = counted(f32_bad if k == 4 else f32, env.step, state, a)
+
+                def capture(ybus_fn, p, q, **kw):
+                    seen.append((ybus_fn, p, q, kw["init"]))
+                    return real(ybus_fn, p, q, **kw)
+
+                tm.nr_solve_lazy = capture
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+            try:
+                state, obs, r, d, info = counted(f32_bad if k == 4 else f32, env.step, state, a, strict=True)
+            finally:
+                tm.nr_solve_lazy = real
+            if k == 4:
+                torch.cuda.synchronize()
+                peak = (torch.cuda.max_memory_allocated() - held, torch.cuda.max_memory_allocated())
+                fallback_inputs[n_bus] = (seen[0], ref.tables)
             check_step(obs, r, d, info, f"{n_bus}-bus feeder step {k}")
             s64, _, _, d64, info64 = counted(f64, ref.step, s64, a[:N_CHECK_LANES].double())
             assert not d64.any() and float(info64["diff"].max()) <= 1e-5
@@ -1818,26 +1868,156 @@ def phase10_feeders(pf, lin, cuda_k, VecEnv, base):
         wall = time.perf_counter() - t0
         for key in counts:
             counts[key] += f32[key] + f32_bad[key]
-        log(f"{n_bus}-bus feeder path (n = {n}): 5 f32 steps at B={B_MAIN} and the f64 tier's on {N_CHECK_LANES} "
-            f"lanes in {wall:.2f} s; f32 path: wide chord launches {f32['wide'] + f32_bad['wide']}, K1 launches "
-            f"{f32['k1'] + f32_bad['k1']} (n = {2 * n}; {f32_bad['k1']} in the bad-basin step, "
-            f"{f32['smem'] + f32_bad['smem']} resident, {f32['blocked'] + f32_bad['blocked']} blocked); f64 tier: "
-            f"K1 launches {f64['k1']}, {f64['smem']} resident, {f64['blocked']} blocked; f32 voltages against the f64 "
-            f"tier on {N_CHECK_LANES} lanes: max abs "
-            f"diff {worst_vm:.3e}")
+        route32, route64 = (wide_route(lin, 2 * n, dtype, limit) for dtype in (torch.float32, torch.float64))
+        log(f"{n_bus}-bus feeder path (n = {2 * n}): 5 f32 steps at B={B_MAIN} and the f64 tier's on {N_CHECK_LANES} "
+            f"lanes in {wall:.2f} s; f32 path: wide chord launches {f32['wide'] + f32_bad['wide']}, K3 wide launches "
+            f"{f32['k3w'] + f32_bad['k3w']} on route {route32} ({f32_bad['k3w']} in the bad-basin step, "
+            f"{f32_bad['smem_solves'] + f32_bad['blocked_solves']} lane-iterations), standalone K1 launches "
+            f"{f32['k1'] + f32_bad['k1']}, host syncs 0 in every step (set_sync_debug_mode(\"error\")); the "
+            f"bad-basin step's peak device memory {peak[0] / 2**20:.1f} MiB above the {(peak[1] - peak[0]) / 2**20:.1f} "
+            f"MiB held before it ({peak[1] / 2**20:.1f} MiB in all); f64 tier: K3 wide launches {f64['k3w']} on route "
+            f"{route64}, standalone K1 launches {f64['k1']}; f32 voltages against the f64 tier on {N_CHECK_LANES} "
+            f"lanes: max abs diff {worst_vm:.3e}")
         assert f32["wide"] + f32_bad["wide"] > 0, "the wide chord kernel never launched on the feeder path"
-        assert f32_bad["k1"] > 0, "the f32 fallback did not launch K1 in the bad-basin step"
+        assert f32_bad["k3w"] == 1 and f32_bad[route32] == 1 and f32_bad[route32 + "_solves"] > 0, \
+            f"the f32 fallback did not run K3 wide's {route32} route in the bad-basin step"
+        assert f64[route64] > 0, f"the f64 tier did not run K3 wide's {route64} route on the {n_bus}-bus feeder"
+        assert f32["k1"] + f32_bad["k1"] + f64["k1"] == 0, "K1 launched on its own on the feeders' path"
         # The JAX package's bar for random feeders (tests/test_random_networks.py:143): the f32
         # chord stops within ||F|| <= 1e-5 (1e-4 on a plateau), and these feeders' voltages are
         # more sensitive to the residual than IEEE33's (5e-5 above).
         assert worst_vm <= 1e-4, f"{n_bus}-bus feeder: f32 voltages off the f64 tier's by {worst_vm:.3e}"
-        limit = load_library().gj_smem_limit_bytes()
-        route32, route64 = (lin.k1_route(2 * n, dtype, limit)[0] for dtype in (torch.float32, torch.float64))
-        assert f32_bad[route32] > 0, f"the f32 fallback did not run K1's {route32} route on the {n_bus}-bus feeder"
-        assert f64[route64] > 0, f"the f64 tier did not run K1's {route64} route on the {n_bus}-bus feeder"
+        if n_bus == 130:
+            wide_peak = peak
     wide["max_abs_err"] = max(wide.pop("errs"))
-    return (dict(wide, launches=counts["wide"]), dict(blocked, launches=counts["blocked"]),
-            dict(resident, launches=counts["smem"]))
+    k3w = phase10_newton_wide(pf, lin, nc, fallback_inputs, limit)
+    k3w["peak_step"] = wide_peak
+    return (dict(wide, launches=counts["wide"]), dict(blocked, launches=counts["blocked_solves"]),
+            dict(resident, launches=counts["smem_solves"]), dict(k3w, launches=counts["k3w"],
+                                                                   by_route=(counts["smem"], counts["blocked"])))
+
+
+def wide_route(lin, n, dtype, limit):
+    """K3 wide's route at n unknowns of ``dtype`` on this card (the
+    wrapper's rule)."""
+    from gym_anm_torch.physics.newton_cuda import wide_lane_bytes
+
+    return lin.k1_route(n, dtype, limit, wide_lane_bytes(n, dtype.itemsize))[0]
+
+
+def timed(fn, budget_ms=200.0):
+    """Device ms of ``fn`` (``cuda_ms``): as many launches a reading as fit
+    ``budget_ms`` (1 to N_LAUNCH), the median of N_REPS readings, 3 where a
+    call takes over 10 ms."""
+    t1 = cuda_ms(fn, 1)
+    k = max(1, min(N_LAUNCH, int(budget_ms / max(t1, 1e-3))))
+    return statistics.median(cuda_ms(fn, k) for _ in range(3 if t1 > 10.0 else N_REPS))
+
+
+def k3_wide_vs_plain(pf, lin, nc, name, args, ybus, plain_ybus, route, xtol=1e-5, lim_iter=100, memory=False):
+    """K3 wide and its plain version (``_newton_loop`` with the plain
+    Gauss-Jordan solve) on the same card inputs ``args`` = (x, F, diff,
+    n_iter, accepted or None, p, q): one launch on ``route``, every lane
+    bitwise (x, F, diff, n_iter, stall).  Times the kernel, the plain
+    version once, and the host loop around K1 that the card ran before K3
+    wide (``_newton_loop`` with ``batched_solve``: a sync and a standalone K1
+    launch an iteration), with the bound; ``memory``: the peak device memory
+    of a call of each, above what was held before it."""
+    x, F, diff, it, acc, p, q = args
+    B, n = x.shape
+    f32 = p.dtype == torch.float32
+    acc0 = torch.zeros(B, dtype=torch.bool, device="cuda") if acc is None else acc
+    call = lambda: nc(x, F, diff, it, acc, p, q, ybus, xtol, lim_iter)  # noqa: E731
+    host = lambda: pf._newton_loop(x, F, diff, it, ~acc0, plain_ybus, p, q, xtol, lim_iter, f32,  # noqa: E731
+                                   lin.batched_solve)
+    before = nc.launches_by_route[route]
+    out_k = call()
+    torch.cuda.synchronize()
+    assert nc.launches_by_route[route] == before + 1, f"K3 wide did not launch once on route {route}"
+    plain = []
+    plain_ms = cuda_ms(lambda: plain.append(pf._newton_loop(x, F, diff, it, ~acc0, plain_ybus, p, q, xtol, lim_iter,
+                                                            f32, lin.solve_gauss_jordan)), 1)
+    xp, Fp, dp, ip, sp = plain[0]
+    same = (bitwise_rows(out_k[0], xp) & bitwise_rows(out_k[1], Fp) & bitwise_rows(out_k[2], dp)
+            & (out_k[3] == ip) & (out_k[4] == sp))
+    n_bit = int(same.sum())
+    rk = pf._nr_result(*out_k, acc0, xtol, f32)
+    lane_iters = int((out_k[3] - it).sum())
+    n_go = int(((out_k[3] - it) > 0).sum())
+    max_it = int((out_k[3] - it).max())
+    log(f"K3 wide {name} B={B} n={n} {p.dtype} (route {route}): {n_go} lanes iterated, {lane_iters} "
+        f"lane-iterations (max {max_it}); stable {int(rk.stable.sum())}, converged {int(rk.converged.sum())}; "
+        f"bitwise equal to the plain version (x, F, diff, n_iter, stall) on {n_bit} of {B} lanes")
+    assert n_bit == B, f"K3 wide differs from its plain version on {B - n_bit} lanes"
+    out = dict(max_abs_err=0.0, lane_iters=lane_iters, max_it=max_it, plain_ms=plain_ms)  # bitwise, asserted
+    if memory:
+        for key, fn in (("peak_kernel", call), ("peak_host", host)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            fn()
+            torch.cuda.synchronize()
+            out[key] = torch.cuda.max_memory_allocated() - held
+    k1 = lin.solve_gauss_jordan_cuda.launch_count
+    out["ms"], out["host_ms"] = timed(call), timed(host)
+    if hasattr(ybus, "tap_magn"):  # a LaneYbus: the taps and the branch tables
+        y_bytes = x.element_size() * (ybus.tap_magn.numel() + 5 * ybus.f.numel()) + 16 * ybus.f.numel()
+    else:
+        y_bytes = x.element_size() * sum(t.numel() for t in ybus)
+    out["bound_ms"], out["bound_by"] = k3_bound(B, n, x.element_size(), lane_iters, y_bytes)
+    per_it = f"{1e3 * out['ms'] / max_it:.2f} µs an iteration of the slowest lane" if max_it else "no lane iterates"
+    log(f"K3 wide {name} time (device time, median of {N_REPS} readings, 3 above 10 ms a call): kernel "
+        f"{out['ms']:.4f} ms, the host loop around K1 {out['host_ms']:.4f} ms ({out['host_ms'] / out['ms']:.2f}x; "
+        f"{lin.solve_gauss_jordan_cuda.launch_count - k1} K1 launches while timed), plain {plain_ms:.4f} ms (one "
+        f"call); bound {out['bound_ms']:.4f} ms ({out['bound_by']}, {lane_iters} lane-iterations), kernel at "
+        f"{out['bound_ms'] / out['ms']:.4f} of it; {per_it}"
+        + (f"; peak device memory of a call: kernel {out['peak_kernel'] / 2**20:.1f} MiB, the host loop around K1 "
+           f"{out['peak_host'] / 2**20:.1f} MiB" if memory else ""))
+    return out
+
+
+def phase10_newton_wide(pf, lin, nc, fallback_inputs, limit):
+    """K3 wide against its plain version on each feeder's sets: (a) the
+    float32 bad-basin step's fallback inputs (B = 8192, the LaneYbus), (c)
+    float64 from the flat start with a dense Y (the f64 tables' Y at (a)'s
+    taps) at B = 1001 and B = 1, (d) (a)'s lanes all accepted (no lane
+    iterates), (f) the tail: one lane of (a) that iterates among (d)'s.
+    Returns the (a) sets' numbers of the resident route (64 buses) and of
+    the device-memory route (130 buses) for the kernels' line."""
+    from gym_anm_torch.physics.ybus import LaneYbus
+
+    results = {}
+    for n_bus, ((ybus, p, q, init), t64) in fallback_inputs.items():
+        init = tuple(t.contiguous() for t in init)
+        n = 2 * p.shape[1]
+        r32, r64 = (wide_route(lin, n, dtype, limit) for dtype in (torch.float32, torch.float64))
+        res = results[n_bus] = {}
+        res["a"] = k3_wide_vs_plain(pf, lin, nc, f"(a) {n_bus}-bus feeder, the bad-basin step's fallback",
+                                    init + (p, q), ybus, ybus, r32, memory=n_bus == 130)
+        accepted = torch.ones_like(init[4])
+        res["d"] = k3_wide_vs_plain(pf, lin, nc, f"(d) {n_bus}-bus feeder, no lane iterating",
+                                    init[:4] + (accepted, p, q), ybus, ybus, r32)
+        go = int(torch.nonzero((init[2] > 1e-5) & (init[3] < 100) & ~init[4])[0])
+        tail = accepted.clone()
+        tail[go] = False
+        res["f"] = k3_wide_vs_plain(pf, lin, nc, f"(f) {n_bus}-bus feeder, one lane among accepted ones",
+                                    init[:4] + (tail, p, q), ybus, ybus, r32)
+        Yre, Yim = LaneYbus(t64.n_bus, t64.br_f, t64.br_t, t64.series_re, t64.series_im, t64.shunt_im,
+                            t64.shift_cos, t64.shift_sin, ybus.tap_magn.double())(slice(0, 1001))
+        for BB in (1001, 1):
+            Y = (Yre[:BB].contiguous(), Yim[:BB].contiguous())
+            p64, q64 = p[:BB].double().contiguous(), q[:BB].double().contiguous()
+            res[f"c {BB}"] = k3_wide_vs_plain(pf, lin, nc, f"(c) {n_bus}-bus feeder, float64 from the flat start",
+                                              flat_start(pf, *Y, p64, q64) + (None, p64, q64), Y, dense_oracle(*Y),
+                                              r64)
+    log("K3 wide sets (all bitwise): " + "; ".join(
+        f"{n_bus} buses {k}: {v['ms']:.4f} ms (host loop around K1 {v['host_ms']:.4f}, plain {v['plain_ms']:.4f}; "
+        f"bound {v['bound_ms']:.4f}, {v['bound_by']}; slowest lane {v['max_it']} iterations)"
+        for n_bus, sets in results.items() for k, v in sets.items()))
+    a130 = results[130]["a"]
+    log(f"K3 wide, the 130-bus bad-basin fallback: peak device memory of a call {a130['peak_kernel'] / 2**20:.1f} MiB "
+        f"against the host loop around K1's {a130['peak_host'] / 2**20:.1f} MiB")
+    return dict(resident=results[64]["a"], blocked=a130)
 
 
 def admm_bound(dc, B, iterations):
@@ -2270,18 +2450,18 @@ def phase10_k1_routes(lin, base):
         assert torch.equal(x1[keep], xp[keep]) and torch.equal(xb[keep], xp[keep]), "a baseline is not bitwise"
         slow = n > 100  # the one-block design takes up to ~80 ms a call there: 2 launches a reading
         t = {key: statistics.median(cuda_ms(fn, k) for _ in range(r)) for key, fn, k, r in (
-            ("ms", lambda: k1(A, b), N_LAUNCH, N_REPS),
+            ("ms", lambda: k1(A, b), N_LAUNCH, 3),
             ("one_block_ms", lambda: one_block_solve(base, A, b), 2 if slow else N_LAUNCH, 3),
             ("blocked_ms", lambda: panel_solve(load_library(), A, b, blocked_panel, False), N_LAUNCH, 3),
-            ("library_ms", lambda: torch.linalg.solve_ex(A, b), N_LAUNCH, N_REPS))}
+            ("library_ms", lambda: torch.linalg.solve_ex(A, b), N_LAUNCH, 3))}
         bound_ms, bound_by = k1_bound(B_MAIN, n, itemsize)
         log(f"K1 B={B_MAIN} n={n} {dtype}, route {route} (panel {panel}): kernel {t['ms']:.4f} ms "
             f"({bound_ms / t['ms']:.4f} of the bound), the one-block design {t['one_block_ms']:.4f} ms "
             f"({bound_ms / t['one_block_ms']:.4f}), blocked route in device memory (panel {blocked_panel}) "
             f"{t['blocked_ms']:.4f} ms ({bound_ms / t['blocked_ms']:.4f}), torch.linalg.solve_ex "
             f"{t['library_ms']:.4f} ms ({bound_ms / t['library_ms']:.4f}); bound {bound_ms:.4f} ms ({bound_by}); "
-            f"device time, median of {N_REPS} (kernel, solve_ex) or 3 readings of {N_LAUNCH} launches "
-            f"({2 if slow else N_LAUNCH} for the one-block design)")
+            f"device time, median of 3 readings of {N_LAUNCH} launches ({2 if slow else N_LAUNCH} for the one-block "
+            "design)")
         if (n, dtype) == (126, torch.float32):
             assert route == "smem", "float32 n = 126 is off the shared-memory route"
             t_plain = statistics.median(cuda_ms(lambda: lin.solve_gauss_jordan(A, b), 1) for _ in range(3))
@@ -3336,7 +3516,9 @@ def log_ptxas(report):
              (r"chord_kernelILi(\d+)ELi(\d+)E", lambda a, c: f"chord_kernel<{a}, {c}>"),
              (r"chord_wide_kernelILi(\d+)E", lambda k: f"chord_wide_kernel<{k}>"),
              (r"admm_kernelILb([01])ELb([01])E", lambda m, g: f"admm_kernel<{b[m]}, {b[g]}>"),
-             (r"newton_kernelI([fd])Li(\d+)ELb([01])E", lambda t, k, y: f"newton_kernel<{b[t]}, {k}, {b[y]}>"))
+             (r"newton_kernelI([fd])Li(\d+)ELb([01])E", lambda t, k, y: f"newton_kernel<{b[t]}, {k}, {b[y]}>"),
+             (r"newton_wide_kernelI([fd])Li(\d+)ELb([01])ELb([01])E",
+              lambda t, k, r, y: f"newton_wide_kernel<{b[t]}, {k}, {b[r]}, {b[y]}>"))
     name = spill = None
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -3416,7 +3598,7 @@ def main():
     k5_launches, farm_record, _ = run(phase9c_farm, mpc, solve_dcopf_cuda, VecEnv, make_anm6easy_task, kernel,
                                       chord_solve_cuda)
     run(phase9d_replay, mpc, VecEnv, make_anm6easy_task, farm_record)
-    k2w, k1g, k1s = run(phase10_feeders, pf, lin, chord_solve_cuda, VecEnv, base)
+    k2w, k1g, k1s, k3w = run(phase10_feeders, pf, lin, chord_solve_cuda, VecEnv, base, kernel, nc)
     ppo_k3, ppo_k2, ppo_k1 = run(phase11_ppo, VecEnv, make_ieee33_multicap_task, kernel, chord_solve_cuda)
     cql_k3, cql_k2, cql_k1 = run(phase12_cql, kernel, chord_solve_cuda)
     sim_k3, _, sim_k1 = run(phase13_simulator, lin, kernel, base)
@@ -3427,6 +3609,7 @@ def main():
     # Launches: the runs of the base, multicap17, collection, ANM6Easy, the learners', the compat Simulator's, the
     # host tier's and phase 15's paths together.  On these paths (n <= 64) K1's register route runs inside K3, one
     # solve a lane-iteration: its "launches" count those solves (K3's n_iter out - n_iter in, from K3's outputs).
+    # On the feeders' path (phase 10) K1's panel routes run inside K3 wide the same way.
     print(json.dumps({"kernels": [{
         "name": "gauss_jordan",
         "route": "cuda",
@@ -3513,7 +3696,19 @@ def main():
         "bound_ms": k1s["bound_ms"],
         "bound_by": k1s["bound_by"],
         "library_ms": k1s["library_ms"],
-    }]}), flush=True)
+    }] + [{
+        "name": f"newton_fallback_wide_{route}",
+        "route": "cuda",
+        "source": "gym_anm_torch/csrc/newton_fallback_wide.cuh",
+        "replaces": "gym_anm_tpu/physics/power_flow.py:699",
+        "launches": k3w["by_route"][i],  # the random feeders' f32 path (phase 10): [J | F] resident, or in device memory
+        "max_abs_err": k3w[key]["max_abs_err"],
+        "ms": k3w[key]["ms"],  # set (a) at 64 buses (resident) and 130 buses (device memory)
+        "plain_ms": k3w[key]["plain_ms"],
+        "bound_ms": k3w[key]["bound_ms"],
+        "bound_by": k3w[key]["bound_by"],
+        "library_ms": None,  # no single PyTorch call runs the Newton loop
+    } for i, (route, key) in enumerate((("resident", "resident"), ("blocked", "blocked")))]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -344,14 +344,14 @@ def instrument_panels(src):
     """K1's source (:func:`gj_source`) with the panel kernel's four steps
     timed by thread 0 of every block (cycles summed over blocks and panels;
     the panels counted)."""
-    loop = "    for (int k0 = 0; k0 < n; k0 += BP) {\n"
-    bar = "\n      __syncthreads();\n"
+    loop = "  for (int k0 = 0; k0 < n; k0 += BP) {\n"
+    bar = "\n    __syncthreads();\n"
     assert src.count(loop) == 1 and src.count(bar) == 4, "the kernel's layout changed"
-    s = src.replace(loop, loop + "      long long t_p = clock64();\n"
-                    "      if (tid == 0) atomicAdd(&g_probe[4], 1ull);\n")
+    s = src.replace(loop, loop + "    long long t_p = clock64();\n"
+                    "    if (tid == 0) atomicAdd(&g_probe[4], 1ull);\n")
     parts = s.split(bar)
     s = parts[0] + "".join(
-        bar + f"      {{ const long long t_q = clock64(); if (tid == 0) atomicAdd(&g_probe[{q}], "
+        bar + f"    {{ const long long t_q = clock64(); if (tid == 0) atomicAdd(&g_probe[{q}], "
         f"(unsigned long long)(t_q - t_p)); t_p = t_q; }}\n" + part for q, part in enumerate(parts[1:]))
     return s.replace("namespace {\n", COUNTERS, 1) + READOUT
 

@@ -354,6 +354,102 @@ __device__ __forceinline__ void pivot_col(T* pr, int ld, const T* F, int j, int 
   }
 }
 
+// One system's blocked Gauss-Jordan by a block of kPanThreads threads: the
+// matrix's home M [n][n + 1] (shared or device memory), the first panel read
+// from A and b where As is given (else M already holds [A | b]), the panels
+// in shared memory at fp, pr, F, D; out(i, x_i) takes each x_i = M[i][n] /
+// M[i][i] of the last panel.  Every thread of the block calls it, and it
+// ends on a block barrier.  K1's panel routes and the wide Newton kernel
+// (newton_fallback_wide.cuh) run this body.
+template <typename T, int BP, typename Out>
+__device__ __forceinline__ void gj_panel_sweeps(const T* As, const T* bs, T* M, T* fp, T* pr, T* F, T* D, int n,
+                                                Out out) {
+  const int ld = n + 1, ldn = (n + 3) / 4 * 4;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int kWarps = kPanThreads / 32;
+  for (int k0 = 0; k0 < n; k0 += BP) {
+    const int bw = n - k0 < BP ? n - k0 : BP;
+    const bool first = k0 == 0 && As != nullptr, last = k0 + bw == n;
+    // The matrix as it stood before this panel: A and b, or its home.
+    auto at = [&](int i, int j) -> T { return first ? (j < n ? As[i * n + j] : bs[i]) : M[i * ld + j]; };
+
+    // Load both panels (the padding rows of the column panel are zeros).
+    for (int c = warp; c < bw; c += kWarps) {
+      for (int i = lane; i < ldn; i += 32) fp[c * ldn + i] = i < n ? at(i, k0 + c) : T(0);
+    }
+    for (int r = warp; r < bw; r += kWarps) {
+      for (int j = lane; j < ld; j += 32) pr[r * ld + j] = at(k0 + r, j);
+    }
+    __syncthreads();
+
+    // Step 1: the diagonal block, on one warp.
+    if (warp == 0) diag_block<T, BP>(pr, ld, k0, bw, F, D, lane);
+    __syncthreads();
+
+    // Step 2: the n rows of the column panel and the n + 1 columns of the
+    // pivot-row panel, one a thread; each reads and writes only its own.
+    for (int w = tid; w < n + ld; w += kPanThreads) {
+      if (w < n) {
+        column_row<T, BP>(fp, ldn, D, w, k0, bw);
+      } else {
+        pivot_col<T, BP>(pr, ld, F, w - n, bw);
+      }
+    }
+    __syncthreads();
+
+    if (!last) {
+      // Step 3: every entry once, its BP updates in k order (bw == BP
+      // here).  A warp walks over units (32 columns, 4 rows), columns
+      // outermost, with the pivot-row entries of its column in registers.
+      const int nc = (ld + 31) / 32, ng = ldn / 4;
+      const int total = nc * ng, per = (total + kWarps - 1) / kWarps;
+      int u = warp * per;
+      const int u_end = total < u + per ? total : u + per;
+      while (u < u_end) {
+        const int cj = u / ng, g0 = u - cj * ng;
+        const int g1 = ng < g0 + (u_end - u) ? ng : g0 + (u_end - u);
+        const int j = 32 * cj + lane;
+        const bool jv = j < ld;
+        T p[BP];
+#pragma unroll
+        for (int kk = 0; kk < BP; ++kk) p[kk] = jv ? pr[kk * ld + j] : T(0);
+        for (int g = g0; g < g1; ++g) {
+          const int i = 4 * g;
+          T v[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) v[r] = (jv && i + r < n) ? at(i + r, j) : T(0);
+#pragma unroll
+          for (int kk = 0; kk < BP; ++kk) {
+            T f[4];
+            load4(fp + kk * ldn + i, f);
+#pragma unroll
+            for (int r = 0; r < 4; ++r) v[r] = sub_rn(v[r], mul_rn(f[r], p[kk]));
+          }
+          if (jv) {
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              if (i + r < n) M[(i + r) * ld + j] = v[r];
+            }
+          }
+        }
+        u += g1 - g0;
+      }
+    } else {
+      // The last panel: only the diagonal and column n, then x.
+      for (int i = tid; i < n; i += kPanThreads) {
+        T d = at(i, i), r = at(i, n);
+        for (int kk = 0; kk < bw; ++kk) {
+          const T f = fp[kk * ldn + i];
+          d = sub_rn(d, mul_rn(f, pr[kk * ld + i]));
+          r = sub_rn(r, mul_rn(f, pr[kk * ld + n]));
+        }
+        out(i, div_rn(r, d));
+      }
+    }
+    __syncthreads();
+  }
+}
+
 template <typename T, int BP, bool kResident>
 __global__ void __launch_bounds__(kPanThreads, kPanMinBlocks<T, kResident>) gj_panels(const T* __restrict__ A, const T* __restrict__ bv,
                                                          T* __restrict__ x, T* __restrict__ S, int B, int n) {
@@ -363,94 +459,10 @@ __global__ void __launch_bounds__(kPanThreads, kPanMinBlocks<T, kResident>) gj_p
   T* pr = fp + BP * ldn;                   // [BP][ld]:  the pivot-row panel, then the rows p(k)
   T* F = pr + BP * ld;                     // [BP][BP]:  the diagonal block's factors
   T* D = F + BP * BP;                      // [BP][BP]:  the diagonal block's pivot rows
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  constexpr int kWarps = kPanThreads / 32;
-
   for (long long sys = blockIdx.x; sys < B; sys += gridDim.x) {
-    const T* As = A + sys * n * n;
-    const T* bs = bv + sys * n;
+    T* xs = x + sys * n;
     T* M = kResident ? D + BP * BP : S + sys * n * ld;  // [n][ld]: the matrix's home
-    for (int k0 = 0; k0 < n; k0 += BP) {
-      const int bw = n - k0 < BP ? n - k0 : BP;
-      const bool first = k0 == 0, last = k0 + bw == n;
-      // The matrix as it stood before this panel: A and b, or its home.
-      auto at = [&](int i, int j) -> T { return first ? (j < n ? As[i * n + j] : bs[i]) : M[i * ld + j]; };
-
-      // Load both panels (the padding rows of the column panel are zeros).
-      for (int c = warp; c < bw; c += kWarps) {
-        for (int i = lane; i < ldn; i += 32) fp[c * ldn + i] = i < n ? at(i, k0 + c) : T(0);
-      }
-      for (int r = warp; r < bw; r += kWarps) {
-        for (int j = lane; j < ld; j += 32) pr[r * ld + j] = at(k0 + r, j);
-      }
-      __syncthreads();
-
-      // Step 1: the diagonal block, on one warp.
-      if (warp == 0) diag_block<T, BP>(pr, ld, k0, bw, F, D, lane);
-      __syncthreads();
-
-      // Step 2: the n rows of the column panel and the n + 1 columns of the
-      // pivot-row panel, one a thread; each reads and writes only its own.
-      for (int w = tid; w < n + ld; w += kPanThreads) {
-        if (w < n) {
-          column_row<T, BP>(fp, ldn, D, w, k0, bw);
-        } else {
-          pivot_col<T, BP>(pr, ld, F, w - n, bw);
-        }
-      }
-      __syncthreads();
-
-      if (!last) {
-        // Step 3: every entry once, its BP updates in k order (bw == BP
-        // here).  A warp walks over units (32 columns, 4 rows), columns
-        // outermost, with the pivot-row entries of its column in registers.
-        const int nc = (ld + 31) / 32, ng = ldn / 4;
-        const int total = nc * ng, per = (total + kWarps - 1) / kWarps;
-        int u = warp * per;
-        const int u_end = total < u + per ? total : u + per;
-        while (u < u_end) {
-          const int cj = u / ng, g0 = u - cj * ng;
-          const int g1 = ng < g0 + (u_end - u) ? ng : g0 + (u_end - u);
-          const int j = 32 * cj + lane;
-          const bool jv = j < ld;
-          T p[BP];
-#pragma unroll
-          for (int kk = 0; kk < BP; ++kk) p[kk] = jv ? pr[kk * ld + j] : T(0);
-          for (int g = g0; g < g1; ++g) {
-            const int i = 4 * g;
-            T v[4];
-#pragma unroll
-            for (int r = 0; r < 4; ++r) v[r] = (jv && i + r < n) ? at(i + r, j) : T(0);
-#pragma unroll
-            for (int kk = 0; kk < BP; ++kk) {
-              T f[4];
-              load4(fp + kk * ldn + i, f);
-#pragma unroll
-              for (int r = 0; r < 4; ++r) v[r] = sub_rn(v[r], mul_rn(f[r], p[kk]));
-            }
-            if (jv) {
-#pragma unroll
-              for (int r = 0; r < 4; ++r) {
-                if (i + r < n) M[(i + r) * ld + j] = v[r];
-              }
-            }
-          }
-          u += g1 - g0;
-        }
-      } else {
-        // The last panel: only the diagonal and column n, then x.
-        for (int i = tid; i < n; i += kPanThreads) {
-          T d = at(i, i), r = at(i, n);
-          for (int kk = 0; kk < bw; ++kk) {
-            const T f = fp[kk * ldn + i];
-            d = sub_rn(d, mul_rn(f, pr[kk * ld + i]));
-            r = sub_rn(r, mul_rn(f, pr[kk * ld + n]));
-          }
-          x[sys * n + i] = div_rn(r, d);
-        }
-      }
-      __syncthreads();
-    }
+    gj_panel_sweeps<T, BP>(A + sys * n * n, bv + sys * n, M, fp, pr, F, D, n, [&](int i, T v) { xs[i] = v; });
   }
 }
 

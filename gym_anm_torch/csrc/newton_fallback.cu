@@ -103,62 +103,148 @@
 // lanes iterate the kernel is bound by one lane's chain instead: n sweeps a
 // lane-iteration, each a meeting of the group, a shared-memory load, a
 // shuffle, a division and S = (n + 1) / TW updates a thread.
+//
+// K3 wide (newton_fallback_wide.cuh; units newton_fallback_wide_f32.cu and
+// _f64.cu): the same loop above 33 buses (n = 66 and more; the random
+// feeders of 48, 64 and 130 buses: n = 94, 126, 258), where a lane's system
+// no longer fits a group's registers.  The same triage, grid barrier and
+// worklist, one cooperative launch; then a block of 256 threads runs one
+// lane at a time.  The lane's [J | F] [n][n + 1] lives where
+// linsolve_cuda.py:k1_route puts K1's matrix, the lane's vectors counted in
+// the block's bytes: resident in shared memory while two such blocks fit an
+// SM, else in a slot of device memory, one slot a block of the grid (the
+// wrapper allocates them from the occupancy query of the grid it launches,
+// never one a lane).  A lane's Y-bus is built once into the block's slot
+// (LaneYbus) or read in place (dense).  Each iteration: V and V / |V| (a
+// thread a bus) and Y V (a thread a row, by dot_full's rules: float64 sums
+// rounded once in float32; in float64 power_flow.py:_fold_sum's tree at the
+// run-time N, its 64, 128 or 256 leaves walked depth first); [J | F] a warp
+// a row, the entries as K3 forms them; the elimination by K1's panel body
+// (gauss_jordan.cuh:gj_panel_sweeps: panels of 8, 16 or 32 pivots, the
+// diagonal block on one warp, each entry read and written once a panel), so
+// it is bitwise K1's panel routes and the plain solve; x <- x - J^-1 F from
+// the last panel; the new F and its max (a butterfly a warp, then the
+// warps'); the same stall rule and exit.  No host sync: the card never runs
+// the plain loop.
+//
+// Bound (the 130-bus feeder, n = 258, float32): the elimination's n^2 (n +
+// 1) multiply-subtract pairs, 34.5 MFLOP a lane-iteration, 0.51 us at 67
+// TFLOP/s, far above the Jacobian's and the mismatches' ~1.3 M; device
+// memory sees a lane's inputs and outputs once.  Each panel reads and
+// writes the lane's [J | F] once (267 KB at n = 258): from a block's slot,
+// which stays in the 50 MB L2 while the card's 264 slots' matrices (70 MB)
+// nearly do.  A lane's chain is n / BP panels of three block barriers, a
+// warp's diagonal block and a thread's panel row or column.
 
-#include "newton_fallback.cuh"
+#include "newton_fallback_wide.cuh"
 
 using NewtonHalf = int (*)(const void*, int, void*);
+using WideLaunch = int (*)(const void*, int, int, int, int, void*);
 extern "C" int newton_f32_low(const void* params, int lane_ybus, void* stream);
 extern "C" int newton_f32_high(const void* params, int lane_ybus, void* stream);
 extern "C" int newton_f64_low(const void* params, int lane_ybus, void* stream);
 extern "C" int newton_f64_high(const void* params, int lane_ybus, void* stream);
+extern "C" int newton_wide_f32_launch(const void* params, int panel, int resident, int lane_ybus, int grid,
+                                      void* stream);
+extern "C" int newton_wide_f64_launch(const void* params, int panel, int resident, int lane_ybus, int grid,
+                                      void* stream);
+extern "C" int newton_wide_f32_capacity(int n, int panel, int resident, int lane_ybus);
+extern "C" int newton_wide_f64_capacity(int n, int panel, int resident, int lane_ybus);
 
 namespace {
 
-// The body halves by n; lane_ybus: Y from the branch tables (Yre == nullptr).
+// The K3 launch's parameters, or a CUDA error where the pointers do not fit
+// the Y source (lane_y: Y from the branch tables, Yre == nullptr).
 template <typename T>
-int newton_entry(const T* x_in, const T* F_in, const T* diff_in, const int* it_in, const unsigned char* accepted,
-                 const T* p, const T* q, const T* Yre, const T* Yim, long long y_stride, const long long* br_f,
-                 const long long* br_t, const T* series_re, const T* series_im, const T* shunt_im,
-                 const T* shift_cos, const T* shift_sin, const T* tap_magn, int n_branch, double xtol,
-                 int lim_iter, T* x, T* F, T* diff, int* n_iter, int* stall, int* counters, int* work, int B,
-                 int nb, void* stream, NewtonHalf low, NewtonHalf high) {
-  if (B <= 0 || nb < 1 || nb > 32 || counters == nullptr || work == nullptr) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const bool lane_y = Yre == nullptr;
-  if (lane_y && (tap_magn == nullptr || n_branch <= 0)) return static_cast<int>(cudaErrorInvalidValue);
-  const NewtonParams<T> P{x_in, F_in, diff_in, it_in, accepted, p, q, Yre, Yim, y_stride, br_f, br_t,
-                          series_re, series_im, shunt_im, shift_cos, shift_sin, tap_magn, n_branch,
-                          static_cast<T>(xtol), lim_iter, x, F, diff, n_iter, stall, counters, work, B, nb};
-  return (newton_low(2 * nb) ? low : high)(&P, lane_y, stream);
+int newton_params(NewtonParams<T>& P, const T* x_in, const T* F_in, const T* diff_in, const int* it_in,
+                  const unsigned char* accepted, const T* p, const T* q, const T* Yre, const T* Yim,
+                  long long y_stride, const long long* br_f, const long long* br_t, const T* series_re,
+                  const T* series_im, const T* shunt_im, const T* shift_cos, const T* shift_sin, const T* tap_magn,
+                  int n_branch, double xtol, int lim_iter, T* x, T* F, T* diff, int* n_iter, int* stall,
+                  int* counters, int* work, int B, int nb) {
+  if (B <= 0 || counters == nullptr || work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (Yre == nullptr && (tap_magn == nullptr || n_branch <= 0)) return static_cast<int>(cudaErrorInvalidValue);
+  P = NewtonParams<T>{x_in, F_in, diff_in, it_in, accepted, p, q, Yre, Yim, y_stride, br_f, br_t,
+                      series_re, series_im, shunt_im, shift_cos, shift_sin, tap_magn, n_branch,
+                      static_cast<T>(xtol), lim_iter, x, F, diff, n_iter, stall, counters, work, B, nb};
+  return 0;
 }
 
 }  // namespace
 
-extern "C" int newton_fallback_f32(const float* x_in, const float* F_in, const float* diff_in, const int* it_in,
-                                   const unsigned char* accepted, const float* p, const float* q, const float* Yre,
-                                   const float* Yim, long long y_stride, const long long* br_f,
-                                   const long long* br_t, const float* series_re, const float* series_im,
-                                   const float* shunt_im, const float* shift_cos, const float* shift_sin,
-                                   const float* tap_magn, int n_branch, double xtol, int lim_iter, float* x,
-                                   float* F, float* diff, int* n_iter, int* stall, int* counters, int* work, int B,
-                                   int nb, void* stream) {
-  return newton_entry<float>(x_in, F_in, diff_in, it_in, accepted, p, q, Yre, Yim, y_stride, br_f, br_t, series_re,
-                             series_im, shunt_im, shift_cos, shift_sin, tap_magn, n_branch, xtol, lim_iter, x, F,
-                             diff, n_iter, stall, counters, work, B, nb, stream, newton_f32_low, newton_f32_high);
+#define K3_ARGS(T)                                                                                                  \
+  const T *x_in, const T *F_in, const T *diff_in, const int *it_in, const unsigned char *accepted, const T *p,     \
+      const T *q, const T *Yre, const T *Yim, long long y_stride, const long long *br_f, const long long *br_t,   \
+      const T *series_re, const T *series_im, const T *shunt_im, const T *shift_cos, const T *shift_sin,          \
+      const T *tap_magn, int n_branch, double xtol, int lim_iter, T *x, T *F, T *diff, int *n_iter, int *stall,  \
+      int *counters, int *work, int B, int nb
+#define K3_PASS                                                                                                    \
+  x_in, F_in, diff_in, it_in, accepted, p, q, Yre, Yim, y_stride, br_f, br_t, series_re, series_im, shunt_im,     \
+      shift_cos, shift_sin, tap_magn, n_branch, xtol, lim_iter, x, F, diff, n_iter, stall, counters, work, B, nb
+
+namespace {
+
+// K3 (n = 2..64): the body halves by n.
+template <typename T>
+int newton_entry(K3_ARGS(T), void* stream, NewtonHalf low, NewtonHalf high) {
+  NewtonParams<T> P;
+  const int rc = newton_params<T>(P, K3_PASS);
+  if (rc != 0) return rc;
+  if (nb < 1 || nb > 32) return static_cast<int>(cudaErrorInvalidValue);
+  return (newton_low(2 * nb) ? low : high)(&P, Yre == nullptr, stream);
 }
 
-extern "C" int newton_fallback_f64(const double* x_in, const double* F_in, const double* diff_in,
-                                   const int* it_in, const unsigned char* accepted, const double* p,
-                                   const double* q, const double* Yre, const double* Yim, long long y_stride,
-                                   const long long* br_f, const long long* br_t, const double* series_re,
-                                   const double* series_im, const double* shunt_im, const double* shift_cos,
-                                   const double* shift_sin, const double* tap_magn, int n_branch, double xtol,
-                                   int lim_iter, double* x, double* F, double* diff, int* n_iter, int* stall,
-                                   int* counters, int* work, int B, int nb, void* stream) {
-  return newton_entry<double>(x_in, F_in, diff_in, it_in, accepted, p, q, Yre, Yim, y_stride, br_f, br_t,
-                              series_re, series_im, shunt_im, shift_cos, shift_sin, tap_magn, n_branch, xtol,
-                              lim_iter, x, F, diff, n_iter, stall, counters, work, B, nb, stream, newton_f64_low,
-                              newton_f64_high);
+// K3 wide (n = 66 up to 2 (2^kFoldLevels - 1)): `grid` blocks, each with a
+// slot of `slot` entries in `slots` (the lane's [J | F] off the resident
+// route, and the lane's Y where it is built).
+template <typename T>
+int newton_wide_entry(K3_ARGS(T), int panel, int resident, T* slots, long long slot, int grid, void* stream,
+                      WideLaunch launch) {
+  NewtonParams<T> P;
+  const int rc = newton_params<T>(P, K3_PASS);
+  if (rc != 0) return rc;
+  const long long n = 2LL * nb, N = nb + 1LL;
+  const long long need = (resident ? 0 : n * (n + 1)) + (Yre == nullptr ? 2 * N * N : 0);
+  if (nb < 33 || N > (1LL << kFoldLevels) || slot < need || (need > 0 && slots == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const WideParams<T> W{P, slots, slot};
+  return launch(&W, panel, resident, Yre == nullptr, grid, stream);
 }
 
+}  // namespace
+
+extern "C" int newton_fallback_f32(K3_ARGS(float), void* stream) {
+  return newton_entry<float>(K3_PASS, stream, newton_f32_low, newton_f32_high);
+}
+
+extern "C" int newton_fallback_f64(K3_ARGS(double), void* stream) {
+  return newton_entry<double>(K3_PASS, stream, newton_f64_low, newton_f64_high);
+}
+
+extern "C" int newton_fallback_wide_f32(K3_ARGS(float), int panel, int resident, float* slots, long long slot,
+                                        int grid, void* stream) {
+  return newton_wide_entry<float>(K3_PASS, panel, resident, slots, slot, grid, stream, newton_wide_f32_launch);
+}
+
+extern "C" int newton_fallback_wide_f64(K3_ARGS(double), int panel, int resident, double* slots, long long slot,
+                                        int grid, void* stream) {
+  return newton_wide_entry<double>(K3_PASS, panel, resident, slots, slot, grid, stream, newton_wide_f64_launch);
+}
+
+// The blocks of K3 wide the card holds at once at (type, n, panel, route, Y
+// source): the largest grid, and the slots, of a launch; minus a CUDA error
+// where there is no such kernel or its shared memory does not fit.
+extern "C" int newton_wide_grid(int f64, int n, int panel, int resident, int lane_ybus) {
+  return (f64 ? newton_wide_f64_capacity : newton_wide_f32_capacity)(n, panel, resident, lane_ybus);
+}
+
+// A block's dynamic shared memory at (type, n, panel, route), bytes.
+extern "C" long long newton_wide_smem_bytes(int f64, int n, int panel, int resident) {
+  return static_cast<long long>(f64 ? wide_smem_bytes<double>(n, panel, resident != 0)
+                                    : wide_smem_bytes<float>(n, panel, resident != 0));
+}
+
+// The card's opt-in shared memory a block, bytes: the route rule's limit
+// (linsolve_cuda.py:k1_route).
+extern "C" int newton_wide_smem_limit() { return max_smem_optin(); }

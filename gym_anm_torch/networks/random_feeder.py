@@ -89,13 +89,17 @@ def make_feeder_task(network, vars_mw, name="feeder"):
 
     table = np.asarray(vars_mw, np.float64)
     n_state = load_network(network).n_state
+    tables = {}  # the table in each (type, device) a step asked for, copied once
 
     def init_state_fn(generator, n, carry):
         return np.zeros((n, n_state))
 
     def next_vars_fn(generator, s_t, carry, t):
-        rows = torch.as_tensor(table, dtype=s_t.dtype, device=s_t.device)
-        return rows[torch.remainder(t.long(), len(table))], carry
+        key = (s_t.dtype, s_t.device)
+        if key not in tables:  # to a card from pinned memory, asynchronously: no step waits on the host
+            rows = torch.as_tensor(table, dtype=s_t.dtype)
+            tables[key] = rows.pin_memory().to(s_t.device, non_blocking=True) if s_t.is_cuda else rows
+        return tables[key][torch.remainder(t.long(), len(table))], carry
 
     return VecTask(network=network, K=0, delta_t=0.5, gamma=0.99, lamb=100, costs_clipping=(None, None),
                    init_state_fn=init_state_fn, next_vars_fn=next_vars_fn, name=name)

@@ -46,21 +46,24 @@ def blocks_per_sm(nbytes, smem_limit):
     return (smem_limit + BLOCK_RESERVED) // (nbytes + BLOCK_RESERVED)
 
 
-def k1_route(n, dtype, smem_limit):
+def k1_route(n, dtype, smem_limit, extra=0):
     """The route and panel width of an n×n system of ``dtype`` on a card with
     ``smem_limit`` bytes of opt-in shared memory a block: ``("regs", 0)``,
-    ``("smem", panel)`` or ``("blocked", panel)``.  On an H100 both types
-    run in registers to n = 64; float32 resident to n = 161 and float64 to
+    ``("smem", panel)`` or ``("blocked", panel)``; raises where no panel of
+    the blocked route fits.  ``extra``: bytes a block needs beside the
+    panels and the matrix (the wide Newton kernel's lane vectors,
+    ``newton_cuda.wide_lane_bytes``; 0 for K1).  On an H100 K1 runs both
+    types in registers to n = 64; float32 resident to n = 161 and float64 to
     111, and blocked above."""
     itemsize = dtype.itemsize
     if n <= REG_MAX_N:
         return "regs", 0
-    blocks, panel = max((min(blocks_per_sm(panel_smem_bytes(n, itemsize, bp, True), smem_limit),
+    blocks, panel = max((min(blocks_per_sm(panel_smem_bytes(n, itemsize, bp, True) + extra, smem_limit),
                              RESIDENT_REG_BLOCKS[itemsize]), bp) for bp in RESIDENT_PANELS)
     if blocks >= 2:
         return "smem", panel
     for panel in BLOCKED_PANELS[itemsize]:
-        if panel_smem_bytes(n, itemsize, panel, False) <= smem_limit:
+        if panel_smem_bytes(n, itemsize, panel, False) + extra <= smem_limit:
             return "blocked", panel
     raise ValueError(f"n = {n} ({dtype}) is too large for the blocked route's panels in {smem_limit} bytes")
 

@@ -1,27 +1,58 @@
 """The exact-Newton fallback on the card: the wrapper of the CUDA kernel
-``csrc/newton_fallback.cu`` (K3), which runs the whole Newton loop of every
-lane that still iterates in one launch: a triage pass over every lane, then
-groups of threads that take the iterating lanes from a device worklist and
-spread each lane's Gauss-Jordan sweeps over several threads a row.  It
-replaces the reference's device loop
-``gym_anm_tpu/physics/power_flow.py:nr_solve_lazy`` (and the same loop in
-``nr_solve``).
+``csrc/newton_fallback.cu``, which runs the whole Newton loop of every lane
+that still iterates in one launch: a triage pass over every lane, then the
+lanes that iterate taken from a device worklist.  K3 (n <= 64, networks of
+up to 33 buses) spreads each lane's Gauss-Jordan sweeps over a group of
+threads that holds the system in registers; K3 wide (n above 64) runs a
+lane a block, its [J | F] in shared memory or in the block's slot of
+device memory, eliminated by K1's panel body.  It replaces the reference's
+device loop ``gym_anm_tpu/physics/power_flow.py:nr_solve_lazy`` (and the
+same loop in ``nr_solve``).
 
 Its plain version is
 :func:`~gym_anm_torch.physics.power_flow._newton_loop`;
 :func:`~gym_anm_torch.physics.power_flow.nr_solve_lazy` and
 :func:`~gym_anm_torch.physics.power_flow.nr_solve` pick between the two by
-the tensors' device alone (and by n: above ``MAX_N`` the card runs the plain
-loop around K1's panel routes).
+the tensors' device alone.
 """
+
+import functools
 
 import torch
 
+from .linsolve_cuda import k1_route
 from .ybus import LaneYbus
 
-# Largest n = 2 (N_bus - 1): a lane's system held in its group's registers
-# (networks of up to 33 buses: IEEE33, n = 64).
-MAX_N = 64
+# Largest n = 2 (N_bus - 1) of K3's register bodies (networks of up to 33
+# buses: IEEE33, n = 64); above it K3 wide.
+REGS_MAX_N = 64
+# Largest n of K3 wide: its float64 Y V tree keeps 12 levels a thread
+# (networks of up to 4096 buses).  A card whose shared memory takes no
+# panel of K1's blocked route at n is refused below it (k1_route).
+MAX_N = 2 * (2 ** 12 - 1)
+
+
+def wide_lane_bytes(n, itemsize):
+    """Shared memory a block of K3 wide holds beside K1's panels and
+    matrix: V, V / |V|, Y V (N each, real and imaginary parts), x, F, the
+    injections (n each), the warps' maxima and the claim's cell
+    (``csrc/newton_fallback_wide.cuh:wide_lane_bytes``)."""
+    return itemsize * (6 * (n // 2 + 1) + 3 * n + 32) + 16
+
+
+@functools.cache
+def wide_plan(lib, n, dtype, lane_y):
+    """K3 wide's route at n unknowns of ``dtype`` on the card of ``lib``:
+    ``(route, panel, blocks)``, route ``"smem"`` or ``"blocked"`` by
+    :func:`~.linsolve_cuda.k1_route` with the lane's vectors counted, and
+    the blocks of that kernel the card holds at once (the largest
+    cooperative grid, one slot each)."""
+    route, panel = k1_route(n, dtype, lib.newton_wide_smem_limit(), wide_lane_bytes(n, dtype.itemsize))
+    blocks = lib.newton_wide_grid(int(dtype == torch.float64), n, panel, int(route == "smem"), int(lane_y))
+    if blocks <= 0:
+        raise RuntimeError(f"K3 wide has no kernel for n = {n} ({dtype}, route {route}, panel {panel}): "
+                           f"CUDA error {-blocks}")
+    return route, panel, blocks
 
 
 def _lane_vectors(x, F, diff, n_iter, accepted, p, q):
@@ -73,13 +104,13 @@ def k3_arguments(x, F, diff, n_iter, accepted, p, q, ybus):
         shape = tuple(tables[0].shape)
         if shape not in ((B, N, N), (N, N)) or tuple(tables[1].shape) != shape:
             raise ValueError(f"expected Yre, Yim [{B}, {N}, {N}] or [{N}, {N}], got {shape}")
+    if B == 0 or not 1 <= nb <= MAX_N // 2:
+        raise ValueError(f"newton_fallback_cuda needs a non-empty batch and 2 <= n <= {MAX_N} (networks of at "
+                         f"most {MAX_N // 2 + 1} buses), got B={B}, n={2 * nb}")
     if not all(t.is_cuda and t.device == device for t in lane_vecs + list(tables)):
         raise ValueError("newton_fallback_cuda needs every tensor on one CUDA device")
     if not all(t.is_contiguous() for t in lane_vecs + list(tables)):
         raise ValueError("newton_fallback_cuda needs contiguous tensors")
-    if B == 0 or not 1 <= nb <= MAX_N // 2:
-        raise ValueError(f"newton_fallback_cuda needs a non-empty batch and 2 <= n <= {MAX_N} (networks of at "
-                         f"most {MAX_N // 2 + 1} buses), got B={B}, n={2 * nb}")
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     if kind == "dense":
         y_args = (ptr(tables[0]), ptr(tables[1]), N * N if len(shape) == 3 else 0) + (None,) * 8 + (0,)
@@ -89,6 +120,37 @@ def k3_arguments(x, F, diff, n_iter, accepted, p, q, ybus):
     outs = (torch.empty_like(x), torch.empty_like(F), torch.empty_like(diff), torch.empty_like(n_iter),
             torch.empty_like(n_iter))
     return kind, args, outs
+
+
+def launch(lib, kind, args, outs, B, nb, dtype, device, xtol, lim_iter, stream):
+    """One launch of K3 (n <= ``REGS_MAX_N``) or K3 wide on
+    :func:`k3_arguments`' ``args`` and ``outs``: the worklist and its
+    counters, and K3 wide's slots, allocated on ``device``; returns the
+    route that ran (``"regs"``, ``"smem"`` or ``"blocked"``), raises on a
+    failed launch."""
+    f64 = dtype == torch.float64
+    # The worklist's length, its next item and the grid barrier's arrivals,
+    # then the worklist: one allocation and one fill.
+    scratch = torch.zeros(3 + B, dtype=torch.int32, device=device)
+    ptrs = tuple(t.data_ptr() for t in outs) + (scratch.data_ptr(), scratch.data_ptr() + 3 * scratch.element_size())
+    n = 2 * nb
+    if n <= REGS_MAX_N:
+        route, panel = "regs", 0
+        fn = lib.newton_fallback_f64 if f64 else lib.newton_fallback_f32
+        rc = fn(*args, float(xtol), int(lim_iter), *ptrs, B, nb, stream)
+    else:
+        lane_y = kind == "lane_ybus"
+        route, panel, blocks = wide_plan(lib, n, dtype, lane_y)
+        grid = min(blocks, B)
+        slot = (0 if route == "smem" else n * (n + 1)) + (2 * (nb + 1) ** 2 if lane_y else 0)
+        slots = torch.empty(max(grid * slot, 1), dtype=dtype, device=device)
+        fn = lib.newton_fallback_wide_f64 if f64 else lib.newton_fallback_wide_f32
+        rc = fn(*args, float(xtol), int(lim_iter), *ptrs, B, nb, panel, int(route == "smem"), slots.data_ptr(),
+                slot, grid, stream)
+    if rc != 0:
+        raise RuntimeError(f"newton_fallback kernel launch failed with CUDA error {rc} "
+                           f"(B={B}, n={n}, {dtype}, {kind}, route {route}, panel {panel})")
+    return route
 
 
 def newton_fallback_cuda(x, F, diff, n_iter, accepted, p, q, ybus, xtol=1e-5, lim_iter=100):
@@ -103,33 +165,30 @@ def newton_fallback_cuda(x, F, diff, n_iter, accepted, p, q, ybus, xtol=1e-5, li
     pair ``(Yre, Yim)`` of [B, N, N] or [N, N].  Returns ``(x, F, diff,
     n_iter, stall)`` as :func:`~gym_anm_torch.physics.power_flow._newton_loop`
     returns them, for :func:`~gym_anm_torch.physics.power_flow._nr_result`.
-    Launches on the current stream; raises on anything else (n above
-    ``MAX_N`` included) or on a failed launch.  Adds one to
-    ``newton_fallback_cuda.launch_count`` per launch, and to
-    ``newton_fallback_cuda.launches["lane_ybus"]`` or ``["dense"]`` for the
-    Y source.
+    Launches K3 up to n = ``REGS_MAX_N`` and K3 wide above, on the current
+    stream; raises on anything else (n above ``MAX_N``, or a card whose
+    shared memory takes no panel of K1's blocked route at n, included) or on
+    a failed launch.  Adds one to ``newton_fallback_cuda.launch_count`` per
+    launch, to ``newton_fallback_cuda.launches["lane_ybus"]`` or
+    ``["dense"]`` for the Y source, and to
+    ``newton_fallback_cuda.launches_by_route`` for the body that ran:
+    ``"regs"`` (K3), ``"smem"`` or ``"blocked"`` (K3 wide, [J | F] in shared
+    or device memory).
     """
     kind, args, outs = k3_arguments(x, F, diff, n_iter, accepted, p, q, ybus)
     from .._build import load_library
 
     lib = load_library()
     B, nb = p.shape
-    device, dtype = p.device, p.dtype
-    fn = lib.newton_fallback_f64 if dtype == torch.float64 else lib.newton_fallback_f32
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        # The worklist's length, its next item and the grid barrier's
-        # arrivals, then the worklist: one allocation and one fill.
-        scratch = torch.zeros(3 + B, dtype=torch.int32, device=device)
-        rc = fn(*args, float(xtol), int(lim_iter), *(t.data_ptr() for t in outs), scratch.data_ptr(),
-                scratch.data_ptr() + 3 * scratch.element_size(), B, nb, stream)
-    if rc != 0:
-        raise RuntimeError(f"newton_fallback kernel launch failed with CUDA error {rc} "
-                           f"(B={B}, n={2 * nb}, {dtype}, {kind})")
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        route = launch(lib, kind, args, outs, B, nb, p.dtype, p.device, xtol, lim_iter, stream)
     newton_fallback_cuda.launch_count += 1
     newton_fallback_cuda.launches[kind] += 1
+    newton_fallback_cuda.launches_by_route[route] += 1
     return outs
 
 
 newton_fallback_cuda.launch_count = 0
 newton_fallback_cuda.launches = {"lane_ybus": 0, "dense": 0}
+newton_fallback_cuda.launches_by_route = {"regs": 0, "smem": 0, "blocked": 0}

@@ -17,9 +17,9 @@ phase is one CUDA kernel whose lanes iterate until their own exit
 (:mod:`.chord_cuda`); its plain version :func:`chord_solve_plain` does what
 the reference does with a per-lane mask, ending on a host-side ``any()`` of
 the mask once per iteration.  The exact-Newton loop is one CUDA kernel on
-the card too (:mod:`.newton_cuda`, n <= 64); its plain version
-:func:`_newton_loop` gathers the lanes that still iterate, solves only those
-and scatters them back, which per lane is the same program.
+the card too (:mod:`.newton_cuda`: K3 to n = 64, K3 wide above); its plain
+version :func:`_newton_loop` gathers the lanes that still iterate, solves
+only those and scatters them back, which per lane is the same program.
 
 Host-side tables (:class:`ChordConst` and the functions building it) are
 numpy float64, as in the reference.
@@ -32,8 +32,8 @@ import torch
 
 from .chord_cuda import chord_solve_cuda
 from .complexops import cmatvec, matmul_full
-from .linsolve_cuda import batched_solve, solve_gauss_jordan  # noqa: F401  (re-export)
-from .newton_cuda import MAX_N as K3_MAX_N, newton_fallback_cuda
+from .linsolve_cuda import solve_gauss_jordan
+from .newton_cuda import newton_fallback_cuda
 from .ybus import LaneYbus
 
 
@@ -563,7 +563,10 @@ def chord_solve_plain(p, q, w_a, w_b, dtf_re, dtf_im, const,
 # ---------------------------------------------------------------------------
 def _newton_loop(x, F, diff, it, may_iterate, ybus_at, p, q, xtol, lim_iter, f32_mode, linsolve):
     """Run Newton iterations on the lanes that still iterate: the plain
-    version of the CUDA kernel :func:`~.newton_cuda.newton_fallback_cuda`.
+    version of the CUDA kernels K3 and K3 wide
+    (:func:`~.newton_cuda.newton_fallback_cuda`), the CPU's loop, and the
+    tests' and ``chip_smoke.py``'s oracle on the card; no path of the card
+    runs it.
 
     Per lane this is the reference's while loop: continue while
     diff > xtol, it < lim_iter (and, in f32, stall < 3).  Only the lanes
@@ -605,21 +608,6 @@ def _nr_result(x, F, diff, n_iter, stall, accepted, xtol, f32_mode):
                     converged=converged, stable=converged & ok, F=F)
 
 
-# Calls whose Newton loop the card ran as the plain loop around K1's panel
-# routes because n is above K3's largest body (K3's own launches are counted
-# by its wrapper).
-newton_routes = {"wide": 0}
-
-
-def _card_route(n):
-    """The card's Newton loop at n unknowns: ``"k3"`` up to ``K3_MAX_N``,
-    else ``"wide"`` (counted in ``newton_routes``)."""
-    if n <= K3_MAX_N:
-        return "k3"
-    newton_routes["wide"] += 1
-    return "wide"
-
-
 def nr_solve_lazy(ybus_fn, p, q, xtol=1e-5, lim_iter=100, init=None) -> NRResult:
     """Exact-NR fallback after the chord phase, on the unaccepted lanes only.
 
@@ -631,16 +619,16 @@ def nr_solve_lazy(ybus_fn, p, q, xtol=1e-5, lim_iter=100, init=None) -> NRResult
     matrices [len(idx), N, N] of the lanes ``idx``, called only when a
     Newton iteration runs.  On the CPU the loop is :func:`_newton_loop` with
     the plain Gauss-Jordan solve; on the card it is the CUDA kernel
-    (:func:`~.newton_cuda.newton_fallback_cuda`, one launch, no host sync)
-    up to n = 64, which builds each lane's Y from the ``LaneYbus`` itself,
-    and above that :func:`_newton_loop` around K1 (:func:`batched_solve`).
+    (:func:`~.newton_cuda.newton_fallback_cuda`: K3 to n = 64, K3 wide
+    above; one launch, no host sync), which builds each lane's Y from the
+    ``LaneYbus`` itself.
     """
     if init is None:
         raise ValueError("nr_solve_lazy is the post-chord fallback; pass init")
     x, F, diff, it0, accepted = init
     it0 = it0.to(torch.int32)
     f32_mode = p.dtype != torch.float64
-    if p.is_cuda and _card_route(2 * p.shape[-1]) == "k3":
+    if p.is_cuda:
         if not isinstance(ybus_fn, LaneYbus):
             raise TypeError("on the card nr_solve_lazy takes the Y-bus as a LaneYbus, whose fields the kernel "
                             f"reads; got {type(ybus_fn).__name__}")
@@ -649,7 +637,7 @@ def nr_solve_lazy(ybus_fn, p, q, xtol=1e-5, lim_iter=100, init=None) -> NRResult
                                                          ybus_fn, xtol, lim_iter)
     else:
         x, F, diff, n_iter, stall = _newton_loop(
-            x, F, diff, it0, ~accepted, ybus_fn, p, q, xtol, lim_iter, f32_mode, batched_solve)
+            x, F, diff, it0, ~accepted, ybus_fn, p, q, xtol, lim_iter, f32_mode, solve_gauss_jordan)
     return _nr_result(x, F, diff, n_iter, stall, accepted, xtol, f32_mode)
 
 
@@ -671,8 +659,8 @@ def nr_solve(Yre, Yim, p, q, xtol=1e-5, lim_iter=100, init=None) -> NRResult:
     loop.  On the CPU the loop is :func:`_newton_loop`, its linear solve
     LAPACK for float64 (as the reference's ``jnp.linalg.solve``) and the
     plain Gauss-Jordan for float32.  On the card it is the CUDA kernel
-    (:func:`~.newton_cuda.newton_fallback_cuda`) up to n = 64, and above
-    :func:`_newton_loop` around K1 (:func:`batched_solve`).
+    (:func:`~.newton_cuda.newton_fallback_cuda`: K3 to n = 64, K3 wide
+    above; one launch, no host sync).
     """
     dtype, device = p.dtype, p.device
     B, n = p.shape
@@ -687,13 +675,13 @@ def nr_solve(Yre, Yim, p, q, xtol=1e-5, lim_iter=100, init=None) -> NRResult:
         diff = torch.amax(torch.abs(F), dim=1)
         it0 = torch.zeros(B, dtype=torch.int32, device=device)
         accepted = torch.zeros(B, dtype=torch.bool, device=device)
-    if p.is_cuda and _card_route(2 * n) == "k3":
+    if p.is_cuda:
         c = lambda t: t.contiguous()  # noqa: E731
         x, F, diff, n_iter, stall = newton_fallback_cuda(
             c(x), c(F), c(diff), c(it0), None if init is None else c(accepted), c(p), c(q), (c(Yre), c(Yim)),
             xtol, lim_iter)
     else:
-        linsolve = _lapack_solve if dtype == torch.float64 and device.type == "cpu" else batched_solve
+        linsolve = _lapack_solve if dtype == torch.float64 else solve_gauss_jordan
         ybus_at = (lambda idx: (Yre, Yim)) if Yre.dim() == 2 else (lambda idx: (Yre[idx], Yim[idx]))
         x, F, diff, n_iter, stall = _newton_loop(
             x, F, diff, it0, ~accepted, ybus_at, p, q, xtol, lim_iter, f32_mode, linsolve)

@@ -556,9 +556,11 @@ def test_kernel_in_device_memory_matches_plain_version(cuda, dtype, n):
 def test_feeder_step_on_card_matches_cpu(cuda, n_bus, scale, dtype):
     """A random radial feeder above 33 buses steps on the card at float32
     (the wide chord kernel, and the Newton fallback from bad-basin warm
-    starts) and at float64 (Newton with K1; resident in shared memory up to
-    56 buses, blocked in device memory above), and matches the same step on the CPU: voltages within 5e-6 at
-    float32 (the solver's tolerance) and 1e-9 at float64."""
+    starts) and at float64 (Newton in K3 wide, its [J | F] resident in
+    shared memory at 48 buses, in device memory at 130; K1 never launches
+    on its own), and matches the same step on the CPU: voltages within 5e-6
+    at float32 (the solver's tolerance) and 1e-9 at float64."""
+    from gym_anm_torch.physics.newton_cuda import newton_fallback_cuda
     from gym_anm_torch.networks.random_feeder import feeder_vars, make_feeder_task, random_radial_network
 
     rng = np.random.default_rng(n_bus)
@@ -569,7 +571,7 @@ def test_feeder_step_on_card_matches_cpu(cuda, n_bus, scale, dtype):
     states = {d: e.reset(B)[0] for d, e in envs.items()}
     lo, hi = envs["cpu"].action_low.double().numpy(), envs["cpu"].action_high.double().numpy()
     acts = np.random.default_rng(1).uniform(lo, hi, (3, B, len(lo)))
-    k1 = solve_gauss_jordan_cuda.launch_count
+    k1, k3w = solve_gauss_jordan_cuda.launch_count, dict(newton_fallback_cuda.launches_by_route)
     wide = chord_solve_cuda.launches["wide"]
     n = n_bus - 1
     for k in range(3):
@@ -583,7 +585,9 @@ def test_feeder_step_on_card_matches_cpu(cuda, n_bus, scale, dtype):
             outs[d] = states[d].bus_vm.cpu()
         torch.testing.assert_close(outs["cuda"], outs["cpu"], rtol=0, atol=5e-6 if dtype == torch.float32 else 1e-9)
     torch.cuda.synchronize()
-    assert solve_gauss_jordan_cuda.launch_count > k1
+    assert solve_gauss_jordan_cuda.launch_count == k1
+    route = "smem" if n_bus == 48 else "blocked"
+    assert newton_fallback_cuda.launches_by_route[route] > k3w[route]
     if dtype == torch.float32:
         assert chord_solve_cuda.launches["wide"] > wide
 
@@ -1060,10 +1064,12 @@ def test_newton_kernel_rejects_what_it_does_not_take(cuda):
         newton_fallback_cuda(*good, ybus._replace(tap_magn=ybus.tap_magn.double()))
     with pytest.raises(ValueError):
         newton_fallback_cuda(*good, (Y[0][:, :5, :5], Y[1][:, :5, :5]))
-    n = 33  # n = 66 unknowns: above the kernel's bodies
+    from gym_anm_torch.physics.newton_cuda import MAX_N
+
+    n = MAX_N // 2 + 1  # above K3 wide's largest network (4096 buses)
     x = torch.cat([torch.zeros(8, n, device=cuda), torch.ones(8, n, device=cuda)], dim=1)
-    Yw = (torch.zeros(8, n + 1, n + 1, device=cuda),) * 2
-    with pytest.raises(ValueError, match="n <= 64"):
+    Yw = (torch.zeros(n + 1, n + 1, device=cuda),) * 2
+    with pytest.raises(ValueError, match=f"n <= {MAX_N}"):
         newton_fallback_cuda(x, x, torch.ones(8, device=cuda), torch.zeros(8, dtype=torch.int32, device=cuda), None,
                              torch.zeros(8, n, device=cuda), torch.zeros(8, n, device=cuda), Yw)
 
@@ -1076,9 +1082,9 @@ def test_nr_solve_lazy_on_the_card_takes_a_lane_ybus(cuda):
         pf.nr_solve_lazy(lambda idx: ybus(idx), p, q, init=init)
 
 
-def test_newton_above_64_unknowns_takes_the_wide_route(cuda):
-    """n > 64 (a 48-bus feeder, n = 94): the plain loop around K1's panel
-    routes, counted as the route "wide"; K3 does not launch."""
+def test_newton_above_64_unknowns_takes_the_wide_route(cuda, monkeypatch):
+    """n > 64 (a 48-bus feeder, n = 94): one launch of K3 wide (its route
+    counted), no standalone K1 launch, the plain loop nowhere."""
     from gym_anm_torch.networks.random_feeder import random_radial_network
     from gym_anm_torch.physics.newton_cuda import newton_fallback_cuda
 
@@ -1087,30 +1093,41 @@ def test_newton_above_64_unknowns_takes_the_wide_route(cuda):
     n, B = tb.n_bus - 1, 4
     Yre, Yim = (t.expand(B, -1, -1).contiguous() for t in (tb.chord_t.Y0re, tb.chord_t.Y0im))
     p = torch.full((B, n), -0.002, dtype=torch.float64, device=cuda)
-    k3, wide, k1 = newton_fallback_cuda.launch_count, pf.newton_routes["wide"], solve_gauss_jordan_cuda.launch_count
+    k3, routes, k1 = (newton_fallback_cuda.launch_count, dict(newton_fallback_cuda.launches_by_route),
+                      solve_gauss_jordan_cuda.launch_count)
+    monkeypatch.setattr(pf, "_newton_loop", None)  # the card never reaches the plain loop
     r = pf.nr_solve(Yre, Yim, p, 0.5 * p)
     assert bool(r.stable.all())
-    assert newton_fallback_cuda.launch_count == k3 and pf.newton_routes["wide"] == wide + 1
-    assert solve_gauss_jordan_cuda.launch_count > k1
+    assert newton_fallback_cuda.launch_count == k3 + 1 and solve_gauss_jordan_cuda.launch_count == k1
+    assert newton_fallback_cuda.launches_by_route["smem"] == routes["smem"] + 1  # float64 n = 94: resident
 
 
-@pytest.mark.parametrize("task", ["ieee33", "anm6easy"])
+@pytest.mark.parametrize("task", ["ieee33", "anm6easy", "feeder48", "feeder130"])
 def test_vec_env_steps_on_the_card_without_a_host_sync(cuda, task):
     """16 steps of VecEnv.step at B = 8192 under set_sync_debug_mode("error"):
-    the chord (K2) and the Newton loop (K3, one launch a step) read no flag
-    on the host; the 9th step starts from bad-basin warm starts, so K3 runs
-    Newton iterations."""
+    the chord (K2) and the Newton loop (K3, or K3 wide on the random feeders
+    of 48 and 130 buses; one launch a step) read no flag on the host and K1
+    never launches on its own; the 9th step starts from bad-basin warm
+    starts, so the kernel runs Newton iterations."""
+    from gym_anm_torch.networks.random_feeder import feeder_vars, make_feeder_task, random_radial_network
     from gym_anm_torch.physics.newton_cuda import newton_fallback_cuda
     from gym_anm_torch.vec import make_anm6easy_task
 
-    env = VecEnv(make_ieee33_task() if task == "ieee33" else make_anm6easy_task(), dtype=torch.float32, device=cuda)
+    if task.startswith("feeder"):
+        n_bus = int(task[6:])
+        rng = np.random.default_rng(n_bus)
+        net = random_radial_network(rng, n_bus)
+        task_obj = make_feeder_task(net, feeder_vars(net, {48: 0.6, 130: 0.15}[n_bus], 8, rng), name=task)
+    else:
+        task_obj = make_ieee33_task() if task == "ieee33" else make_anm6easy_task()
+    env = VecEnv(task_obj, dtype=torch.float32, device=cuda)
     g = torch.Generator(device=cuda).manual_seed(16)
     B = 8192
     state, obs = env.reset(B, g)
     n = env.spec.n_bus - 1
     bad = torch.cat([torch.full((B, n), 30.0, device=cuda), torch.ones(B, n, device=cuda)], dim=1)
     policy = env.random_policy()
-    before = newton_fallback_cuda.launch_count
+    before, k1 = newton_fallback_cuda.launch_count, solve_gauss_jordan_cuda.launch_count
     actions = [policy(g, obs, k) for k in range(16)]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -1122,7 +1139,7 @@ def test_vec_env_steps_on_the_card_without_a_host_sync(cuda, task):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    assert newton_fallback_cuda.launch_count == before + 16
+    assert newton_fallback_cuda.launch_count == before + 16 and solve_gauss_jordan_cuda.launch_count == k1
     assert bool(torch.isfinite(obs).all())
 
 
@@ -1242,3 +1259,52 @@ def test_newton_kernel_every_body(cuda, n, dtype):
     _k3_bitwise(bad, ybus, ybus)
     one = torch.arange(B, device=cuda) != 7
     _k3_bitwise(bad[:4] + (one,) + bad[5:], ybus, ybus)
+
+
+@pytest.mark.parametrize("n_bus", [48, 64, 130])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_newton_wide_kernel_is_bitwise_its_plain_version(cuda, n_bus, dtype):
+    """K3 wide at n = 94, 126 and 258 (the random feeders of 48, 64 and 130
+    buses; float32 resident at 48 and 64 buses, the rest in device memory on
+    an H100), bitwise the plain loop with the plain solve on every lane:
+    after the chord from bad-basin guesses with the LaneYbus (B = 257, more
+    lanes than a small grid holds), from the flat start with a dense Y and
+    a zero-pivot lane (B = 33), and one bad lane among accepted ones."""
+    from gym_anm_torch.networks.random_feeder import random_radial_network
+    from gym_anm_torch.physics.linsolve_cuda import k1_route
+    from gym_anm_torch.physics.newton_cuda import newton_fallback_cuda, wide_lane_bytes
+    from gym_anm_torch.physics.ybus import LaneYbus
+    from gym_anm_torch._build import load_library
+
+    net = random_radial_network(np.random.default_rng(n_bus), n_bus)
+    tb = make_tables(load_network(net), 1.0, 100, dtype=dtype, device=cuda)
+    nb, B = tb.n_bus - 1, 257
+    g = torch.Generator(device=cuda).manual_seed(n_bus)
+    p = -0.004 * (1.0 + torch.rand(B, nb, generator=g, device=cuda, dtype=dtype))
+    q = 0.5 * p
+    tap = tb.tap0.expand(B, -1).clone()
+    if len(tb.oltc_branch):
+        tap[:, tb.oltc_branch] = 0.95 + 0.1 * torch.rand(B, 1, generator=g, device=cuda, dtype=dtype)
+    ybus = LaneYbus(tb.n_bus, tb.br_f, tb.br_t, tb.series_re, tb.series_im, tb.shunt_im, tb.shift_cos,
+                    tb.shift_sin, tap)
+    route = k1_route(2 * nb, dtype, load_library().newton_wide_smem_limit(), wide_lane_bytes(2 * nb, dtype.itemsize))[0]
+    before = newton_fallback_cuda.launches_by_route[route]
+    pats = torch.stack([torch.cat([torch.zeros(nb), torch.full((nb,), v)]) for v in (1e-6, -1.0, 1e15)]
+                       + [torch.cat([torch.full((nb,), 30.0), torch.ones(nb)])]).to(cuda, dtype)
+    x0 = pats.repeat(B // 4 + 1, 1)[:B].contiguous()
+    init = tuple(t.contiguous() for t in _k3_chord_init(tb, ybus, p, q, x0))
+    _k3_bitwise(init + (p, q), ybus, ybus)
+    good = tuple(t.contiguous() for t in _k3_chord_init(tb, ybus, p, q, None))
+    one = torch.arange(B, device=cuda) == 5
+    tail = tuple(torch.where(one.view(-1, *[1] * (a.dim() - 1)), b, a).contiguous() for a, b in zip(good, init))
+    _k3_bitwise(tail + (p, q), ybus, ybus)
+    Bd = 33
+    Yre, Yim = ybus(slice(0, Bd))
+    Yre[1], Yim[1] = 0.0, 0.0
+    pd, qd = p[:Bd].contiguous(), q[:Bd].contiguous()
+    x = torch.cat([torch.zeros_like(pd), torch.ones_like(pd)], dim=1)
+    F, _ = pf._mismatch(x, pd, qd, Yre, Yim, nb)
+    out = _k3_bitwise((x, F, torch.amax(F.abs(), dim=1), torch.zeros(Bd, dtype=torch.int32, device=cuda), None, pd,
+                       qd), (Yre, Yim), lambda idx: (Yre[idx], Yim[idx]))
+    assert not bool(torch.isfinite(out[0][1]).all())
+    assert newton_fallback_cuda.launches_by_route[route] == before + 3

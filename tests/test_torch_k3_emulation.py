@@ -32,8 +32,8 @@ import torch
 from gym_anm_torch import _build
 from gym_anm_torch.networks import anm6_network, ieee33_network
 from gym_anm_torch.networks.random_feeder import random_radial_network
-from gym_anm_torch.physics import power_flow as pf
-from gym_anm_torch.physics.linsolve_cuda import solve_gauss_jordan
+from gym_anm_torch.physics import newton_cuda, power_flow as pf
+from gym_anm_torch.physics.linsolve_cuda import panel_smem_bytes, solve_gauss_jordan
 from gym_anm_torch.physics.transition import make_tables
 from gym_anm_torch.physics.ybus import LaneYbus
 from gym_anm_torch.specs import load_network
@@ -140,6 +140,11 @@ inline unsigned __ballot_sync(unsigned, int pred) {
   return r;
 }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
+inline unsigned __brev(unsigned v) {
+  unsigned r = 0;
+  for (int i = 0; i < 32; ++i) r |= ((v >> i) & 1u) << (31 - i);
+  return r;
+}
 inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 inline void __nanosleep(unsigned) { std::this_thread::yield(); }
 inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
@@ -151,7 +156,14 @@ template <typename K> cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
   return 0;
 }
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
-inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = 2; return 0; }  // two SMs: a grid of two blocks
+// Two SMs (a grid of two blocks), and less opt-in shared memory a block than
+// an H100's 232448 bytes, so that K3 wide's float64 lanes at n = 78 and 94
+// take the device-memory route.
+constexpr int kEmulatedSmemOptin = 98304;
+inline cudaError_t cudaDeviceGetAttribute(int* v, int attr, int) {
+  *v = attr == cudaDevAttrMaxSharedMemoryPerBlockOptin ? kEmulatedSmemOptin : 2;
+  return 0;
+}
 inline cudaError_t cudaGetLastError() { return 0; }
 template <typename P>
 cudaError_t emulated_launch(void (*kernel)(const P), dim3 grid, dim3 block, void** args, size_t smem, cudaStream_t) {
@@ -189,6 +201,10 @@ EDITS = (
      r"emulated_width.store(BB::\2); \1"),
     ("newton_fallback.cuh", r"return cosf\(a\);", "return static_cast<float>(std::cos(static_cast<double>(a)));"),
     ("newton_fallback.cuh", r"return sinf\(a\);", "return static_cast<float>(std::sin(static_cast<double>(a)));"),
+    ("newton_fallback_wide.cuh", r"extern __shared__ __align__\(16\) unsigned char smem_raw\[\];",
+     "unsigned char* smem_raw = emulated_smem();"),
+    ("newton_fallback_wide.cuh", r"cudaLaunchCooperativeKernel\(reinterpret_cast<const void\*>\(kernel\)",
+     "emulated_launch(kernel"),
 )
 
 
@@ -202,7 +218,8 @@ def k3_emulated(tmp_path_factory):
     d = tmp_path_factory.mktemp("k3_emulation")
     (d / "cuda_runtime.h").write_text(EMULATION)
     units = sorted(_build.CSRC_DIR.glob("newton_fallback*.cu"))
-    for f in units + [_build.CSRC_DIR / "gauss_jordan.cuh", _build.CSRC_DIR / "newton_fallback.cuh"]:
+    for f in units + [_build.CSRC_DIR / h for h in ("gauss_jordan.cuh", "newton_fallback.cuh",
+                                                     "newton_fallback_wide.cuh")]:
         (d / f.name).write_text(f.read_text())
     for name, pattern, repl in EDITS:
         text = (d / name).read_text()
@@ -229,26 +246,31 @@ def k3_emulated(tmp_path_factory):
 
 def _k3(lib, args, ybus):
     """One emulated launch on ``newton_fallback_cuda``'s arguments (CPU
-    tensors): (x, F, diff, n_iter, stall)."""
+    tensors): ((x, F, diff, n_iter, stall), the route that ran).  K3 wide
+    launches through the wrapper's own ``newton_cuda.launch`` (its route,
+    panel, grid and slots)."""
     x, F, diff, it, acc, p, q = args
     B, nb = p.shape
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     outs = [torch.empty_like(x), torch.empty_like(F), torch.empty_like(diff), torch.empty_like(it),
             torch.empty_like(it)]
-    scratch = torch.full((3 + B,), -1, dtype=torch.int32)  # the counters, then the worklist
-    scratch[:3] = 0
     if isinstance(ybus, LaneYbus):
         tables = (ybus.f, ybus.t, ybus.series_re, ybus.series_im, ybus.shunt_im, ybus.shift_cos, ybus.shift_sin,
                   ybus.tap_magn)
         y_args = (None, None, 0) + tuple(ptr(t) for t in tables) + (ybus.f.shape[0],)
     else:
         y_args = (ptr(ybus[0]), ptr(ybus[1]), ybus[0].shape[-1] ** 2 if ybus[0].dim() == 3 else 0) + (None,) * 8 + (0,)
-    fn = lib.newton_fallback_f64 if p.dtype == torch.float64 else lib.newton_fallback_f32
     acc8 = None if acc is None else acc.to(torch.uint8)
-    rc = fn(ptr(x), ptr(F), ptr(diff), ptr(it), ptr(acc8), ptr(p), ptr(q), *y_args, 1e-5, 100,
-            *(ptr(t) for t in outs), ptr(scratch), ptr(scratch) + 12, B, nb, None)
+    cargs = (ptr(x), ptr(F), ptr(diff), ptr(it), ptr(acc8), ptr(p), ptr(q)) + y_args
+    if 2 * nb > newton_cuda.REGS_MAX_N:
+        kind = "lane_ybus" if isinstance(ybus, LaneYbus) else "dense"
+        return outs, newton_cuda.launch(lib, kind, cargs, outs, B, nb, p.dtype, p.device, 1e-5, 100, None)
+    scratch = torch.full((3 + B,), -1, dtype=torch.int32)  # the counters, then the worklist
+    scratch[:3] = 0
+    fn = lib.newton_fallback_f64 if p.dtype == torch.float64 else lib.newton_fallback_f32
+    rc = fn(*cargs, 1e-5, 100, *(ptr(t) for t in outs), ptr(scratch), ptr(scratch) + 12, B, nb, None)
     assert rc == 0, f"the emulated K3 refused the launch ({rc})"
-    return outs
+    return outs, "regs"
 
 
 def _libm(fn, t):
@@ -321,16 +343,19 @@ def _flat(p, q, Y):
     return (x, F, torch.amax(F.abs(), dim=1), torch.zeros(p.shape[0], dtype=torch.int32), None, p, q)
 
 
-def _bitwise(lib, args, ybus, plain_ybus, width):
+def _bitwise(lib, args, ybus, plain_ybus, width, route="regs"):
     """The emulated kernel and the plain loop bitwise on every lane, the
-    kernel's Newton loop at ``width`` threads a row."""
+    kernel's Newton loop at ``width`` threads a row (K3) or on ``route`` (K3
+    wide: ``width`` None)."""
     x, F, diff, it, acc, p, q = args
     acc0 = torch.zeros(x.shape[0], dtype=torch.bool) if acc is None else acc
     out_p = pf._newton_loop(x, F, diff, it, ~acc0, plain_ybus, p, q, 1e-5, 100, p.dtype == torch.float32,
                             solve_gauss_jordan)
     lib.emulated_width_read.restype = ctypes.c_int
-    out_k = _k3(lib, args, ybus)
-    assert lib.emulated_width_read() == width, "the kernel took another width"
+    out_k, ran = _k3(lib, args, ybus)
+    assert ran == route, f"the kernel ran route {ran}, not {route}"
+    if width is not None:
+        assert lib.emulated_width_read() == width, "the kernel took another width"
     for a, b in zip(out_k, out_p):
         same = (a == b) | (torch.isnan(a) & torch.isnan(b)) if a.is_floating_point() else a == b
         assert bool(same.all()), f"width {width}: the kernel and the plain loop differ"
@@ -389,3 +414,86 @@ def test_emulated_k3_on_random_feeders(k3_emulated, plain_as_the_card, n_bus, B,
     Y = (tb.chord_t.Y0re.contiguous(), tb.chord_t.Y0im.contiguous())
     p = -0.02 * (1.0 + torch.tensor(np.random.default_rng(n_bus).random((B, nb))))
     _bitwise(k3_emulated, _flat(p, 0.5 * p, Y), Y, lambda idx: Y, width)
+
+
+# K3 wide: random feeders of 40 and 48 buses (n = 78 and 94).  On the
+# emulated card (98304 bytes of opt-in shared memory a block) float32 takes
+# the resident route (panels of 16 at n = 78, 8 at 94) and float64 the
+# device-memory route (panels of 16), as the wrapper's k1_route rule gives.
+WIDE_ROUTES = {torch.float32: "smem", torch.float64: "blocked"}
+
+
+def _feeder_lanes(n_bus, dtype, B, seed):
+    """A random feeder of the JAX property test's generator and B lanes on
+    it: (tables, LaneYbus with random taps on the OLTC branch where there is
+    one, p, q, the bad-basin guesses tiled)."""
+    net = random_radial_network(np.random.default_rng(n_bus), n_bus)
+    tb = make_tables(load_network(net), 1.0, 100, dtype=dtype, device="cpu")
+    nb = tb.n_bus - 1
+    rng = np.random.default_rng(seed)
+    tap = tb.tap0.expand(B, -1).clone()
+    if len(tb.oltc_branch):
+        tap[:, tb.oltc_branch] = torch.tensor(rng.uniform(0.95, 1.05, (B, 1)), dtype=dtype)
+    p = -0.004 * (1.0 + torch.tensor(rng.random((B, nb)), dtype=dtype))
+    pats = torch.tensor([[0.0] * nb + [1e-6] * nb, [0.0] * nb + [-1.0] * nb, [30.0] * nb + [1.0] * nb,
+                         [0.0] * nb + [1e15] * nb], dtype=dtype)
+    ybus = LaneYbus(tb.n_bus, tb.br_f, tb.br_t, tb.series_re, tb.series_im, tb.shunt_im, tb.shift_cos,
+                    tb.shift_sin, tap)
+    return tb, ybus, p, 0.5 * p, pats.repeat(B // 4 + 1, 1)[:B].contiguous()
+
+
+@pytest.mark.parametrize("n_bus", [40, 48])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_emulated_k3_wide_after_the_chord_with_the_lane_ybus(k3_emulated, plain_as_the_card, n_bus, dtype):
+    """The chord's exit from bad-basin guesses on 3 lanes, Y from the
+    LaneYbus (built in the block's slot, after [J | F] on the device-memory
+    route): bitwise the plain loop."""
+    tb, ybus, p, q, x0 = _feeder_lanes(n_bus, dtype, 3, 5)
+    init = _chord(tb, ybus, p, q, x0)
+    assert not bool(init[4].any())
+    _bitwise(k3_emulated, init + (p, q), ybus, ybus, None, WIDE_ROUTES[dtype])
+
+
+@pytest.mark.parametrize("n_bus", [40, 48])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_emulated_k3_wide_from_the_flat_start_with_a_dense_y(k3_emulated, plain_as_the_card, n_bus, dtype):
+    """nr_solve's route: the flat start, a dense Y per lane read in place,
+    lane 1's Y zero (a zero pivot: non-finite in both)."""
+    tb, ybus, p, q, _ = _feeder_lanes(n_bus, dtype, 3, 6)
+    Yre, Yim = ybus(slice(None))
+    Yre[1], Yim[1] = 0.0, 0.0
+    out = _bitwise(k3_emulated, _flat(p, q, (Yre, Yim)), (Yre, Yim), lambda idx: (Yre[idx], Yim[idx]), None,
+                   WIDE_ROUTES[dtype])
+    assert not bool(torch.isfinite(out[0][1]).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_emulated_k3_wide_tail(k3_emulated, plain_as_the_card, dtype):
+    """The tail: one lane of bad-basin guesses among five the chord accepted
+    from the flat start (the triage passes them through), on the 48-bus
+    feeder with the LaneYbus."""
+    tb, ybus, p, q, x0 = _feeder_lanes(48, dtype, 6, 7)
+    bad, good = _chord(tb, ybus, p, q, x0), _chord(tb, ybus, p, q, None)
+    assert bool(good[4].all()) and not bool(bad[4][2])
+    pick = torch.arange(6) == 2
+    init = tuple(torch.where(pick.view(-1, *[1] * (u.dim() - 1)), u, v).contiguous() for u, v in zip(bad, good))
+    out = _bitwise(k3_emulated, init + (p, q), ybus, ybus, None, WIDE_ROUTES[dtype])
+    assert torch.equal(out[3][~pick], good[3][~pick])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_emulated_k3_wide_shared_memory_and_grid(k3_emulated, dtype):
+    """The kernel's shared memory a block is the wrapper's sum (K1's panels
+    and matrix, then ``wide_lane_bytes``) at every panel and route the rule
+    picks; the grid is the emulated card's (one block an SM, two SMs); a
+    panel the kernel has no body for is refused."""
+    lib, f64, item = k3_emulated, int(dtype == torch.float64), dtype.itemsize
+    for n in (66, 78, 94, 258):
+        for panel in (8, 16):
+            for resident in (True, False):
+                want = panel_smem_bytes(n, item, panel, resident) + newton_cuda.wide_lane_bytes(n, item)
+                assert lib.newton_wide_smem_bytes(f64, n, panel, int(resident)) == want
+    assert lib.newton_wide_smem_limit() == 98304
+    assert lib.newton_wide_grid(f64, 94, 16, 0, 1) == 2
+    assert (lib.newton_wide_grid(f64, 94, 32, 0, 0) > 0) == (dtype == torch.float32)
+    assert lib.newton_wide_grid(f64, 94, 32, 1, 0) < 0 and lib.newton_wide_grid(f64, 64, 8, 0, 0) < 0

@@ -18,7 +18,10 @@ import torch
 
 from gym_anm_torch import _build
 from gym_anm_torch.networks import anm6_network, ieee33_network
+from gym_anm_torch.networks.random_feeder import random_radial_network
 from gym_anm_torch.physics import power_flow as tpf
+from gym_anm_torch.physics import newton_cuda
+from gym_anm_torch.physics.linsolve_cuda import H100_SMEM_OPTIN
 from gym_anm_torch.physics.newton_cuda import newton_fallback_cuda
 from gym_anm_torch.physics.transition import make_tables
 from gym_anm_torch.physics.ybus import LaneYbus, build_ybus
@@ -28,7 +31,9 @@ from gym_anm_tpu.physics.ybus import build_ybus as j_build_ybus
 
 torch.set_num_threads(2)
 
-NETS = {"ieee33": (ieee33_network, 1.0), "anm6": (anm6_network, 0.25)}
+NETS = {"ieee33": (ieee33_network, 1.0), "anm6": (anm6_network, 0.25),
+        # the random feeder of 48 buses (n = 94, K3 wide's size on the card) of chip_smoke.py's phase 10
+        "feeder48": (random_radial_network(np.random.default_rng(48), 48), 1.0)}
 
 
 def _tables(net, dtype):
@@ -108,7 +113,7 @@ def test_lane_ybus_is_build_ybus(net, dtype):
     assert all(torch.equal(g, w) for g, w in zip(ybus(slice(None)), _lane_ybus(tb, taps)(torch.arange(12))))
 
 
-@pytest.mark.parametrize("net,B", [("ieee33", 64), ("anm6", 64)])
+@pytest.mark.parametrize("net,B", [("ieee33", 64), ("anm6", 64), ("feeder48", 16)])
 def test_nr_solve_lazy_f64_matches_jax(net, B):
     """float64: the same chord exit through both fallbacks; voltages within
     1e-12, n_iter and stable equal on every lane.  The exit is the float32
@@ -133,7 +138,7 @@ def test_nr_solve_lazy_f64_matches_jax(net, B):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-12)
 
 
-@pytest.mark.parametrize("net,B", [("ieee33", 64), ("anm6", 64)])
+@pytest.mark.parametrize("net,B", [("ieee33", 64), ("anm6", 64), ("feeder48", 16)])
 def test_nr_solve_lazy_f32_matches_jax(net, B):
     """float32: stable and converged equal on every lane, voltages within
     1e-5 and diff within 1e-4 on the stable lanes (sums taken in another
@@ -194,21 +199,50 @@ def test_batch_with_no_unaccepted_lane_comes_back_as_its_init(dtype):
     assert bool(r.stable.all())
 
 
-@pytest.mark.parametrize("n", [1, 6, 33, 64])
-def test_fold_sum_follows_the_kernels_tree(n):
-    """``_fold_sum`` (the card's float64 Y·V order) sums as K3's
-    ``fold_node`` does: the root of the tree over w = 2^k >= n leaves (zeros
-    past n) whose node (J, stride S) adds its even-leaf half (J, 2S) to its
-    odd-leaf half (J + S, 2S), each sum rounded, bit for bit."""
-    rng = np.random.default_rng(n)
-    P = torch.as_tensor(rng.standard_normal((5, n)) * 10.0 ** rng.integers(-8, 8, (5, n)))
-
+def _fold_tree(P, n):
+    """The root of the tree over w = 2^k >= n leaves (zeros past n) whose
+    node (J, stride S) adds its even-leaf half (J, 2S) to its odd-leaf half
+    (J + S, 2S), each sum rounded (K3's ``fold_node``)."""
     def node(w, j, stride):
         if w == 1:
-            return P[:, j] if j < n else torch.zeros(5, dtype=P.dtype)
+            return P[:, j] if j < n else torch.zeros(P.shape[0], dtype=P.dtype)
         return node(w // 2, j, 2 * stride) + node(w // 2, j + stride, 2 * stride)
 
-    assert torch.equal(tpf._fold_sum(P), node(1 << (n - 1).bit_length(), 0, 1))
+    return node(1 << (n - 1).bit_length(), 0, 1)
+
+
+@pytest.mark.parametrize("n", [1, 6, 33, 40, 48, 64, 65, 130])
+def test_fold_sum_follows_the_kernels_tree(n):
+    """``_fold_sum`` (the card's float64 Y·V order) sums as K3's
+    ``fold_node`` does, bit for bit, at K3's sizes (N up to 33) and K3
+    wide's (the 40-, 48-, 64- and 130-bus feeders: 64, 64, 64 and 256
+    leaves)."""
+    rng = np.random.default_rng(n)
+    P = torch.as_tensor(rng.standard_normal((5, n)) * 10.0 ** rng.integers(-8, 8, (5, n)))
+    assert torch.equal(tpf._fold_sum(P), _fold_tree(P, n))
+
+
+@pytest.mark.parametrize("n", [34, 48, 64, 65, 130, 256])
+def test_wide_kernels_depth_first_walk_is_the_fold_tree(n):
+    """K3 wide's float64 sum (``newton_fallback_wide.cuh:dot_tree``) walks
+    the same tree at a run-time N: leaf i of the depth-first order is
+    bit-reversed i over L = ceil(log2 N) bits, and a finished subtree's sum
+    waits at its level for its sibling's; bit for bit the fold, negative
+    zeros included."""
+    rng = np.random.default_rng(n)
+    P = torch.as_tensor(rng.standard_normal((5, n)) * 10.0 ** rng.integers(-8, 8, (5, n)))
+    P[:, ::7] = -0.0
+    L = max(1, (n - 1).bit_length())
+    stack, s = [None] * 12, None
+    for i in range(1 << L):
+        k = int(f"{i:0{L}b}"[::-1], 2)
+        s = P[:, k] if k < n else torch.zeros(5, dtype=P.dtype)
+        level = 0
+        while (i >> level) & 1:
+            s = stack[level] + s
+            level += 1
+        stack[level] = s
+    assert torch.equal(s, _fold_tree(P, n)) and torch.equal(torch.signbit(s), torch.signbit(_fold_tree(P, n)))
 
 
 def test_card_wrapper_refuses_cpu_tensors_before_loading_the_library(monkeypatch):
@@ -228,12 +262,89 @@ def test_card_wrapper_refuses_cpu_tensors_before_loading_the_library(monkeypatch
         newton_fallback_cuda(*args, _lane_ybus(tb, taps)(slice(None)))
 
 
-def test_card_route_is_chosen_by_n():
-    """The card's Newton loop: the kernel up to n = 64 (33 buses), the plain
-    loop around K1's panel routes above, each counted."""
-    before = tpf.newton_routes["wide"]
-    assert tpf._card_route(64) == "k3" and tpf._card_route(10) == "k3" and tpf._card_route(94) == "wide"
-    assert tpf.newton_routes == {"wide": before + 1}
+class _Lib:
+    """A stand-in for the kernel library: records which entry point a launch
+    called and its route arguments, and reports a card of ``smem`` bytes of
+    opt-in shared memory a block and 132 SMs holding ``per_sm`` blocks."""
+
+    def __init__(self, smem=H100_SMEM_OPTIN, per_sm=2):
+        self.smem, self.per_sm, self.calls = smem, per_sm, []
+
+    def newton_wide_smem_limit(self):
+        return self.smem
+
+    def newton_wide_grid(self, f64, n, panel, resident, lane_y):
+        return 132 * self.per_sm
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+        return entry
+
+
+def _launch(lib, n, dtype, B, lane_y=True):
+    """newton_cuda.launch on CPU tensors of a network of n unknowns."""
+    nb = n // 2
+    outs = [torch.empty(B, n, dtype=dtype), torch.empty(B, n, dtype=dtype), torch.empty(B, dtype=dtype),
+            torch.empty(B, dtype=torch.int32), torch.empty(B, dtype=torch.int32)]
+    args = (0,) * 18 + (1,)
+    return newton_cuda.launch(lib, "lane_ybus" if lane_y else "dense", args, outs, B, nb, dtype, "cpu", 1e-5, 100,
+                              None)
+
+
+@pytest.mark.parametrize("n,dtype,route,panel", [
+    (10, torch.float32, "regs", 0), (64, torch.float64, "regs", 0), (66, torch.float32, "smem", 16),
+    (94, torch.float32, "smem", 16), (126, torch.float32, "smem", 8), (94, torch.float64, "smem", 16),
+    (126, torch.float64, "blocked", 16), (258, torch.float32, "blocked", 32), (258, torch.float64, "blocked", 16)])
+def test_card_route_is_chosen_by_n(n, dtype, route, panel):
+    """The card's Newton loop on an H100's shared memory: K3's register
+    bodies to n = 64, K3 wide above, its [J | F] where ``k1_route`` puts
+    K1's matrix with the lane's vectors counted (resident for the 48- and
+    64-bus feeders in float32, in device memory at 130 buses); the grid is
+    the card's capacity or B, and each block has one slot: [J | F] off the
+    resident route, then the lane's Y."""
+    lib = _Lib()
+    for B, lane_y in ((8192, True), (3, False)):
+        lib.calls.clear()
+        assert _launch(lib, n, dtype, B, lane_y) == route
+        (name, args), = lib.calls
+        f64 = dtype == torch.float64
+        if route == "regs":
+            assert name == ("newton_fallback_f64" if f64 else "newton_fallback_f32")
+            continue
+        assert name == ("newton_fallback_wide_f64" if f64 else "newton_fallback_wide_f32")
+        got_panel, resident, _, slot, grid, _ = args[-6:]
+        N = n // 2 + 1
+        want_slot = (0 if route == "smem" else n * (n + 1)) + (2 * N * N if lane_y else 0)
+        assert (got_panel, resident, slot, grid) == (panel, int(route == "smem"), want_slot, min(B, 264))
+
+
+def test_card_route_raises_where_no_blocked_panel_fits():
+    """A card whose shared memory takes no panel of K1's blocked route at n
+    (with the lane's vectors) is refused, as ``k1_route`` refuses K1."""
+    with pytest.raises(ValueError, match="too large for the blocked route"):
+        _launch(_Lib(smem=24 * 1024), 258, torch.float64, 4)
+    assert _launch(_Lib(smem=24 * 1024), 94, torch.float64, 4) == "blocked"
+
+
+def test_wide_wrapper_checks_its_arguments_before_loading_the_library(monkeypatch):
+    """K3 wide's sizes take the wrapper's checks: CPU tensors refused at n =
+    94 and 258 before the library loads, and n above ``MAX_N`` (networks of
+    more than 4096 buses) refused with the largest n named."""
+    def no_build():
+        raise AssertionError("load_library was called")
+
+    monkeypatch.setattr(_build, "load_library", no_build)
+    for n in (94, 258, newton_cuda.MAX_N + 2):
+        nb, B = n // 2, 2
+        x = torch.zeros(B, n)
+        args = (x, x.clone(), torch.ones(B), torch.zeros(B, dtype=torch.int32), None, torch.zeros(B, nb),
+                torch.zeros(B, nb))
+        Y = (torch.zeros(nb + 1, nb + 1), torch.zeros(nb + 1, nb + 1))
+        match = "CUDA device" if n <= newton_cuda.MAX_N else f"2 <= n <= {newton_cuda.MAX_N} .*4096 buses"
+        with pytest.raises(ValueError, match=match):
+            newton_fallback_cuda(*args, Y)
 
 
 def _wrapper_args(dtype=torch.float32):
