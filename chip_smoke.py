@@ -875,6 +875,14 @@ def phase3b_newton_kernel(pf, lin, nc, base, VecEnv, make_ieee33_task, make_anm6
                                                                                  q64[:BB].contiguous()),
                 Y, dense_oracle(*Y), 1e-10)
 
+    # ROADMAP D2: the float64 tier on the card (K3, Y V in the fold's order)
+    # against the CPU's (BLAS's order), ANM6Easy from bad-basin starts.
+    y6 = LaneYbus(a6tb64.n_bus, a6tb64.br_f, a6tb64.br_t, a6tb64.series_re, a6tb64.series_im, a6tb64.shunt_im,
+                  a6tb64.shift_cos, a6tb64.shift_sin, a6_ybus.tap_magn.double())
+    p6, q6 = a6_p.double().contiguous(), a6_q.double().contiguous()
+    x6 = bad_guesses(B, a6tb64.n_bus - 1).to("cuda", torch.float64)
+    d2_card_vs_cpu(pf, "ANM6Easy (K3), bad-basin starts", y6, p6, q6, chord64(pf, a6tb64, y6, p6, q6, x6))
+
     # (d) no lane unaccepted: the chord from the flat start accepts every lane.
     init = pf.chord_solve(p, q, di, dr, dr, di, tb.chord_t)
     assert bool(init[4].all()), "set (d): the chord left a lane unaccepted"
@@ -1702,6 +1710,8 @@ def phase8_anm6easy(VecEnv, make_anm6easy_task, STATE_VARIABLES, build_ybus, ker
 
 
 FEEDERS = ((48, 0.6), (64, 0.5), (130, 0.15))  # (buses, load scale): the f64 tier converges at these loads
+BLOCKED_FEEDER, B_BLOCKED = (194, 0.1), 64  # K3 wide's device-memory route: the f64 tier's step at 194 buses
+D2_FEEDERS = {48: 512, 64: 64}  # D2's lanes: K3 wide resident at 48 buses, on clusters at 64 (64 lanes, 66 at once)
 
 
 def feeder_env_task(n_bus, scale, n_steps=8):
@@ -1729,15 +1739,17 @@ def phase10_feeders(pf, lin, cuda_k, VecEnv, base, kernel, nc):
     under ``set_sync_debug_mode("error")``, every output finite, live
     residuals within 1e-4, no lane terminated, the first 256 lanes' voltages
     within 1e-4 of the float64 tier's on the card (K3 wide in float64), each
-    feeder's fallback on the route the wrapper's rule gives its size, no
-    standalone K1 launch, the bad-basin step's peak device memory; then K3
-    wide's sets on the bad-basin step's inputs (``phase10_newton_wide``).
+    feeder's fallback on the route the wrapper's rule gives its batch, no
+    standalone K1 launch, the bad-basin step's peak device memory; then a
+    step of the float64 tier on the feeder of BLOCKED_FEEDER buses (K3
+    wide's device-memory route); then K3 wide's
+    sets on the bad-basin steps' inputs (``phase10_newton_wide``).
     ``kernel`` is the run's K3Counts (K1's solves inside K3 wide, from its
     outputs), ``nc`` K3's wrapper (its route tally).  Returns the wide chord
     kernel's, K1's blocked route's, K1's shared-memory route's and K3
     wide's numbers for the kernels' line, their launches those of the
-    float32 path alone (K1's: its solves inside K3 wide on each route)."""
-    from gym_anm_torch._build import load_library
+    float32 path alone (K1's: its solves inside K3 wide on each route), K3
+    wide's device-memory route's those of the 194-bus float64 step."""
     from gym_anm_torch.bench.kernel_probes import gmem_solve, lane_chord
 
     log(f"== phase 10: random radial feeders above 33 buses, B={B_MAIN}")
@@ -1804,11 +1816,11 @@ def phase10_feeders(pf, lin, cuda_k, VecEnv, base, kernel, nc):
     tm = importlib.import_module("gym_anm_torch.physics.transition")
     k1 = lin.solve_gauss_jordan_cuda
     routes = nc.launches_by_route
-    keys = ("wide", "k1", "k3w", "smem", "blocked", "smem_solves", "blocked_solves")
+    keys = ("wide", "k1", "k3w", "smem", "cluster", "blocked", "smem_solves", "cluster_solves", "blocked_solves")
 
     def counted(tally, fn, *args, strict=False):
         cuda_k.launches["wide"] = k1.launch_count = kernel.launch_count = 0
-        routes["smem"] = routes["blocked"] = 0
+        routes["smem"] = routes["cluster"] = routes["blocked"] = 0
         if strict:
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("error")
@@ -1818,15 +1830,16 @@ def phase10_feeders(pf, lin, cuda_k, VecEnv, base, kernel, nc):
             torch.cuda.set_sync_debug_mode(0)
         solves = kernel.solves  # read after the call: K3 wide's lane-iterations
         for key, got in (("wide", cuda_k.launches["wide"]), ("k1", k1.launch_count),
-                         ("k3w", routes["smem"] + routes["blocked"]), ("smem", routes["smem"]),
-                         ("blocked", routes["blocked"]), ("smem_solves", solves if routes["smem"] else 0),
+                         ("k3w", routes["smem"] + routes["cluster"] + routes["blocked"]), ("smem", routes["smem"]),
+                         ("cluster", routes["cluster"]), ("blocked", routes["blocked"]),
+                         ("smem_solves", solves if routes["smem"] else 0),
+                         ("cluster_solves", solves if routes["cluster"] else 0),
                          ("blocked_solves", solves if routes["blocked"] else 0)):
             tally[key] += got
         return out
 
     counts = dict.fromkeys(keys, 0)
     fallback_inputs = {}
-    limit = load_library().newton_wide_smem_limit()
     for n_bus, scale in FEEDERS:
         task = feeder_env_task(n_bus, scale)
         env = VecEnv(task, dtype=torch.float32, device="cuda")
@@ -1868,11 +1881,12 @@ def phase10_feeders(pf, lin, cuda_k, VecEnv, base, kernel, nc):
         wall = time.perf_counter() - t0
         for key in counts:
             counts[key] += f32[key] + f32_bad[key]
-        route32, route64 = (wide_route(lin, 2 * n, dtype, limit) for dtype in (torch.float32, torch.float64))
+        route32, route64 = wide_route(2 * n, torch.float32, B_MAIN), wide_route(2 * n, torch.float64, N_CHECK_LANES)
         log(f"{n_bus}-bus feeder path (n = {2 * n}): 5 f32 steps at B={B_MAIN} and the f64 tier's on {N_CHECK_LANES} "
             f"lanes in {wall:.2f} s; f32 path: wide chord launches {f32['wide'] + f32_bad['wide']}, K3 wide launches "
             f"{f32['k3w'] + f32_bad['k3w']} on route {route32} ({f32_bad['k3w']} in the bad-basin step, "
-            f"{f32_bad['smem_solves'] + f32_bad['blocked_solves']} lane-iterations), standalone K1 launches "
+            f"{f32_bad['smem_solves'] + f32_bad['cluster_solves'] + f32_bad['blocked_solves']} lane-iterations), "
+            f"standalone K1 launches "
             f"{f32['k1'] + f32_bad['k1']}, host syncs 0 in every step (set_sync_debug_mode(\"error\")); the "
             f"bad-basin step's peak device memory {peak[0] / 2**20:.1f} MiB above the {(peak[1] - peak[0]) / 2**20:.1f} "
             f"MiB held before it ({peak[1] / 2**20:.1f} MiB in all); f64 tier: K3 wide launches {f64['k3w']} on route "
@@ -1889,20 +1903,53 @@ def phase10_feeders(pf, lin, cuda_k, VecEnv, base, kernel, nc):
         assert worst_vm <= 1e-4, f"{n_bus}-bus feeder: f32 voltages off the f64 tier's by {worst_vm:.3e}"
         if n_bus == 130:
             wide_peak = peak
+    # K3 wide's device-memory route on a path a user runs: a step of the
+    # float64 tier (VecEnv; the reference's exact loop from the flat start
+    # over the dense Y, nr_solve) on the feeder of BLOCKED_FEEDER buses
+    # (float64 n = 386, above what a cluster of 8 holds on an H100), its
+    # counts zeroed just before and read just after; the step's Newton
+    # inputs kept for K3 wide's sets.
+    n_bus, scale = BLOCKED_FEEDER
+    ref = VecEnv(feeder_env_task(n_bus, scale), dtype=torch.float64, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(100 + n_bus)
+    s64, _ = ref.reset(B_BLOCKED, g)
+    real, seen = tm.nr_solve, []
+
+    def capture(Yre, Yim, p, q, **kw):
+        seen.append((Yre, Yim, p, q))
+        return real(Yre, Yim, p, q, **kw)
+
+    tm.nr_solve = capture
+    blk = dict.fromkeys(keys, 0)
+    t0 = time.perf_counter()
+    try:
+        _, obs, r, d, info = counted(blk, ref.step, s64, uniform_actions(ref, B_BLOCKED, g))
+    finally:
+        tm.nr_solve = real
+    torch.cuda.synchronize()
+    check_step(obs, r, d, info, f"{n_bus}-bus feeder, float64 tier")
+    route = wide_route(2 * (n_bus - 1), torch.float64, B_BLOCKED, lane_y=False)
+    log(f"{n_bus}-bus feeder path, the float64 tier (n = {2 * (n_bus - 1)}): a step at B={B_BLOCKED} in "
+        f"{time.perf_counter() - t0:.2f} s: K3 wide launches {blk['k3w']} on route {route} "
+        f"({blk['blocked_solves']} lane-iterations), standalone K1 launches {blk['k1']}")
+    assert route == "blocked" and blk["blocked"] == 1 and blk["blocked_solves"] > 0 and blk["k1"] == 0, \
+        f"the {n_bus}-bus float64 step did not run K3 wide's device-memory route once"
     wide["max_abs_err"] = max(wide.pop("errs"))
-    k3w = phase10_newton_wide(pf, lin, nc, fallback_inputs, limit)
+    k3w = phase10_newton_wide(pf, lin, nc, base, fallback_inputs, tuple(t.contiguous() for t in seen[-1]))
     k3w["peak_step"] = wide_peak
     return (dict(wide, launches=counts["wide"]), dict(blocked, launches=counts["blocked_solves"]),
-            dict(resident, launches=counts["smem_solves"]), dict(k3w, launches=counts["k3w"],
-                                                                   by_route=(counts["smem"], counts["blocked"])))
+            dict(resident, launches=counts["smem_solves"]), dict(k3w, launches=counts["k3w"] + blk["k3w"],
+                                                                   by_route=(counts["smem"], counts["cluster"],
+                                                                             blk["blocked"])))
 
 
-def wide_route(lin, n, dtype, limit):
-    """K3 wide's route at n unknowns of ``dtype`` on this card (the
-    wrapper's rule)."""
-    from gym_anm_torch.physics.newton_cuda import wide_lane_bytes
+def wide_route(n, dtype, B, lane_y=True):
+    """K3 wide's route for B lanes at n unknowns of ``dtype`` on this card
+    (the wrapper's rule, ``newton_cuda.wide_launch``)."""
+    from gym_anm_torch._build import load_library
+    from gym_anm_torch.physics.newton_cuda import wide_launch
 
-    return lin.k1_route(n, dtype, limit, wide_lane_bytes(n, dtype.itemsize))[0]
+    return wide_launch(load_library(), n, dtype, B, lane_y)[0]
 
 
 def timed(fn, budget_ms=200.0):
@@ -1914,22 +1961,38 @@ def timed(fn, budget_ms=200.0):
     return statistics.median(cuda_ms(fn, k) for _ in range(3 if t1 > 10.0 else N_REPS))
 
 
-def k3_wide_vs_plain(pf, lin, nc, name, args, ybus, plain_ybus, route, xtol=1e-5, lim_iter=100, memory=False):
+def timed_pair(fa, fb, budget_ms=200.0):
+    """Device ms of ``fa`` and ``fb`` (``cuda_ms``) read in turns, a, b, b,
+    a, ...: as many launches a reading as fit ``budget_ms`` (1 to
+    N_LAUNCH), the median of N_REPS readings each, 3 where a call takes
+    over 10 ms."""
+    t1 = max(cuda_ms(fa, 1), cuda_ms(fb, 1))
+    k = max(1, min(N_LAUNCH, int(budget_ms / max(t1, 1e-3))))
+    ta, tb = [], []
+    for r in range(3 if t1 > 10.0 else N_REPS):
+        for f, t in ((fa, ta), (fb, tb)) if r % 2 == 0 else ((fb, tb), (fa, ta)):
+            t.append(cuda_ms(f, k))
+    return statistics.median(ta), statistics.median(tb)
+
+
+def k3_wide_vs_plain(pf, lin, nc, base, name, args, ybus, plain_ybus, route, xtol=1e-5, lim_iter=100,
+                     memory=False):
     """K3 wide and its plain version (``_newton_loop`` with the plain
     Gauss-Jordan solve) on the same card inputs ``args`` = (x, F, diff,
     n_iter, accepted or None, p, q): one launch on ``route``, every lane
-    bitwise (x, F, diff, n_iter, stall).  Times the kernel, the plain
-    version once, and the host loop around K1 that the card ran before K3
-    wide (``_newton_loop`` with ``batched_solve``: a sync and a standalone K1
-    launch an iteration), with the bound; ``memory``: the peak device memory
-    of a call of each, above what was held before it."""
+    bitwise (x, F, diff, n_iter, stall).  Times the kernel and PR 15's
+    design (``base``, ``bench/newton_fallback_wide_pr15.cuh``, through PR
+    15's wrapper steps) in turns, the plain version once, with the bound;
+    ``memory``: the peak device memory of a call of each, above what was
+    held before it."""
+    from gym_anm_torch.bench.kernel_probes import pr15_newton_wide
+
     x, F, diff, it, acc, p, q = args
     B, n = x.shape
     f32 = p.dtype == torch.float32
     acc0 = torch.zeros(B, dtype=torch.bool, device="cuda") if acc is None else acc
     call = lambda: nc(x, F, diff, it, acc, p, q, ybus, xtol, lim_iter)  # noqa: E731
-    host = lambda: pf._newton_loop(x, F, diff, it, ~acc0, plain_ybus, p, q, xtol, lim_iter, f32,  # noqa: E731
-                                   lin.batched_solve)
+    pr15 = lambda: pr15_newton_wide(base, x, F, diff, it, acc, p, q, ybus, xtol, lim_iter)[0]  # noqa: E731
     before = nc.launches_by_route[route]
     out_k = call()
     torch.cuda.synchronize()
@@ -1937,87 +2000,194 @@ def k3_wide_vs_plain(pf, lin, nc, name, args, ybus, plain_ybus, route, xtol=1e-5
     plain = []
     plain_ms = cuda_ms(lambda: plain.append(pf._newton_loop(x, F, diff, it, ~acc0, plain_ybus, p, q, xtol, lim_iter,
                                                             f32, lin.solve_gauss_jordan)), 1)
-    xp, Fp, dp, ip, sp = plain[0]
-    same = (bitwise_rows(out_k[0], xp) & bitwise_rows(out_k[1], Fp) & bitwise_rows(out_k[2], dp)
-            & (out_k[3] == ip) & (out_k[4] == sp))
-    n_bit = int(same.sum())
+
+    def same(a, b):  # lanes equal bit for bit on every output
+        return (bitwise_rows(a[0], b[0]) & bitwise_rows(a[1], b[1]) & bitwise_rows(a[2], b[2]) & (a[3] == b[3])
+                & (a[4] == b[4]))
+
+    n_bit = int(same(out_k, plain[0]).sum())
+    out15, route15 = pr15_newton_wide(base, x, F, diff, it, acc, p, q, ybus, xtol, lim_iter)
+    n_bit15 = int(same(out15, plain[0]).sum())
     rk = pf._nr_result(*out_k, acc0, xtol, f32)
     lane_iters = int((out_k[3] - it).sum())
     n_go = int(((out_k[3] - it) > 0).sum())
     max_it = int((out_k[3] - it).max())
-    log(f"K3 wide {name} B={B} n={n} {p.dtype} (route {route}): {n_go} lanes iterated, {lane_iters} "
-        f"lane-iterations (max {max_it}); stable {int(rk.stable.sum())}, converged {int(rk.converged.sum())}; "
-        f"bitwise equal to the plain version (x, F, diff, n_iter, stall) on {n_bit} of {B} lanes")
+    log(f"K3 wide {name} B={B} n={n} {p.dtype} (route {route}; PR 15's design: {route15}): {n_go} lanes iterated, "
+        f"{lane_iters} lane-iterations (max {max_it}); stable {int(rk.stable.sum())}, converged "
+        f"{int(rk.converged.sum())}; bitwise equal to the plain version (x, F, diff, n_iter, stall) on {n_bit} of "
+        f"{B} lanes (PR 15's design: {n_bit15})")
     assert n_bit == B, f"K3 wide differs from its plain version on {B - n_bit} lanes"
-    out = dict(max_abs_err=0.0, lane_iters=lane_iters, max_it=max_it, plain_ms=plain_ms)  # bitwise, asserted
+    out = dict(max_abs_err=0.0, lane_iters=lane_iters, max_it=max_it, plain_ms=plain_ms,  # bitwise, asserted
+               out=out_k)
     if memory:
-        for key, fn in (("peak_kernel", call), ("peak_host", host)):
+        for key, fn in (("peak_kernel", call), ("peak_pr15", pr15)):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             held = torch.cuda.memory_allocated()
             fn()
             torch.cuda.synchronize()
             out[key] = torch.cuda.max_memory_allocated() - held
-    k1 = lin.solve_gauss_jordan_cuda.launch_count
-    out["ms"], out["host_ms"] = timed(call), timed(host)
+    out["ms"], out["pr15_ms"] = timed_pair(call, pr15, budget_ms=50.0)
     if hasattr(ybus, "tap_magn"):  # a LaneYbus: the taps and the branch tables
         y_bytes = x.element_size() * (ybus.tap_magn.numel() + 5 * ybus.f.numel()) + 16 * ybus.f.numel()
     else:
         y_bytes = x.element_size() * sum(t.numel() for t in ybus)
     out["bound_ms"], out["bound_by"] = k3_bound(B, n, x.element_size(), lane_iters, y_bytes)
-    per_it = f"{1e3 * out['ms'] / max_it:.2f} µs an iteration of the slowest lane" if max_it else "no lane iterates"
-    log(f"K3 wide {name} time (device time, median of {N_REPS} readings, 3 above 10 ms a call): kernel "
-        f"{out['ms']:.4f} ms, the host loop around K1 {out['host_ms']:.4f} ms ({out['host_ms'] / out['ms']:.2f}x; "
-        f"{lin.solve_gauss_jordan_cuda.launch_count - k1} K1 launches while timed), plain {plain_ms:.4f} ms (one "
-        f"call); bound {out['bound_ms']:.4f} ms ({out['bound_by']}, {lane_iters} lane-iterations), kernel at "
-        f"{out['bound_ms'] / out['ms']:.4f} of it; {per_it}"
-        + (f"; peak device memory of a call: kernel {out['peak_kernel'] / 2**20:.1f} MiB, the host loop around K1 "
-           f"{out['peak_host'] / 2**20:.1f} MiB" if memory else ""))
+    per_it = (f"{1e3 * out['ms'] / max_it:.2f} µs an iteration of the slowest lane (PR 15's "
+              f"{1e3 * out['pr15_ms'] / max_it:.2f})" if max_it else "no lane iterates")
+    log(f"K3 wide {name} time (device time, in turns with PR 15's design, median of {N_REPS} readings, 3 above 10 "
+        f"ms a call): kernel {out['ms']:.4f} ms, PR 15's design {out['pr15_ms']:.4f} ms "
+        f"({out['pr15_ms'] / out['ms']:.2f}x), plain {plain_ms:.4f} ms (one call); bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_by']}, {lane_iters} lane-iterations), kernel at {out['bound_ms'] / out['ms']:.4f} of it "
+        f"(PR 15's {out['bound_ms'] / out['pr15_ms']:.4f}); {per_it}"
+        + (f"; peak device memory of a call: kernel {out['peak_kernel'] / 2**20:.1f} MiB, PR 15's design "
+           f"{out['peak_pr15'] / 2**20:.1f} MiB" if memory else ""))
     return out
 
 
-def phase10_newton_wide(pf, lin, nc, fallback_inputs, limit):
-    """K3 wide against its plain version on each feeder's sets: (a) the
-    float32 bad-basin step's fallback inputs (B = 8192, the LaneYbus), (c)
-    float64 from the flat start with a dense Y (the f64 tables' Y at (a)'s
-    taps) at B = 1001 and B = 1, (d) (a)'s lanes all accepted (no lane
-    iterates), (f) the tail: one lane of (a) that iterates among (d)'s.
-    Returns the (a) sets' numbers of the resident route (64 buses) and of
-    the device-memory route (130 buses) for the kernels' line."""
+def chord64(pf, t64, ybus64, p, q, x0):
+    """The plain float64 chord's exit ``(x, F, diff, n_iter, accepted)`` on
+    the card from the warm starts ``x0``."""
+    B = p.shape[0]
+    if t64.chord_has_oltc:
+        inv_da = 1.0 / ybus64.tap_magn[:, int(t64.oltc_branch[0])] - 1.0 / t64.chord_a0
+        dr, di = -t64.chord_y_re * inv_da, -t64.chord_y_im * inv_da
+    else:
+        dr = di = torch.zeros(B, dtype=torch.float64, device="cuda")
+    return tuple(t.contiguous() for t in pf.chord_solve_plain(p, q, di, dr, dr, di, t64.chord_t, x0=x0))
+
+
+def d2_card_vs_cpu(pf, name, ybus64, p, q, init, share=1e-3, tol=1e-10):
+    """ROADMAP D2: the float64 tier's ``nr_solve_lazy`` on the card (K3 or
+    K3 wide: Y V in ``_fold_sum``'s order, CUDA's sin, cos and sqrt) against
+    the CPU's (BLAS's order, torch's CPU functions) from the same chord exit
+    ``init``, on lanes that diverge; beside it the CPU against itself with
+    the card's order (``_fold_sum``), which shows how many flips the order
+    alone makes.  Gates: the lanes whose ``stable`` flag differs at most
+    ``share`` of the batch; on the lanes stable in both with equal
+    ``n_iter``, the voltages within ``tol``.  Counts apart the lanes whose
+    ``converged`` flag differs (NaN on one device only, on lanes unstable
+    on both in this repo's runs): the bound of ``share`` on both flags is
+    not met, by the card or by the CPU's two orders (ROADMAP D2), so it is
+    printed, not gated; the card test
+    ``test_float64_tier_card_against_cpu_on_diverging_lanes`` asserts it.
+    Returns (converged flips, stable flips, max |dV|, the CPU's own
+    converged flips)."""
+    from gym_anm_torch.physics.ybus import LaneYbus
+
+    rc = pf.nr_solve_lazy(ybus64, p, q, init=init)
+    cpu = lambda t: t.cpu()  # noqa: E731
+    yh = LaneYbus(ybus64.n_bus, *(cpu(t) for t in (ybus64.f, ybus64.t, ybus64.series_re, ybus64.series_im,
+                                                   ybus64.shunt_im, ybus64.shift_cos, ybus64.shift_sin,
+                                                   ybus64.tap_magn)))
+    host = (yh, cpu(p), cpu(q))
+    rh = pf.nr_solve_lazy(*host, init=tuple(cpu(t) for t in init))
+    blas = pf._ybus_matvec
+
+    def fold(Yre, Yim, v_re, v_im):  # the card's order on the CPU
+        dot = lambda M, v: pf._fold_sum(M * v.unsqueeze(-2))  # noqa: E731
+        return dot(Yre, v_re) - dot(Yim, v_im), dot(Yre, v_im) + dot(Yim, v_re)
+
+    pf._ybus_matvec = fold
+    try:
+        rf = pf.nr_solve_lazy(*host, init=tuple(cpu(t) for t in init))
+    finally:
+        pf._ybus_matvec = blas
+    B = p.shape[0]
+    conv, stab, it = (cpu(getattr(rc, k)) for k in ("converged", "stable", "n_iter"))
+    conv_flip, stab_flip = conv != rh.converged, stab != rh.stable
+    unstable_both = ~stab & ~rh.stable
+    both = stab & rh.stable & (it == rh.n_iter)
+    dv = max(float((cpu(rc.v_re) - rh.v_re)[both].abs().max()), float((cpu(rc.v_im) - rh.v_im)[both].abs().max())) \
+        if bool(both.any()) else 0.0
+    n_conv, n_stab = int(conv_flip.sum()), int(stab_flip.sum())
+    n_own, n_own_stab = int((rf.converged != rh.converged).sum()), int((rf.stable != rh.stable).sum())
+    log(f"D2 {name}, float64 nr_solve_lazy card vs CPU, B={B}: {int((~init[4]).sum())} lanes past the chord, card "
+        f"stable {int(stab.sum())} / CPU {int(rh.stable.sum())}, converged {int(conv.sum())} / "
+        f"{int(rh.converged.sum())}; stable flips {n_stab} (gate <= {share * B:.1f}); converged flips {n_conv} "
+        f"({n_conv / B:.5f} of the lanes, {int((conv_flip & unstable_both).sum())} of them unstable on both; "
+        f"the bound {share} on both flags: {'met' if n_conv + n_stab <= share * B else 'NOT MET'}); the "
+        f"CPU with the card's order against the CPU: converged flips {n_own}, stable flips {n_own_stab}; max |dV| "
+        f"on the {int(both.sum())} lanes stable in both with equal n_iter {dv:.3e} (gate {tol:.0e})")
+    assert n_stab <= share * B, f"D2 {name}: {n_stab} of {B} lanes flip stable between card and CPU"
+    assert dv <= tol, f"D2 {name}: voltages differ by {dv:.3e} between card and CPU"
+    return n_conv, n_stab, dv, n_own
+
+
+def phase10_newton_wide(pf, lin, nc, base, fallback_inputs, blocked_inputs):
+    """K3 wide against its plain version on each feeder's sets, in float32
+    and float64, each on the route ``wide_route`` gives its batch and timed
+    beside PR 15's design in turns: (a) the float32 bad-basin step's
+    fallback inputs (B = 8192, the LaneYbus; in float64 the same inputs
+    widened, Y from the float64 tables at (a)'s taps), (d) (a)'s lanes all
+    accepted (no lane iterates), (f) the tail: one lane of (a) that iterates
+    among (d)'s, and (c) float64 from the flat start with a dense Y at B =
+    1001 and B = 1; then ``blocked_inputs`` (Yre, Yim, p, q), the float64
+    tier's Newton inputs of a step at BLOCKED_FEEDER's buses, from the flat
+    start (the device-memory route).  D2 on the 48-bus
+    feeder (512 lanes from bad-basin starts, resident) and the 64-bus one
+    (64 lanes, on clusters).  Timed at 50 ms of launches a reading.
+    Returns the (a) sets' numbers of the resident route (64 buses), the
+    cluster route (130 buses) and the device-memory route (194 buses) for
+    the kernels' line."""
     from gym_anm_torch.physics.ybus import LaneYbus
 
     results = {}
     for n_bus, ((ybus, p, q, init), t64) in fallback_inputs.items():
         init = tuple(t.contiguous() for t in init)
-        n = 2 * p.shape[1]
-        r32, r64 = (wide_route(lin, n, dtype, limit) for dtype in (torch.float32, torch.float64))
+        n, B = 2 * p.shape[1], p.shape[0]
         res = results[n_bus] = {}
-        res["a"] = k3_wide_vs_plain(pf, lin, nc, f"(a) {n_bus}-bus feeder, the bad-basin step's fallback",
-                                    init + (p, q), ybus, ybus, r32, memory=n_bus == 130)
-        accepted = torch.ones_like(init[4])
-        res["d"] = k3_wide_vs_plain(pf, lin, nc, f"(d) {n_bus}-bus feeder, no lane iterating",
-                                    init[:4] + (accepted, p, q), ybus, ybus, r32)
-        go = int(torch.nonzero((init[2] > 1e-5) & (init[3] < 100) & ~init[4])[0])
-        tail = accepted.clone()
-        tail[go] = False
-        res["f"] = k3_wide_vs_plain(pf, lin, nc, f"(f) {n_bus}-bus feeder, one lane among accepted ones",
-                                    init[:4] + (tail, p, q), ybus, ybus, r32)
-        Yre, Yim = LaneYbus(t64.n_bus, t64.br_f, t64.br_t, t64.series_re, t64.series_im, t64.shunt_im,
-                            t64.shift_cos, t64.shift_sin, ybus.tap_magn.double())(slice(0, 1001))
+        ybus64 = LaneYbus(t64.n_bus, t64.br_f, t64.br_t, t64.series_re, t64.series_im, t64.shunt_im,
+                          t64.shift_cos, t64.shift_sin, ybus.tap_magn.double())
+        p64, q64 = p.double().contiguous(), q.double().contiguous()
+        init64 = tuple((t.double() if t.is_floating_point() else t).contiguous() for t in init)
+        for dtype, yb, pp, qq, ini in ((torch.float32, ybus, p, q, init), (torch.float64, ybus64, p64, q64, init64)):
+            route, tag = wide_route(n, dtype, B), "" if dtype == torch.float32 else " f64"
+            res["a" + tag] = k3_wide_vs_plain(pf, lin, nc, base, f"(a){tag} {n_bus}-bus feeder, the bad-basin "
+                                              f"step's fallback", ini + (pp, qq), yb, yb, route,
+                                              memory=n_bus == 130 and dtype == torch.float32)
+            accepted = torch.ones_like(ini[4])
+            res["d" + tag] = k3_wide_vs_plain(pf, lin, nc, base, f"(d){tag} {n_bus}-bus feeder, no lane iterating",
+                                              ini[:4] + (accepted, pp, qq), yb, yb, route)
+            go = int(torch.nonzero((ini[2] > 1e-5) & (ini[3] < 100) & ~ini[4])[0])
+            tail = accepted.clone()
+            tail[go] = False
+            res["f" + tag] = k3_wide_vs_plain(pf, lin, nc, base, f"(f){tag} {n_bus}-bus feeder, one lane among "
+                                              f"accepted ones", ini[:4] + (tail, pp, qq), yb, yb, route)
+        Yre, Yim = ybus64(slice(0, 1001))
         for BB in (1001, 1):
             Y = (Yre[:BB].contiguous(), Yim[:BB].contiguous())
-            p64, q64 = p[:BB].double().contiguous(), q[:BB].double().contiguous()
-            res[f"c {BB}"] = k3_wide_vs_plain(pf, lin, nc, f"(c) {n_bus}-bus feeder, float64 from the flat start",
-                                              flat_start(pf, *Y, p64, q64) + (None, p64, q64), Y, dense_oracle(*Y),
-                                              r64)
+            pc, qc = p64[:BB].contiguous(), q64[:BB].contiguous()
+            res[f"c {BB}"] = k3_wide_vs_plain(pf, lin, nc, base, f"(c) {n_bus}-bus feeder, float64 from the flat "
+                                              f"start", flat_start(pf, *Y, pc, qc) + (None, pc, qc), Y,
+                                              dense_oracle(*Y), wide_route(n, torch.float64, BB, False))
+        if n_bus in D2_FEEDERS:
+            BD = D2_FEEDERS[n_bus]
+            x0 = bad_guesses(BD, n // 2, which=(2, 3)).to("cuda", torch.float64)
+            yd = LaneYbus(t64.n_bus, t64.br_f, t64.br_t, t64.series_re, t64.series_im, t64.shunt_im, t64.shift_cos,
+                          t64.shift_sin, ybus64.tap_magn[:BD].contiguous())
+            pd, qd = p64[:BD].contiguous(), q64[:BD].contiguous()
+            res["d2"] = d2_card_vs_cpu(pf, f"{n_bus}-bus feeder (K3 wide, route "
+                                       f"{wide_route(n, torch.float64, BD)}), bad-basin starts", yd, pd, qd,
+                                       chord64(pf, t64, yd, pd, qd, x0))
+    Yre, Yim, p, q = blocked_inputs
+    B, n = p.shape[0], 2 * p.shape[1]
+    results[BLOCKED_FEEDER[0]] = {"a f64": k3_wide_vs_plain(
+        pf, lin, nc, base, f"(a) f64 {BLOCKED_FEEDER[0]}-bus feeder, the float64 tier's step", flat_start(
+            pf, Yre, Yim, p, q) + (None, p, q), (Yre, Yim), dense_oracle(Yre, Yim), wide_route(n, p.dtype, B, False))}
     log("K3 wide sets (all bitwise): " + "; ".join(
-        f"{n_bus} buses {k}: {v['ms']:.4f} ms (host loop around K1 {v['host_ms']:.4f}, plain {v['plain_ms']:.4f}; "
-        f"bound {v['bound_ms']:.4f}, {v['bound_by']}; slowest lane {v['max_it']} iterations)"
-        for n_bus, sets in results.items() for k, v in sets.items()))
+        f"{n_bus} buses {k}: {v['ms']:.4f} ms (PR 15's design {v['pr15_ms']:.4f}, {v['pr15_ms'] / v['ms']:.2f}x; "
+        f"plain {v['plain_ms']:.4f}; bound {v['bound_ms']:.4f}, {v['bound_by']}, at {v['bound_ms'] / v['ms']:.4f}; "
+        f"slowest lane {v['max_it']} iterations)"
+        for n_bus, sets in results.items() for k, v in sets.items() if k != "d2"))
     a130 = results[130]["a"]
     log(f"K3 wide, the 130-bus bad-basin fallback: peak device memory of a call {a130['peak_kernel'] / 2**20:.1f} MiB "
-        f"against the host loop around K1's {a130['peak_host'] / 2**20:.1f} MiB")
-    return dict(resident=results[64]["a"], blocked=a130)
+        f"against PR 15's design's {a130['peak_pr15'] / 2**20:.1f} MiB")
+    for sets in results.values():
+        for v in sets.values():
+            if isinstance(v, dict):
+                v.pop("out", None)
+    return dict(resident=results[64]["a"], cluster=a130, blocked=results[BLOCKED_FEEDER[0]]["a f64"])
 
 
 def admm_bound(dc, B, iterations):
@@ -3518,7 +3688,9 @@ def log_ptxas(report):
              (r"admm_kernelILb([01])ELb([01])E", lambda m, g: f"admm_kernel<{b[m]}, {b[g]}>"),
              (r"newton_kernelI([fd])Li(\d+)ELb([01])E", lambda t, k, y: f"newton_kernel<{b[t]}, {k}, {b[y]}>"),
              (r"newton_wide_kernelI([fd])Li(\d+)ELb([01])ELb([01])E",
-              lambda t, k, r, y: f"newton_wide_kernel<{b[t]}, {k}, {b[r]}, {b[y]}>"))
+              lambda t, k, r, y: f"newton_wide_kernel<{b[t]}, {k}, {b[r]}, {b[y]}>"),
+             (r"newton_cluster_kernelI([fd])Li(\d+)ELi(\d+)ELb([01])E",
+              lambda t, k, c, y: f"newton_cluster_kernel<{b[t]}, {k}, {c}, {b[y]}>"))
     name = spill = None
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -3701,14 +3873,16 @@ def main():
         "route": "cuda",
         "source": "gym_anm_torch/csrc/newton_fallback_wide.cuh",
         "replaces": "gym_anm_tpu/physics/power_flow.py:699",
-        "launches": k3w["by_route"][i],  # the random feeders' f32 path (phase 10): [J | F] resident, or in device memory
-        "max_abs_err": k3w[key]["max_abs_err"],
-        "ms": k3w[key]["ms"],  # set (a) at 64 buses (resident) and 130 buses (device memory)
-        "plain_ms": k3w[key]["plain_ms"],
-        "bound_ms": k3w[key]["bound_ms"],
-        "bound_by": k3w[key]["bound_by"],
+        # phase 10: [J | F] resident in a block or on a cluster (the random feeders' f32 path), or in device
+        # memory (the f64 tier's step at 194 buses)
+        "launches": k3w["by_route"][i],
+        "max_abs_err": k3w[route]["max_abs_err"],
+        "ms": k3w[route]["ms"],  # set (a) at 64 buses (resident), 130 buses (cluster) and 194 buses (f64, blocked)
+        "plain_ms": k3w[route]["plain_ms"],
+        "bound_ms": k3w[route]["bound_ms"],
+        "bound_by": k3w[route]["bound_by"],
         "library_ms": None,  # no single PyTorch call runs the Newton loop
-    } for i, (route, key) in enumerate((("resident", "resident"), ("blocked", "blocked")))]}), flush=True)
+    } for i, route in enumerate(("resident", "cluster", "blocked"))]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -64,14 +64,24 @@ _SIGNATURES = {
     # slot, grid, stream)
     "newton_fallback_wide_f32": [_P] * 9 + [_L] + [_P] * 8 + [_I, _D, _I] + [_P] * 7 + [_I] * 4 + [_P, _L, _I, _P],
     "newton_fallback_wide_f64": [_P] * 9 + [_L] + [_P] * 8 + [_I, _D, _I] + [_P] * 7 + [_I] * 4 + [_P, _L, _I, _P],
+    # newton_fallback_f32's arguments to nb, then (panel, cluster, slots,
+    # slot, clusters, stream)
+    "newton_fallback_cluster_f32": [_P] * 9 + [_L] + [_P] * 8 + [_I, _D, _I] + [_P] * 7 + [_I] * 4 + [_P, _L, _I, _P],
+    "newton_fallback_cluster_f64": [_P] * 9 + [_L] + [_P] * 8 + [_I, _D, _I] + [_P] * 7 + [_I] * 4 + [_P, _L, _I, _P],
     # (f64, n, panel, resident, lane_ybus) -> blocks, or minus a CUDA error
     "newton_wide_grid": [_I] * 5,
+    # (f64, n, panel, cluster, lane_ybus) -> clusters, or minus a CUDA error
+    "newton_cluster_grid": [_I] * 5,
+    # (f64, n, panel, cluster) -> bytes
+    "newton_cluster_smem_bytes": [_I] * 4,
     # (f64, n, panel, resident) -> bytes
     "newton_wide_smem_bytes": [_I] * 4,
     "newton_wide_smem_limit": [],
+    "newton_l2_bytes": [],
 }
 # Every other entry point returns an int.
-_RESTYPES = {"admm_scratch_bytes": ctypes.c_longlong, "newton_wide_smem_bytes": ctypes.c_longlong}
+_RESTYPES = {"admm_scratch_bytes": ctypes.c_longlong, "newton_wide_smem_bytes": ctypes.c_longlong,
+             "newton_cluster_smem_bytes": ctypes.c_longlong}
 
 
 def _nvcc():

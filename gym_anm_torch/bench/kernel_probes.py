@@ -42,6 +42,19 @@
    by lane-iteration, of the Jacobian, the sweeps, x with the vectors and F
    with the max, a block's triage and barrier, and each copy's time beside
    PR 13's design (``newton_fallback_pr13.cuh``).
+9. K3 wide's cluster route (``csrc/newton_fallback_wide.cuh``), alone with
+   ``python -m gym_anm_torch.bench.kernel_probes newton_wide``: an
+   instrumented copy's cycles a lane-iteration by step (the Jacobian,
+   panel 0's push, step 2, step 3, the panels' cluster barriers, x and the
+   vectors, F and the max), block 0 apart from the others, on the 130-bus
+   feeder's lanes (all 8192 after the chord from bad-basin guesses, and one
+   among accepted ones) and float64 from the flat start at B = 1 (64 and
+   130 buses).
+10. K3 wide's routes by batch, alone with ``python -m
+   gym_anm_torch.bench.kernel_probes wide_routes``: the cluster and the
+   blocked route held in turns on the same lanes, beside the rule's choice
+   (``newton_cuda.batch_route``), at float64 64 buses from 1 to 8192 lanes
+   and float32 82 and 130 buses at 264 and 1001.
 
 The earlier designs of K1's shared-memory route (the one-block design: a
 block per system, two block barriers a sweep) and of its route above the
@@ -51,10 +64,13 @@ K1's register route, lanes claimed one at a time) stay in
 ``gauss_jordan_smem.cu``, ``gauss_jordan_gmem.cu``,
 ``chord_newton_wide_lane.cu`` and ``newton_fallback_pr13.cuh`` (entry points
 in ``newton_fallback_pr13_f32.cu`` and ``_f64.cu``, the high halves of its
-bodies in ``_f32_high.cu`` and ``_f64_high.cu``) as the baselines of
-probes 5 to 8 and of ``chip_smoke.py`` phases 1, 3b and 10
-(:func:`load_baselines`, :func:`one_block_solve`, :func:`gmem_solve`,
-:func:`lane_chord`, :func:`pr13_newton`).
+bodies in ``_f32_high.cu`` and ``_f64_high.cu``), and of K3 wide (PR 15's: a
+block of 256 a lane, [J | F] resident in shared memory or in device memory)
+in ``newton_fallback_wide_pr15.cuh`` (units ``newton_fallback_wide_pr15_f32.cu``
+and ``_f64.cu``), as the baselines of probes 5 to 8 and of
+``chip_smoke.py`` phases 1, 3b and 10 (:func:`load_baselines`,
+:func:`one_block_solve`, :func:`gmem_solve`, :func:`lane_chord`,
+:func:`pr13_newton`, :func:`pr15_newton_wide`).
 
 The copies are built into ``build/kernels/probe/``; the counters cost
 registers, so the instrumented K2 runs ~15% slower than the kernel itself
@@ -67,6 +83,7 @@ import math
 import re
 import statistics
 import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -337,6 +354,223 @@ def probe_newton(variants=NEWTON_VARIANTS):
                   f"barrier {T[8] / max(T[9], 1):.0f}", flush=True)
 
 
+CLUSTER_STEPS = ["lane start (Y, vectors)", "Jacobian", "panel 0 pushed, cluster barrier", "step 2 and block barrier",
+              "step 3 (look-ahead in the owner)", "cluster barrier at a panel's end", "x, vectors, cluster barrier",
+              "F, max, cluster barrier"]
+
+
+def instrument_cluster(src):
+    """K3 wide's device code (``newton_fallback_wide.cuh``) with cycle
+    counters in thread 0 of every block of the cluster route: by
+    lane-iteration the Jacobian, panel 0's push and barrier, then by panel
+    step 2 with its block barrier, step 3, the wait at the panel's cluster
+    barrier, then x with the vectors and F with the max (:data:`CLUSTER_STEPS`;
+    block 0 in counters 0-7, the others in 8-15), a lane's start, and the
+    lanes, lane-iterations and panels of block 0 (16-18)."""
+    probe = ("#define PROBE_(q) if (threadIdx.x == 0) { const long long now_ = clock64(); "
+             "atomicAdd(&g_probe[(q) + (rank ? 8 : 0)], (unsigned long long)(now_ - t_)); t_ = now_; }\n")
+    edits = (
+        ("namespace {\n", "namespace {\n__device__ unsigned long long g_probe[32];\n" + probe),
+        ("    for (int p = 0; p < panels; ++p) {\n",
+         "    for (int p = 0; p < panels; ++p) {\n      long long t_ = clock64();\n"
+         "      if (threadIdx.x == 0 && rank == 0) atomicAdd(&g_probe[18], 1ull);\n"),
+        ("      if (tid == 0) *ctr = 0;\n      __syncthreads();\n",
+         "      if (tid == 0) *ctr = 0;\n      __syncthreads();\n      PROBE_(3)\n"),
+        ("      cluster_sync();\n    }\n  }\n};\n",
+         "      PROBE_(4)\n      cluster_sync();\n      PROBE_(5)\n    }\n  }\n};\n"),
+        ("    for (int r = tid; r < n; r += kClThreads) {\n      xs[r] = P.x_in[o + r];\n",
+         "    long long t_ = clock64();\n"
+         "    for (int r = tid; r < n; r += kClThreads) {\n      xs[r] = P.x_in[o + r];\n"),
+        ("    vectors(Yr, Yi);\n\n    while (true) {\n      // This block's rows",
+         "    vectors(Yr, Yi);\n    PROBE_(0)\n"
+         "    if (threadIdx.x == 0 && rank == 0) atomicAdd(&g_probe[17], 1ull);\n\n"
+         "    while (true) {\n      // This block's rows"),
+        ("      __syncthreads();\n      if (rank == 0) S.lookahead(0, tid);\n      cluster_sync();\n",
+         "      __syncthreads();\n      PROBE_(1)\n      if (rank == 0) S.lookahead(0, tid);\n      cluster_sync();\n"
+         "      PROBE_(2)\n"),
+        ("      // The new mismatch of this block's rows and its max over the lane.\n      vectors(Yr, Yi);\n",
+         "      t_ = clock64();\n      vectors(Yr, Yi);\n      PROBE_(6)\n"),
+        ("      // The reference's stall rule and loop condition, the same in every\n      // thread of the cluster",
+         "      PROBE_(7)\n      if (threadIdx.x == 0 && rank == 0) atomicAdd(&g_probe[16], 1ull);\n"
+         "      // The reference's stall rule and loop condition, the same in every\n      // thread of the cluster"),
+    )
+    for a, b in edits:
+        assert src.count(a) == 1, f"K3 wide's layout changed: {a!r}"
+        src = src.replace(a, b)
+    return src
+
+
+def load_cluster_probe():
+    """The kernel library with K3 wide's cluster route instrumented
+    (:func:`instrument_cluster`), built from copies of ``csrc/`` under
+    ``build/kernels/probe/k3w/``, with ``probe_read_f32``/``_f64`` and
+    ``probe_zero_f32``/``_f64`` (the counters of each type's unit)."""
+    d = OUT / "k3w"
+    d.mkdir(parents=True, exist_ok=True)
+    for f in _build.CSRC_DIR.glob("*.cu*"):
+        text = f.read_text()
+        if f.name == "newton_fallback_wide.cuh":
+            text = instrument_cluster(text)
+        for ty in ("f32", "f64"):
+            if f.name == f"newton_fallback_cluster_{ty}.cu":
+                text += (f'\nextern "C" int probe_read_{ty}(unsigned long long* out) {{\n'
+                         f"  return (int)cudaMemcpyFromSymbol(out, g_probe, sizeof(g_probe));\n}}\n"
+                         f'extern "C" int probe_zero_{ty}() {{\n  unsigned long long z[32] = {{}};\n'
+                         f"  return (int)cudaMemcpyToSymbol(g_probe, z, sizeof(z));\n}}\n")
+        if not (d / f.name).exists() or (d / f.name).read_text() != text:
+            (d / f.name).write_text(text)
+    units = ["newton_fallback.cu", "newton_fallback_f32.cu", "newton_fallback_f32_high.cu", "newton_fallback_f64.cu",
+             "newton_fallback_f64_high.cu", "newton_fallback_wide_f32.cu", "newton_fallback_wide_f64.cu",
+             "newton_fallback_cluster_f32.cu", "newton_fallback_cluster_f64.cu"]
+    lib = _build.declare(ctypes.CDLL(str(_build.build_library([d / u for u in units], "libk3w_probe", OUT))))
+    for ty in ("f32", "f64"):
+        getattr(lib, f"probe_read_{ty}").argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def probe_newton_wide():
+    """K3 wide's cluster route by step (an instrumented copy, the card's own
+    route at each size): cycles a lane-iteration in each of
+    :data:`CLUSTER_STEPS` for block 0 and for the others, on the 130-bus
+    feeder's lanes after the chord from bad-basin guesses (float32, all 8192
+    lanes, and one lane among accepted ones) and float64 from the flat
+    start at B = 1 (64 and 130 buses); each beside the kernel's own time."""
+    from ..networks.random_feeder import random_radial_network
+    from ..physics import newton_cuda
+    from ..physics import power_flow as pf
+    from ..physics.transition import make_tables
+    from ..physics.ybus import LaneYbus
+    from ..specs import load_network
+
+    lib, main = load_cluster_probe(), _build.load_library()
+    for n_bus, dtype, B, kind in ((130, torch.float32, 8192, "bad"), (130, torch.float32, 8192, "one"),
+                                  (130, torch.float64, 1, "flat"), (64, torch.float64, 1, "flat")):
+        tb = make_tables(load_network(random_radial_network(np.random.default_rng(n_bus), n_bus)), 1.0, 100,
+                         dtype=dtype, device="cuda")
+        nb = tb.n_bus - 1
+        g = torch.Generator(device="cuda").manual_seed(n_bus)
+        p = (-0.004 * (1.0 + torch.rand(B, nb, generator=g, device="cuda"))).to(dtype)
+        q = 0.5 * p
+        tap = tb.tap0.expand(B, -1).clone()
+        ybus = LaneYbus(tb.n_bus, tb.br_f, tb.br_t, tb.series_re, tb.series_im, tb.shunt_im, tb.shift_cos,
+                        tb.shift_sin, tap)
+        if kind == "flat":
+            Y = tuple(t.contiguous() for t in ybus(slice(None)))
+            x = torch.cat([torch.zeros_like(p), torch.ones_like(p)], dim=1)
+            F, _ = pf._mismatch(x, p, q, *Y, nb)
+            args, yb = (x, F, torch.amax(F.abs(), 1), torch.zeros(B, dtype=torch.int32, device="cuda"), None, p, q), Y
+        else:
+            dz = torch.zeros(B, dtype=dtype, device="cuda")
+            bad = torch.cat([torch.full((B, nb), 30.0), torch.ones(B, nb)], dim=1).to("cuda", dtype)
+            init = [t.contiguous() for t in pf.chord_solve(p, q, dz, dz, dz, dz, tb.chord_t, x0=bad)]
+            if kind == "one":
+                good = pf.chord_solve(p, q, dz, dz, dz, dz, tb.chord_t)
+                keep = torch.arange(B, device="cuda") != 5
+                init = [torch.where(keep.view(-1, *[1] * (u.dim() - 1)), v, u).contiguous() for u, v in zip(init, good)]
+            args, yb = tuple(init) + (p, q), ybus
+        route = newton_cuda.wide_route(2 * nb, dtype, main.newton_wide_smem_limit())
+        ty = "f64" if dtype == torch.float64 else "f32"
+
+        def call(lib_):
+            kind_, cargs, outs = newton_cuda.k3_arguments(*args, yb)
+            newton_cuda.launch(lib_, kind_, cargs, outs, B, nb, dtype, p.device, 1e-5, 100,
+                               torch.cuda.current_stream().cuda_stream)
+            return outs
+
+        ref = call(main)
+        getattr(lib, f"probe_zero_{ty}")()
+        out = call(lib)
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, v) for u, v in zip(out[3:], ref[3:])), "the instrumented copy's n_iter moved"
+        T = (ctypes.c_ulonglong * 32)()
+        getattr(lib, f"probe_read_{ty}")(T)
+        its, lanes, panels = max(T[16], 1), max(T[17], 1), max(T[18], 1)
+        blocks_other = route[2] - 1
+        t_k = statistics.median(device_ms(lambda: call(main), 5) for _ in range(3))
+        t_i = statistics.median(device_ms(lambda: call(lib), 5) for _ in range(3))
+        per = lambda q, o: T[q + o] / (lanes if q == 0 else its) / (blocks_other if o else 1)  # noqa: E731
+        steps = "; ".join(f"{s} {per(q, 0):.0f} / {per(q, 8):.0f}" for q, s in enumerate(CLUSTER_STEPS))
+        print(f"K3 wide {n_bus} buses {dtype} B={B} ({kind}; route {route}): kernel {t_k:.4f} ms, instrumented "
+              f"{t_i:.4f} ms; {int(T[17])} lanes, {int(T[16])} lane-iterations, {T[18] / its:.1f} panels an "
+              f"iteration (block 0's); cycles a lane-iteration (a lane for the start), block 0 / each other block: "
+              f"{steps}", flush=True)
+
+
+
+def wide_route_lanes(n_bus, B, dtype, seed):
+    """B lanes after the chord from bad-basin guesses on the random feeder
+    of ``n_bus`` buses, the lanes' Y-bus a LaneYbus with random OLTC taps:
+    (x, F, diff, n_iter, accepted, p, q), ybus."""
+    from ..networks.random_feeder import random_radial_network
+    from ..physics import power_flow as pf
+    from ..physics.transition import make_tables
+    from ..physics.ybus import LaneYbus
+    from ..specs import load_network
+
+    tb = make_tables(load_network(random_radial_network(np.random.default_rng(n_bus), n_bus)), 1.0, 100,
+                     dtype=dtype, device="cuda")
+    nb = tb.n_bus - 1
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    p = -0.004 * (1.0 + torch.rand(B, nb, generator=g, device="cuda", dtype=dtype))
+    tap = tb.tap0.expand(B, -1).clone()
+    if len(tb.oltc_branch):
+        tap[:, tb.oltc_branch] = 0.95 + 0.1 * torch.rand(B, 1, generator=g, device="cuda", dtype=dtype)
+    ybus = LaneYbus(tb.n_bus, tb.br_f, tb.br_t, tb.series_re, tb.series_im, tb.shunt_im, tb.shift_cos,
+                    tb.shift_sin, tap)
+    pats = torch.stack([torch.cat([torch.zeros(nb), torch.full((nb,), v)]) for v in (1e-6, -1.0, 1e15)]
+                       + [torch.cat([torch.full((nb,), 30.0), torch.ones(nb)])]).to("cuda", dtype)
+    x0 = pats.repeat(B // 4 + 1, 1)[:B].contiguous()
+    dz = torch.zeros(B, dtype=dtype, device="cuda")
+    init = pf.chord_solve_plain(p, 0.5 * p, dz, dz, dz, dz, tb.chord_t, x0=x0)
+    return tuple(t.contiguous() for t in init) + (p, (0.5 * p).contiguous()), ybus
+
+
+def probe_wide_routes():
+    """K3 wide's routes by batch (``newton_cuda.batch_route``): at each size
+    whose shape route is the cluster's, the cluster route and the blocked
+    route (a block a lane, [J | F] in device memory) on the same lanes
+    through the wrapper, each held by replacing the rule for its reading,
+    in turns, both bitwise equal, beside the rule's own choice: float64 at
+    64 buses (the blocked grid's slots fit the L2) from 1 to 8192 lanes,
+    float32 at 82 buses (fit) and at 130 buses (do not fit)."""
+    from ..physics import newton_cuda
+
+    rule = newton_cuda.batch_route
+    nc = newton_cuda.newton_fallback_cuda
+    cases = [(64, torch.float64, B) for B in (1, 66, 67, 132, 264, 1001, 8192)]
+    cases += [(82, torch.float32, B) for B in (264, 1001)] + [(130, torch.float32, B) for B in (264, 1001)]
+    for n_bus, dtype, B in cases:
+        args, ybus = wide_route_lanes(n_bus, B, dtype, n_bus)
+        calls, outs = {}, {}
+        for held in ("cluster", "blocked"):
+            def call(held=held):
+                newton_cuda.batch_route = lambda *a: held
+                try:
+                    return nc(*args, ybus)
+                finally:
+                    newton_cuda.batch_route = rule
+            before = nc.launches_by_route[held]
+            outs[held] = call()
+            assert nc.launches_by_route[held] == before + 1, f"the {held} route did not run"
+            calls[held] = call
+        torch.cuda.synchronize()
+        same = all(torch.equal(torch.nan_to_num(u, 7.0), torch.nan_to_num(v, 7.0))
+                   for u, v in zip(outs["cluster"], outs["blocked"]))
+        ms = {k: [] for k in calls}
+        for r in range(5):
+            for k in (("cluster", "blocked") if r % 2 == 0 else ("blocked", "cluster")):
+                ms[k].append(device_ms(calls[k], 5))
+        med = {k: statistics.median(v) for k, v in ms.items()}
+        before = dict(nc.launches_by_route)
+        nc(*args, ybus)
+        chose = next(k for k, v in nc.launches_by_route.items() if v != before[k])
+        it = outs["cluster"][3] - args[3]
+        print(f"K3 wide routes, {n_bus} buses {dtype} B={B}: {int((it > 0).sum())} lanes iterate, "
+              f"{int(it.sum())} lane-iterations; cluster {med['cluster']:.4f} ms, blocked {med['blocked']:.4f} ms "
+              f"(device time, 5 calls a reading, median of 5 in turns); the rule takes {chose}; the two routes "
+              f"bitwise equal: {same}", flush=True)
+
+
 PANEL_STEPS = ["load the panels", "(1) diagonal block", "(2) panel rows and columns", "(3) trailing update"]
 
 
@@ -468,17 +702,22 @@ def probe_gj():
 
 
 # The baselines: K1 with the matrix in device memory, the wide chord kernel
-# with one block per lane, and PR 13's K3 (a lane slot per system of K1's
-# register route, lanes claimed one at a time).
+# with one block per lane, PR 13's K3 (a lane slot per system of K1's
+# register route, lanes claimed one at a time) and PR 15's K3 wide (a block
+# of 256 a lane, [J | F] resident or in device memory).
 BASELINE_SOURCES = ("gauss_jordan_smem.cu", "gauss_jordan_gmem.cu", "chord_newton_wide_lane.cu",
                     "newton_fallback_pr13_f32.cu", "newton_fallback_pr13_f32_high.cu", "newton_fallback_pr13_f64.cu",
-                    "newton_fallback_pr13_f64_high.cu")
+                    "newton_fallback_pr13_f64_high.cu", "newton_fallback_wide_pr15_f32.cu",
+                    "newton_fallback_wide_pr15_f64.cu")
 _P, _I, _F, _D, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double, ctypes.c_longlong
 # PR 13's newton_fallback_f32/_f64: (x_in, F_in, diff_in, it_in, accepted, p,
 # q, Yre, Yim, y_stride, br_f, br_t, series_re, series_im, shunt_im,
 # shift_cos, shift_sin, tap_magn, n_branch, xtol, lim_iter, x, F, diff,
 # n_iter, stall, next_lane, B, nb, stream)
 _PR13_ARGS = [_P] * 9 + [_L] + [_P] * 8 + [_I, _D, _I] + [_P] * 6 + [_I, _I, _P]
+# PR 15's newton_fallback_wide_f32/_f64: K3's arguments to nb, then (panel,
+# resident, slots, slot, grid, stream)
+_PR15_ARGS = [_P] * 9 + [_L] + [_P] * 8 + [_I, _D, _I] + [_P] * 7 + [_I] * 4 + [_P, _L, _I, _P]
 BASELINE_SIGNATURES = {
     "gj_solve_f32_one_block": [_P, _P, _P, _I, _I, _P],  # (A, b, x, B, n, stream)
     "gj_solve_f64_one_block": [_P, _P, _P, _I, _I, _P],
@@ -488,6 +727,10 @@ BASELINE_SIGNATURES = {
     "chord_newton_wide_lane_f32": [_P] * 16 + [_F] * 6 + [_I] + [_P] * 5 + [_I, _I, _P],
     "newton_fallback_pr13_f32": _PR13_ARGS,
     "newton_fallback_pr13_f64": _PR13_ARGS,
+    "newton_fallback_wide_pr15_f32": _PR15_ARGS,
+    "newton_fallback_wide_pr15_f64": _PR15_ARGS,
+    "newton_wide_pr15_f32_grid": [_I] * 4,  # (n, panel, resident, lane_ybus) -> blocks
+    "newton_wide_pr15_f64_grid": [_I] * 4,
 }
 
 
@@ -531,6 +774,41 @@ def pr13_newton(lib, x, F, diff, n_iter, accepted, p, q, ybus, xtol=1e-5, lim_it
     if rc != 0:
         raise RuntimeError(f"PR 13's K3 failed with CUDA error {rc} (B={B}, n={2 * nb}, {p.dtype}, {kind})")
     return outs
+
+
+def pr15_newton_wide(lib, x, F, diff, n_iter, accepted, p, q, ybus, xtol=1e-5, lim_iter=100):
+    """PR 15's K3 wide on the arguments of
+    :func:`~gym_anm_torch.physics.newton_cuda.newton_fallback_cuda` (n > 64,
+    tensors on the card), through what that wrapper did around its launch
+    in PR 15: its checks and outputs (``k3_arguments``), the route and panel
+    by ``k1_route`` with the lane's vectors counted, a grid of the card's
+    capacity or B blocks, one slot each, and one fill of the counters:
+    ((x, F, diff, n_iter, stall), route)."""
+    from ..physics.linsolve_cuda import k1_route
+    from ..physics.newton_cuda import k3_arguments, wide_lane_bytes
+
+    kind, args, outs = k3_arguments(x, F, diff, n_iter, accepted, p, q, ybus)
+    B, nb = p.shape
+    n, f64, lane_y = 2 * nb, p.dtype == torch.float64, kind == "lane_ybus"
+    route, panel = k1_route(n, p.dtype, _build.load_library().newton_wide_smem_limit(),
+                            wide_lane_bytes(n, p.dtype.itemsize))
+    grid_of = lib.newton_wide_pr15_f64_grid if f64 else lib.newton_wide_pr15_f32_grid
+    cap = grid_of(n, panel, int(route == "smem"), int(lane_y))
+    if cap <= 0:
+        raise RuntimeError(f"PR 15's K3 wide has no kernel for n = {n} ({p.dtype}, route {route}): CUDA error {-cap}")
+    grid = min(cap, B)
+    slot = (0 if route == "smem" else n * (n + 1)) + (2 * (nb + 1) ** 2 if lane_y else 0)
+    fn = lib.newton_fallback_wide_pr15_f64 if f64 else lib.newton_fallback_wide_pr15_f32
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        scratch = torch.zeros(3 + B, dtype=torch.int32, device=p.device)
+        slots = torch.empty(max(grid * slot, 1), dtype=p.dtype, device=p.device)
+        rc = fn(*args, float(xtol), int(lim_iter), *(t.data_ptr() for t in outs), scratch.data_ptr(),
+                scratch.data_ptr() + 3 * scratch.element_size(), B, nb, panel, int(route == "smem"),
+                slots.data_ptr(), slot, grid, stream)
+    if rc != 0:
+        raise RuntimeError(f"PR 15's K3 wide failed with CUDA error {rc} (B={B}, n={n}, {p.dtype}, {kind})")
+    return outs, route
 
 
 def panel_solve(lib, A, b, panel, resident):
@@ -907,7 +1185,14 @@ if __name__ == "__main__":
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"nvidia-smi: {smi}")
+    if sys.argv[1:] == ["newton_wide"]:  # python -m gym_anm_torch.bench.kernel_probes newton_wide
+        probe_newton_wide()
+        sys.exit(0)
+    if sys.argv[1:] == ["wide_routes"]:  # python -m gym_anm_torch.bench.kernel_probes wide_routes
+        probe_wide_routes()
+        sys.exit(0)
     probe_newton()
+    probe_newton_wide()
     probe_resident()
     probe_wide()
     probe_blocked()

@@ -105,36 +105,59 @@
 // shuffle, a division and S = (n + 1) / TW updates a thread.
 //
 // K3 wide (newton_fallback_wide.cuh; units newton_fallback_wide_f32.cu and
-// _f64.cu): the same loop above 33 buses (n = 66 and more; the random
-// feeders of 48, 64 and 130 buses: n = 94, 126, 258), where a lane's system
-// no longer fits a group's registers.  The same triage, grid barrier and
-// worklist, one cooperative launch; then a block of 256 threads runs one
-// lane at a time.  The lane's [J | F] [n][n + 1] lives where
-// linsolve_cuda.py:k1_route puts K1's matrix, the lane's vectors counted in
-// the block's bytes: resident in shared memory while two such blocks fit an
-// SM, else in a slot of device memory, one slot a block of the grid (the
-// wrapper allocates them from the occupancy query of the grid it launches,
-// never one a lane).  A lane's Y-bus is built once into the block's slot
-// (LaneYbus) or read in place (dense).  Each iteration: V and V / |V| (a
-// thread a bus) and Y V (a thread a row, by dot_full's rules: float64 sums
+// _f64.cu, the cluster route's newton_fallback_cluster_f32.cu and _f64.cu):
+// the same loop above 33 buses (n = 66 and more; the random feeders of 48,
+// 64 and 130 buses: n = 94, 126, 258), where a lane's system no longer fits
+// a group's registers.  The same triage, grid barrier and
+// worklist, one cooperative launch; then one of three routes, chosen by
+// newton_cuda.py:wide_route from (n, type, the card's opt-in shared memory)
+// alone, never as a fallback:
+//   "smem": a block of 256 threads a lane, its [J | F] [n][n + 1] resident
+//     in shared memory, while two such blocks fit an SM
+//     (linsolve_cuda.py:k1_route with the lane's vectors counted; on an H100
+//     float32 n = 94, 126 and float64 n = 94);
+//   "cluster": above that, while a cluster of C = 2, 4 or 8 blocks of 256
+//     threads holds the rows (float32 n = 258 on 2 blocks, float64 n = 126
+//     on 2, n = 258 on 4): a lane a thread-block cluster, [J | F]'s panels
+//     of BP = 16 (float32; else 8) pivot rows dealt round the blocks' shared
+//     memory, each panel's rows pushed by its owner into every block
+//     through distributed shared memory (mapa), the blocks meeting at
+//     cluster barriers (barrier.cluster, release / acquire); a lone lane
+//     runs on C SMs;
+//   "blocked": above a cluster of 8, a block of 256 a lane with [J | F] in
+//     a slot of device memory, one slot a block of the grid (never one a
+//     lane).
+// A lane's Y-bus is built once into the block's slot (LaneYbus; each block
+// of a cluster builds its own) or read in place (dense).  Each iteration: V
+// and V / |V| (a thread a bus) and Y V (by dot_full's rules: float64 sums
 // rounded once in float32; in float64 power_flow.py:_fold_sum's tree at the
-// run-time N, its 64, 128 or 256 leaves walked depth first); [J | F] a warp
-// a row, the entries as K3 forms them; the elimination by K1's panel body
-// (gauss_jordan.cuh:gj_panel_sweeps: panels of 8, 16 or 32 pivots, the
-// diagonal block on one warp, each entry read and written once a panel), so
-// it is bitwise K1's panel routes and the plain solve; x <- x - J^-1 F from
-// the last panel; the new F and its max (a butterfly a warp, then the
-// warps'); the same stall rule and exit.  No host sync: the card never runs
-// the plain loop.
+// run-time N, its 64, 128 or 256 leaves walked depth first by a thread, or
+// on the cluster route by a warp, the lanes' leaves l + 32 m folded in the
+// lane and then by shuffles); [J | F] a warp a row, the entries as K3 forms
+// them; the elimination by K1's panel body (gauss_jordan.cuh:
+// gj_panel_sweeps: panels of 8, 16 or 32 pivots, the diagonal block on one
+// warp, each entry read and written once a panel), or on the cluster route
+// by ClusterLane::sweeps (the same operations on every entry in the same
+// order; the next panel's owner updates that panel's rows first and
+// factors its diagonal block on one warp while its other warps go on, so
+// the diagonal block leaves the panel's chain; a row's factors with K3's
+// select of an exact zero's quotient; 3 or 4 columns a thread in the
+// trailing update, so that a load of the factors serves them all), bitwise
+// K1's panel routes and the plain solve; x <- x - J^-1 F from the last panel; the new F and its max (a
+// butterfly a warp, then the warps', then the cluster's blocks'); the same
+// stall rule and exit.  No host sync: the card never runs the plain loop.
 //
 // Bound (the 130-bus feeder, n = 258, float32): the elimination's n^2 (n +
 // 1) multiply-subtract pairs, 34.5 MFLOP a lane-iteration, 0.51 us at 67
 // TFLOP/s, far above the Jacobian's and the mismatches' ~1.3 M; device
-// memory sees a lane's inputs and outputs once.  Each panel reads and
-// writes the lane's [J | F] once (267 KB at n = 258): from a block's slot,
-// which stays in the 50 MB L2 while the card's 264 slots' matrices (70 MB)
-// nearly do.  A lane's chain is n / BP panels of three block barriers, a
-// warp's diagonal block and a thread's panel row or column.
+// memory sees a lane's inputs and outputs once.  Each product and each
+// difference is rounded apart (the plain version's bits), one instruction
+// each: a fused multiply-add would do both in one, so the reachable rate is
+// half the FMA peak the bound is taken at.  On the blocked route each panel
+// reads and writes the lane's [J | F] once (267 KB at n = 258) from a
+// block's slot in L2; on the cluster route it stays in shared memory, and a
+// lane's chain is n / BP panels of one cluster barrier, one block barrier
+// and a thread's panel row or column.
 
 #include "newton_fallback_wide.cuh"
 
@@ -148,6 +171,10 @@ extern "C" int newton_wide_f32_launch(const void* params, int panel, int residen
                                       void* stream);
 extern "C" int newton_wide_f64_launch(const void* params, int panel, int resident, int lane_ybus, int grid,
                                       void* stream);
+extern "C" int newton_cluster_f32_launch(const void* params, int panel, int lane_ybus, int clusters, void* stream);
+extern "C" int newton_cluster_f64_launch(const void* params, int panel, int lane_ybus, int clusters, void* stream);
+extern "C" int newton_cluster_f32_capacity(int n, int panel, int cluster, int lane_ybus);
+extern "C" int newton_cluster_f64_capacity(int n, int panel, int cluster, int lane_ybus);
 extern "C" int newton_wide_f32_capacity(int n, int panel, int resident, int lane_ybus);
 extern "C" int newton_wide_f64_capacity(int n, int panel, int resident, int lane_ybus);
 
@@ -208,8 +235,26 @@ int newton_wide_entry(K3_ARGS(T), int panel, int resident, T* slots, long long s
   if (nb < 33 || N > (1LL << kFoldLevels) || slot < need || (need > 0 && slots == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const WideParams<T> W{P, slots, slot};
+  const WideParams<T> W{P, slots, slot, 1};
   return launch(&W, panel, resident, Yre == nullptr, grid, stream);
+}
+
+// K3 wide's cluster route: `clusters` clusters of `cluster` blocks, each
+// block with a slot of `slot` entries in `slots` (the lane's Y where it is
+// built).
+template <typename T>
+int newton_cluster_entry(K3_ARGS(T), int panel, int cluster, T* slots, long long slot, int clusters, void* stream,
+                         int (*launch)(const void*, int, int, int, void*)) {
+  NewtonParams<T> P;
+  const int rc = newton_params<T>(P, K3_PASS);
+  if (rc != 0) return rc;
+  const long long N = nb + 1LL;
+  const long long need = Yre == nullptr ? 2 * N * N : 0;
+  if (nb < 33 || N > (1LL << kFoldLevels) || slot < need || (need > 0 && slots == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const WideParams<T> W{P, slots, slot, cluster};
+  return launch(&W, panel, Yre == nullptr, clusters, stream);
 }
 
 }  // namespace
@@ -232,6 +277,18 @@ extern "C" int newton_fallback_wide_f64(K3_ARGS(double), int panel, int resident
   return newton_wide_entry<double>(K3_PASS, panel, resident, slots, slot, grid, stream, newton_wide_f64_launch);
 }
 
+extern "C" int newton_fallback_cluster_f32(K3_ARGS(float), int panel, int cluster, float* slots, long long slot,
+                                           int clusters, void* stream) {
+  return newton_cluster_entry<float>(K3_PASS, panel, cluster, slots, slot, clusters, stream,
+                                     newton_cluster_f32_launch);
+}
+
+extern "C" int newton_fallback_cluster_f64(K3_ARGS(double), int panel, int cluster, double* slots, long long slot,
+                                           int clusters, void* stream) {
+  return newton_cluster_entry<double>(K3_PASS, panel, cluster, slots, slot, clusters, stream,
+                                      newton_cluster_f64_launch);
+}
+
 // The blocks of K3 wide the card holds at once at (type, n, panel, route, Y
 // source): the largest grid, and the slots, of a launch; minus a CUDA error
 // where there is no such kernel or its shared memory does not fit.
@@ -248,3 +305,27 @@ extern "C" long long newton_wide_smem_bytes(int f64, int n, int panel, int resid
 // The card's opt-in shared memory a block, bytes: the route rule's limit
 // (linsolve_cuda.py:k1_route).
 extern "C" int newton_wide_smem_limit() { return max_smem_optin(); }
+
+// The card's L2 cache, bytes, or minus a CUDA error: the bound of the batch
+// rule on the blocked route's slots (newton_cuda.py:batch_route).
+extern "C" int newton_l2_bytes() {
+  int device = 0, v = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&v, cudaDevAttrL2CacheSize, device);
+  return err == cudaSuccess ? v : -static_cast<int>(err);
+}
+
+// The clusters of K3 wide's cluster route the card holds at once at (type,
+// n, panel, C, Y source): the largest grid of a launch, in clusters; minus a
+// CUDA error where there is no such kernel or its shared memory does not
+// fit.
+extern "C" int newton_cluster_grid(int f64, int n, int panel, int cluster, int lane_ybus) {
+  return (f64 ? newton_cluster_f64_capacity : newton_cluster_f32_capacity)(n, panel, cluster, lane_ybus);
+}
+
+// A block's dynamic shared memory on the cluster route at (type, n, panel,
+// C), bytes.
+extern "C" long long newton_cluster_smem_bytes(int f64, int n, int panel, int cluster) {
+  return static_cast<long long>(f64 ? cluster_smem_bytes<double>(n, panel, cluster)
+                                    : cluster_smem_bytes<float>(n, panel, cluster));
+}

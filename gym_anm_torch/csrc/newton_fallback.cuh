@@ -219,12 +219,52 @@ __device__ __forceinline__ void copy_flat(const T* src, T* dst, long long cnt, l
   for (long long e = V * nvec + tid; e < cnt; e += nthr) dst[e] = src[e];
 }
 
+// copy_flat of two arrays of cnt entries at once, in rounds of kUnroll
+// vectors of each a thread: every load of a round is issued before its
+// stores, and the last round is predicated, so that a thread waits on
+// memory once a round (the cluster route's grid has an eighth of K3's
+// threads an SM).
+template <typename T, int kUnroll>
+__device__ __forceinline__ void copy_flat2(const T* sa, T* da, const T* sb, T* db, long long cnt, long long tid,
+                                           long long nthr) {
+  constexpr int V = 16 / sizeof(T);
+  const bool vec = ((reinterpret_cast<uintptr_t>(sa) | reinterpret_cast<uintptr_t>(da) |
+                     reinterpret_cast<uintptr_t>(sb) | reinterpret_cast<uintptr_t>(db)) & 15) == 0;
+  if (!vec) {
+    copy_flat(sa, da, cnt, tid, nthr);
+    copy_flat(sb, db, cnt, tid, nthr);
+    return;
+  }
+  const long long nvec = cnt / V;
+  for (long long i = tid; i < nvec; i += kUnroll * nthr) {
+    int4 va[kUnroll], vb[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (i + u * nthr < nvec) {
+        va[u] = reinterpret_cast<const int4*>(sa)[i + u * nthr];
+        vb[u] = reinterpret_cast<const int4*>(sb)[i + u * nthr];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (i + u * nthr < nvec) {
+        reinterpret_cast<int4*>(da)[i + u * nthr] = va[u];
+        reinterpret_cast<int4*>(db)[i + u * nthr] = vb[u];
+      }
+    }
+  }
+  for (long long e = V * nvec + tid; e < cnt; e += nthr) {
+    da[e] = sa[e];
+    db[e] = sb[e];
+  }
+}
+
 // The triage, by every thread of the grid: a lane a thread reads its flags;
 // a lane that does not iterate (accepted, within xtol, out of iterations or
 // NaN) gets its diff, n_iter and a stall count of 0, a lane that iterates
 // joins the worklist (one atomic a warp); x and F are copied through for
 // every lane (the worklist's lanes are overwritten at their exit).
-template <typename T>
+template <typename T, int kCopyUnroll = 1>
 __device__ __forceinline__ void triage(const NewtonParams<T>& P, int n) {
   const long long nthr = static_cast<long long>(gridDim.x) * blockDim.x;
   const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -252,16 +292,22 @@ __device__ __forceinline__ void triage(const NewtonParams<T>& P, int n) {
     }
   }
   const long long cnt = static_cast<long long>(P.B) * n;
-  copy_flat(P.x_in, P.x, cnt, tid, nthr);
-  copy_flat(P.F_in, P.F, cnt, tid, nthr);
+  if constexpr (kCopyUnroll > 1) {
+    copy_flat2<T, kCopyUnroll>(P.x_in, P.x, P.F_in, P.F, cnt, tid, nthr);
+  } else {
+    copy_flat(P.x_in, P.x, cnt, tid, nthr);
+    copy_flat(P.F_in, P.F, cnt, tid, nthr);
+  }
 }
 
 // Lane b's Y-bus from the branch tables, in a slot whose Y is zero, by the
 // slot's threads (tid < nthr): ybus.py:build_ybus operation for operation,
 // -y / conj(tau) and -y / tau by complexops.py:cdiv, and the diagonal as
 // the per-bus sums over the incident branches, in branch order, in float64,
-// rounded to T (build_ybus's one-hot incidence products).
-template <typename T>
+// rounded to T (build_ybus's one-hot incidence products).  kUnroll: the
+// branches of the diagonal's loop in flight (K3's 4; the wide bodies take 1,
+// so that it needs no more registers than their sweeps).
+template <typename T, int kUnroll = 4>
 __device__ __forceinline__ void lane_ybus(const NewtonParams<T>& P, int b, int N, T* Yr, T* Yi, int tid, int nthr) {
   const int Ne = P.n_branch;
   const T* tap = P.tap_magn + static_cast<long long>(b) * Ne;
@@ -285,7 +331,7 @@ __device__ __forceinline__ void lane_ybus(const NewtonParams<T>& P, int b, int N
     // Every branch's terms formed and selected where it is incident (no
     // branch that skips), so that the loads of successive branches overlap.
     double f_re = 0.0, f_im = 0.0, t_re = 0.0, t_im = 0.0;
-#pragma unroll 4
+#pragma unroll (kUnroll)
     for (int e = 0; e < Ne; ++e) {
       const bool from = __ldg(P.br_f + e) == k, to = __ldg(P.br_t + e) == k;
       const T tot_re = __ldg(P.series_re + e), tot_im = add_rn(__ldg(P.series_im + e), __ldg(P.shunt_im + e));

@@ -4,8 +4,10 @@ that still iterates in one launch: a triage pass over every lane, then the
 lanes that iterate taken from a device worklist.  K3 (n <= 64, networks of
 up to 33 buses) spreads each lane's Gauss-Jordan sweeps over a group of
 threads that holds the system in registers; K3 wide (n above 64) runs a
-lane a block, its [J | F] in shared memory or in the block's slot of
-device memory, eliminated by K1's panel body.  It replaces the reference's
+lane a block with its [J | F] in shared memory (route ``"smem"``), a lane a
+thread-block cluster with [J | F]'s rows dealt over the blocks' shared
+memory (``"cluster"``), or a lane a block with [J | F] in the block's slot
+of device memory (``"blocked"``), by :func:`wide_route`.  It replaces the reference's
 device loop ``gym_anm_tpu/physics/power_flow.py:nr_solve_lazy`` (and the
 same loop in ``nr_solve``).
 
@@ -32,6 +34,16 @@ REGS_MAX_N = 64
 MAX_N = 2 * (2 ** 12 - 1)
 
 
+# K3 wide's cluster route (csrc/newton_fallback_wide.cuh): the cluster sizes
+# tried in order (8 is the portable maximum), the panel widths tried at each
+# by the element's bytes (the wider first: fewer panels, so fewer cluster
+# barriers in a lane's chain; float64 has no body of 16, which spilled), and
+# the blocks' maxima a block keeps (kClMax).
+CLUSTER_SIZES = (2, 4, 8)
+CLUSTER_PANELS = {4: (16, 8), 8: (8,)}
+CLUSTER_MAX = 8
+
+
 def wide_lane_bytes(n, itemsize):
     """Shared memory a block of K3 wide holds beside K1's panels and
     matrix: V, V / |V|, Y V (N each, real and imaginary parts), x, F, the
@@ -40,20 +52,106 @@ def wide_lane_bytes(n, itemsize):
     return itemsize * (6 * (n // 2 + 1) + 3 * n + 32) + 16
 
 
-@functools.cache
-def wide_plan(lib, n, dtype, lane_y):
-    """K3 wide's route at n unknowns of ``dtype`` on the card of ``lib``:
-    ``(route, panel, blocks)``, route ``"smem"`` or ``"blocked"`` by
-    :func:`~.linsolve_cuda.k1_route` with the lane's vectors counted, and
-    the blocks of that kernel the card holds at once (the largest
-    cooperative grid, one slot each)."""
-    route, panel = k1_route(n, dtype, lib.newton_wide_smem_limit(), wide_lane_bytes(n, dtype.itemsize))
-    blocks = lib.newton_wide_grid(int(dtype == torch.float64), n, panel, int(route == "smem"), int(lane_y))
-    if blocks <= 0:
-        raise RuntimeError(f"K3 wide has no kernel for n = {n} ({dtype}, route {route}, panel {panel}): "
-                           f"CUDA error {-blocks}")
-    return route, panel, blocks
+def cluster_rows(n, panel, cluster):
+    """Rows of [J | F] a block of the cluster route holds at most: the
+    panels of ``panel`` pivot rows dealt round the ``cluster`` blocks."""
+    panels = -(-n // panel)
+    return panel * -(-panels // cluster)
 
+
+def cluster_smem_bytes(n, itemsize, panel, cluster):
+    """Shared memory of a block of K3 wide's cluster route: its rows of
+    [J | F], their column panel, the pivot rows and the diagonal block's
+    factors and pivot rows (two of each, by the panel's parity), the
+    blocks' maxima, then :func:`wide_lane_bytes`
+    (``csrc/newton_fallback_wide.cuh:cluster_smem_bytes``)."""
+    R, ld = cluster_rows(n, panel, cluster), n + 1
+    return itemsize * (R * ld + panel * R + 2 * panel * ld + 4 * panel * panel + CLUSTER_MAX) + \
+        wide_lane_bytes(n, itemsize)
+
+
+def wide_route(n, dtype, smem_limit):
+    """K3 wide's route at n unknowns of ``dtype`` on a card of
+    ``smem_limit`` bytes of opt-in shared memory a block: ``(route, panel,
+    cluster)``.  ``"smem"`` where :func:`~.linsolve_cuda.k1_route` (the
+    lane's vectors counted) keeps the matrix resident, two blocks an SM;
+    else ``"cluster"`` at the smallest cluster of :data:`CLUSTER_SIZES`, and
+    the widest panel of :data:`CLUSTER_PANELS`, whose blocks hold their rows
+    of [J | F]; else ``"blocked"`` at ``k1_route``'s panel (cluster 1).
+    Raises where no panel of the blocked route fits.  On an H100: float32 n
+    = 94, 126 and float64 n = 94 ``"smem"``; float32 n = 258 (panels of 16)
+    and float64 n = 126 (panels of 8) on clusters of 2, float64 n = 258 on
+    4; ``"blocked"`` from float32 n = 578 and float64 n = 386."""
+    itemsize = dtype.itemsize
+    route, panel = k1_route(n, dtype, smem_limit, wide_lane_bytes(n, itemsize))
+    if route == "smem":
+        return route, panel, 1
+    for cluster in CLUSTER_SIZES:
+        for bp in CLUSTER_PANELS[itemsize]:
+            if cluster_smem_bytes(n, itemsize, bp, cluster) <= smem_limit:
+                return "cluster", bp, cluster
+    return route, panel, 1
+
+
+def batch_route(route, lanes, cluster_grid, blocked_grid, blocked_slot_bytes, l2_bytes):
+    """K3 wide's route for a batch of ``lanes`` at a size whose shape route
+    is ``route`` (:func:`wide_route`).  Where it is ``"cluster"`` and more
+    lanes come than the card's ``cluster_grid`` clusters hold at once, the
+    lanes wait for clusters and the rate of lanes, not a lane's chain, sets
+    the time: there ``"blocked"`` (a block a lane, ``blocked_grid`` blocks
+    at once) where their slots, ``blocked_slot_bytes`` each, fit the card's
+    ``l2_bytes`` of L2 together, so that [J | F] streams from L2 and not
+    from device memory.  Else ``route``.  On an H100: float64 n = 126
+    (64 buses) from 67 lanes; float32 n = 258 and float64 n = 258 stay on
+    clusters (their slots take 70-213 MB)."""
+    if route != "cluster" or lanes <= cluster_grid or blocked_grid * blocked_slot_bytes > l2_bytes:
+        return route
+    return "blocked"
+
+
+@functools.cache
+def wide_plans(lib, n, dtype, lane_y):
+    """K3 wide's launch plans at n unknowns of ``dtype`` on the card of
+    ``lib``: ``(route, plans, l2_bytes)``, the shape route by
+    :func:`wide_route`, ``plans[r] = (panel, cluster, grid)`` of that route
+    and, beside ``"cluster"``, of ``"blocked"`` at
+    :func:`~.linsolve_cuda.k1_route`'s panel (:func:`batch_route` picks
+    between them, by the card's L2): the largest cooperative grid of each
+    kernel the card holds at once, in blocks (clusters on the cluster
+    route)."""
+    limit = lib.newton_wide_smem_limit()
+    route, panel, cluster = wide_route(n, dtype, limit)
+    f64 = int(dtype == torch.float64)
+    plans = {}
+    if route == "cluster":
+        plans["cluster"] = (panel, cluster, lib.newton_cluster_grid(f64, n, panel, cluster, int(lane_y)))
+        panel = k1_route(n, dtype, limit, wide_lane_bytes(n, dtype.itemsize))[1]
+    r = "smem" if route == "smem" else "blocked"
+    plans[r] = (panel, 1, lib.newton_wide_grid(f64, n, panel, int(r == "smem"), int(lane_y)))
+    for r, (panel, cluster, grid) in plans.items():
+        if grid <= 0:
+            raise RuntimeError(f"K3 wide has no kernel for n = {n} ({dtype}, route {r}, panel {panel}, cluster "
+                               f"{cluster}): CUDA error {-grid}")
+    l2_bytes = lib.newton_l2_bytes()
+    if l2_bytes <= 0:
+        raise RuntimeError(f"K3 wide could not read the card's L2 size: CUDA error {-l2_bytes}")
+    return route, plans, l2_bytes
+
+
+
+def wide_launch(lib, n, dtype, B, lane_y):
+    """K3 wide's launch for B lanes at n unknowns of ``dtype`` on the card of
+    ``lib`` (``lane_y``: each lane's Y built in the kernel): ``(route,
+    panel, cluster, grid)``, the route by :func:`wide_plans` and
+    :func:`batch_route`, the grid the card's capacity or B (blocks, or
+    clusters of ``cluster`` blocks: a lane each at once)."""
+    route, plans, l2_bytes = wide_plans(lib, n, dtype, lane_y)
+    if route == "cluster":
+        y_slot = 2 * (n // 2 + 1) ** 2 if lane_y else 0
+        route = batch_route(route, B, plans["cluster"][2], plans["blocked"][2],
+                            (n * (n + 1) + y_slot) * dtype.itemsize, l2_bytes)
+    panel, cluster, cap = plans[route]
+    return route, panel, cluster, min(cap, B)
 
 def _lane_vectors(x, F, diff, n_iter, accepted, p, q):
     B, nb = p.shape
@@ -126,8 +224,8 @@ def launch(lib, kind, args, outs, B, nb, dtype, device, xtol, lim_iter, stream):
     """One launch of K3 (n <= ``REGS_MAX_N``) or K3 wide on
     :func:`k3_arguments`' ``args`` and ``outs``: the worklist and its
     counters, and K3 wide's slots, allocated on ``device``; returns the
-    route that ran (``"regs"``, ``"smem"`` or ``"blocked"``), raises on a
-    failed launch."""
+    route that ran (``"regs"``, ``"smem"``, ``"cluster"`` or ``"blocked"``),
+    raises on a failed launch (a cluster launch the card refuses included)."""
     f64 = dtype == torch.float64
     # The worklist's length, its next item and the grid barrier's arrivals,
     # then the worklist: one allocation and one fill.
@@ -140,13 +238,19 @@ def launch(lib, kind, args, outs, B, nb, dtype, device, xtol, lim_iter, stream):
         rc = fn(*args, float(xtol), int(lim_iter), *ptrs, B, nb, stream)
     else:
         lane_y = kind == "lane_ybus"
-        route, panel, blocks = wide_plan(lib, n, dtype, lane_y)
-        grid = min(blocks, B)
-        slot = (0 if route == "smem" else n * (n + 1)) + (2 * (nb + 1) ** 2 if lane_y else 0)
-        slots = torch.empty(max(grid * slot, 1), dtype=dtype, device=device)
-        fn = lib.newton_fallback_wide_f64 if f64 else lib.newton_fallback_wide_f32
-        rc = fn(*args, float(xtol), int(lim_iter), *ptrs, B, nb, panel, int(route == "smem"), slots.data_ptr(),
-                slot, grid, stream)
+        route, panel, cluster, grid = wide_launch(lib, n, dtype, B, lane_y)
+        y_slot = 2 * (nb + 1) ** 2 if lane_y else 0
+        if route == "cluster":
+            slots = torch.empty(max(grid * cluster * y_slot, 1), dtype=dtype, device=device)
+            fn = lib.newton_fallback_cluster_f64 if f64 else lib.newton_fallback_cluster_f32
+            rc = fn(*args, float(xtol), int(lim_iter), *ptrs, B, nb, panel, cluster, slots.data_ptr(), y_slot, grid,
+                    stream)
+        else:
+            slot = (0 if route == "smem" else n * (n + 1)) + y_slot
+            slots = torch.empty(max(grid * slot, 1), dtype=dtype, device=device)
+            fn = lib.newton_fallback_wide_f64 if f64 else lib.newton_fallback_wide_f32
+            rc = fn(*args, float(xtol), int(lim_iter), *ptrs, B, nb, panel, int(route == "smem"),
+                    slots.data_ptr(), slot, grid, stream)
     if rc != 0:
         raise RuntimeError(f"newton_fallback kernel launch failed with CUDA error {rc} "
                            f"(B={B}, n={n}, {dtype}, {kind}, route {route}, panel {panel})")
@@ -168,12 +272,13 @@ def newton_fallback_cuda(x, F, diff, n_iter, accepted, p, q, ybus, xtol=1e-5, li
     Launches K3 up to n = ``REGS_MAX_N`` and K3 wide above, on the current
     stream; raises on anything else (n above ``MAX_N``, or a card whose
     shared memory takes no panel of K1's blocked route at n, included) or on
-    a failed launch.  Adds one to ``newton_fallback_cuda.launch_count`` per
+    a failed launch; no route stands in for another.  Adds one to ``newton_fallback_cuda.launch_count`` per
     launch, to ``newton_fallback_cuda.launches["lane_ybus"]`` or
     ``["dense"]`` for the Y source, and to
     ``newton_fallback_cuda.launches_by_route`` for the body that ran:
-    ``"regs"`` (K3), ``"smem"`` or ``"blocked"`` (K3 wide, [J | F] in shared
-    or device memory).
+    ``"regs"`` (K3), ``"smem"``, ``"cluster"`` or ``"blocked"`` (K3 wide,
+    [J | F] in a block's shared memory, in a cluster's, or in device
+    memory).
     """
     kind, args, outs = k3_arguments(x, F, diff, n_iter, accepted, p, q, ybus)
     from .._build import load_library
@@ -191,4 +296,4 @@ def newton_fallback_cuda(x, F, diff, n_iter, accepted, p, q, ybus, xtol=1e-5, li
 
 newton_fallback_cuda.launch_count = 0
 newton_fallback_cuda.launches = {"lane_ybus": 0, "dense": 0}
-newton_fallback_cuda.launches_by_route = {"regs": 0, "smem": 0, "blocked": 0}
+newton_fallback_cuda.launches_by_route = {"regs": 0, "smem": 0, "cluster": 0, "blocked": 0}

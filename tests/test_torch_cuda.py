@@ -556,11 +556,13 @@ def test_kernel_in_device_memory_matches_plain_version(cuda, dtype, n):
 def test_feeder_step_on_card_matches_cpu(cuda, n_bus, scale, dtype):
     """A random radial feeder above 33 buses steps on the card at float32
     (the wide chord kernel, and the Newton fallback from bad-basin warm
-    starts) and at float64 (Newton in K3 wide, its [J | F] resident in
-    shared memory at 48 buses, in device memory at 130; K1 never launches
-    on its own), and matches the same step on the CPU: voltages within 5e-6
-    at float32 (the solver's tolerance) and 1e-9 at float64."""
-    from gym_anm_torch.physics.newton_cuda import newton_fallback_cuda
+    starts) and at float64 (Newton in K3 wide, its [J | F] resident in a
+    block's shared memory at 48 buses, on a cluster at 130 on an H100; K1
+    never launches on its own), and matches the same step on the CPU:
+    voltages within 5e-6 at float32 (the solver's tolerance) and 1e-9 at
+    float64."""
+    from gym_anm_torch._build import load_library
+    from gym_anm_torch.physics.newton_cuda import newton_fallback_cuda, wide_launch
     from gym_anm_torch.networks.random_feeder import feeder_vars, make_feeder_task, random_radial_network
 
     rng = np.random.default_rng(n_bus)
@@ -586,7 +588,7 @@ def test_feeder_step_on_card_matches_cpu(cuda, n_bus, scale, dtype):
         torch.testing.assert_close(outs["cuda"], outs["cpu"], rtol=0, atol=5e-6 if dtype == torch.float32 else 1e-9)
     torch.cuda.synchronize()
     assert solve_gauss_jordan_cuda.launch_count == k1
-    route = "smem" if n_bus == 48 else "blocked"
+    route = wide_launch(load_library(), 2 * n, dtype, B, True)[0]
     assert newton_fallback_cuda.launches_by_route[route] > k3w[route]
     if dtype == torch.float32:
         assert chord_solve_cuda.launches["wide"] > wide
@@ -1261,18 +1263,21 @@ def test_newton_kernel_every_body(cuda, n, dtype):
     _k3_bitwise(bad[:4] + (one,) + bad[5:], ybus, ybus)
 
 
-@pytest.mark.parametrize("n_bus", [48, 64, 130])
+@pytest.mark.parametrize("n_bus", [48, 64, 130, 194])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_newton_wide_kernel_is_bitwise_its_plain_version(cuda, n_bus, dtype):
-    """K3 wide at n = 94, 126 and 258 (the random feeders of 48, 64 and 130
-    buses; float32 resident at 48 and 64 buses, the rest in device memory on
-    an H100), bitwise the plain loop with the plain solve on every lane:
-    after the chord from bad-basin guesses with the LaneYbus (B = 257, more
-    lanes than a small grid holds), from the flat start with a dense Y and
-    a zero-pivot lane (B = 33), and one bad lane among accepted ones."""
+    """K3 wide at n = 94, 126, 258 and 386 (the random feeders of 48, 64,
+    130 and 194 buses; on an H100 float32 resident at 48 and 64 buses and
+    float64 at 48; float64 at 64 buses a block a lane in device memory at B
+    = 257 and on clusters at 33 (``batch_route``); float64 at 194 buses in
+    device memory (above a cluster of 8); the rest on clusters), bitwise the
+    plain loop with the plain solve on every lane, each launch on the route
+    ``wide_launch`` gives: after the chord from bad-basin guesses with the
+    LaneYbus (B = 257, more lanes than a small grid holds), from the flat
+    start with a dense Y and a zero-pivot lane (B = 33), and one bad lane
+    among accepted ones."""
     from gym_anm_torch.networks.random_feeder import random_radial_network
-    from gym_anm_torch.physics.linsolve_cuda import k1_route
-    from gym_anm_torch.physics.newton_cuda import newton_fallback_cuda, wide_lane_bytes
+    from gym_anm_torch.physics.newton_cuda import newton_fallback_cuda, wide_launch
     from gym_anm_torch.physics.ybus import LaneYbus
     from gym_anm_torch._build import load_library
 
@@ -1287,8 +1292,8 @@ def test_newton_wide_kernel_is_bitwise_its_plain_version(cuda, n_bus, dtype):
         tap[:, tb.oltc_branch] = 0.95 + 0.1 * torch.rand(B, 1, generator=g, device=cuda, dtype=dtype)
     ybus = LaneYbus(tb.n_bus, tb.br_f, tb.br_t, tb.series_re, tb.series_im, tb.shunt_im, tb.shift_cos,
                     tb.shift_sin, tap)
-    route = k1_route(2 * nb, dtype, load_library().newton_wide_smem_limit(), wide_lane_bytes(2 * nb, dtype.itemsize))[0]
-    before = newton_fallback_cuda.launches_by_route[route]
+    routes = [wide_launch(load_library(), 2 * nb, dtype, b, y)[0] for b, y in ((B, True), (B, True), (33, False))]
+    before = dict(newton_fallback_cuda.launches_by_route)
     pats = torch.stack([torch.cat([torch.zeros(nb), torch.full((nb,), v)]) for v in (1e-6, -1.0, 1e15)]
                        + [torch.cat([torch.full((nb,), 30.0), torch.ones(nb)])]).to(cuda, dtype)
     x0 = pats.repeat(B // 4 + 1, 1)[:B].contiguous()
@@ -1307,4 +1312,118 @@ def test_newton_wide_kernel_is_bitwise_its_plain_version(cuda, n_bus, dtype):
     out = _k3_bitwise((x, F, torch.amax(F.abs(), dim=1), torch.zeros(Bd, dtype=torch.int32, device=cuda), None, pd,
                        qd), (Yre, Yim), lambda idx: (Yre[idx], Yim[idx]))
     assert not bool(torch.isfinite(out[0][1]).all())
-    assert newton_fallback_cuda.launches_by_route[route] == before + 3
+    for route in set(routes):
+        assert newton_fallback_cuda.launches_by_route[route] == before[route] + routes.count(route)
+
+
+def _feeder_lanes64(n_bus, B, cuda):
+    """Float64 lanes on the random feeder of ``n_bus`` buses, each lane's
+    load scaled by 1 to 8 (the heavier ones past what the feeder carries,
+    so that lanes diverge): (tables, LaneYbus with random OLTC taps, p, q,
+    the bad-basin guesses tiled)."""
+    from gym_anm_torch.networks.random_feeder import random_radial_network
+    from gym_anm_torch.physics.ybus import LaneYbus
+
+    net = random_radial_network(np.random.default_rng(n_bus), n_bus)
+    tb = make_tables(load_network(net), 1.0, 100, dtype=torch.float64, device=cuda)
+    nb = tb.n_bus - 1
+    g = torch.Generator(device=cuda).manual_seed(n_bus)
+    scale = 1.0 + 7.0 * torch.rand(B, 1, generator=g, device=cuda, dtype=torch.float64)
+    p = -0.004 * scale * (1.0 + torch.rand(B, nb, generator=g, device=cuda, dtype=torch.float64))
+    tap = tb.tap0.expand(B, -1).clone()
+    if len(tb.oltc_branch):
+        tap[:, tb.oltc_branch] = 0.95 + 0.1 * torch.rand(B, 1, generator=g, device=cuda, dtype=torch.float64)
+    ybus = LaneYbus(tb.n_bus, tb.br_f, tb.br_t, tb.series_re, tb.series_im, tb.shunt_im, tb.shift_cos,
+                    tb.shift_sin, tap)
+    pats = torch.stack([torch.cat([torch.zeros(nb), torch.full((nb,), v)]) for v in (1e-6, -1.0, 1e15)]
+                       + [torch.cat([torch.full((nb,), 30.0), torch.ones(nb)])]).to(cuda, torch.float64)
+    return tb, ybus, p, 0.5 * p, pats.repeat(B // 4 + 1, 1)[:B].contiguous()
+
+
+def _anm6easy_step_lanes64(B, cuda):
+    """Float64 lanes at the injections of an ANM6Easy step (the 8th of
+    uniform-random actions at B lanes, float32, taken at the Newton
+    fallback's call; its collapsing lanes among them): (float64 tables,
+    LaneYbus at the step's taps, p, q, the bad-basin guesses tiled)."""
+    import importlib
+
+    from gym_anm_torch.physics.ybus import LaneYbus
+    from gym_anm_torch.vec import make_anm6easy_task
+
+    tm = importlib.import_module("gym_anm_torch.physics.transition")
+    env = VecEnv(make_anm6easy_task(), dtype=torch.float32, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(12)
+    state, _ = env.reset(B, g)
+    real, seen = tm.nr_solve_lazy, []
+
+    def capture(ybus_fn, p, q, **kw):
+        if p.shape[0] == B:
+            seen.append((ybus_fn, p, q))
+        return real(ybus_fn, p, q, **kw)
+
+    monkey = pytest.MonkeyPatch()
+    monkey.setattr(tm, "nr_solve_lazy", capture)
+    try:
+        for _ in range(8):
+            u = torch.rand(B, env.n_action, generator=g, device=cuda)
+            state, *_ = env.step_autoreset_batch(state, env.action_low + u * (env.action_high - env.action_low), g)
+    finally:
+        monkey.undo()
+    y32, p, q = seen[-1]
+    tb = VecEnv(make_anm6easy_task(), dtype=torch.float64, device=cuda).tables
+    nb = tb.n_bus - 1
+    ybus = LaneYbus(tb.n_bus, tb.br_f, tb.br_t, tb.series_re, tb.series_im, tb.shunt_im, tb.shift_cos,
+                    tb.shift_sin, y32.tap_magn.double())
+    pats = torch.stack([torch.cat([torch.zeros(nb), torch.full((nb,), v)]) for v in (1e-6, -1.0)]
+                       + [torch.cat([torch.full((nb,), 30.0), torch.ones(nb)]),
+                          torch.cat([torch.zeros(nb), torch.full((nb,), 1e15)])]).to(cuda, torch.float64)
+    return tb, ybus, p.double().contiguous(), q.double().contiguous(), pats.repeat(B // 4 + 1, 1)[:B].contiguous()
+
+
+@pytest.mark.parametrize("net,B", [("anm6easy", 8192), ("feeder48", 1024), ("feeder64", 512), ("feeder64", 64)])
+def test_float64_tier_card_against_cpu_on_diverging_lanes(cuda, net, B):
+    """ROADMAP D2: the float64 ``nr_solve_lazy`` on the card (K3 on
+    ANM6Easy, K3 wide on the 48- and 64-bus feeders: resident at 48 buses,
+    a block a lane in device memory at 64 buses and 512 lanes, on clusters
+    at 64 lanes; Y V in ``_fold_sum``'s order) against the CPU's (BLAS's order)
+    from the same chord exit of bad-basin starts, where lanes diverge: at
+    most 0.1% of the lanes flip ``converged`` or ``stable``, and where both
+    are stable with equal ``n_iter`` the voltages agree within 1e-10."""
+    from gym_anm_torch.physics.ybus import LaneYbus
+
+    if net == "anm6easy":
+        tb, ybus, p, q, x0 = _anm6easy_step_lanes64(B, cuda)
+    else:
+        tb, ybus, p, q, x0 = _feeder_lanes64(int(net[6:]), B, cuda)
+    init = tuple(t.contiguous() for t in _k3_chord_init(tb, ybus, p, q, x0))
+    rc = pf.nr_solve_lazy(ybus, p, q, init=init)
+    cpu = lambda t: t.cpu()  # noqa: E731
+    yh = LaneYbus(ybus.n_bus, *(cpu(t) for t in (ybus.f, ybus.t, ybus.series_re, ybus.series_im, ybus.shunt_im,
+                                                 ybus.shift_cos, ybus.shift_sin, ybus.tap_magn)))
+    rh = pf.nr_solve_lazy(yh, cpu(p), cpu(q), init=tuple(cpu(t) for t in init))
+    assert not bool(rh.stable.all()), "no lane diverges on this set"
+    flipped = int(((cpu(rc.converged) != rh.converged) | (cpu(rc.stable) != rh.stable)).sum())
+    assert flipped <= 1e-3 * B
+    both = cpu(rc.stable) & rh.stable & (cpu(rc.n_iter) == rh.n_iter)
+    assert bool(both.any())
+    for a, b in ((rc.v_re, rh.v_re), (rc.v_im, rh.v_im)):
+        assert float((cpu(a) - b)[both].abs().max()) <= 1e-10
+
+
+def test_refused_cluster_launch_raises(cuda, monkeypatch):
+    """A cluster launch above what the card holds (a grid one cluster past
+    the capacity) is refused and the wrapper raises: no other route, no
+    plain loop, no CPU stands in."""
+    from gym_anm_torch._build import load_library
+    from gym_anm_torch.physics import newton_cuda
+
+    route, plans, l2_bytes = newton_cuda.wide_plans(load_library(), 126, torch.float64, True)
+    panel, cluster, cap = plans["cluster"]
+    assert route == "cluster"
+    tb, ybus, p, q, x0 = _feeder_lanes64(64, cap + 1, cuda)
+    init = tuple(t.contiguous() for t in _k3_chord_init(tb, ybus, p, q, x0))
+    plans = dict(plans, cluster=(panel, cluster, cap + 1))  # cap + 1 lanes, a cluster each at once
+    monkeypatch.setattr(newton_cuda, "wide_plans", lambda *a: (route, plans, l2_bytes))
+    monkeypatch.setattr(pf, "_newton_loop", None)
+    with pytest.raises(RuntimeError, match="launch failed .*route cluster"):
+        pf.nr_solve_lazy(ybus, p, q, init=init)

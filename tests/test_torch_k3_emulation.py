@@ -9,8 +9,9 @@ bodies (the kernel's own choice from the worklist's length, which the
 emulation records and the tests check), both types, both Y sources, the
 48-row body padded, a zero pivot and a tail of accepted lanes.
 
-Six edits make the source host code (the launch syntax, the dynamic shared
-memory, the cooperative launch, the named barrier's instruction, sinf/cosf
+Source edits make the source host code (the launch syntax, the dynamic shared
+memory, the cooperative launch, the named barrier's instruction, the
+cluster's rank, barrier and mapa, the thread index's read, sinf/cosf
 evaluated in float64 and rounded, as the plain side then does them too) or
 record the width the kernel takes; the arithmetic is the kernel's own.  The plain side takes glibc's sin, cos and sqrt (torch's CPU
 ones are not correctly rounded; CUDA's are where the card's plain version
@@ -67,7 +68,7 @@ typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidConfiguration = 9 };
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
-enum { cudaDevAttrMultiProcessorCount = 16, cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
+enum { cudaDevAttrMultiProcessorCount = 16, cudaDevAttrL2CacheSize = 38, cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
 struct float4 { float x, y, z, w; };
 struct double2 { double x, y; };
 struct int4 { int x, y, z, w; };
@@ -87,6 +88,12 @@ using std::copysign;
 using std::fma;
 
 struct WarpState { std::barrier<> bar{32}; uint64_t slot[32]; };
+struct BlockState;
+struct ClusterState {  // a thread-block cluster: its blocks and its barrier
+  std::barrier<> bar;
+  std::vector<BlockState*> blocks;
+  explicit ClusterState(int threads) : bar(threads) {}
+};
 struct BlockState {
   std::barrier<> bar;
   std::vector<std::unique_ptr<WarpState>> warps;
@@ -100,11 +107,23 @@ struct BlockState {
 inline std::atomic<int> emulated_width{0};  // threads a row of the kernel's last Newton loop
 extern "C" __attribute__((weak)) int emulated_width_read() { return emulated_width.load(); }
 inline thread_local BlockState* tl_block;
+inline thread_local ClusterState* tl_cluster;
+inline thread_local int tl_rank;
 inline WarpState& my_warp() { return *tl_block->warps[threadIdx.x / 32]; }
 inline unsigned char* emulated_smem() {
   return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(tl_block->smem.data()) + 15) & ~uintptr_t(15));
 }
 inline void __syncthreads() { tl_block->bar.arrive_and_wait(); }
+inline int emulated_cluster_rank() { return tl_rank; }
+inline void emulated_cluster_sync() { tl_cluster->bar.arrive_and_wait(); }
+inline unsigned char* emulated_smem_of(BlockState* b) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(b->smem.data()) + 15) & ~uintptr_t(15));
+}
+// mapa: the same offset in the shared memory of block `rank` of the cluster.
+inline unsigned long long emulated_cluster_map(unsigned long long p, int rank) {
+  const uintptr_t off = static_cast<uintptr_t>(p) - reinterpret_cast<uintptr_t>(emulated_smem());
+  return reinterpret_cast<uintptr_t>(emulated_smem_of(tl_cluster->blocks[rank])) + off;
+}
 inline void emulated_bar_sync(int id, int count) {
   std::barrier<>* b;
   {
@@ -126,6 +145,10 @@ template <typename T> T __shfl_sync(unsigned, T v, int src, int = 32) {
   T out;
   std::memcpy(&out, &r, sizeof(T));
   return out;
+}
+template <typename T> T __shfl_down_sync(unsigned m, T v, unsigned d, int = 32) {
+  const int src = static_cast<int>(threadIdx.x & 31) + static_cast<int>(d);
+  return __shfl_sync(m, v, src < 32 ? src : static_cast<int>(threadIdx.x & 31));
 }
 template <typename T> T __shfl_xor_sync(unsigned m, T v, int o, int = 32) {
   return __shfl_sync(m, v, (threadIdx.x & 31) ^ o);
@@ -157,21 +180,60 @@ template <typename K> cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
 }
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
 // Two SMs (a grid of two blocks), and less opt-in shared memory a block than
-// an H100's 232448 bytes, so that K3 wide's float64 lanes at n = 78 and 94
-// take the device-memory route.
-constexpr int kEmulatedSmemOptin = 98304;
+// an H100's 232448 bytes (by default 98304: K3 wide's float64 lanes at n = 78
+// and 94 take the cluster route, float32 the resident route; the tests set
+// other limits to reach the others).
+inline int emulated_smem_optin = 98304;
+extern "C" __attribute__((weak)) void emulated_set_smem_optin(int v) { emulated_smem_optin = v; }
+// An L2 of 4096 bytes, which holds no blocked slot: the wrapper's batch rule
+// keeps the cluster route unless a test sets a larger one.
+inline int emulated_l2 = 4096;
+extern "C" __attribute__((weak)) void emulated_set_l2(int v) { emulated_l2 = v; }
 inline cudaError_t cudaDeviceGetAttribute(int* v, int attr, int) {
-  *v = attr == cudaDevAttrMaxSharedMemoryPerBlockOptin ? kEmulatedSmemOptin : 2;
+  *v = attr == cudaDevAttrMaxSharedMemoryPerBlockOptin ? emulated_smem_optin
+       : attr == cudaDevAttrL2CacheSize                ? emulated_l2
+                                                       : 2;
+  return 0;
+}
+enum cudaLaunchAttributeID { cudaLaunchAttributeCooperative = 2, cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  union { int cooperative; struct { unsigned x, y, z; } clusterDim; } val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+inline int emulated_cluster_dim(const cudaLaunchConfig_t* cfg) {
+  for (unsigned a = 0; a < cfg->numAttrs; ++a) {
+    if (cfg->attrs[a].id == cudaLaunchAttributeClusterDimension) return static_cast<int>(cfg->attrs[a].val.clusterDim.x);
+  }
+  return 1;
+}
+// Clusters as a card of four SMs would hold them, one block an SM: two of
+// two blocks, one of four.
+template <typename K> cudaError_t cudaOccupancyMaxActiveClusters(int* n, K, const cudaLaunchConfig_t* cfg) {
+  const int c = emulated_cluster_dim(cfg);
+  *n = c <= 4 ? 4 / c : 0;
   return 0;
 }
 inline cudaError_t cudaGetLastError() { return 0; }
 template <typename P>
-cudaError_t emulated_launch(void (*kernel)(const P), dim3 grid, dim3 block, void** args, size_t smem, cudaStream_t) {
+cudaError_t emulated_launch(void (*kernel)(const P), dim3 grid, dim3 block, void** args, size_t smem, cudaStream_t,
+                            int cluster = 1) {
   const P prm = *static_cast<P*>(args[0]);
   gridDim = grid;
   blockDim = block;
   std::vector<std::unique_ptr<BlockState>> blocks;
-  for (unsigned b = 0; b < grid.x; ++b) blocks.emplace_back(new BlockState(block.x, smem));
+  std::vector<std::unique_ptr<ClusterState>> clusters;
+  for (unsigned b = 0; b < grid.x; ++b) {
+    blocks.emplace_back(new BlockState(block.x, smem));
+    if (b % cluster == 0) clusters.emplace_back(new ClusterState(cluster * block.x));
+    clusters.back()->blocks.push_back(blocks.back().get());
+  }
   std::vector<std::thread> th;
   for (unsigned b = 0; b < grid.x; ++b) {
     for (unsigned t = 0; t < block.x; ++t) {
@@ -179,12 +241,22 @@ cudaError_t emulated_launch(void (*kernel)(const P), dim3 grid, dim3 block, void
         blockIdx = {b, 0, 0};
         threadIdx = {t, 0, 0};
         tl_block = blocks[b].get();
+        tl_cluster = clusters[b / cluster].get();
+        tl_rank = static_cast<int>(b % cluster);
         kernel(prm);
       });
     }
   }
   for (auto& x : th) x.join();
   return 0;
+}
+template <typename P>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(const P), const P& arg) {
+  const int c = emulated_cluster_dim(cfg);
+  if (c < 1 || cfg->gridDim.x % c != 0) return cudaErrorInvalidConfiguration;
+  P prm = arg;
+  void* args[] = {&prm};
+  return emulated_launch(kernel, cfg->gridDim, cfg->blockDim, args, cfg->dynamicSmemBytes, cfg->stream, c);
 }
 """
 
@@ -205,6 +277,14 @@ EDITS = (
      "unsigned char* smem_raw = emulated_smem();"),
     ("newton_fallback_wide.cuh", r"cudaLaunchCooperativeKernel\(reinterpret_cast<const void\*>\(kernel\)",
      "emulated_launch(kernel"),
+    ("newton_fallback_wide.cuh", r'asm volatile\("mov\.u32 %0, %%cluster_ctarank;" : "=r"\(r\)\);',
+     "r = emulated_cluster_rank();"),
+    ("newton_fallback_wide.cuh", r'asm volatile\("mov\.u32 %0, %%tid\.x;" : "=r"\(t\)\);',
+     "t = static_cast<int>(threadIdx.x);"),
+    ("newton_fallback_wide.cuh", r'asm volatile\("barrier\.cluster\.arrive\.release\.aligned;\\n\\tbarrier\.cluster\.wait'
+     r'\.acquire\.aligned;" ::: "memory"\);', "emulated_cluster_sync();"),
+    ("newton_fallback_wide.cuh", r'asm volatile\("mapa\.u64 %0, %1, %2;" : "=l"\(a\) : "l"\(reinterpret_cast<unsigned '
+     r'long long>\(p\)\), "r"\(rank\)\);', "a = emulated_cluster_map(reinterpret_cast<unsigned long long>(p), rank);"),
 )
 
 
@@ -420,7 +500,7 @@ def test_emulated_k3_on_random_feeders(k3_emulated, plain_as_the_card, n_bus, B,
 # emulated card (98304 bytes of opt-in shared memory a block) float32 takes
 # the resident route (panels of 16 at n = 78, 8 at 94) and float64 the
 # device-memory route (panels of 16), as the wrapper's k1_route rule gives.
-WIDE_ROUTES = {torch.float32: "smem", torch.float64: "blocked"}
+WIDE_ROUTES = {torch.float32: "smem", torch.float64: "cluster"}
 
 
 def _feeder_lanes(n_bus, dtype, B, seed):
@@ -497,3 +577,93 @@ def test_emulated_k3_wide_shared_memory_and_grid(k3_emulated, dtype):
     assert lib.newton_wide_grid(f64, 94, 16, 0, 1) == 2
     assert (lib.newton_wide_grid(f64, 94, 32, 0, 0) > 0) == (dtype == torch.float32)
     assert lib.newton_wide_grid(f64, 94, 32, 1, 0) < 0 and lib.newton_wide_grid(f64, 64, 8, 0, 0) < 0
+
+
+@pytest.fixture
+def emulated_smem(k3_emulated):
+    """Sets the emulated card's opt-in shared memory a block (the wrapper's
+    plans, cached by size, cleared with it); 98304 bytes again after the
+    test."""
+    k3_emulated.emulated_set_smem_optin.argtypes = [ctypes.c_int]
+
+    def set_limit(v):
+        k3_emulated.emulated_set_smem_optin(v)
+        newton_cuda.wide_plans.cache_clear()
+
+    yield set_limit
+    set_limit(98304)
+
+
+# K3 wide's other routes, through the wrapper on a card of less opt-in
+# shared memory a block: at 40000 bytes float32 takes clusters of 2 (panels
+# of 16) at n = 78 and 94 and float64 clusters of 4 (panels of 8); at 24576
+# float64 the device-memory route.
+@pytest.mark.parametrize("n_bus", [40, 48])
+@pytest.mark.parametrize("dtype,limit,route,cluster", [
+    (torch.float32, 40000, "cluster", 2), (torch.float64, 40000, "cluster", 4), (torch.float64, 24576, "blocked", 1)])
+def test_emulated_k3_wide_routes_by_shared_memory(k3_emulated, plain_as_the_card, emulated_smem, n_bus, dtype, limit,
+                                                  route, cluster):
+    """Bitwise the plain loop on the route and cluster the wrapper picks for
+    the card: after the chord from bad-basin guesses on 2 lanes with the
+    LaneYbus (each block of a cluster builds the lane's Y in its slot), and
+    from the flat start with a dense Y on 2 lanes."""
+    emulated_smem(limit)
+    got = newton_cuda.wide_route(2 * (n_bus - 1), dtype, limit)
+    assert (got[0], got[2]) == (route, cluster)
+    tb, ybus, p, q, x0 = _feeder_lanes(n_bus, dtype, 2, 8)
+    _bitwise(k3_emulated, _chord(tb, ybus, p, q, x0) + (p, q), ybus, ybus, None, route)
+    Yre, Yim = ybus(slice(None))
+    _bitwise(k3_emulated, _flat(p, q, (Yre, Yim)), (Yre, Yim), lambda idx: (Yre[idx], Yim[idx]), None, route)
+
+
+
+@pytest.fixture
+def emulated_l2(k3_emulated):
+    """Sets the emulated card's L2 bytes (the wrapper's plans cleared with
+    it); 4096 again after the test."""
+    k3_emulated.emulated_set_l2.argtypes = [ctypes.c_int]
+
+    def set_l2(v):
+        k3_emulated.emulated_set_l2(v)
+        newton_cuda.wide_plans.cache_clear()
+
+    yield set_l2
+    set_l2(4096)
+
+
+@pytest.mark.parametrize("B,route", [(2, "cluster"), (3, "blocked")])
+def test_emulated_k3_wide_routes_by_batch(k3_emulated, plain_as_the_card, emulated_l2, B, route):
+    """``batch_route`` through the wrapper: float64 at 48 buses, on clusters
+    of 2 on the emulated card (two at once), with an L2 of 16 MiB, which
+    holds the blocked route's two slots: 2 lanes stay on the clusters, 3
+    (more than they hold at once) go a block a lane in device memory;
+    bitwise the plain loop after the chord from bad-basin guesses with the
+    LaneYbus."""
+    emulated_l2(1 << 24)
+    tb, ybus, p, q, x0 = _feeder_lanes(48, torch.float64, B, 10)
+    _bitwise(k3_emulated, _chord(tb, ybus, p, q, x0) + (p, q), ybus, ybus, None, route)
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_emulated_k3_wide_cluster_shared_memory_and_grid(k3_emulated, monkeypatch, dtype):
+    """The cluster route's shared memory a block is the wrapper's sum
+    (``cluster_smem_bytes``) at every size, panel and cluster; the grid is
+    the emulated card's clusters (two of 2 blocks, one of 4, none of 8); a
+    panel without a body, K3's sizes and a grid above the capacity are
+    refused, and the wrapper raises on a refused launch."""
+    lib, f64, item = k3_emulated, int(dtype == torch.float64), dtype.itemsize
+    for n in (66, 78, 94, 126, 258):
+        for panel in (8, 16):
+            for cluster in (2, 4, 8):
+                want = newton_cuda.cluster_smem_bytes(n, item, panel, cluster)
+                assert lib.newton_cluster_smem_bytes(f64, n, panel, cluster) == want
+    assert lib.newton_cluster_grid(f64, 94, 8, 2, 1) == 2 and lib.newton_cluster_grid(f64, 94, 8, 4, 0) == 1
+    assert lib.newton_cluster_grid(f64, 94, 8, 8, 0) < 0 and lib.newton_cluster_grid(f64, 94, 32, 2, 0) < 0
+    assert lib.newton_cluster_grid(f64, 64, 8, 2, 0) < 0
+    tb, ybus, p, q, _ = _feeder_lanes(48, dtype, 3, 9)
+    Yre, Yim = ybus(slice(None))
+    blocked = (16, 1, 2)
+    for plan in ((8, 2, 3), (8, 8, 3)):  # 3 clusters of 2, or any of 8: more than the card holds
+        plans = ("cluster", {"cluster": plan, "blocked": blocked}, 4096)
+        monkeypatch.setattr(newton_cuda, "wide_plans", lambda *a, plans=plans: plans)
+        with pytest.raises(RuntimeError, match="launch failed .*route cluster"):
+            _k3(lib, _flat(p, q, (Yre, Yim)), (Yre, Yim))

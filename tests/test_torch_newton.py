@@ -29,6 +29,8 @@ from gym_anm_torch.specs import load_network
 from gym_anm_tpu.physics import power_flow as jpf
 from gym_anm_tpu.physics.ybus import build_ybus as j_build_ybus
 
+H100_L2 = 50 * 2**20  # bytes of L2 cache on an H100
+
 torch.set_num_threads(2)
 
 NETS = {"ieee33": (ieee33_network, 1.0), "anm6": (anm6_network, 0.25),
@@ -224,11 +226,12 @@ def test_fold_sum_follows_the_kernels_tree(n):
 
 @pytest.mark.parametrize("n", [34, 48, 64, 65, 130, 256])
 def test_wide_kernels_depth_first_walk_is_the_fold_tree(n):
-    """K3 wide's float64 sum (``newton_fallback_wide.cuh:dot_tree``) walks
-    the same tree at a run-time N: leaf i of the depth-first order is
-    bit-reversed i over L = ceil(log2 N) bits, and a finished subtree's sum
-    waits at its level for its sibling's; bit for bit the fold, negative
-    zeros included."""
+    """The depth-first walk of the fold tree at a run-time N (PR 15's K3
+    wide summed a row so, ``bench/newton_fallback_wide_pr15.cuh:dot_tree``;
+    ``newton_fallback_wide.cuh:dot_fold_warp`` walks a lane's leaves so):
+    leaf i of the depth-first order is bit-reversed i over L = ceil(log2 N)
+    bits, and a finished subtree's sum waits at its level for its sibling's;
+    bit for bit the fold, negative zeros included."""
     rng = np.random.default_rng(n)
     P = torch.as_tensor(rng.standard_normal((5, n)) * 10.0 ** rng.integers(-8, 8, (5, n)))
     P[:, ::7] = -0.0
@@ -265,7 +268,8 @@ def test_card_wrapper_refuses_cpu_tensors_before_loading_the_library(monkeypatch
 class _Lib:
     """A stand-in for the kernel library: records which entry point a launch
     called and its route arguments, and reports a card of ``smem`` bytes of
-    opt-in shared memory a block and 132 SMs holding ``per_sm`` blocks."""
+    opt-in shared memory a block, 132 SMs holding ``per_sm`` blocks and an
+    H100's L2 (50 MiB)."""
 
     def __init__(self, smem=H100_SMEM_OPTIN, per_sm=2):
         self.smem, self.per_sm, self.calls = smem, per_sm, []
@@ -273,8 +277,14 @@ class _Lib:
     def newton_wide_smem_limit(self):
         return self.smem
 
+    def newton_l2_bytes(self):
+        return H100_L2
+
     def newton_wide_grid(self, f64, n, panel, resident, lane_y):
         return 132 * self.per_sm
+
+    def newton_cluster_grid(self, f64, n, panel, cluster, lane_y):
+        return 132 // cluster
 
     def __getattr__(self, name):
         def entry(*args):
@@ -293,31 +303,126 @@ def _launch(lib, n, dtype, B, lane_y=True):
                               None)
 
 
-@pytest.mark.parametrize("n,dtype,route,panel", [
-    (10, torch.float32, "regs", 0), (64, torch.float64, "regs", 0), (66, torch.float32, "smem", 16),
-    (94, torch.float32, "smem", 16), (126, torch.float32, "smem", 8), (94, torch.float64, "smem", 16),
-    (126, torch.float64, "blocked", 16), (258, torch.float32, "blocked", 32), (258, torch.float64, "blocked", 16)])
-def test_card_route_is_chosen_by_n(n, dtype, route, panel):
+@pytest.mark.parametrize("n,dtype,route,panel,cluster,big", [
+    (10, torch.float32, "regs", 0, 1, None), (64, torch.float64, "regs", 0, 1, None),
+    (66, torch.float32, "smem", 16, 1, None), (94, torch.float32, "smem", 16, 1, None),
+    (126, torch.float32, "smem", 8, 1, None), (94, torch.float64, "smem", 16, 1, None),
+    (126, torch.float64, "cluster", 8, 2, ("blocked", 16)), (258, torch.float32, "cluster", 16, 2, None),
+    (258, torch.float64, "cluster", 8, 4, None), (600, torch.float32, "blocked", 32, 1, None),
+    (400, torch.float64, "blocked", 16, 1, None)])
+def test_card_route_is_chosen_by_n(n, dtype, route, panel, cluster, big):
     """The card's Newton loop on an H100's shared memory: K3's register
-    bodies to n = 64, K3 wide above, its [J | F] where ``k1_route`` puts
-    K1's matrix with the lane's vectors counted (resident for the 48- and
-    64-bus feeders in float32, in device memory at 130 buses); the grid is
-    the card's capacity or B, and each block has one slot: [J | F] off the
-    resident route, then the lane's Y."""
+    bodies to n = 64, K3 wide above by ``wide_route``: [J | F] resident in a
+    block for the 48- and 64-bus feeders in float32 (48 in float64), on a
+    cluster of 2 blocks at 130 buses in float32 and 64 in float64, of 4 at
+    130 in float64, in device memory above a cluster of 8; at B = 8192 with
+    the lane's Y (``big``: the route and panel there, where they differ) a
+    block a lane in device memory at 64 buses in float64, whose slots fit
+    the L2 (``batch_route``); the grid is the card's capacity or B (blocks,
+    or clusters on the cluster route), and each block has one slot: [J | F]
+    on the blocked route, then the lane's Y."""
     lib = _Lib()
+    plain = route, panel
     for B, lane_y in ((8192, True), (3, False)):
         lib.calls.clear()
+        route, panel = big if big is not None and B == 8192 else plain
         assert _launch(lib, n, dtype, B, lane_y) == route
         (name, args), = lib.calls
         f64 = dtype == torch.float64
-        if route == "regs":
-            assert name == ("newton_fallback_f64" if f64 else "newton_fallback_f32")
-            continue
-        assert name == ("newton_fallback_wide_f64" if f64 else "newton_fallback_wide_f32")
-        got_panel, resident, _, slot, grid, _ = args[-6:]
+        suffix = "f64" if f64 else "f32"
         N = n // 2 + 1
-        want_slot = (0 if route == "smem" else n * (n + 1)) + (2 * N * N if lane_y else 0)
-        assert (got_panel, resident, slot, grid) == (panel, int(route == "smem"), want_slot, min(B, 264))
+        y_slot = 2 * N * N if lane_y else 0
+        if route == "regs":
+            assert name == f"newton_fallback_{suffix}"
+        elif route == "cluster":
+            assert name == f"newton_fallback_cluster_{suffix}"
+            got_panel, got_cluster, _, slot, grid, _ = args[-6:]
+            assert (got_panel, got_cluster, slot, grid) == (panel, cluster, y_slot, min(B, 132 // cluster))
+        else:
+            assert name == f"newton_fallback_wide_{suffix}"
+            got_panel, resident, _, slot, grid, _ = args[-6:]
+            want_slot = (0 if route == "smem" else n * (n + 1)) + y_slot
+            assert (got_panel, resident, slot, grid) == (panel, int(route == "smem"), want_slot, min(B, 264))
+
+
+@pytest.mark.parametrize("n_bus", [40, 48, 64, 130])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_wide_route_of_each_feeder(n_bus, dtype):
+    """``wide_route`` at the feeders' sizes on an H100 (232448 bytes of
+    opt-in shared memory a block): ``"smem"`` where K1's rule keeps the
+    matrix resident two blocks an SM, else the cluster route at the smallest
+    cluster whose blocks hold their rows with the widest panel that fits:
+    the sum of ``cluster_smem_bytes`` fits, no smaller cluster does at any
+    panel, and a block's rows are whole panels."""
+    from gym_anm_torch.physics.linsolve_cuda import H100_SMEM_OPTIN
+
+    n = 2 * (n_bus - 1)
+    want = {(40, torch.float32): ("smem", 16, 1), (40, torch.float64): ("smem", 8, 1),
+            (48, torch.float32): ("smem", 16, 1), (48, torch.float64): ("smem", 16, 1),
+            (64, torch.float32): ("smem", 8, 1), (64, torch.float64): ("cluster", 8, 2),
+            (130, torch.float32): ("cluster", 16, 2), (130, torch.float64): ("cluster", 8, 4)}[n_bus, dtype]
+    got = newton_cuda.wide_route(n, dtype, H100_SMEM_OPTIN)
+    assert got == want
+    route, panel, cluster = got
+    if route == "cluster":
+        item = dtype.itemsize
+        assert newton_cuda.cluster_smem_bytes(n, item, panel, cluster) <= H100_SMEM_OPTIN
+        smaller = [c for c in newton_cuda.CLUSTER_SIZES if c < cluster]
+        assert all(newton_cuda.cluster_smem_bytes(n, item, bp, c) > H100_SMEM_OPTIN
+                   for c in smaller for bp in newton_cuda.CLUSTER_PANELS[item])
+        rows = newton_cuda.cluster_rows(n, panel, cluster)
+        assert rows % panel == 0 and rows * cluster >= n
+
+
+
+@pytest.mark.parametrize("n_bus,dtype,lanes,want", [
+    (48, torch.float32, 8192, "smem"), (64, torch.float32, 8192, "smem"), (64, torch.float64, 1, "cluster"),
+    (64, torch.float64, 66, "cluster"), (64, torch.float64, 67, "blocked"), (64, torch.float64, 8192, "blocked"),
+    (130, torch.float32, 8192, "cluster"), (130, torch.float64, 8192, "cluster")])
+def test_batch_route_of_each_feeder(n_bus, dtype, lanes, want):
+    """``batch_route`` at the feeders' sizes on an H100 (132 SMs: 66
+    clusters of 2, 33 of 4, 264 one-block lanes at once; 50 MiB of L2) with
+    the lanes' Y built in the slots: the cluster route while the clusters
+    hold every lane at once; past that a block a lane where the blocked
+    route's slots fit the L2 (64 buses in float64: 264 slots of 193,552
+    bytes), else still clusters (130 buses: 106 and 213 MB of slots)."""
+    n, item = 2 * (n_bus - 1), dtype.itemsize
+    route, _, cluster = newton_cuda.wide_route(n, dtype, H100_SMEM_OPTIN)
+    slot = (n * (n + 1) + 2 * (n // 2 + 1) ** 2) * item
+    assert newton_cuda.batch_route(route, lanes, 132 // cluster, 264, slot, H100_L2) == want
+
+@pytest.mark.parametrize("n", [34, 48, 64, 65, 127, 130, 256])
+def test_cluster_routes_warp_fold_is_the_fold_tree(n):
+    """The cluster route's float64 sum (``newton_fallback_wide.cuh:
+    dot_fold_warp``): lane l of a warp folds its leaves l + 32 m, m <
+    2^(L-5), by the depth-first walk over m, then the lanes' sums are added
+    16 apart, then 8, 4, 2, 1 (lane l takes lane l + d's); bit for bit the
+    fold, negative zeros included, at the feeders' N and the largest N of
+    each tree width."""
+    rng = np.random.default_rng(n)
+    P = torch.as_tensor(rng.standard_normal((5, n)) * 10.0 ** rng.integers(-8, 8, (5, n)))
+    P[:, ::7] = -0.0
+    L = max(6, (n - 1).bit_length())
+    Lm = L - 5
+    lanes = []
+    for lane in range(32):
+        stack, s = [None] * 7, None
+        for i in range(1 << Lm):
+            m = int(f"{i:0{Lm}b}"[::-1], 2) if Lm else 0
+            k = lane + 32 * m
+            s = P[:, k] if k < n else torch.zeros(5, dtype=P.dtype)
+            level = 0
+            while (i >> level) & 1:
+                s = stack[level] + s
+                level += 1
+            stack[level] = s
+        lanes.append(s)
+    d = 16
+    while d:
+        lanes = [lanes[j] + (lanes[j + d] if j + d < 32 else lanes[j]) for j in range(32)]
+        d //= 2
+    root = _fold_tree(P, n)
+    assert torch.equal(lanes[0], root) and torch.equal(torch.signbit(lanes[0]), torch.signbit(root))
 
 
 def test_card_route_raises_where_no_blocked_panel_fits():
