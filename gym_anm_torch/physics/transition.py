@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..specs.network import NetworkSpec
+from ..utils import profiling
 from .complexops import cmatvec, matmul_full
 from .projection import make_box_slopes_projector
 from .power_flow import (
@@ -428,180 +429,212 @@ def transition(
     x_guess=None,  # [B, 2(n_bus-1)] warm start for the f32 chord solve, or None
 ) -> TransitionOut:
     """One full grid transition of every lane."""
-    dt, dev = tb.dtype, tb.device
-    B = P_load.shape[0]
-    empty = torch.zeros(B, 0, dtype=dt, device=dev)
+    with profiling.span("transition"):
+        with profiling.span("transition.devices"):
+            dt, dev = tb.dtype, tb.device
+            B = P_load.shape[0]
+            empty = torch.zeros(B, 0, dtype=dt, device=dev)
 
-    # 1. Loads: clip + constant power factor (devices.py:158-169).
-    p_l = torch.clamp(P_load / tb.baseMVA, tb.load_p_min, tb.load_p_max)
-    q_l = p_l * tb.load_qp
+            # 1. Loads: clip + constant power factor (devices.py:158-169).
+            p_l = torch.clamp(P_load / tb.baseMVA, tb.load_p_min, tb.load_p_max)
+            q_l = p_l * tb.load_qp
 
-    # 2. Non-slack generators: clip the potential, project the set-point onto
-    #    the feasible polygon (devices.py:183-189, 282-306); the dynamic
-    #    p <= p_pot row is an extra p cap, folded into the box.
-    if tb.gen_project is not None:
-        p_pot = torch.clamp(P_pot / tb.baseMVA, tb.gen_p_min, tb.gen_p_max)
-        pt = torch.stack([P_set_gen, Q_set_gen], dim=-1) / tb.baseMVA
-        proj = tb.gen_project(pt, tb.gen_p_lo_row, torch.minimum(tb.gen_p_hi_row, p_pot))
-        p_g, q_g = proj[..., 0], proj[..., 1]
-    else:
-        p_pot = p_g = empty
+            # 2. Non-slack generators: clip the potential, project the set-point onto
+            #    the feasible polygon (devices.py:183-189, 282-306); the dynamic
+            #    p <= p_pot row is an extra p cap, folded into the box.
+            if tb.gen_project is not None:
+                p_pot = torch.clamp(P_pot / tb.baseMVA, tb.gen_p_min, tb.gen_p_max)
+                pt = torch.stack([P_set_gen, Q_set_gen], dim=-1) / tb.baseMVA
+                proj = tb.gen_project(pt, tb.gen_p_lo_row, torch.minimum(tb.gen_p_hi_row, p_pot))
+                p_g, q_g = proj[..., 0], proj[..., 1]
+            else:
+                p_pot = p_g = empty
 
-    # 3. Storage: project, then update the SoC (devices.py:474-547); the
-    #    dynamic SoC-rate rows are p caps, folded into the box.
-    if tb.des_project is not None:
-        p_lo = torch.maximum(tb.des_p_lo_row, (soc - tb.des_soc_max) / (tb.delta_t * tb.des_eff))
-        p_hi = torch.minimum(tb.des_p_hi_row, tb.des_eff * (soc - tb.des_soc_min) / tb.delta_t)
-        pt = torch.stack([P_set_des, Q_set_des], dim=-1) / tb.baseMVA
-        proj = tb.des_project(pt, p_lo, p_hi)
-        p_d, q_d = proj[..., 0], proj[..., 1]
-        # charging (p <= 0): soc -= Δt·η·p; discharging: soc -= Δt·p/η
-        delta = torch.where(p_d <= 0, tb.delta_t * tb.des_eff * p_d, tb.delta_t * p_d / tb.des_eff)
-        soc_new = torch.clamp(soc - delta, tb.des_soc_min, tb.des_soc_max)
-    else:
-        soc_new = soc
+            # 3. Storage: project, then update the SoC (devices.py:474-547); the
+            #    dynamic SoC-rate rows are p caps, folded into the box.
+            if tb.des_project is not None:
+                p_lo = torch.maximum(tb.des_p_lo_row, (soc - tb.des_soc_max) / (tb.delta_t * tb.des_eff))
+                p_hi = torch.minimum(tb.des_p_hi_row, tb.des_eff * (soc - tb.des_soc_min) / tb.delta_t)
+                pt = torch.stack([P_set_des, Q_set_des], dim=-1) / tb.baseMVA
+                proj = tb.des_project(pt, p_lo, p_hi)
+                p_d, q_d = proj[..., 0], proj[..., 1]
+                # charging (p <= 0): soc -= Δt·η·p; discharging: soc -= Δt·p/η
+                delta = torch.where(p_d <= 0, tb.delta_t * tb.des_eff * p_d, tb.delta_t * p_d / tb.des_eff)
+                soc_new = torch.clamp(soc - delta, tb.des_soc_min, tb.des_soc_max)
+            else:
+                soc_new = soc
 
-    # 4. Capacitor banks: clip Q (devices.py:580-583).
-    q_c = torch.clamp(Q_set_cap / tb.baseMVA, tb.cap_q_min, tb.cap_q_max)
+            # 4. Capacitor banks: clip Q (devices.py:580-583).
+            q_c = torch.clamp(Q_set_cap / tb.baseMVA, tb.cap_q_min, tb.cap_q_max)
 
-    # 5. OLTC: clip tap, write into the regulated branch (devices.py:622-626).
-    tap_new = torch.clamp(tap_set, tb.oltc_tap_min, tb.oltc_tap_max)
-    tap_magn = tb.tap0.expand(B, -1).clone()
-    tap_magn[:, tb.oltc_branch] = tap_new
+            # 5. OLTC: clip tap, write into the regulated branch (devices.py:622-626).
+            tap_new = torch.clamp(tap_set, tb.oltc_tap_min, tb.oltc_tap_max)
+            tap_magn = tb.tap0.expand(B, -1).clone()
+            tap_magn[:, tb.oltc_branch] = tap_new
 
-    # 6. Bus injection totals (simulator.py:601-611); the slack device
-    #    injects 0 until measured post-solve.
-    dev_p = torch.zeros(B, tb.n_dev, dtype=dt, device=dev)
-    dev_q = torch.zeros(B, tb.n_dev, dtype=dt, device=dev)
-    dev_p[:, tb.load_pos] = p_l
-    dev_q[:, tb.load_pos] = q_l
-    if tb.gen_project is not None:
-        dev_p[:, tb.gen_pos] = p_g
-        dev_q[:, tb.gen_pos] = q_g
-    if tb.des_project is not None:
-        dev_p[:, tb.des_pos] = p_d
-        dev_q[:, tb.des_pos] = q_d
-    dev_q[:, tb.cap_pos] = q_c
-    bus_p = matmul_full(dev_p, tb.dev_bus_mat)
-    bus_q = matmul_full(dev_q, tb.dev_bus_mat)
+            # 6. Bus injection totals (simulator.py:601-611); the slack device
+            #    injects 0 until measured post-solve.
+            dev_p = torch.zeros(B, tb.n_dev, dtype=dt, device=dev)
+            dev_q = torch.zeros(B, tb.n_dev, dtype=dt, device=dev)
+            dev_p[:, tb.load_pos] = p_l
+            dev_q[:, tb.load_pos] = q_l
+            if tb.gen_project is not None:
+                dev_p[:, tb.gen_pos] = p_g
+                dev_q[:, tb.gen_pos] = q_g
+            if tb.des_project is not None:
+                dev_p[:, tb.des_pos] = p_d
+                dev_q[:, tb.des_pos] = q_d
+            dev_q[:, tb.cap_pos] = q_c
+            bus_p = matmul_full(dev_p, tb.dev_bus_mat)
+            bus_q = matmul_full(dev_q, tb.dev_bus_mat)
 
-    # 7. Load flow (xtol 1e-5, simulator.py:583-591), then nodal currents.
-    p_ns = bus_p[:, tb.nonslack_bus]
-    q_ns = bus_q[:, tb.nonslack_bus]
+            # 7. Load flow (xtol 1e-5, simulator.py:583-591), then nodal currents.
+            p_ns = bus_p[:, tb.nonslack_bus]
+            q_ns = bus_q[:, tb.nonslack_bus]
 
-    ybus_at = LaneYbus(tb.n_bus, tb.br_f, tb.br_t, tb.series_re, tb.series_im, tb.shunt_im, tb.shift_cos,
-                       tb.shift_sin, tap_magn)
+            ybus_at = LaneYbus(tb.n_bus, tb.br_f, tb.br_t, tb.series_re, tb.series_im, tb.shunt_im, tb.shift_cos,
+                               tb.shift_sin, tap_magn)
+            # f32 throughput tier: chord-Newton fast path + exact-NR fallback on
+            # the unaccepted lanes only, whose Y-bus is built only for them (on
+            # the card inside the fallback's kernel).  Else the f64 parity tier
+            # (and non-qualifying topologies): the reference's exact loop over
+            # the materialized Y-bus.
+            chord_tier = dt != torch.float64 and tb.chord is not None
+            if chord_tier:
+                zero = torch.zeros(B, dtype=dt, device=dev)
+                if tb.chord_has_oltc:
+                    # ΔY entries for the lane's tap a vs nominal a0:
+                    #   δtf = −y·e^{−jθs}·(1/a − 1/a0),  δft = −y·e^{+jθs}·(…),
+                    #   δff = (y + jb/2)·(1/a² − 1/a0²).
+                    a = tap_new[:, 0]
+                    inv_da = 1.0 / a - 1.0 / tb.chord_a0
+                    inv_da2 = 1.0 / (a * a) - 1.0 / (tb.chord_a0 * tb.chord_a0)
+                    cs, sn = math.cos(tb.chord_shift), math.sin(tb.chord_shift)
+                    dtf_re = -(tb.chord_y_re * cs + tb.chord_y_im * sn) * inv_da
+                    dtf_im = -(tb.chord_y_im * cs - tb.chord_y_re * sn) * inv_da
+                    dft_re = -(tb.chord_y_re * cs - tb.chord_y_im * sn) * inv_da
+                    dft_im = -(tb.chord_y_im * cs + tb.chord_y_re * sn) * inv_da
+                    dff_re = tb.chord_y_re * inv_da2
+                    dff_im = (tb.chord_y_im + tb.chord_ysh) * inv_da2
+                else:
+                    dtf_re = dtf_im = dft_re = dft_im = dff_re = dff_im = zero
 
-    if dt != torch.float64 and tb.chord is not None:
-        # f32 throughput tier: chord-Newton fast path + exact-NR fallback on
-        # the unaccepted lanes only, whose Y-bus is built only for them (on
-        # the card inside the fallback's kernel).
-        zero = torch.zeros(B, dtype=dt, device=dev)
-        if tb.chord_has_oltc:
-            # ΔY entries for the lane's tap a vs nominal a0:
-            #   δtf = −y·e^{−jθs}·(1/a − 1/a0),  δft = −y·e^{+jθs}·(…),
-            #   δff = (y + jb/2)·(1/a² − 1/a0²).
-            a = tap_new[:, 0]
-            inv_da = 1.0 / a - 1.0 / tb.chord_a0
-            inv_da2 = 1.0 / (a * a) - 1.0 / (tb.chord_a0 * tb.chord_a0)
-            cs, sn = math.cos(tb.chord_shift), math.sin(tb.chord_shift)
-            dtf_re = -(tb.chord_y_re * cs + tb.chord_y_im * sn) * inv_da
-            dtf_im = -(tb.chord_y_im * cs - tb.chord_y_re * sn) * inv_da
-            dft_re = -(tb.chord_y_re * cs - tb.chord_y_im * sn) * inv_da
-            dft_im = -(tb.chord_y_im * cs + tb.chord_y_re * sn) * inv_da
-            dff_re = tb.chord_y_re * inv_da2
-            dff_im = (tb.chord_y_im + tb.chord_ysh) * inv_da2
+        if chord_tier:
+            with profiling.span("chord"):
+                init = chord_solve(p_ns, q_ns, dtf_im, dtf_re, dtf_re, dtf_im, tb.chord_t, x0=x_guess)
+            profiling.count("chord.lanes", B)
+            profiling.count("chord.lane_iterations", init[3])
+            with profiling.span("newton"):
+                nr = nr_solve_lazy(ybus_at, p_ns, q_ns, xtol=1e-5, lim_iter=100, init=init)
+            before = init[3]
         else:
-            dtf_re = dtf_im = dft_re = dft_im = dff_re = dff_im = zero
-        init = chord_solve(p_ns, q_ns, dtf_im, dtf_re, dtf_re, dtf_im, tb.chord_t, x0=x_guess)
-        nr = nr_solve_lazy(ybus_at, p_ns, q_ns, xtol=1e-5, lim_iter=100, init=init)
+            with profiling.span("newton"):
+                Yre, Yim = ybus_at(slice(None))
+                nr = nr_solve(Yre, Yim, p_ns, q_ns, xtol=1e-5, lim_iter=100)
+            before = 0
+        profiling.count("newton.lanes", (before, nr.n_iter), _raised_lanes)
+        profiling.count("newton.lane_iterations", (before, nr.n_iter), _raised_iterations)
 
-        t_bus = tb.chord.t_bus
-        n_ns = tb.n_bus - 1
-        # Bus currents from the solver's final mismatch: S = (p + F_re) +
-        # j(q + F_im) at the returned voltages, and I = conj(S/V).
-        S_re = p_ns + nr.F[:, :n_ns]
-        S_im = q_ns + nr.F[:, n_ns:]
-        v_ns_re, v_ns_im = nr.v_re[:, 1:], nr.v_im[:, 1:]
-        vmag2 = v_ns_re * v_ns_re + v_ns_im * v_ns_im
-        i_ns_re = (S_re * v_ns_re + S_im * v_ns_im) / vmag2
-        i_ns_im = -(S_im * v_ns_re - S_re * v_ns_im) / vmag2
-        # Slack row: row-0 dot products + the ΔY row-0 terms
-        # (ΔY·V)_f = δff·V_f + δft·V_t with V_f = slack = 1+0j.
-        y0r, y0i = tb.chord_t.Y0re[0], tb.chord_t.Y0im[0]
-        i0_re = matmul_full(nr.v_re, y0r) - matmul_full(nr.v_im, y0i)
-        i0_im = matmul_full(nr.v_re, y0i) + matmul_full(nr.v_im, y0r)
-        vt_re, vt_im = nr.v_re[:, t_bus], nr.v_im[:, t_bus]
-        i0_re = i0_re + dff_re + dft_re * vt_re - dft_im * vt_im
-        i0_im = i0_im + dff_im + dft_re * vt_im + dft_im * vt_re
-        i_re = torch.cat([i0_re.unsqueeze(1), i_ns_re], dim=1)
-        i_im = torch.cat([i0_im.unsqueeze(1), i_ns_im], dim=1)
-    else:
-        # f64 parity tier (and non-qualifying topologies): the reference's
-        # exact loop over the materialized Y-bus.
-        Yre, Yim = ybus_at(slice(None))
-        nr = nr_solve(Yre, Yim, p_ns, q_ns, xtol=1e-5, lim_iter=100)
-        i_re, i_im = cmatvec(Yre, Yim, nr.v_re, nr.v_im)
+        with profiling.span("transition.flows"):
+            if chord_tier:
+                t_bus = tb.chord.t_bus
+                n_ns = tb.n_bus - 1
+                # Bus currents from the solver's final mismatch: S = (p + F_re) +
+                # j(q + F_im) at the returned voltages, and I = conj(S/V).
+                S_re = p_ns + nr.F[:, :n_ns]
+                S_im = q_ns + nr.F[:, n_ns:]
+                v_ns_re, v_ns_im = nr.v_re[:, 1:], nr.v_im[:, 1:]
+                vmag2 = v_ns_re * v_ns_re + v_ns_im * v_ns_im
+                i_ns_re = (S_re * v_ns_re + S_im * v_ns_im) / vmag2
+                i_ns_im = -(S_im * v_ns_re - S_re * v_ns_im) / vmag2
+                # Slack row: row-0 dot products + the ΔY row-0 terms
+                # (ΔY·V)_f = δff·V_f + δft·V_t with V_f = slack = 1+0j.
+                y0r, y0i = tb.chord_t.Y0re[0], tb.chord_t.Y0im[0]
+                i0_re = matmul_full(nr.v_re, y0r) - matmul_full(nr.v_im, y0i)
+                i0_im = matmul_full(nr.v_re, y0i) + matmul_full(nr.v_im, y0r)
+                vt_re, vt_im = nr.v_re[:, t_bus], nr.v_im[:, t_bus]
+                i0_re = i0_re + dff_re + dft_re * vt_re - dft_im * vt_im
+                i0_im = i0_im + dff_im + dft_re * vt_im + dft_im * vt_re
+                i_re = torch.cat([i0_re.unsqueeze(1), i_ns_re], dim=1)
+                i_im = torch.cat([i0_im.unsqueeze(1), i_ns_im], dim=1)
+            else:
+                i_re, i_im = cmatvec(Yre, Yim, nr.v_re, nr.v_im)
 
-    # 8. Measured slack injection (NaN → +inf, solve_load_flow.py:62-72).
-    s_sl_re = nr.v_re[:, 0] * i_re[:, 0] + nr.v_im[:, 0] * i_im[:, 0]
-    s_sl_im = nr.v_im[:, 0] * i_re[:, 0] - nr.v_re[:, 0] * i_im[:, 0]
-    inf = torch.full_like(s_sl_re, float("inf"))
-    s_sl_re = torch.where(torch.isnan(s_sl_re), inf, s_sl_re)
-    s_sl_im = torch.where(torch.isnan(s_sl_im), inf, s_sl_im)
-    bus_p[:, tb.slack_bus] = s_sl_re
-    bus_q[:, tb.slack_bus] = s_sl_im
-    dev_p[:, tb.slack_dev] = s_sl_re
-    dev_q[:, tb.slack_dev] = s_sl_im
+            # 8. Measured slack injection (NaN → +inf, solve_load_flow.py:62-72).
+            s_sl_re = nr.v_re[:, 0] * i_re[:, 0] + nr.v_im[:, 0] * i_im[:, 0]
+            s_sl_im = nr.v_im[:, 0] * i_re[:, 0] - nr.v_re[:, 0] * i_im[:, 0]
+            inf = torch.full_like(s_sl_re, float("inf"))
+            s_sl_re = torch.where(torch.isnan(s_sl_re), inf, s_sl_re)
+            s_sl_im = torch.where(torch.isnan(s_sl_im), inf, s_sl_im)
+            bus_p[:, tb.slack_bus] = s_sl_re
+            bus_q[:, tb.slack_bus] = s_sl_im
+            dev_p[:, tb.slack_dev] = s_sl_re
+            dev_q[:, tb.slack_dev] = s_sl_im
 
-    # 9. Branch flows.
-    (ifr, ifi, itr, iti, p_from, q_from, p_to, q_to, s_signed) = branch_flows(
-        tb, nr.v_re, nr.v_im, tap_magn
-    )
+            # 9. Branch flows.
+            (ifr, ifi, itr, iti, p_from, q_from, p_to, q_to, s_signed) = branch_flows(
+                tb, nr.v_re, nr.v_im, tap_magn
+            )
 
-    # 10. Reward = −(energy loss + λ·constraint violations)
-    #     (simulator.py:700-745); genload = loads + generators + slack, plus
-    #     the renewables' curtailment p_pot − p_g.
-    e_loss = torch.sum(dev_p[:, tb.genload_pos], dim=1)
-    if tb.gen_project is not None:
-        e_loss = e_loss + torch.sum(torch.clamp(p_pot - p_g, min=0.0) * tb.gen_rer_mask, dim=1)
-    e_loss = e_loss * tb.delta_t
+            # 10. Reward = −(energy loss + λ·constraint violations)
+            #     (simulator.py:700-745); genload = loads + generators + slack, plus
+            #     the renewables' curtailment p_pot − p_g.
+            e_loss = torch.sum(dev_p[:, tb.genload_pos], dim=1)
+            if tb.gen_project is not None:
+                e_loss = e_loss + torch.sum(torch.clamp(p_pot - p_g, min=0.0) * tb.gen_rer_mask, dim=1)
+            e_loss = e_loss * tb.delta_t
 
-    v_magn = torch.sqrt(nr.v_re * nr.v_re + nr.v_im * nr.v_im)
-    penalty = torch.sum(
-        torch.clamp(v_magn - tb.bus_v_max, min=0.0) + torch.clamp(tb.bus_v_min - v_magn, min=0.0),
-        dim=1,
-    )
-    penalty = penalty + torch.sum(torch.clamp(torch.abs(s_signed) - rates, min=0.0), dim=1)
-    penalty = penalty * tb.delta_t * tb.lamb
+            v_magn = torch.sqrt(nr.v_re * nr.v_re + nr.v_im * nr.v_im)
+            penalty = torch.sum(
+                torch.clamp(v_magn - tb.bus_v_max, min=0.0) + torch.clamp(tb.bus_v_min - v_magn, min=0.0),
+                dim=1,
+            )
+            penalty = penalty + torch.sum(torch.clamp(torch.abs(s_signed) - rates, min=0.0), dim=1)
+            penalty = penalty * tb.delta_t * tb.lamb
 
-    reward = -(e_loss + penalty)
+            reward = -(e_loss + penalty)
 
-    return TransitionOut(
-        dev_p=dev_p,
-        dev_q=dev_q,
-        des_soc=soc_new,
-        gen_p_pot=p_pot,
-        oltc_tap=tap_new,
-        bus_v_re=nr.v_re,
-        bus_v_im=nr.v_im,
-        bus_i_re=i_re,
-        bus_i_im=i_im,
-        bus_p=bus_p,
-        bus_q=bus_q,
-        br_p_from=p_from,
-        br_q_from=q_from,
-        br_p_to=p_to,
-        br_q_to=q_to,
-        br_i_from_re=ifr,
-        br_i_from_im=ifi,
-        br_i_to_re=itr,
-        br_i_to_im=iti,
-        br_s_signed=s_signed,
-        reward=reward,
-        e_loss=e_loss,
-        penalty=penalty,
-        stable=nr.stable,
-        n_iter=nr.n_iter,
-        diff=nr.diff,
-    )
+            out = TransitionOut(
+                dev_p=dev_p,
+                dev_q=dev_q,
+                des_soc=soc_new,
+                gen_p_pot=p_pot,
+                oltc_tap=tap_new,
+                bus_v_re=nr.v_re,
+                bus_v_im=nr.v_im,
+                bus_i_re=i_re,
+                bus_i_im=i_im,
+                bus_p=bus_p,
+                bus_q=bus_q,
+                br_p_from=p_from,
+                br_q_from=q_from,
+                br_p_to=p_to,
+                br_q_to=q_to,
+                br_i_from_re=ifr,
+                br_i_from_im=ifi,
+                br_i_to_re=itr,
+                br_i_to_im=iti,
+                br_s_signed=s_signed,
+                reward=reward,
+                e_loss=e_loss,
+                penalty=penalty,
+                stable=nr.stable,
+                n_iter=nr.n_iter,
+                diff=nr.diff,
+            )
+        profiling.count("loadflow.unstable_lanes", nr.stable, _unstable)
+    return out
+
+
+def _raised_lanes(before, after):
+    """Lanes whose iteration count the Newton fallback raised."""
+    return (after > before).sum()
+
+
+def _raised_iterations(before, after):
+    """The Newton fallback's lane-iterations."""
+    return (after - before).sum()
+
+
+def _unstable(stable):
+    return (~stable).sum()

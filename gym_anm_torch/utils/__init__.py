@@ -3,7 +3,7 @@
 from .checkpoint import env_state_to_vector, restore_checkpoint, save_checkpoint, vector_to_env_state
 from .debug import debug_nans, explain_divergence, forbid_host_syncs, validate_state
 from .metrics import RolloutMetrics, log_metrics, nan_guard
-from .profiling import Throughput, device_trace, trace_annotation
+from .profiling import Throughput, device_trace
 
 __all__ = [
     "save_checkpoint",
@@ -19,5 +19,4 @@ __all__ = [
     "explain_divergence",
     "Throughput",
     "device_trace",
-    "trace_annotation",
 ]

@@ -18,9 +18,6 @@ import os
 import torch
 from torch import nn
 
-from ..physics.transition import solution_guess
-from ..vec.core import EnvState, tree_map
-
 __all__ = ["save_checkpoint", "restore_checkpoint", "env_state_to_vector", "vector_to_env_state"]
 
 
@@ -85,6 +82,10 @@ def vector_to_env_state(env, s0, generator=None, oltc_tap=None):
     lane) by replaying the simulator's reset path (Simulator.reset,
     simulator.py:245-316): the transition from the decoded s0.  The task
     carry is drawn from ``generator`` as a reset draws it."""
+    # Imported here: the physics and vec modules import this package's tracer.
+    from ..physics.transition import solution_guess
+    from ..vec.core import EnvState, tree_map
+
     s0 = torch.as_tensor(s0).to(device=env.device, dtype=env.dtype)
     if s0.dim() == 1:
         s0 = s0.unsqueeze(0)

@@ -24,6 +24,7 @@ import torch
 from ..errors import ObsSpaceError
 from ..physics.transition import GridTables, TransitionOut, make_tables, solution_guess, transition
 from ..specs.network import NetworkSpec, load_network
+from ..utils import profiling
 from .obs import make_obs_plan
 
 
@@ -217,106 +218,113 @@ class VecEnv:
         """Reset ``n`` lanes: sample initial states until each lane's load
         flow converges (≤100 tries, anm_env.py:266-289).  Returns
         (EnvState, obs)."""
-        if oltc_tap is None:
-            oltc_tap = torch.ones(n, self.spec.n_oltc, dtype=self.dtype, device=self.device)
-        task_carry = tree_map(lambda a: a.to(self.device), self.task.init_task_fn(generator, n))
+        with profiling.span("env.reset"):
+            if oltc_tap is None:
+                oltc_tap = torch.ones(n, self.spec.n_oltc, dtype=self.dtype, device=self.device)
+            task_carry = tree_map(lambda a: a.to(self.device), self.task.init_task_fn(generator, n))
 
-        def attempt(lanes, taps, carry):
-            s0 = self.task.init_state_fn(generator, lanes, carry)
-            if not torch.is_tensor(s0):
-                s0 = torch.tensor(np.asarray(s0))
-            s0 = s0.to(device=self.device, dtype=self.dtype)
-            (P_load, P_max, P_gen, Q_gen, P_des, Q_des, Q_cap,
-             soc_seed, soc_mwh, aux) = self._decode_s0(s0)
-            out = self._run_transition(P_load, P_max, P_gen, Q_gen, P_des, Q_des, Q_cap,
-                                       taps, soc_seed)
-            return out, soc_mwh / self.tables.baseMVA, aux
+            def attempt(lanes, taps, carry):
+                s0 = self.task.init_state_fn(generator, lanes, carry)
+                if not torch.is_tensor(s0):
+                    s0 = torch.tensor(np.asarray(s0))
+                s0 = s0.to(device=self.device, dtype=self.dtype)
+                (P_load, P_max, P_gen, Q_gen, P_des, Q_des, Q_cap,
+                 soc_seed, soc_mwh, aux) = self._decode_s0(s0)
+                out = self._run_transition(P_load, P_max, P_gen, Q_gen, P_des, Q_des, Q_cap,
+                                           taps, soc_seed)
+                return out, soc_mwh / self.tables.baseMVA, aux
 
-        out, soc, aux = attempt(n, oltc_tap, task_carry)
-        tries = 1
-        bad = ~out.stable
-        while tries < 100 and bool(bad.any()):
-            # Each retried lane draws again under its own task carry.
-            idx = torch.nonzero(bad).squeeze(1)
-            sub, sub_soc, sub_aux = attempt(idx.numel(), oltc_tap[idx],
-                                            tree_map(lambda a: a[idx], task_carry))
-            for full, part in zip(out, sub):
-                full[idx] = part
-            soc[idx], aux[idx] = sub_soc, sub_aux
+            out, soc, aux = attempt(n, oltc_tap, task_carry)
+            tries = 1
             bad = ~out.stable
-            tries += 1
+            while tries < 100 and profiling.host_bool(bad.any(), "env.reset"):
+                # Each retried lane draws again under its own task carry.
+                idx = torch.nonzero(bad).squeeze(1)
+                sub, sub_soc, sub_aux = attempt(idx.numel(), oltc_tap[idx],
+                                                tree_map(lambda a: a[idx], task_carry))
+                for name, full, part in zip(out._fields, out, sub):
+                    if name != "stable":
+                        full[idx] = part
+                # A new tensor, not written into: a recorded counter holds each attempt's own flags.
+                out = out._replace(stable=out.stable.index_put((idx,), sub.stable))
+                soc[idx], aux[idx] = sub_soc, sub_aux
+                bad = ~out.stable
+                tries += 1
+            profiling.count("reset.lanes", n)
+            profiling.count("reset.attempts", tries)
 
-        state = EnvState(
-            soc=soc,
-            oltc_tap=out.oltc_tap,
-            dev_p=out.dev_p,
-            dev_q=out.dev_q,
-            p_pot=out.gen_p_pot,
-            bus_vm=torch.sqrt(out.bus_v_re ** 2 + out.bus_v_im ** 2),
-            aux=aux,
-            task=task_carry,
-            terminated=~out.stable,
-            t=torch.zeros(n, dtype=torch.int32, device=self.device),
-            v_guess=solution_guess(out),
-            shaping=self.task.init_shape_fn(n, self.dtype, self.device),
-        )
-        return state, self._obs_from_out(out, soc, aux)
+            state = EnvState(
+                soc=soc,
+                oltc_tap=out.oltc_tap,
+                dev_p=out.dev_p,
+                dev_q=out.dev_q,
+                p_pot=out.gen_p_pot,
+                bus_vm=torch.sqrt(out.bus_v_re ** 2 + out.bus_v_im ** 2),
+                aux=aux,
+                task=task_carry,
+                terminated=~out.stable,
+                t=torch.zeros(n, dtype=torch.int32, device=self.device),
+                v_guess=solution_guess(out),
+                shaping=self.task.init_shape_fn(n, self.dtype, self.device),
+            )
+            return state, self._obs_from_out(out, soc, aux)
 
     # ------------------------------------------------------------------
     def step(self, state: EnvState, action, generator: Optional[torch.Generator] = None):
         """One MDP step of every lane (anm_env.py:333-469)."""
-        spec = self.spec
-        s_t = self._state_vector(state.dev_p, state.dev_q, state.soc, state.p_pot, state.aux)
-        vars, task_carry = self.task.next_vars_fn(generator, s_t, state.task, state.t)
-        n_load, n_gen = spec.n_load, spec.n_gen
-        P_load = vars[:, :n_load]
-        P_pot = vars[:, n_load: n_load + n_gen]
-        aux = vars[:, n_load + n_gen:].to(self.dtype)
+        with profiling.span("env.step"):
+            spec = self.spec
+            s_t = self._state_vector(state.dev_p, state.dev_q, state.soc, state.p_pot, state.aux)
+            vars, task_carry = self.task.next_vars_fn(generator, s_t, state.task, state.t)
+            n_load, n_gen = spec.n_load, spec.n_gen
+            P_load = vars[:, :n_load]
+            P_pot = vars[:, n_load: n_load + n_gen]
+            aux = vars[:, n_load + n_gen:].to(self.dtype)
 
-        P_gen, Q_gen, P_des, Q_des, Q_cap, taps = self.split_action(action)
-        out = self._run_transition(P_load, P_pot, P_gen, Q_gen, P_des, Q_des, Q_cap, taps,
-                                   state.soc, x_guess=state.v_guess)
+            P_gen, Q_gen, P_des, Q_des, Q_cap, taps = self.split_action(action)
+            out = self._run_transition(P_load, P_pot, P_gen, Q_gen, P_des, Q_des, Q_cap, taps,
+                                       state.soc, x_guess=state.v_guess)
 
-        terminated = ~out.stable
-        c1, c2 = self.costs_clipping
-        e_loss = torch.sign(out.e_loss) * torch.clamp(torch.abs(out.e_loss), 0.0, c1)
-        penalty = torch.clamp(out.penalty, 0.0, c2)
-        reward_ok = -(e_loss + penalty)
-        reward_terminal = torch.full_like(reward_ok, -c2 / (1.0 - self.task.gamma))
-        reward = torch.where(terminated, reward_terminal, reward_ok)
-        # Lanes already terminated absorb with 0 reward (anm_env.py:363-367).
-        reward = torch.where(state.terminated, torch.zeros_like(reward), reward)
-        now_terminated = state.terminated | terminated
+            terminated = ~out.stable
+            c1, c2 = self.costs_clipping
+            e_loss = torch.sign(out.e_loss) * torch.clamp(torch.abs(out.e_loss), 0.0, c1)
+            penalty = torch.clamp(out.penalty, 0.0, c2)
+            reward_ok = -(e_loss + penalty)
+            reward_terminal = torch.full_like(reward_ok, -c2 / (1.0 - self.task.gamma))
+            reward = torch.where(terminated, reward_terminal, reward_ok)
+            # Lanes already terminated absorb with 0 reward (anm_env.py:363-367).
+            reward = torch.where(state.terminated, torch.zeros_like(reward), reward)
+            now_terminated = state.terminated | terminated
 
-        # Post-step reward shaping, after terminal selection, where the
-        # reference subclass adjusts the returned reward
-        # (ieee33_unequal_capacitors.py:144-169).
-        extras = {}
-        shaping = state.shaping
-        if self.task.shape_reward_fn is not None:
-            shaping, reward, extras = self.task.shape_reward_fn(state.shaping, action, reward)
+            # Post-step reward shaping, after terminal selection, where the
+            # reference subclass adjusts the returned reward
+            # (ieee33_unequal_capacitors.py:144-169).
+            extras = {}
+            shaping = state.shaping
+            if self.task.shape_reward_fn is not None:
+                shaping, reward, extras = self.task.shape_reward_fn(state.shaping, action, reward)
 
-        was_done = state.terminated.unsqueeze(1)
-        new_state = EnvState(
-            soc=torch.where(was_done, state.soc, out.des_soc),
-            oltc_tap=torch.where(was_done, state.oltc_tap, out.oltc_tap),
-            dev_p=out.dev_p,
-            dev_q=out.dev_q,
-            p_pot=out.gen_p_pot,
-            bus_vm=torch.sqrt(out.bus_v_re ** 2 + out.bus_v_im ** 2),
-            aux=aux,
-            task=task_carry,
-            terminated=now_terminated,
-            t=state.t + 1,
-            # Keep the last STABLE solution as the next warm start: a
-            # diverged solve's iterate would poison subsequent solves.
-            v_guess=torch.where(out.stable.unsqueeze(1), solution_guess(out), state.v_guess),
-            shaping=shaping,
-        )
-        obs = self._obs_from_out(out, out.des_soc, aux)
-        obs = torch.where(now_terminated.unsqueeze(1), torch.zeros_like(obs), obs)
-        info = {"e_loss": e_loss, "penalty": penalty, "n_iter": out.n_iter, "diff": out.diff, **extras}
-        return new_state, obs, reward, now_terminated, info
+            was_done = state.terminated.unsqueeze(1)
+            new_state = EnvState(
+                soc=torch.where(was_done, state.soc, out.des_soc),
+                oltc_tap=torch.where(was_done, state.oltc_tap, out.oltc_tap),
+                dev_p=out.dev_p,
+                dev_q=out.dev_q,
+                p_pot=out.gen_p_pot,
+                bus_vm=torch.sqrt(out.bus_v_re ** 2 + out.bus_v_im ** 2),
+                aux=aux,
+                task=task_carry,
+                terminated=now_terminated,
+                t=state.t + 1,
+                # Keep the last STABLE solution as the next warm start: a
+                # diverged solve's iterate would poison subsequent solves.
+                v_guess=torch.where(out.stable.unsqueeze(1), solution_guess(out), state.v_guess),
+                shaping=shaping,
+            )
+            obs = self._obs_from_out(out, out.des_soc, aux)
+            obs = torch.where(now_terminated.unsqueeze(1), torch.zeros_like(obs), obs)
+            info = {"e_loss": e_loss, "penalty": penalty, "n_iter": out.n_iter, "diff": out.diff, **extras}
+            return new_state, obs, reward, now_terminated, info
 
     def step_autoreset_batch(self, state: EnvState, action, generator: Optional[torch.Generator] = None):
         """Step; every lane that is done afterwards is reset in place
@@ -325,14 +333,15 @@ class VecEnv:
         otherwise only the done lanes are reset.  Reset lanes keep their
         ``oltc_tap``; the shaping carry persists.  ``done`` is the step's."""
         new_state, obs, reward, done, info = self.step(state, action, generator)
-        if bool(done.any()):
-            idx = torch.nonzero(done).squeeze(1)
-            fresh, fresh_obs = self.reset(idx.numel(), generator, oltc_tap=new_state.oltc_tap[idx])
-            put = lambda full, part: full.index_copy(0, idx, part)  # noqa: E731
-            new_state = EnvState(**{name: tree_map(put, getattr(new_state, name), getattr(fresh, name))
-                                    for name in EnvState._fields if name != "shaping"},
-                                 shaping=new_state.shaping)
-            obs = put(obs, fresh_obs)
+        with profiling.span("env.autoreset"):
+            if profiling.host_bool(done.any(), "env.autoreset"):
+                idx = torch.nonzero(done).squeeze(1)
+                fresh, fresh_obs = self.reset(idx.numel(), generator, oltc_tap=new_state.oltc_tap[idx])
+                put = lambda full, part: full.index_copy(0, idx, part)  # noqa: E731
+                new_state = EnvState(**{name: tree_map(put, getattr(new_state, name), getattr(fresh, name))
+                                        for name in EnvState._fields if name != "shaping"},
+                                     shaping=new_state.shaping)
+                obs = put(obs, fresh_obs)
         return new_state, obs, reward, done, info
 
     # ------------------------------------------------------------------

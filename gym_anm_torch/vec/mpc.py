@@ -35,6 +35,7 @@ import torch
 from ..agents.mpc import DCOPFStructure, build_dcopf_structure, dcopf_layout
 from ..networks.anm6 import anm6easy_gen_time_series, anm6easy_load_time_series
 from ..physics.complexops import matmul_full
+from ..utils import profiling
 from .controllers import Controller
 
 __all__ = ["VecDCOPF", "DCOPFSolution", "make_vec_dcopf", "lane_bounds", "make_shift_warm", "init_warm",
@@ -308,13 +309,18 @@ def solve_dcopf(spec: VecDCOPF, l, u, warm=None) -> DCOPFSolution:
     (:func:`~gym_anm_torch.vec.admm_cuda.solve_dcopf_cuda`, float32 only)
     for CUDA tensors, with no fallback between them.  Arguments and result
     as :func:`solve_dcopf_plain`."""
-    if not l.is_cuda:
-        return solve_dcopf_plain(spec, l, u, warm)
-    from .admm_cuda import solve_dcopf_cuda
+    with profiling.span("mpc.solve"):
+        if not l.is_cuda:
+            sol = solve_dcopf_plain(spec, l, u, warm)
+        else:
+            from .admm_cuda import solve_dcopf_cuda
 
-    if warm is None:
-        warm = init_warm(spec, l.shape[0])
-    return solve_dcopf_cuda(spec, l.contiguous(), u.contiguous(), tuple(w.contiguous() for w in warm))
+            if warm is None:
+                warm = init_warm(spec, l.shape[0])
+            sol = solve_dcopf_cuda(spec, l.contiguous(), u.contiguous(), tuple(w.contiguous() for w in warm))
+    profiling.count("admm.lanes", l.shape[0])
+    profiling.count("admm.sweeps", sol.iterations)
+    return sol
 
 
 def _sweep(spec, l_bar, u_bar, x, y, z, Ax):
@@ -467,18 +473,19 @@ def make_vec_mpc(
         return init_warm(dc, n)
 
     def act(noise, state, obs, carry):
-        if forecast_fn is None:
-            P_load, P_pot = state.dev_p[:, load_pos], state.p_pot
-        else:
-            P_load, P_pot = forecast_fn(state)
-        l, u = lane_bounds(dc, P_load, P_pot, state.soc)
-        sol = solve_dcopf(dc, l, u, warm=shift(carry))
-        P = torch.where(sol.bounds_ok.unsqueeze(1), sol.x[:, dc.act_idx], 0.0) * dc.baseMVA
-        a = torch.zeros(l.shape[0], env.n_action, dtype=env.dtype, device=env.device)
-        a[:, sl["P_gen"]] = P[:, :n_g].to(env.dtype)
-        a[:, sl["P_des"]] = P[:, n_g:].to(env.dtype)
-        a[:, sl["tap"]] = 1.0
-        return torch.clamp(a, env.action_low, env.action_high), sol.warm
+        with profiling.span("mpc.act"):
+            if forecast_fn is None:
+                P_load, P_pot = state.dev_p[:, load_pos], state.p_pot
+            else:
+                P_load, P_pot = forecast_fn(state)
+            l, u = lane_bounds(dc, P_load, P_pot, state.soc)
+            sol = solve_dcopf(dc, l, u, warm=shift(carry))
+            P = torch.where(sol.bounds_ok.unsqueeze(1), sol.x[:, dc.act_idx], 0.0) * dc.baseMVA
+            a = torch.zeros(l.shape[0], env.n_action, dtype=env.dtype, device=env.device)
+            a[:, sl["P_gen"]] = P[:, :n_g].to(env.dtype)
+            a[:, sl["P_des"]] = P[:, n_g:].to(env.dtype)
+            a[:, sl["tap"]] = 1.0
+            return torch.clamp(a, env.action_low, env.action_high), sol.warm
 
     return Controller(name or f"MPC{planning_steps}_constant", init_carry, act)
 
