@@ -2240,11 +2240,11 @@ def admm_vs_plain(mpc, cuda_k, name, dc, l, u, warm, n_launch=N_LAUNCH, plain_la
     from gym_anm_torch._build import load_library
     from gym_anm_torch.vec.admm_cuda import l2_bytes_per_lane_sweep
 
-    staged = load_library().admm_scratch_bytes(B, dc.n, dc.m) == 0
-    where = "staged in shared memory" if staged else "from L2"
+    lanes = load_library().admm_stream_lanes(B, dc.n, dc.m)
+    where = f"streamed through shared memory, {lanes} lanes a block" if lanes else "staged in shared memory"
     log(f"K5 {name} time (device time, {n_launch} launches per reading, median of {reps}): kernel {t_k:.4f} ms, "
         f"plain {t_p:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}, {sweeps} lane-sweeps), kernel at "
-        f"{bound_ms / t_k:.3f} of it; matrix fragments {where}, {l2_bytes_per_lane_sweep(dc.n, dc.m, staged)} L2 "
+        f"{bound_ms / t_k:.3f} of it; matrix fragments {where}, {l2_bytes_per_lane_sweep(dc.n, dc.m, lanes)} L2 "
         f"bytes per lane-sweep (PR 5's design: {4 * (dc.m * dc.n + dc.n * (dc.n + dc.m))})")
     return sk, (err, t_k, t_p, bound_ms, bound_by)
 
@@ -2345,6 +2345,89 @@ def phase9a_admm_kernel(mpc, cuda_k, VecEnv, make_anm6easy_task, make_ieee33_ren
     t_k, t_p, bound_ms, bound_by = warm_r[1:]
     return (st1, state, load_pos, sol1, dc1), dict(max_abs_err=max(errs), ms=t_k, plain_ms=t_p, bound_ms=bound_ms,
                                                    bound_by=bound_by)
+
+
+def phase9a_k5_routes(mpc, cuda_k, base, VecEnv, make_anm6easy_task, make_ieee33_renewable_task):
+    """K5 beside its tile design (``bench/admm_dcopf_pr6.cu``: a warp a tile
+    of 8 lanes, the fragments from L2 where they do not fit in shared
+    memory) in turns (tile design, this kernel, this kernel, tile design;
+    each a median of 3 readings), on the staged route's shape (ANM6Easy N = 1, the farm's call
+    at B = 8192) and on the streamed route's: ANM6Easy N = 4 cold (400
+    sweeps), N = 8 at B = 16384 and the MPC cell's budget of 48 sweeps, and
+    IEEE33-renewable N = 1 cold (400).  For each: device ms of both, the
+    lanes on which they agree bit for bit (x, the warm start, iterations,
+    residuals, flags), the L2 fragment bytes a lane-sweep of each and the
+    share of the bound.  The staged route is the tile design's code: within
+    2% of its time.  The N = 8 set is also held against the plain version."""
+    from gym_anm_torch._build import load_library
+    from gym_anm_torch.agents.mpc import build_dcopf_structure
+    from gym_anm_torch.bench.kernel_probes import pr6_solve
+    from gym_anm_torch.vec.admm_cuda import frag_count, l2_bytes_per_lane_sweep, stream_lanes
+
+    log("== phase 9a (routes): K5 beside its tile design, in turns")
+    lib = load_library()
+    props = torch.cuda.get_device_properties(0)
+    g = torch.Generator(device="cuda").manual_seed(93)
+
+    def anm6(N, B, max_iter):
+        env = VecEnv(make_anm6easy_task(), dtype=torch.float32, device="cuda")
+        state, _ = env.reset(B, g)
+        st = build_dcopf_structure(env.spec, env.task.delta_t, env.task.lamb, 0.995, 0.96, N)
+        dc = mpc.make_vec_dcopf(st, device="cuda", max_iter=max_iter)
+        if N > 1:
+            P_load, P_pot = mpc.profile_forecast_fn(env, N)(state)
+        else:
+            P_load, P_pot = state.dev_p[:, torch.as_tensor(env.spec.load_pos, device="cuda")], state.p_pot
+        l, u = mpc.lane_bounds(dc, P_load, P_pot, state.soc)
+        return dc, l, u, mpc.init_warm(dc, B)
+
+    dc1, l1, u1, cold1 = anm6(1, B_MAIN, 4000)
+    sets = {"ANM6Easy N=1, the farm's call (warm, budget 48; staged)":
+            (dc1._replace(max_iter=48), l1, u1, cuda_k(dc1, l1, u1, cold1).warm),
+            "ANM6Easy N=4 perfect forecast cold, 400": anm6(4, B_MAIN, 400),
+            "ANM6Easy N=8 perfect forecast, budget 48 (the MPC cell's shape)": anm6(8, 16384, 48)}
+    renv = VecEnv(make_ieee33_renewable_task(), dtype=torch.float32, device="cuda")
+    rstate, _ = renv.reset(B_MAIN, g)
+    dcR = mpc.make_vec_dcopf(build_dcopf_structure(renv.spec, renv.task.delta_t, renv.task.lamb, 0.99, 0.9, 1),
+                             device="cuda", max_iter=400)
+    lR, uR = mpc.lane_bounds(dcR, rstate.dev_p[:, torch.as_tensor(renv.spec.load_pos, device="cuda")],
+                             rstate.p_pot, rstate.soc)
+    sets["IEEE33-renewable N=1 cold, 400"] = (dcR, lR, uR, mpc.init_warm(dcR, B_MAIN))
+    out = {}
+    for name, (dc, l, u, warm) in sets.items():
+        B, n, m = l.shape[0], dc.n, dc.m
+        lanes = lib.admm_stream_lanes(B, n, m)
+        assert lanes == stream_lanes(B, n, m, props.multi_processor_count, lib.gj_smem_limit_bytes()), \
+            f"admm_cuda.stream_lanes disagrees with the kernel's plan on this card: {lanes}"
+        sk = cuda_k(dc, l, u, warm)
+        s6 = pr6_solve(base, dc, l, u, warm)
+        torch.cuda.synchronize()
+        same = torch.ones(B, dtype=torch.bool, device="cuda")
+        for a, b in zip((sk.x, *sk.warm), (s6.x, *s6.warm)):
+            same &= (a == b).all(1)
+        for f in ("iterations", "r_prim", "r_dual", "converged", "bounds_ok", "feasible"):
+            a, b = getattr(sk, f), getattr(s6, f)
+            same &= (a == b) | (a.isnan() & b.isnan()) if a.is_floating_point() else a == b
+        k = 20 if dc.max_iter <= 48 and n < 100 else 3
+        reading = {"pr6": lambda: pr6_solve(base, dc, l, u, warm), "new": lambda: cuda_k(dc, l, u, warm)}
+        t = {"pr6": [], "new": []}
+        for who in ("pr6", "new", "new", "pr6"):
+            t[who].append(statistics.median(cuda_ms(reading[who], k) for _ in range(3)))
+        t6, tk = statistics.mean(t["pr6"]), statistics.mean(t["new"])
+        bound_ms, bound_by, sweeps = admm_bound(dc, B, sk.iterations)
+        route = f"streamed, {lanes} lanes a block" if lanes else "staged"
+        log(f"K5 {name} B={B} (n={n}, m={m}): this kernel {tk:.4f} ms ({', '.join(f'{x:.4f}' for x in t['new'])}), "
+            f"the tile design {t6:.4f} ms ({', '.join(f'{x:.4f}' for x in t['pr6'])}): {t6 / tk:.3f}x; bit for bit "
+            f"equal on {int(same.sum())} of {B} lanes; route {route}; L2 fragment bytes a lane-sweep "
+            f"{l2_bytes_per_lane_sweep(n, m, lanes)} (tile design: {2 * frag_count(n, m) if lanes else 0}); bound "
+            f"{bound_ms:.4f} ms ({bound_by}, {sweeps} lane-sweeps): this kernel at {bound_ms / tk:.3f} of it, the tile "
+            f"design at {bound_ms / t6:.3f}")
+        out[name] = (tk, t6)
+        if not lanes:
+            assert tk <= 1.02 * t6, f"the staged route ({tk:.4f} ms) is over 2% slower than its tile design's ({t6:.4f} ms)"
+        if n == 168:
+            admm_vs_plain(mpc, cuda_k, name, dc, l, u, warm, 3, 1, 3)
+    return out
 
 
 def phase9b_highs(mpc, cold_set, n_lanes=64):
@@ -3685,7 +3768,7 @@ def log_ptxas(report):
              (r"gj_panelsI([fd])Li(\d+)ELb([01])E", lambda t, k, r: f"gj_panels<{b[t]}, {k}, {b[r]}>"),
              (r"chord_kernelILi(\d+)ELi(\d+)E", lambda a, c: f"chord_kernel<{a}, {c}>"),
              (r"chord_wide_kernelILi(\d+)E", lambda k: f"chord_wide_kernel<{k}>"),
-             (r"admm_kernelILb([01])ELb([01])E", lambda m, g: f"admm_kernel<{b[m]}, {b[g]}>"),
+             (r"(staged|streamed)11admm_kernel", lambda r: f"{r}::admm_kernel"),
              (r"newton_kernelI([fd])Li(\d+)ELb([01])E", lambda t, k, y: f"newton_kernel<{b[t]}, {k}, {b[y]}>"),
              (r"newton_wide_kernelI([fd])Li(\d+)ELb([01])ELb([01])E",
               lambda t, k, r, y: f"newton_wide_kernel<{b[t]}, {k}, {b[r]}, {b[y]}>"),
@@ -3766,6 +3849,7 @@ def main():
                                                              chord_solve_cuda, base)
     cold_set, k5 = run(phase9a_admm_kernel, mpc, solve_dcopf_cuda, VecEnv, make_anm6easy_task,
                        make_ieee33_renewable_task)
+    run(phase9a_k5_routes, mpc, solve_dcopf_cuda, base, VecEnv, make_anm6easy_task, make_ieee33_renewable_task)
     run(phase9b_highs, mpc, cold_set)
     k5_launches, farm_record, _ = run(phase9c_farm, mpc, solve_dcopf_cuda, VecEnv, make_anm6easy_task, kernel,
                                       chord_solve_cuda)

@@ -54,6 +54,8 @@ _SIGNATURES = {
     "admm_dcopf_f32": [_P] * 28 + [_F] * 10 + [_I] * 6 + [_P],
     # (B, n, m) -> bytes, not an error code
     "admm_scratch_bytes": [_I, _I, _I],
+    # (B, n, m) -> the lanes a streamed block serves, 0 staged, -1 not taken
+    "admm_stream_lanes": [_I, _I, _I],
     # (x_in, F_in, diff_in, it_in, accepted, p, q, Yre, Yim, y_stride, br_f,
     #  br_t, series_re, series_im, shunt_im, shift_cos, shift_sin, tap_magn,
     #  n_branch, xtol, lim_iter, x, F, diff, n_iter, stall, counters, work,

@@ -17,8 +17,9 @@
    float64: no conversion in the k-loops), on ``chip_smoke.py`` phase 9a's
    five sets at B = 8192, in one call: the conversions' share of PR 5's time
    is (PR 5 − its float64 build) / PR 5.  A copy of K5 with ``clock64``
-   counters gives its cycles per warp-sweep by step at the farm's call and
-   on IEEE33-renewable.
+   counters gives its staged route's cycles per warp-sweep by step at the
+   farm's call.  (K5's tile design, ``admm_dcopf_pr6.cu``, is a baseline of
+   ``chip_smoke.py`` phase 9a, :func:`pr6_solve`.)
 
 5. The wide K2 (``csrc/chord_newton_wide.cu``): a copy with ``clock64``
    counters around the five steps of a round (thread 0 of every block), on
@@ -704,11 +705,13 @@ def probe_gj():
 # The baselines: K1 with the matrix in device memory, the wide chord kernel
 # with one block per lane, PR 13's K3 (a lane slot per system of K1's
 # register route, lanes claimed one at a time) and PR 15's K3 wide (a block
-# of 256 a lane, [J | F] resident or in device memory).
+# of 256 a lane, [J | F] resident or in device memory).  K5's tile design (a
+# warp a tile of 8 lanes, the fragments from L2 where they do not fit in
+# shared memory) is one too.
 BASELINE_SOURCES = ("gauss_jordan_smem.cu", "gauss_jordan_gmem.cu", "chord_newton_wide_lane.cu",
                     "newton_fallback_pr13_f32.cu", "newton_fallback_pr13_f32_high.cu", "newton_fallback_pr13_f64.cu",
                     "newton_fallback_pr13_f64_high.cu", "newton_fallback_wide_pr15_f32.cu",
-                    "newton_fallback_wide_pr15_f64.cu")
+                    "newton_fallback_wide_pr15_f64.cu", "admm_dcopf_pr6.cu")
 _P, _I, _F, _D, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double, ctypes.c_longlong
 # PR 13's newton_fallback_f32/_f64: (x_in, F_in, diff_in, it_in, accepted, p,
 # q, Yre, Yim, y_stride, br_f, br_t, series_re, series_im, shunt_im,
@@ -731,6 +734,8 @@ BASELINE_SIGNATURES = {
     "newton_fallback_wide_pr15_f64": _PR15_ARGS,
     "newton_wide_pr15_f32_grid": [_I] * 4,  # (n, panel, resident, lane_ybus) -> blocks
     "newton_wide_pr15_f64_grid": [_I] * 4,
+    # admm_dcopf_f32's arguments (A_frag and P_frag as the fragments)
+    "admm_dcopf_pr6_f32": [_P] * 28 + [_F] * 10 + [_I] * 6 + [_P],
 }
 
 
@@ -741,7 +746,37 @@ def load_baselines():
     for name, argtypes in BASELINE_SIGNATURES.items():
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = ctypes.c_int
+    lib.admm_pr6_scratch_bytes.argtypes = [_I] * 3  # (B, n, m) -> bytes, as admm_scratch_bytes
+    lib.admm_pr6_scratch_bytes.restype = ctypes.c_longlong
     return lib
+
+
+def pr6_solve(lib, dc, l, u, warm):
+    """One launch of K5's tile design (``admm_dcopf_pr6.cu``) on the arguments of
+    :func:`~gym_anm_torch.vec.admm_cuda.solve_dcopf_cuda`, through what that
+    wrapper does around its launch; returns the
+    :class:`~gym_anm_torch.vec.mpc.DCOPFSolution`."""
+    from ..vec.mpc import DCOPFSolution
+
+    B, n, m = l.shape[0], dc.n, dc.m
+    scratch_bytes = lib.admm_pr6_scratch_bytes(B, n, m)
+    assert scratch_bytes >= 0, (n, m)
+    empty = lambda *shape, dtype=torch.float32: torch.empty(*shape, dtype=dtype, device=l.device)  # noqa: E731
+    x, xw, yw, zw, Axw = empty(B, n), empty(B, n), empty(B, m), empty(B, m), empty(B, m)
+    it, rp, rd = empty(B, dtype=torch.int32), empty(B), empty(B)
+    flags = [empty(B, dtype=torch.bool) for _ in range(3)]
+    nxt = torch.zeros(1, dtype=torch.int32, device=l.device)
+    scratch = empty(scratch_bytes, dtype=torch.uint8) if scratch_bytes else None
+    K = dc.check_every
+    rc = lib.admm_dcopf_pr6_f32(
+        *(t.data_ptr() for t in (dc.A_frag, dc.P_frag, dc.q_bar, dc.rho, dc.inv_rho, dc.D, dc.D_inv, dc.E, dc.E_inv,
+                                 l, u, *warm, x, xw, yw, zw, Axw, it, rp, rd, *flags, nxt)),
+        None if scratch is None else scratch.data_ptr(), dc.sigma, dc.alpha, 1.0 - dc.alpha, dc.c_scale_value,
+        dc.q_ref, dc.eps_abs, dc.eps_rel, 1.0 - 1e-3 * K, dc.dual_plateau_cap, dc.feas_band_factor, dc.max_iter, K,
+        -(-dc.dual_stall_limit // K), B, n, m, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, f"K5's tile design failed with CUDA error {rc}"
+    return DCOPFSolution(x=x, warm=(xw, yw, zw, Axw), iterations=it, r_prim=rp, r_dual=rd, converged=flags[0],
+                         bounds_ok=flags[1], feasible=flags[2])
 
 
 def one_block_solve(lib, A, b):
@@ -1115,36 +1150,33 @@ def pr5_solve(lib, f64, dc, l, u, warm):
 
 
 def probe_admm_cycles():
-    """Cycles per warp-sweep of each step of K5 (an instrumented copy) at the
-    farm's call and on IEEE33-renewable (fragments from L2)."""
+    """Cycles per warp-sweep of each step of K5's staged route (an
+    instrumented copy) at the farm's call."""
     lib = load(instrument_admm((_build.CSRC_DIR / "admm_dcopf.cu").read_text()), "admm_probe")
-    sets = admm_sets()
-    for name in ("the farm's call (N=1 warm, budget 48)", "IEEE33-renewable N=1 cold, 400"):
-        dc, l, u, (x0, y0, z0, Ax0) = sets[name]
-        B, n, m = l.shape[0], dc.n, dc.m
-        empty = lambda *shape, dtype=torch.float32: torch.empty(*shape, dtype=dtype, device="cuda")  # noqa: E731
-        outs = (empty(B, n), empty(B, n), empty(B, m), empty(B, m), empty(B, m), empty(B, dtype=torch.int32),
-                empty(B), empty(B), *(empty(B, dtype=torch.bool) for _ in range(3)))
-        nxt = torch.zeros(1, dtype=torch.int32, device="cuda")
-        scratch_bytes = lib.admm_scratch_bytes(B, n, m)
-        assert scratch_bytes >= 0, (n, m)
-        scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device="cuda") if scratch_bytes else None
-        K = dc.check_every
-        lib.probe_zero()
-        rc = lib.admm_dcopf_f32(
-            *(t.data_ptr() for t in (dc.A_frag, dc.P_frag, dc.q_bar, dc.rho, dc.inv_rho, dc.D, dc.D_inv, dc.E,
-                                     dc.E_inv, l, u, x0, y0, z0, Ax0) + outs), nxt.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), dc.sigma, dc.alpha, 1.0 - dc.alpha, dc.c_scale_value,
-            dc.q_ref, dc.eps_abs, dc.eps_rel, 1.0 - 1e-3 * K, dc.dual_plateau_cap, dc.feas_band_factor, dc.max_iter,
-            K, -(-dc.dual_stall_limit // K), B, n, m, torch.cuda.current_stream().cuda_stream)
-        assert rc == 0, rc
-        torch.cuda.synchronize()
-        T = read(lib)
-        sweeps, checks, warps = T[5], T[4], T[6]
-        a, b, loop, chk = T[0] / sweeps, T[1] / sweeps, T[2] / sweeps, T[3] / checks
-        print(f"K5 {name} (instrumented copy, lane 0 of {warps} warps, {sweeps / warps:.1f} sweeps a warp): "
-              f"cycles per warp-sweep {ADMM_STEPS[0]} {a:.0f}, {ADMM_STEPS[1]} {b:.0f}, {ADMM_STEPS[2]} "
-              f"{loop - a - b:.0f}; per check, {ADMM_STEPS[3]} {chk:.0f}")
+    name = "the farm's call (N=1 warm, budget 48)"
+    dc, l, u, (x0, y0, z0, Ax0) = admm_sets()[name]
+    B, n, m = l.shape[0], dc.n, dc.m
+    empty = lambda *shape, dtype=torch.float32: torch.empty(*shape, dtype=dtype, device="cuda")  # noqa: E731
+    outs = (empty(B, n), empty(B, n), empty(B, m), empty(B, m), empty(B, m), empty(B, dtype=torch.int32),
+            empty(B), empty(B), *(empty(B, dtype=torch.bool) for _ in range(3)))
+    nxt = torch.zeros(1, dtype=torch.int32, device="cuda")
+    assert lib.admm_scratch_bytes(B, n, m) == 0, (n, m)  # the staged route: no scratch
+    K = dc.check_every
+    lib.probe_zero()
+    rc = lib.admm_dcopf_f32(
+        *(t.data_ptr() for t in (dc.A_frag, dc.P_frag, dc.q_bar, dc.rho, dc.inv_rho, dc.D, dc.D_inv, dc.E,
+                                 dc.E_inv, l, u, x0, y0, z0, Ax0) + outs), nxt.data_ptr(),
+        None, dc.sigma, dc.alpha, 1.0 - dc.alpha, dc.c_scale_value,
+        dc.q_ref, dc.eps_abs, dc.eps_rel, 1.0 - 1e-3 * K, dc.dual_plateau_cap, dc.feas_band_factor, dc.max_iter,
+        K, -(-dc.dual_stall_limit // K), B, n, m, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, rc
+    torch.cuda.synchronize()
+    T = read(lib)
+    sweeps, checks, warps = T[5], T[4], T[6]
+    a, b, loop, chk = T[0] / sweeps, T[1] / sweeps, T[2] / sweeps, T[3] / checks
+    print(f"K5 {name} (instrumented copy, lane 0 of {warps} warps, {sweeps / warps:.1f} sweeps a warp): "
+          f"cycles per warp-sweep {ADMM_STEPS[0]} {a:.0f}, {ADMM_STEPS[1]} {b:.0f}, {ADMM_STEPS[2]} "
+          f"{loop - a - b:.0f}; per check, {ADMM_STEPS[3]} {chk:.0f}")
 
 
 def probe_admm():

@@ -88,9 +88,13 @@ class VecDCOPF(NamedTuple):
     check_every: int = 8
     # K5's operands: Āᵀ [n, m] and P_pack [n+m, n] as float64 copies of the
     # working-dtype values in the FP64 mma's A-fragment order
-    # (:func:`mma_a_fragments`), made once here.
+    # (:func:`mma_a_fragments`), made once here; and the same fragments by
+    # groups of STREAM_TILES row tiles (:func:`stream_fragments`), the order
+    # in which K5's streamed route copies them into shared memory.
     A_frag: Optional[torch.Tensor] = None
     P_frag: Optional[torch.Tensor] = None
+    A_stream: Optional[torch.Tensor] = None
+    P_stream: Optional[torch.Tensor] = None
 
 
 class DCOPFSolution(NamedTuple):
@@ -118,6 +122,25 @@ def mma_a_fragments(M):
     Mp = torch.zeros(16 * RT, 4 * KC, dtype=torch.float64, device=M.device)
     Mp[:R, :K] = M.to(torch.float64)
     return Mp.reshape(RT, 2, 8, KC, 4).permute(0, 3, 2, 4, 1).contiguous().reshape(-1)
+
+
+# Row tiles of a group and k-chunks of a ring stage in K5's streamed route
+# (csrc/admm_dcopf.cu: streamed::kG, kKS).
+STREAM_TILES, STREAM_CHUNKS = 4, 6
+
+
+def stream_fragments(frag, R, K):
+    """:func:`mma_a_fragments`' copy ``frag`` of an [R, K] matrix reordered by
+    groups of STREAM_TILES row tiles, each group's k-chunks in k order and
+    its tiles inside a chunk, the chunks padded with zero chunks to a
+    multiple of STREAM_CHUNKS: [group][chunks][tiles][32, 2], so that K5's
+    streamed route copies each ring stage (STREAM_CHUNKS chunks of a group)
+    as one contiguous block."""
+    RT, KC = -(-R // 16), -(-K // 4)
+    KP = -(-KC // STREAM_CHUNKS) * STREAM_CHUNKS
+    f = torch.zeros(RT, KP, 64, dtype=frag.dtype, device=frag.device)
+    f[:, :KC] = frag.reshape(RT, KC, 64)
+    return torch.cat([f[r0:r0 + STREAM_TILES].transpose(0, 1).reshape(-1) for r0 in range(0, RT, STREAM_TILES)])
 
 
 def _ruiz_equilibrate(A, q, iters=15):
@@ -206,6 +229,7 @@ def make_vec_dcopf(
     q_ref = np.max(np.abs((1.0 / D).astype(np_dt) * q_bar.astype(np_dt))) / np_dt(c_scale)
     bound0 = n_eq + n_ub  # first identity (variable-bound) row
     A_bar_t, P_pack_T = t(A_bar), t(P_pack.T).contiguous()
+    A_frag, P_frag = mma_a_fragments(A_bar_t.T), mma_a_fragments(P_pack_T.T)
     return VecDCOPF(
         A_bar=A_bar_t, P_pack_T=P_pack_T,
         q_bar=t(q_bar), rho=t(rho_v), inv_rho=t(1.0 / rho_v), D=t(D), D_inv=t(1.0 / D), E=t(E),
@@ -217,7 +241,8 @@ def make_vec_dcopf(
         eps_abs=float(eps_abs), eps_rel=float(eps_rel), n=int(n), m=int(m),
         dual_stall_limit=int(dual_stall_limit), dual_plateau_cap=float(dual_plateau_cap),
         feas_band_factor=float(feas_band_factor), check_every=int(check_every),
-        A_frag=mma_a_fragments(A_bar_t.T), P_frag=mma_a_fragments(P_pack_T.T),
+        A_frag=A_frag, P_frag=P_frag, A_stream=stream_fragments(A_frag, n, m),
+        P_stream=stream_fragments(P_frag, n + m, n),
     )
 
 
@@ -309,6 +334,7 @@ def solve_dcopf(spec: VecDCOPF, l, u, warm=None) -> DCOPFSolution:
     (:func:`~gym_anm_torch.vec.admm_cuda.solve_dcopf_cuda`, float32 only)
     for CUDA tensors, with no fallback between them.  Arguments and result
     as :func:`solve_dcopf_plain`."""
+    streamed = 0  # the lanes of a launch that took K5's streamed route
     with profiling.span("mpc.solve"):
         if not l.is_cuda:
             sol = solve_dcopf_plain(spec, l, u, warm)
@@ -317,8 +343,11 @@ def solve_dcopf(spec: VecDCOPF, l, u, warm=None) -> DCOPFSolution:
 
             if warm is None:
                 warm = init_warm(spec, l.shape[0])
+            before = solve_dcopf_cuda.launches["streamed"]
             sol = solve_dcopf_cuda(spec, l.contiguous(), u.contiguous(), tuple(w.contiguous() for w in warm))
+            streamed = l.shape[0] * (solve_dcopf_cuda.launches["streamed"] - before)
     profiling.count("admm.lanes", l.shape[0])
+    profiling.count("admm.streamed_lanes", streamed)
     profiling.count("admm.sweeps", sol.iterations)
     return sol
 

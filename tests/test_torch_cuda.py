@@ -617,29 +617,46 @@ def _admm_agree(dc, l, u, warm, max_diff=0):
     return sk, sp
 
 
-@pytest.mark.parametrize("B", [1, 7, 1001])
-def test_admm_kernel_on_ragged_batches(cuda, B):
+@pytest.mark.parametrize("N,B,max_iter", [pytest.param(1, B, 400, id=str(B)) for B in (1, 7, 1001)] +
+                         [pytest.param(8, B, 200, id=f"n168-{B}") for B in (1, 15, 16, 17, 129)] +
+                         [pytest.param(8, 16384, 48, id="n168-16384")])
+def test_admm_kernel_on_ragged_batches(cuda, N, B, max_iter):
     """Batches that fill no whole tile of 8 lanes (and many tiles, refilled):
-    the kernel's lanes against the plain version's, cold and then warm."""
+    the kernel's lanes against the plain version's, cold and then warm.  At
+    the MPC cell's shape (N = 8: n = 168, m = 312, the streamed route) also
+    batches about one consumer warp's 16 lanes and a few blocks' worth, at
+    the 200 sweeps of ``test_admm_kernel_matches_plain_version``'s N = 8,
+    and more lanes than the card's resident slots hold at once, at the
+    cell's budget of 48."""
+    from gym_anm_torch._build import load_library
     from gym_anm_torch.vec import make_anm6easy_task, mpc
 
-    dc, l, u = _dcopf_lanes(make_anm6easy_task(), 1, B, B, cuda, 400)
+    dc, l, u = _dcopf_lanes(make_anm6easy_task(), N, B, B, cuda, max_iter)
+    lanes = load_library().admm_stream_lanes(B, dc.n, dc.m)
+    assert (lanes > 0) == (N == 8)
+    if B == 16384:
+        assert lanes * torch.cuda.get_device_properties(cuda).multi_processor_count < B
     warm = mpc.init_warm(dc, B)
     for _ in range(2):
         sk, _ = _admm_agree(dc, l, u, warm, max_diff=B // 200)
         warm = sk.warm
 
 
-def test_admm_kernel_tile_with_lanes_exiting_at_different_checks(cuda):
+@pytest.mark.parametrize("N,sizes,max_iter", [(1, (8, 24), 4000), (8, (16, 48), 200)])
+def test_admm_kernel_tile_with_lanes_exiting_at_different_checks(cuda, N, sizes, max_iter):
     """One tile of 8 lanes: two crossed-bound lanes (exit at entry), lanes
     warm from their own solutions (exit at an early check) and cold lanes
-    (later checks), interleaved; then 24 such lanes so that slots refill."""
+    (later checks), interleaved; then 24 such lanes so that slots refill.  At
+    the MPC cell's shape (N = 8, streamed) one consumer warp's 16 lanes, then
+    48 in one block: its warps' lanes exit at different checks while the
+    block's other slots sweep on, to the 200 sweeps of N = 8 in
+    ``test_admm_kernel_matches_plain_version``."""
     from gym_anm_torch.vec import make_anm6easy_task, mpc
 
-    for B in (8, 24):
-        dc, l, u = _dcopf_lanes(make_anm6easy_task(), 1, B, 3, cuda, 4000)
+    for B in sizes:
+        dc, l, u = _dcopf_lanes(make_anm6easy_task(), N, B, 3, cuda, max_iter)
         cold = mpc.init_warm(dc, B)
-        solved = mpc.solve_dcopf_plain(dc, l, u, cold).warm
+        solved = mpc.solve_dcopf_plain(dc._replace(max_iter=4000), l, u, cold).warm  # converged warm starts
         lane = torch.arange(B, device=cuda)
         use_warm = (lane % 3 == 1)[:, None]
         warm = tuple(torch.where(use_warm, s, c).contiguous() for s, c in zip(solved, cold))
@@ -652,19 +669,53 @@ def test_admm_kernel_tile_with_lanes_exiting_at_different_checks(cuda):
         assert all(torch.equal(w[bad], c[bad]) for w, c in zip(sk.warm, warm))
 
 
-def test_admm_kernel_on_nan_bounds(cuda):
+@pytest.mark.parametrize("N", [1, 8])
+def test_admm_kernel_on_nan_bounds(cuda, N):
     """A NaN in a lane's bounds makes it unsolvable in both versions (no
-    sweep, warm start passed through), and the other lanes are untouched."""
+    sweep, warm start passed through), and the other lanes are untouched;
+    N = 8 on the streamed route."""
     from gym_anm_torch.vec import make_anm6easy_task, mpc
 
     B = 12
-    dc, l, u = _dcopf_lanes(make_anm6easy_task(), 1, B, 4, cuda, 400)
+    dc, l, u = _dcopf_lanes(make_anm6easy_task(), N, B, 4, cuda, 400)
     l, u = l.clone(), u.clone()
     l[2, 0] = float("nan")
     u[7, dc.m - 1] = float("nan")
     sk, sp = _admm_agree(dc, l, u, mpc.init_warm(dc, B))
     assert not bool(sk.bounds_ok[2]) and not bool(sk.bounds_ok[7]) and int(sk.bounds_ok.sum()) == B - 2
     assert torch.equal(torch.isinf(sk.r_prim), torch.isinf(sp.r_prim))
+
+
+@pytest.mark.parametrize("name,N", [("anm6easy", 1), ("anm6easy", 2), ("anm6easy", 8), ("anm6easy", 16),
+                                    ("ieee33_renewable", 1)])
+def test_admm_stream_plan_and_counter_on_the_card(cuda, name, N):
+    """K5's plan on this card equals ``admm_cuda.stream_lanes``' mirror of it
+    at batches from 1 to past a wave of resident slots; a launch counts its
+    route, and the tracer's ``admm.streamed_lanes`` reads the lanes of the
+    launches that streamed (all of them above N = 1, none at N = 1)."""
+    from gym_anm_torch._build import load_library
+    from gym_anm_torch.utils import profiling
+    from gym_anm_torch.vec import make_anm6easy_task, make_ieee33_renewable_task, mpc
+    from gym_anm_torch.vec.admm_cuda import solve_dcopf_cuda, stream_lanes
+
+    lib = load_library()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    task = {"anm6easy": make_anm6easy_task, "ieee33_renewable": make_ieee33_renewable_task}[name]()
+    B = 40
+    dc, l, u = _dcopf_lanes(task, N, B, 5, cuda, 48)
+    for b in (1, 15, 16, 129, 2113, 8192, 16384, 50000):
+        assert lib.admm_stream_lanes(b, dc.n, dc.m) == stream_lanes(b, dc.n, dc.m, sms, lib.gj_smem_limit_bytes())
+    streamed = lib.admm_stream_lanes(B, dc.n, dc.m) > 0
+    assert streamed == (N > 2 or name != "anm6easy")  # ANM6Easy's fragments fit in shared memory to N = 2
+    before = dict(solve_dcopf_cuda.launches)
+    with profiling.recording():
+        for _ in range(2):
+            sol = mpc.solve_dcopf(dc, l, u)
+    c = profiling.report()["counters"]
+    route = "streamed" if streamed else "staged"
+    assert solve_dcopf_cuda.launches[route] == before[route] + 2
+    assert c["admm.lanes"] == 2 * B and c["admm.streamed_lanes"] == (2 * B if streamed else 0)
+    assert c["admm.sweeps"] == 2 * int(sol.iterations.sum())
 
 
 # ----------------------------------------------------------------------

@@ -445,17 +445,86 @@ def test_mma_fragments_layout(R, K):
 @pytest.mark.parametrize("N", [1, 4])
 def test_vec_dcopf_carries_the_kernels_fragments(host_problem, N):
     """``make_vec_dcopf`` makes K5's fragment copies of Āᵀ and P_pack from the
-    working-dtype values, and their sizes are the kernel's (admm_cuda's
-    frag_count); a lane-sweep reads them from L2 only where the kernel does
-    not stage them, a warp's loads shared by its 8 lanes."""
-    from gym_anm_torch.vec.admm_cuda import frag_count, l2_bytes_per_lane_sweep
+    working-dtype values, in both orders (tiles for the staged route, groups
+    of tiles for the streamed one), and their sizes are the kernel's
+    (admm_cuda's frag_count); a lane-sweep reads them from L2 only where the
+    kernel does not stage them, one read shared by the lanes it serves."""
+    from gym_anm_torch.vec.admm_cuda import frag_count, l2_bytes_per_lane_sweep, stream_count
 
     dc = tm.make_vec_dcopf(host_problem(N)[0], dtype=torch.float32, device="cpu")
     assert torch.equal(dc.A_frag, tm.mma_a_fragments(dc.A_bar.T))
     assert torch.equal(dc.P_frag, tm.mma_a_fragments(dc.P_pack_T.T))
+    assert torch.equal(dc.A_stream, tm.stream_fragments(dc.A_frag, dc.n, dc.m))
+    assert torch.equal(dc.P_stream, tm.stream_fragments(dc.P_frag, dc.n + dc.m, dc.n))
     assert dc.A_frag.numel() + dc.P_frag.numel() == 2 * frag_count(dc.n, dc.m)
-    assert l2_bytes_per_lane_sweep(dc.n, dc.m, staged=True) == 0
-    assert l2_bytes_per_lane_sweep(dc.n, dc.m, staged=False) == 2 * frag_count(dc.n, dc.m)
+    assert dc.A_stream.numel() + dc.P_stream.numel() == 2 * stream_count(dc.n, dc.m) >= 2 * frag_count(dc.n, dc.m)
+    assert l2_bytes_per_lane_sweep(dc.n, dc.m, 0) == 0
+    assert l2_bytes_per_lane_sweep(dc.n, dc.m, 16) == stream_count(dc.n, dc.m)  # one warp's 16 lanes
+
+
+def _unpack_stream(stream, R, K):
+    """The padded [16 ceil(R/16), 4 chunks] float64 matrix that a stream of
+    fragments holds (groups of STREAM_TILES row tiles, [k-chunk][tile][32,
+    2], the chunks padded to a multiple of STREAM_CHUNKS), by the m16n8k4 A
+    operand's map: entry [c, q, l, h] of a group from row tile r0 is
+    M[16 (r0 + q) + 8 h + l // 4, 4 c + l % 4]."""
+    RT, KC = -(-R // 16), -(-K // 4)
+    KP = -(-KC // tm.STREAM_CHUNKS) * tm.STREAM_CHUNKS
+    M = torch.full((16 * RT, 4 * KP), float("nan"), dtype=torch.float64)
+    lane, h = torch.arange(32)[:, None], torch.arange(2)[None, :]
+    pos = 0
+    for r0 in range(0, RT, tm.STREAM_TILES):
+        nq = min(tm.STREAM_TILES, RT - r0)
+        blk = stream[pos:pos + KP * nq * 64].reshape(KP, nq, 32, 2)
+        pos += KP * nq * 64
+        for c in range(KP):
+            for q in range(nq):
+                M[16 * (r0 + q) + 8 * h + lane // 4, 4 * c + lane % 4] = blk[c, q]
+    assert pos == stream.numel()
+    return M
+
+
+@pytest.mark.parametrize("N", [1, 8])
+def test_stream_fragments_unpack_to_the_matrices(host_problem, N):
+    """K5's streamed copies unpack to Āᵀ [n, m] and P_pack [n+m, n] bit for
+    bit (the float32 values as float64), zeros in the padding (rows to
+    whole tiles, k-chunks to whole stages), every entry written once; a
+    group's k-chunks are consecutive, so a ring stage of them is one
+    contiguous copy.  N = 8 is the MPC cell's shape, whose chunks (78, 42)
+    fill whole stages."""
+    dc = tm.make_vec_dcopf(host_problem(N)[0], dtype=torch.float32, device="cpu")
+    n, m = dc.n, dc.m
+    for stream, M in ((dc.A_stream, dc.A_bar.T), (dc.P_stream, dc.P_pack_T.T)):
+        U = _unpack_stream(stream, *M.shape)
+        assert not U.isnan().any()
+        assert torch.equal(U[:M.shape[0], :M.shape[1]], M.double())
+        pad = torch.ones_like(U, dtype=torch.bool)
+        pad[:M.shape[0], :M.shape[1]] = False
+        assert not U[pad].any()
+    if N == 8:
+        assert (n, m) == (168, 312) and dc.A_stream.numel() == dc.A_frag.numel()
+        assert dc.P_stream.numel() == dc.P_frag.numel()
+
+
+@pytest.mark.parametrize("N,B,warps,lanes", [(1, 8192, 0, 0), (1, 16384, 0, 0), (8, 16384, 4, 64), (8, 8192, 4, 64),
+                                              (8, 1, 1, 16), (8, 129, 1, 16), (8, 2113, 2, 32), (16, 16384, 3, 48)])
+def test_k5_route_and_l2_bytes(host_problem, N, B, warps, lanes):
+    """K5's route and its L2 bytes on an H100 (132 SMs, 232,448 bytes of
+    shared memory a block), from the pure mirror of the kernel's plan
+    (the card tests hold it against the C query): ANM6Easy N = 1 stages its
+    fragments (0 bytes from L2); the MPC cell's N = 8 streams them through 4
+    consumer warps at B = 16384 (64 lanes a read: 16,944 bytes a lane-sweep
+    against 135,552 for a warp's 8 on the tile design); a small batch takes fewer warps a
+    block, so it spreads over the SMs; N = 16 fits 3 warps' operands."""
+    from gym_anm_torch.vec.admm_cuda import frag_count, l2_bytes_per_lane_sweep, stream_count, stream_lanes
+
+    dc = tm.make_vec_dcopf(host_problem(N)[0], dtype=torch.float32, device="cpu")
+    n, m = dc.n, dc.m
+    assert stream_lanes(B, n, m) == lanes == 16 * warps
+    l2 = l2_bytes_per_lane_sweep(n, m, lanes)
+    assert l2 == (16 * stream_count(n, m) // lanes if lanes else 0)
+    if (N, B) == (8, 16384):
+        assert l2 == 16944 and 16 * frag_count(n, m) // 8 == 135552  # the tile design: a warp's read for 8 lanes
 
 
 def test_cold_warm_tuple_shapes(host_problem):

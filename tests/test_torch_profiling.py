@@ -187,6 +187,7 @@ def test_counters_equal_sums_by_hand(monkeypatch, chord_iterations):
     assert c["newton.lane_iterations"] == sum(int((nr.n_iter - ch[3]).sum()) for ch, nr in zip(chords, nrs))
     assert c["loadflow.unstable_lanes"] == sum(int((~nr.stable).sum()) for nr in nrs)
     assert c["admm.lanes"] == 2 * 16 and c["admm.sweeps"] == sum(int(it.sum()) for it in seen["admm"])
+    assert c["admm.streamed_lanes"] == 0  # the plain solve on the CPU streams nothing
     assert c["reset.lanes"] >= 16 and c["reset.attempts"] >= 1  # the MPC cell's own reset
     if chord_iterations:
         assert c["newton.lanes"] > 0
