@@ -30,7 +30,7 @@ def readings(spec, workload, seed, seconds, device="cuda", batch=None):
     del loop
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
-    ref = check.Reference(measured.config, measured.traffic)
+    ref = check.Reference(measured.config, measured.traffic, spec.bench_dir)
     prog, _ = check.judge(ref, steps, {})
     ctrl, _ = check.judge(ref, check.control_steps(ref, steps), {})
     return prog, ctrl, measured

@@ -10,6 +10,7 @@ into the checkout's ``build/kernels/`` by the first run there, and every
 shape the window uses is warmed up before it opens.
 """
 
+import dataclasses
 import statistics
 import time
 from contextlib import contextmanager
@@ -25,15 +26,34 @@ class Run:
         self.__dict__.update(kw)
 
 
+class Draws:
+    """A task's ``next_vars_fn``, which keeps the exogenous vector a step
+    drew while ``keep`` is set (a checked step) and otherwise holds nothing."""
+
+    def __init__(self, next_vars_fn):
+        self.next_vars_fn, self.keep, self.drawn = next_vars_fn, False, None
+
+    def __call__(self, generator, s_t, carry, t):
+        out, carry = self.next_vars_fn(generator, s_t, carry, t)
+        if self.keep:
+            self.drawn = out
+        return out, carry
+
+    def take(self):
+        drawn, self.drawn, self.keep = self.drawn, None, False
+        return drawn
+
+
 def _task(config):
     from gym_anm_torch.vec import tasks
 
-    return getattr(tasks, config["task"])()
+    task = getattr(tasks, config["task"])()
+    return dataclasses.replace(task, next_vars_fn=Draws(task.next_vars_fn))
 
 
 def make_cell(config, traffic, seed, device, batch=None):
     """(env, generator, act, the controller's initial carry or None, step
-    function, batch) of a cell."""
+    function, batch) of a cell.  The env's task draws through :class:`Draws`."""
     from gym_anm_torch.vec import VecEnv
 
     dtype = getattr(torch, config["dtype"])
@@ -71,11 +91,21 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
-def snapshot(state_in, carry_in, action, state_out, obs, reward, done):
-    """The tensors of one step that the check reads (views, no copy)."""
+def _leaves(tree):
+    """The tensors of a carry (tensor, tuple or NamedTuple of carries, or
+    ``()``) in tree order."""
+    return [tree] if torch.is_tensor(tree) else [x for t in tree for x in _leaves(t)]
+
+
+def snapshot(state_in, carry_in, action, drawn, state_out, obs, reward, done):
+    """The tensors of one step that the check reads (views, no copy):
+    ``drawn`` is the exogenous vector the step's ``next_vars_fn`` returned."""
     snap = dict(action=action, soc_in=state_in.soc, aux_in=state_in.aux, terminated_in=state_in.terminated,
-                t_in=state_in.t, obs=obs, reward=reward, done=done, vm=state_out.bus_vm, vguess=state_out.v_guess,
-                t_out=state_out.t, terminated_out=state_out.terminated, aux_out=state_out.aux, soc_out=state_out.soc)
+                t_in=state_in.t, draw=drawn, obs=obs, reward=reward, done=done, vm=state_out.bus_vm,
+                vguess=state_out.v_guess, t_out=state_out.t, terminated_out=state_out.terminated, aux_out=state_out.aux,
+                soc_out=state_out.soc, tap_out=state_out.oltc_tap)
+    snap.update({f"task_in{i}": x for i, x in enumerate(_leaves(state_in.task))})
+    snap.update({f"task_out{i}": x for i, x in enumerate(_leaves(state_out.task))})
     if carry_in is not None:
         snap.update({f"warm{i}": w for i, w in enumerate(carry_in)})
     return snap
@@ -89,6 +119,7 @@ class Loop:
 
     def __init__(self, env, gen, act, init, step, B):
         self.env, self.gen, self.act, self.step_fn, self.B = env, gen, act, step, B
+        self.draws = env.task.next_vars_fn
         self.state, self.obs = env.reset(B, gen)
         self.carry = init(B) if init is not None else None
         self.captures, self.slots = [], []
@@ -108,9 +139,10 @@ class Loop:
         action, new_carry = self.act(state, obs, carry)
         if act_events is not None:
             act_events[1].record()
+        self.draws.keep = capture
         new_state, new_obs, reward, done, info = self.step_fn(state, action, self.gen)
         if capture:
-            snap = snapshot(state, carry, action, new_state, new_obs, reward, done)
+            snap = snapshot(state, carry, action, self.draws.take(), new_state, new_obs, reward, done)
             buf = self.slots.pop(0) if self.slots else self._buffers(snap)
             for k, v in snap.items():
                 buf[k].copy_(v, non_blocking=self.pinned)

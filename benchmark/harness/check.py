@@ -1,13 +1,19 @@
 """Whether the timed path's answers are right: the checked steps against the
 plain float64 reference of :mod:`reference`.
 
-Each checked step's inputs (the action, the carried SoC, time index and
-termination, and for the MPC controller its carried ADMM state) and its
-answers (the observation, reward, done, the new state's bus voltages) are
-read off the program's structures once the window has closed.  The
-reference works out the answers again from the inputs alone, lanes in
-blocks; each number compared is the widest gap over every checked lane of
-every checked step, held against the cell's limit.
+Each checked step's inputs (the action, the carried SoC, time index,
+termination, aux and task carry, the exogenous draw, and for the MPC
+controller its carried ADMM state) and its answers (the observation, reward,
+done, the new state's bus voltages, aux and task carry) are read off the
+program's structures once the window has closed.  The reference works out
+the answers again from the inputs alone, lanes in blocks; each number
+compared is the widest gap over every checked lane of every checked step,
+held against the cell's limit.
+
+What is exogenous to the grid (the loads, the generation potentials, the
+aux and the task carry, and a fresh start's rule) is the configuration's
+``reference.exogenous`` kind: a rule file of its own,
+``reference/exogenous/<kind>.py`` (see that package's docstring).
 
 The first checked steps run in a row from the reset ("chained"): there the
 reference carries its own controller state from the cold start, so the
@@ -19,25 +25,34 @@ lane.
 """
 
 import math
+from pathlib import Path
 
 import torch
 
 from reference import dcopf, grid
 
+from .spec import BENCH_DIR, load_file
+
 BLOCK = 32768
 
 
-class Reference:
-    """The configuration's reference network, task constants and, for an
-    MPC cell, its DC-OPF."""
+def exogenous_rule(kind, bench_dir=BENCH_DIR):
+    """The module of ``reference/exogenous/<kind>.py`` under ``bench_dir``."""
+    return load_file(Path(bench_dir) / "reference" / "exogenous" / f"{kind}.py", f"bench_exogenous_{kind}")
 
-    def __init__(self, config, traffic):
+
+class Reference:
+    """The configuration's reference network, task constants, exogenous rule
+    and, for an MPC cell, its DC-OPF; the network file and the rule are read
+    from ``bench_dir``."""
+
+    def __init__(self, config, traffic, bench_dir=BENCH_DIR):
         ref = config["reference"]
-        self.net, self.raw = grid.load(ref["network"])
+        self.net, self.raw = grid.load(ref["network"], Path(bench_dir) / "reference")
         c1, c2 = ref["costs_clipping"]
         self.task = dict(delta_t=ref["delta_t"], gamma=ref["gamma"], lamb=ref["lamb"],
                          costs_clipping=(math.inf if c1 is None else c1, math.inf if c2 is None else c2))
-        self.exogenous = ref["exogenous"]
+        self.rule = exogenous_rule(ref["exogenous"], bench_dir)
         self.autoreset = traffic["autoreset"]
         self.lo, self.hi = dcopf.action_box(self.net)
         pol = traffic["policy"]
@@ -49,18 +64,6 @@ class Reference:
     def profiles(self, device):
         return (torch.tensor(self.raw["load_profiles_mw"], dtype=torch.float64, device=device),
                 torch.tensor(self.raw["gen_profiles_mw"], dtype=torch.float64, device=device))
-
-    def exo(self, aux_in):
-        """(P_load, P_pot MW, aux) of a step from the carried aux [B, K]."""
-        B, dev = aux_in.shape[0], aux_in.device
-        net = self.net
-        if self.exogenous == "zeros":
-            z = torch.zeros(B, 0, dtype=torch.float64, device=dev)
-            return (torch.zeros(B, len(net.loads), dtype=torch.float64, device=dev),
-                    torch.zeros(B, len(net.gens), dtype=torch.float64, device=dev), z)
-        loads, gens = self.profiles(dev)
-        t = torch.remainder(aux_in[:, -1] + 1, loads.shape[1]).long()
-        return loads[:, t].T, gens[:, t].T, t.double().unsqueeze(1)
 
     def act(self, warm, aux_in, soc_in, precision="f64"):
         """(action, the state to carry) from the carried state ``warm``, or
@@ -76,18 +79,22 @@ class Reference:
 
 
 def observe(snap, chained, device):
-    """A checked step (a :func:`harness.cell.snapshot`'s copy) as float64
-    tensors on ``device``: its inputs and answers.  A chained step's
-    controller state is the reference's own, so the program's is dropped."""
+    """A checked step (a :func:`harness.cell.snapshot`'s copy) as tensors on
+    ``device``: its inputs and answers, in float64 but for the flags, the
+    step counters and the task carry's leaves (kept in their own dtype).  A
+    chained step's controller state is the reference's own, so the program's
+    is dropped."""
     g = lambda k: snap[k].to(device)  # noqa: E731
     f = lambda k: g(k).double()  # noqa: E731
     warm = None
     if "warm0" in snap and not chained:
         warm = tuple(f(f"warm{i}") for i in range(4))
+    leaves = lambda side: tuple(g(f"{side}{i}") for i in range(sum(k.startswith(side) for k in snap)))  # noqa: E731
     return dict(action=f("action"), soc_in=f("soc_in"), aux_in=f("aux_in"), terminated_in=g("terminated_in"),
-                t_in=g("t_in").long(), warm=warm, chained=chained, obs=f("obs"), reward=f("reward"), done=g("done"),
-                vm=f("vm"), vguess=f("vguess"), t_out=g("t_out").long(), terminated_out=g("terminated_out"),
-                aux_out=f("aux_out"), soc_out=f("soc_out"))
+                t_in=g("t_in").long(), task_in=leaves("task_in"), draw=f("draw"), warm=warm, chained=chained,
+                obs=f("obs"), reward=f("reward"), done=g("done"), vm=f("vm"), vguess=f("vguess"),
+                t_out=g("t_out").long(), terminated_out=g("terminated_out"), aux_out=f("aux_out"),
+                soc_out=f("soc_out"), tap_out=f("tap_out"), task_out=leaves("task_out"))
 
 
 def _lanes(d, sl):
@@ -130,7 +137,7 @@ def compare(ref, d, gaps, precision="f64"):
         gap = (d["action"] - a_ref).abs().amax(1)
         gaps.take("action_gap_mw", gap.max())
         per_lane |= ~(gap <= gaps.limits.get("action_gap_mw", math.inf))
-    P_load, P_pot, aux = ref.exo(d["aux_in"])
+    P_load, P_pot, aux = ref.rule.inputs(ref, d)
     out = grid.step(net, ref.task, dict(soc=d["soc_in"], terminated=d["terminated_in"]), d["action"],
                     P_load, P_pot, aux, precision)
     # done and the reward are the step's own on every lane; a lane the program reset
@@ -156,7 +163,7 @@ def compare(ref, d, gaps, precision="f64"):
     gaps.take("obs_gap", _wmax(obs_gap, keep))
     gaps.take("reward_gap", _wmax(r_gap, r_seen))
     bad_state = keep & ((d["t_out"] != d["t_in"] + 1) | (d["terminated_out"] != out["done"])
-                        | (d["aux_out"] != aux).any(1))
+                        | ref.rule.carry_flips(ref, d, aux))
     if reset.any():
         bad_state |= _bad_reset(ref, d, reset, gaps)
     gaps.take("state_flips", gaps.g["state_flips"] + int(bad_state.sum()))
@@ -169,44 +176,11 @@ def compare(ref, d, gaps, precision="f64"):
     return carry
 
 
-FRESH = ("obs", "vm", "t_out", "terminated_out", "aux_out", "soc_out")  # what a reset lane reports of its fresh start
-
-
 def _bad_reset(ref, d, reset, gaps):
-    """A lane reset in place: a fresh start at time 0 of the day's profile
-    index it reports, its SoC inside its bounds, and its load flow and
-    observation those of the device set-points it reports."""
-    net = ref.net
-    if ref.exogenous == "zeros":
-        raise NotImplementedError("a reset under a static task is not checked")
+    """The lanes reset in place that the exogenous rule finds no fresh start."""
     idx = torch.nonzero(reset).squeeze(1)
-    r = {k: d[k][idx] for k in FRESH}
-    aux = r["aux_out"][:, -1]
-    loads, gens = ref.profiles(aux.device)
-    T = loads.shape[1]
-    bad = (r["t_out"] != 0) | r["terminated_out"] | (aux != aux.round()) | (aux < 0) | (aux >= T)
-    soc_lo = torch.as_tensor(net.soc_min[net.des], device=aux.device)
-    soc_hi = torch.as_tensor(net.soc_max[net.des], device=aux.device)
-    bad |= ((r["soc_out"] < soc_lo - 1e-6) | (r["soc_out"] > soc_hi + 1e-6)).any(1)
-    t = aux.clamp(0, T - 1).long()
-    nd, base = net.n_dev, net.baseMVA
-    obs = r["obs"]
-    P, Q = obs[:, :nd], obs[:, nd:2 * nd]
-    g, s = net.gens, net.des
-    action = torch.cat([P[:, g], Q[:, g], P[:, s], Q[:, s], Q[:, net.caps],
-                        torch.ones(len(idx), len(net.oltcs), dtype=torch.float64, device=aux.device)], 1)
-    # The reset's projection reads the SoC seeded empty or full by the sign of the set-point.
-    soc_seed = torch.where(P[:, s] <= 0, soc_lo, soc_hi)
-    out = grid.step(net, ref.task, dict(soc=soc_seed, terminated=torch.zeros_like(bad)), action,
-                    loads[:, t].T, gens[:, t].T, aux.unsqueeze(1))
-    vm_ref = torch.complex(out["v_re"], out["v_im"]).abs()
-    gaps.take("vm_gap", (r["vm"] - vm_ref).abs().amax())
-    cols = [k for k in range(obs.shape[1]) if not (2 * nd <= k < 2 * nd + len(s))]  # the drawn SoC is not a flow result
-    o_gap = ((obs[:, cols] - out["obs"][:, cols]).abs() / (1.0 + out["obs"][:, cols].abs())).amax(1)
-    gaps.take("obs_gap", o_gap.max())
-    bad |= out["done"]
     full = torch.zeros_like(reset)
-    full[idx] = bad
+    full[idx] = ref.rule.fresh_start(ref, _lanes(d, idx), gaps)
     return full
 
 
@@ -246,7 +220,7 @@ def control_steps(ref, steps):
         parts = []
         for lo in range(0, c["action"].shape[0], BLOCK):
             sl = slice(lo, lo + BLOCK)
-            P_load, P_pot, aux = ref.exo(d["aux_in"][sl])
+            P_load, P_pot, aux = ref.rule.inputs(ref, _lanes(d, sl))
             o = grid.step(ref.net, ref.task, dict(soc=d["soc_in"][sl], terminated=d["terminated_in"][sl]),
                           c["action"][sl], P_load, P_pot, aux, "tf32")
             parts.append((o, aux))

@@ -66,7 +66,7 @@ def measure(spec, workload, seed, seconds, trace, t0, device="cuda", batch=None)
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
     limits = spec.limits(workload)
-    ref = check.Reference(run.config, run.traffic)
+    ref = check.Reference(run.config, run.traffic, spec.bench_dir)
     t_check = time.perf_counter()
     readings, failed = check.judge(ref, steps, limits)
     log(f"check: {len(steps)} steps of {run.batch} lanes ({run.chained} chained from the reset), "

@@ -9,7 +9,10 @@ of them is a file of its own under ``benchmark/``, found by that name:
   :mod:`harness.cell`'s one generator reads;
 * a metric: ``metrics/<name>.py``, whose ``read(run)`` returns the value or
   None where the run holds nothing to read;
-* a cell's correctness limits: ``limits/<workload>.json``.
+* a cell's correctness limits: ``limits/<workload>.json``;
+* a configuration's exogenous rule (its loads, generation potentials, aux,
+  task carry and fresh start): ``reference/exogenous/<kind>.py``, the kind
+  its ``reference.exogenous`` names (:mod:`harness.check`).
 
 Adding a cell or a metric adds files and entries and edits none.
 """
@@ -62,8 +65,15 @@ class Spec:
 
     def reader(self, metric_name):
         """The ``read`` function of ``metrics/<metric_name>.py``."""
-        path = self.bench_dir / "metrics" / f"{metric_name}.py"
-        spec = importlib.util.spec_from_file_location(f"bench_metric_{metric_name.replace('.', '_')}", path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod.read
+        return load_file(self.bench_dir / "metrics" / f"{metric_name}.py",
+                         f"bench_metric_{metric_name.replace('.', '_')}").read
+
+
+def load_file(path, module_name):
+    """The module of the file ``path``, loaded under ``module_name``."""
+    if not Path(path).is_file():
+        raise FileNotFoundError(f"no file {path}")
+    spec = importlib.util.spec_from_file_location(module_name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod

@@ -123,9 +123,10 @@ class Network:
                                         q_max[self.gens] * base])
 
 
-def load(name):
-    """(Network, the file's other tables) of ``<name>_network.json``."""
-    raw = json.loads((HERE / f"{name}_network.json").read_text())
+def load(name, directory=HERE):
+    """(Network, the file's other tables) of ``<name>_network.json`` in
+    ``directory``."""
+    raw = json.loads((Path(directory) / f"{name}_network.json").read_text())
     return Network(raw["network"]), raw
 
 

@@ -45,7 +45,7 @@ def test_a_run_loads_no_jax():
             "import torch; torch.set_num_threads(2)\n"
             "from harness import cell, cli\nfrom harness.spec import Spec\n"
             "cell.check_steps = lambda traffic, seed: {0}\n"
-            "cli.measure(Spec(), 'anm6easy-mpc8-b16384', 5, 0.2, 1, time.perf_counter(), device='cpu', batch=8)")
+            "cli.measure(Spec(), 'anm6easy-mpc8-b65536', 5, 0.2, 1, time.perf_counter(), device='cpu', batch=8)")
     assert guard.loaded(modules=_modules_after(code)) == []
 
 
@@ -77,7 +77,7 @@ def test_k5_counts_by_hand():
 
 
 def test_dcopf_shapes_at_eight_stages():
-    ref, _ = steps_of("anm6easy-mpc8-b16384", 2, n_steps=1)
+    ref, _ = steps_of("anm6easy-mpc8-b65536", 2, n_steps=1)
     assert (ref.lp.n, ref.lp.m) == (168, 312)
 
 
@@ -120,7 +120,7 @@ def test_result_line(monkeypatch):
     assert list(result)[-1] == "compared" and result["correct"] is True and result["failed"] == 0
     assert set(result["metrics"]) == {"env_steps_per_s", "setup_s"}  # a CPU run has no device readings
     assert all(set(v) == {"value", "limit"} for v in compared.values())
-    traced = measure(monkeypatch, "anm6easy-mpc8-b16384", 8, trace=1)
+    traced = measure(monkeypatch, "anm6easy-mpc8-b65536", 8, trace=1)
     assert "breakdown" in traced and "busy_s" in traced["device"]
     assert "host_ms_per_step" in traced["metrics"] and "env_steps_per_s" not in traced["metrics"]
 
@@ -188,7 +188,7 @@ def _false_done(orig):
 
 
 @pytest.mark.parametrize("fault", [_unchanged, _half_batch, _altered, _false_done])
-@pytest.mark.parametrize("workload", ["ieee33-rollout-b262144", "anm6easy-mpc8-b16384"])
+@pytest.mark.parametrize("workload", ["ieee33-rollout-b262144", "anm6easy-mpc8-b65536"])
 def test_a_faulty_step_is_not_correct(monkeypatch, fault, workload):
     from gym_anm_torch.vec.core import VecEnv
 
@@ -197,7 +197,7 @@ def test_a_faulty_step_is_not_correct(monkeypatch, fault, workload):
     assert result["correct"] is False and result["failed"] > 0
     if fault is _false_done:
         assert result["compared"]["done_flips"]["value"] > 0
-        if workload == "anm6easy-mpc8-b16384":  # the autoreset reset every lane it was told was done
+        if workload == "anm6easy-mpc8-b65536":  # the autoreset reset every lane it was told was done
             assert result["checked"]["reset_lanes"] >= result["checked"]["steps"]
 
 
@@ -223,7 +223,7 @@ def test_a_faulty_controller_carry_is_not_correct(monkeypatch, fault):
     """The steps chained from the reset hold the controller's carried ADMM
     state to the reference's own."""
     fault(monkeypatch)
-    result = measure(monkeypatch, "anm6easy-mpc8-b16384", 16)
+    result = measure(monkeypatch, "anm6easy-mpc8-b65536", 16)
     assert result["correct"] is False and result["compared"]["action_gap_mw"]["value"] > 0.5, result["compared"]
 
 
@@ -241,7 +241,7 @@ def test_an_altered_action_is_not_correct(monkeypatch):
         return sol._replace(x=x)
 
     monkeypatch.setattr(mpc, "solve_dcopf", solve)
-    result = measure(monkeypatch, "anm6easy-mpc8-b16384", 16)
+    result = measure(monkeypatch, "anm6easy-mpc8-b65536", 16)
     assert result["correct"] is False and result["compared"]["action_gap_mw"]["value"] > 0.4
 
 

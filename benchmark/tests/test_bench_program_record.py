@@ -12,7 +12,7 @@ SPAN_METRICS = ["env_ms_per_step", "transition_pre_ms_per_step", "transition_pos
 COUNTER_METRICS = {"chord_iters_per_lane": ("chord.lane_iterations", "chord.lanes", 1.0),
                    "fallback_lane_pct": ("newton.lanes", "chord.lanes", 100.0),
                    "admm_sweeps_per_lane": ("admm.sweeps", "admm.lanes", 1.0)}
-CELLS = {"ieee33-rollout-b262144": (16, 5), "anm6easy-mpc8-b16384": (8, 7)}
+CELLS = {"ieee33-rollout-b262144": (16, 5), "anm6easy-mpc8-b65536": (8, 7)}
 
 
 def test_readers_found_by_name():

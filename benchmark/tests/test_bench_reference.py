@@ -32,7 +32,7 @@ def test_ieee33_step_float64():
 def test_anm6easy_projections_and_storage_float64():
     """Uniform actions over ANM6Easy's box: the generators' and the storage
     unit's set-points land outside their polygons and are projected."""
-    ref, steps = steps_of("anm6easy-mpc8-b16384", 64, dtype="float64",
+    ref, steps = steps_of("anm6easy-mpc8-b65536", 64, dtype="float64",
                           traffic={"policy": {"kind": "uniform"}, "autoreset": False})
     g = _readings(ref, steps)
     assert g["done_flips"] == 0 and g["state_flips"] == 0
@@ -50,7 +50,7 @@ def test_anm6easy_projections_and_storage_float64():
 def test_anm6easy_reset_lanes_are_checked():
     """Uniform actions collapse ANM6Easy lanes; the autoreset's fresh lanes
     pass the reset check and the other lanes the step's."""
-    ref, steps = steps_of("anm6easy-mpc8-b16384", 64, n_steps=12, dtype="float32",
+    ref, steps = steps_of("anm6easy-mpc8-b65536", 64, n_steps=12, dtype="float32",
                           traffic={"policy": {"kind": "uniform"}, "autoreset": True}, seed=7)
     resets = sum(int(d["done"].sum()) for d in steps)
     assert resets > 0, "no lane was reset"
@@ -65,7 +65,7 @@ def test_mpc_action_float64(chained):
     """The port's plain ADMM at float64 against the reference's iteration:
     from the port's own carried state, or (chained) from the reference's own
     state carried from the cold start."""
-    ref, steps = steps_of("anm6easy-mpc8-b16384", 16, dtype="float64", chained=chained)
+    ref, steps = steps_of("anm6easy-mpc8-b65536", 16, dtype="float64", chained=chained)
     g = _readings(ref, steps)
     assert g["action_gap_mw"] < 1e-6
     assert g["done_flips"] == 0 and g["state_flips"] == 0 and g["vm_gap"] < V_TOL
