@@ -445,7 +445,9 @@ def transition(
             if tb.gen_project is not None:
                 p_pot = torch.clamp(P_pot / tb.baseMVA, tb.gen_p_min, tb.gen_p_max)
                 pt = torch.stack([P_set_gen, Q_set_gen], dim=-1) / tb.baseMVA
-                proj = tb.gen_project(pt, tb.gen_p_lo_row, torch.minimum(tb.gen_p_hi_row, p_pot))
+                with profiling.span("transition.project"):
+                    proj = tb.gen_project(pt, tb.gen_p_lo_row, torch.minimum(tb.gen_p_hi_row, p_pot))
+                profiling.count("project.points", pt.shape[0] * pt.shape[1])
                 p_g, q_g = proj[..., 0], proj[..., 1]
             else:
                 p_pot = p_g = empty
@@ -456,7 +458,9 @@ def transition(
                 p_lo = torch.maximum(tb.des_p_lo_row, (soc - tb.des_soc_max) / (tb.delta_t * tb.des_eff))
                 p_hi = torch.minimum(tb.des_p_hi_row, tb.des_eff * (soc - tb.des_soc_min) / tb.delta_t)
                 pt = torch.stack([P_set_des, Q_set_des], dim=-1) / tb.baseMVA
-                proj = tb.des_project(pt, p_lo, p_hi)
+                with profiling.span("transition.project"):
+                    proj = tb.des_project(pt, p_lo, p_hi)
+                profiling.count("project.points", pt.shape[0] * pt.shape[1])
                 p_d, q_d = proj[..., 0], proj[..., 1]
                 # charging (p <= 0): soc -= Δt·η·p; discharging: soc -= Δt·p/η
                 delta = torch.where(p_d <= 0, tb.delta_t * tb.des_eff * p_d, tb.delta_t * p_d / tb.des_eff)

@@ -27,7 +27,8 @@ transition_mod = importlib.import_module("gym_anm_torch.physics.transition")  # 
 
 LOAD_FLOW = {"transition.devices", "chord", "newton", "transition.flows"}
 IEEE33_PARENTS = {"env.step": [None], "transition": ["env.step"], **{s: ["transition"] for s in LOAD_FLOW}}
-MPC_PARENTS = {**IEEE33_PARENTS, "mpc.act": [None], "mpc.solve": ["mpc.act"], "env.autoreset": [None]}
+MPC_PARENTS = {**IEEE33_PARENTS, "mpc.act": [None], "mpc.solve": ["mpc.act"], "env.autoreset": [None],
+               "transition.project": ["transition.devices"]}
 
 
 @pytest.fixture(autouse=True)
@@ -194,6 +195,28 @@ def test_counters_equal_sums_by_hand(monkeypatch, chord_iterations):
     else:
         assert c["newton.lanes"] == 0
         assert all(torch.equal(n.long(), ch[3].long()) for n, ch in zip(n_iter, chords))
+
+
+def test_projected_points_equal_the_lanes_times_the_devices():
+    """ANM6Easy projects its two generators and its storage unit in two
+    ``transition.project`` spans a transition: ``project.points`` is the lanes
+    times the three devices; IEEE33 has no such device and records neither."""
+    env = VecEnv(make_anm6easy_task(), dtype=torch.float32, device="cpu")
+    g = torch.Generator().manual_seed(5)
+    state, _ = env.reset(16, g)
+    action = env.action_low + torch.rand(16, env.n_action, generator=g) * (env.action_high - env.action_low)
+    with profiling.recording():
+        for _ in range(3):
+            state, _, _, _, _ = env.step(state, action, g)
+    rep = profiling.report()
+    assert rep["counters"]["project.points"] == 3 * 16 * 3
+    assert rep["spans"]["transition.project"]["count"] == 3 * 2
+    assert rep["spans"]["transition.project"]["parents"] == ["transition.devices"]
+    env, state, action = ieee33(B=8)
+    with profiling.recording():
+        ieee33_steps(env, state, action, 1)
+    rep = profiling.report()
+    assert "transition.project" not in rep["spans"] and "project.points" not in rep["counters"]
 
 
 def test_reset_lanes_and_reads_equal_a_hand_loop():

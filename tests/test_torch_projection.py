@@ -1,15 +1,19 @@
 """gym_anm_torch's set-point projections and the transition with generators
 and storage, against gym_anm_tpu on the same numpy-made inputs: the box +
 sloped-line projector against the JAX package's and against the candidate
-enumeration oracle ``project_polytope_2d``, the tables carried over from
-JAX, and the float64 transition on the multicap network (5 generators, 6
+enumeration oracle ``project_polytope_2d``, against its line-by-line form
+(``projection_lines``) bit for bit, its op count a call, the tables carried
+over from JAX, and the float64 transition on the multicap network (5 generators, 6
 capacitors) and on ANM6 (storage)."""
+
+import importlib
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from gym_anm_torch.convert import tables_from_jax
 from gym_anm_torch.networks import anm6_network, create_multi_capacitor_network
@@ -17,6 +21,10 @@ from gym_anm_torch.physics.transition import make_tables, transition
 from gym_anm_torch.specs import load_network
 from gym_anm_tpu.physics import project_polytope_2d
 from gym_anm_tpu.physics.transition import make_tables as j_make_tables, transition as j_transition
+
+from . import projection_lines
+
+transition_module = importlib.import_module("gym_anm_torch.physics.transition")  # the name is shadowed by the function
 
 torch.set_num_threads(2)
 
@@ -107,6 +115,79 @@ def test_tables_from_jax_rebuild_projectors(both64):
         lo, hi = getattr(ttb, f"{fam}_p_lo_row"), getattr(ttb, f"{fam}_p_hi_row")
         torch.testing.assert_close(getattr(ctb, f"{fam}_project")(pts, lo, hi),
                                    getattr(ttb, f"{fam}_project")(pts, lo, hi), rtol=0, atol=0)
+
+
+def _bits(x):
+    return x.view(torch.int64 if x.dtype == torch.float64 else torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_projector_equals_the_line_by_line_form_bit_for_bit(both64, dtype, monkeypatch):
+    """Every family's projector against ``projection_lines`` bound to the
+    same rows: equal bits (NaN for NaN) on points inside and outside, on
+    the static p rows and on per-lane bounds, crossed bounds, exact ties,
+    zeros, NaN and inf among them."""
+    name, spec, _, _ = both64
+    delta_t = NETWORKS[name][1]
+    tb = make_tables(spec, delta_t, 100, dtype=dtype, device="cpu")
+    monkeypatch.setattr(transition_module, "make_box_slopes_projector", projection_lines.make_box_slopes_projector)
+    lines_tb = make_tables(spec, delta_t, 100, dtype=dtype, device="cpu")
+    rng = np.random.default_rng(7)
+    for fam in ("gen", "des"):
+        project, reference = getattr(tb, f"{fam}_project"), getattr(lines_tb, f"{fam}_project")
+        if project is None:
+            continue
+        lo_row, hi_row = getattr(tb, f"{fam}_p_lo_row"), getattr(tb, f"{fam}_p_hi_row")
+        G = lo_row.numel()
+        as_t = lambda a: torch.as_tensor(a, dtype=dtype)  # noqa: E731
+        for trial in range(6):
+            span = (0.05, 0.5, 2.0)[trial % 3]
+            pts = as_t(rng.uniform(-span, span, (512, G, 2)))
+            pts[:64] = torch.round(pts[:64] * 8) / 8
+            pts[64:80] = 0.0
+            bounds = [(lo_row, hi_row),
+                      (lo_row, torch.minimum(hi_row, as_t(rng.uniform(-0.5, 1.0, (512, G))))),
+                      (as_t(rng.uniform(-1, 1, (512, G))), as_t(rng.uniform(-1, 1, (512, G))))]
+            lo, hi = bounds[trial % 3]
+            if trial == 5:
+                lo = lo.clone()
+                lo[:4] = float("nan")
+                pts[4:8, :, 0] = float("nan")
+                pts[8:12] = float("inf")
+            out, ref = project(pts, lo, hi), reference(pts, lo, hi)
+            same = (_bits(out) == _bits(ref)) | (torch.isnan(out) & torch.isnan(ref))
+            assert bool(same.all()), (name, fam, trial, int((~same).sum()))
+
+
+class _OpCount(TorchDispatchMode):
+    """Counts the ops that launch work (views left out)."""
+
+    VIEWS = {"view", "expand", "select", "slice", "unsqueeze", "squeeze", "t", "_unsafe_view", "alias", "detach"}
+
+    def __enter__(self):
+        self.n = 0
+        return super().__enter__()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += func.__name__.split(".")[0] not in self.VIEWS
+        return func(*args, **(kwargs or {}))
+
+
+def test_projector_calls_issue_few_ops(both64):
+    """A call of each family's projector stays within 60 ops, whatever its
+    number of lines (2 for generators, 4 for storage): what depends on the
+    static rows alone is computed at binding.  It runs right after the
+    autoreset's read, where the card waits on each op's enqueue."""
+    name, spec, jtb, ttb = both64
+    rng = np.random.default_rng(6)
+    families = [fam for fam in ("gen", "des") if getattr(ttb, f"{fam}_project") is not None]
+    assert families
+    for fam in families:
+        lo, hi = getattr(ttb, f"{fam}_p_lo_row"), getattr(ttb, f"{fam}_p_hi_row")
+        pts = torch.as_tensor(rng.uniform(-1, 1, (B, lo.numel(), 2)))
+        with _OpCount() as ops:
+            getattr(ttb, f"{fam}_project")(pts, lo, hi.expand(B, -1))
+        assert 0 < ops.n <= 60, (name, fam, ops.n)
 
 
 def _transition_inputs(spec, rng):
