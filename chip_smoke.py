@@ -211,11 +211,20 @@ non-zero at the first failure:
    ``quick_dataset_test``, ``l0l5_quality_table --skip-reference`` at
    L0L5_TABLE_STEPS steps, ``exp_rti_budget`` at budgets 24, 32, 48, 96
    and 200, ``scaling_bench`` at world size 1 (one rank spawned on the
-   card) and ``verify_h100`` (every probe PASS, the clean build timed).
+   card) and ``verify_h100`` (every probe PASS, the clean build timed);
+16. the flows kernel (K6) alone at each benchmark cell's shape (IEEE33 at
+   262,144 lanes, multicap17 at 524,288, ANM6Easy at 65,536), on the
+   arguments of one real step, beside its plain version (the torch ops the
+   chord tier ran before it), in turns
+   (``gym_anm_torch.bench.flows_probe``): first K6's outputs held to the
+   plain version's (elementwise bit for bit, the values after a sum within
+   4 float32 ulps of their terms' magnitudes), then times, the bytes bound
+   and K6's share of it.
 
-K3 and K2 launches of phases 11 to 15 and K5's of phase 15 count in the
-kernels' line.  On the paths of networks up to 33 buses K1's register route
-runs inside K3, one solve a lane-iteration: K1's count in the line is those
+K3, K2 and K6 launches of phases 11 to 15 and K5's of phase 15 count in the
+kernels' line; K6's are those of the main paths (phases 2, 5, 7, 8, 11, 12
+and 15, where K2's are counted), not phase 16's own.  On the paths of
+networks up to 33 buses K1's register route runs inside K3, one solve a lane-iteration: K1's count in the line is those
 solves on the main paths (K3's n_iter out - n_iter in, read from K3's own
 outputs after each run).  Above 33 buses K1's panel routes run inside K3
 wide the same way: the resident and blocked rows count the solves of the
@@ -575,12 +584,13 @@ def check_step(obs, r, d, info, what):
     assert worst <= 1e-4, f"{what}: residual {worst:.3e} > 1e-4"
 
 
-def phase2_main_path(VecEnv, make_ieee33_task, kernel, chord_k):
+def phase2_main_path(VecEnv, make_ieee33_task, kernel, chord_k, flows_k):
     log(f"== phase 2: base path, base IEEE33 f32, B={B_MAIN}, {N_STEPS} steps")
     env = VecEnv(make_ieee33_task(), dtype=torch.float32, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(0)
     kernel.launch_count = 0
     chord_k.launch_count = 0
+    flows_k.launch_count = 0
     state, obs = env.reset(B_MAIN)
     assert torch.isfinite(obs).all() and not state.terminated.any()
     record = []
@@ -606,10 +616,11 @@ def phase2_main_path(VecEnv, make_ieee33_task, kernel, chord_k):
     check_step(obs, r, d, info, "bad-basin step")
     torch.cuda.synchronize()
     launches, solves = kernel.launch_count, kernel.solves
-    chord_launches = chord_k.launch_count
+    chord_launches, flows_launches = chord_k.launch_count, flows_k.launch_count
     it = torch.stack(iters).float()
-    log(f"base path: K2 launches {chord_launches}; K3 launches {launches} ({launches_plain} in the reset and the "
-        f"{N_STEPS} random-action steps, {launches - launches_plain} in the bad-basin step); K1 solves inside K3 "
+    log(f"base path: K2 launches {chord_launches}, K6 {flows_launches}; K3 launches {launches} ({launches_plain} "
+        f"in the reset and the {N_STEPS} random-action steps, {launches - launches_plain} in the bad-basin step); "
+        f"K1 solves inside K3 "
         f"{solves} ({solves_plain} in the reset and the steps, {solves - solves_plain} in the bad-basin step, "
         f"fallback iterations max {int(info['n_iter'].max())})")
     log(f"chord iterations per step over {N_STEPS} steps: mean {float(it.mean()):.3f}, "
@@ -644,7 +655,8 @@ def phase2_main_path(VecEnv, make_ieee33_task, kernel, chord_k):
     log(f"f32 card vs f64 CPU ({N_CHECK_STEPS} steps x {N_CHECK_LANES} lanes): bus_vm max abs diff "
         f"{worst_vm:.3e}; reward max abs diff {worst_r:.3e} over {n_checked} lane-steps "
         f"({n_near_zero} lane-steps with a slack-branch flow below 1e-4 p.u. not reward-compared)")
-    return launches, chord_launches, solves
+    assert flows_launches > 0, "K6 never launched on the base path"
+    return launches, chord_launches, flows_launches, solves
 
 
 def phase3_fallback(env_cls, make_ieee33_task, pf, ybus, kernel):
@@ -989,7 +1001,7 @@ def replay_multicap(VecEnv, make_ieee33_multicap_task, transition, record, what)
         f"{worst_vm:.3e}, e_loss {worst_e:.3e}, penalty {worst_p:.3e}")
 
 
-def phase5_multicap(VecEnv, make_ieee33_multicap_task, transition, kernel, chord_k):
+def phase5_multicap(VecEnv, make_ieee33_multicap_task, transition, kernel, chord_k, flows_k):
     log(f"== phase 5: multicap17 path, f32, B={B_MAIN}, {N_STEPS} steps of step_autoreset_batch")
     task = make_ieee33_multicap_task()
     record = []
@@ -1004,6 +1016,7 @@ def phase5_multicap(VecEnv, make_ieee33_multicap_task, transition, kernel, chord
     g = torch.Generator(device="cuda").manual_seed(6)
     kernel.launch_count = 0
     chord_k.launch_count = 0
+    flows_k.launch_count = 0
     state, obs = env.reset(B_MAIN, g)
     assert torch.isfinite(obs).all()
     n_term, iters = 0, []
@@ -1031,17 +1044,19 @@ def phase5_multicap(VecEnv, make_ieee33_multicap_task, transition, kernel, chord
                           info["e_loss"][lanes].cpu(), info["penalty"][lanes].cpu()]
     torch.cuda.synchronize()
     launches, chord_launches, solves = kernel.launch_count, chord_k.launch_count, kernel.solves
+    flows_launches = flows_k.launch_count
     it = torch.stack(iters).float()
-    log(f"multicap17 path: K2 launches {chord_launches}, K3 launches {launches} (K1 solves inside it {solves}); "
-        f"{n_term} lane terminations "
+    log(f"multicap17 path: K2 launches {chord_launches}, K6 {flows_launches}, K3 launches {launches} (K1 solves "
+        f"inside it {solves}); {n_term} lane terminations "
         f"(reset) in {N_STEPS} steps; chord iterations mean {float(it.mean()):.3f}, worst lane {int(it.max())}, "
         f"mean of per-step worst {float(it.max(dim=1).values.mean()):.3f}")
     assert chord_launches > 0, "K2 never launched on the multicap17 path"
+    assert flows_launches > 0, "K6 never launched on the multicap17 path"
     assert launches > 0 and solves > 0, "K3 never launched, or ran no Newton iteration, on the multicap17 path"
     assert n_term >= 64
 
     replay_multicap(VecEnv, make_ieee33_multicap_task, transition, record, "multicap17")
-    return launches, chord_launches, solves
+    return launches, chord_launches, flows_launches, solves
 
 
 def time_path(env, B, step, seed):
@@ -1164,7 +1179,7 @@ def count_ops(fn, baseline=(0, 0)):
     return n_ops - baseline[0], n_sync - baseline[1]
 
 
-def phase7_collection(VecEnv, make_ieee33_multicap_task, transition, kernel, chord_k, bare_rate):
+def phase7_collection(VecEnv, make_ieee33_multicap_task, transition, kernel, chord_k, flows_k, bare_rate):
     """The L0-L5 block collector at full width (bench.py workload 3)."""
     from gym_anm_torch.offline_vec import action_noise, make_block_collector
     from gym_anm_torch.vec import controllers as ctrl
@@ -1204,9 +1219,12 @@ def phase7_collection(VecEnv, make_ieee33_multicap_task, transition, kernel, cho
     assert [int(x) for x in torch.bincount(assignment.cpu())] == [starts[i + 1] - starts[i] for i in range(6)]
     kernel.launch_count = 0
     chord_k.launch_count = 0
+    flows_k.launch_count = 0
     obs, act, rew, nobs, done = collect(torch.Generator(device="cuda").manual_seed(70))
     torch.cuda.synchronize()
     launches, chord_launches, solves = kernel.launch_count, chord_k.launch_count, kernel.solves
+    flows_launches = flows_k.launch_count
+    assert flows_launches > 0, "K6 never launched in the collection"
 
     assert obs.shape == nobs.shape == (T, B, env.n_obs) and act.shape == (T, B, env.n_action)
     assert rew.shape == done.shape == (T, B)
@@ -1335,7 +1353,7 @@ def phase7_collection(VecEnv, make_ieee33_multicap_task, transition, kernel, cho
     ms_m, ms_t = cuda_ms(lambda: ctrl._lane_mean(vm), 64), cuda_ms(lambda: vm.mean(-1), 64)
     log(f"lane mean of bus_vm [{vm.shape[0]}, {vm.shape[1]}] in the reference's order: {ops_m} GPU ops, {ms_m:.4f} ms "
         f"per call; torch's mean: {ops_t} ops, {ms_t:.4f} ms (2 calls per collector step)")
-    return launches, chord_launches, solves
+    return launches, chord_launches, flows_launches, solves
 
 
 def other_unit_plan(STATE_VARIABLES):
@@ -1562,7 +1580,7 @@ def replay_anm6easy(VecEnv, make_anm6easy_task, plan, build_ybus, record):
     assert worst_r_c1 > 1, "reward: control C1 passes its tolerance"
 
 
-def phase8_anm6easy(VecEnv, make_anm6easy_task, STATE_VARIABLES, build_ybus, kernel, chord_k, base):
+def phase8_anm6easy(VecEnv, make_anm6easy_task, STATE_VARIABLES, build_ybus, kernel, chord_k, flows_k, base):
     from gym_anm_torch.vec.core import tree_map
 
     B, T = B_MAIN, 96
@@ -1584,6 +1602,7 @@ def phase8_anm6easy(VecEnv, make_anm6easy_task, STATE_VARIABLES, build_ybus, ker
     g = torch.Generator(device="cuda").manual_seed(8)
     kernel.launch_count = 0
     chord_k.launch_count = 0
+    flows_k.launch_count = 0
     state, obs = env.reset(B, g)
     assert torch.isfinite(obs).all()
     clipped = torch.zeros(env.n_obs, dtype=torch.int64, device="cuda")
@@ -1615,11 +1634,13 @@ def phase8_anm6easy(VecEnv, make_anm6easy_task, STATE_VARIABLES, build_ybus, ker
                            d[:N_CHECK_LANES].cpu(), info["diff"][:N_CHECK_LANES].cpu()))
     torch.cuda.synchronize()
     launches, chord_launches, solves = kernel.launch_count, chord_k.launch_count, kernel.solves
+    flows_launches = flows_k.launch_count
     it = torch.stack(iters).float()
-    log(f"ANM6Easy: K2 launches {chord_launches} (n = {n}), K3 launches {launches} (n = {2 * n}; K1 solves inside "
-        f"it {solves}); {n_term} lane "
+    log(f"ANM6Easy: K2 launches {chord_launches} (n = {n}), K6 {flows_launches}, K3 launches {launches} "
+        f"(n = {2 * n}; K1 solves inside it {solves}); {n_term} lane "
         f"terminations (reset) in {T} steps; chord iterations mean {float(it.mean()):.3f}, worst lane {int(it.max())}")
     assert chord_launches > 0 and launches > 0 and solves > 0, "K2 or K3 never launched on the ANM6Easy path"
+    assert flows_launches > 0, "K6 never launched on the ANM6Easy path"
     clipped = clipped.cpu()
     log("live-lane entries the clip to the plan's bounds moved, by segment: " + ", ".join(
         f"{var} {int(clipped[sl].sum())}" for var, _, sl, _ in plan_segments(env._obs_plan, env.spec)))
@@ -1706,7 +1727,7 @@ def phase8_anm6easy(VecEnv, make_anm6easy_task, STATE_VARIABLES, build_ybus, ker
         f"(torch.profiler, the same steps) {k3_us['K3']:.2f} µs a step, PR 13's design's {k3_us[pr13]:.2f}; "
         f"{k3_launches / n_split:.2f} K3 launches and {k3_solves / n_split:.2f} lane-iterations of Newton (K1's "
         f"solves inside K3) per step")
-    return launches, chord_launches, rate, solves
+    return launches, chord_launches, flows_launches, rate, solves
 
 
 FEEDERS = ((48, 0.6), (64, 0.5), (130, 0.15))  # (buses, load scale): the f64 tier converges at these loads
@@ -2735,14 +2756,16 @@ def rel_err(a, b):
     return float((a.cpu() - b.cpu()).abs().max()) / (scale if scale > 0 else 1.0)
 
 
-def counted(kernel, chord_k, fn):
-    """``fn()`` with the K3 and K2 counts set to 0 just before and read just
-    after: (fn's result, K3 launches, K2 launches, K1 solves inside K3)."""
+def counted(kernel, chord_k, flows_k, fn):
+    """``fn()`` with the K3, K2 and K6 counts set to 0 just before and read
+    just after: (fn's result, K3 launches, K2 launches, K6 launches, K1 solves
+    inside K3)."""
     kernel.launch_count = 0
     chord_k.launch_count = 0
+    flows_k.launch_count = 0
     out = fn()
     torch.cuda.synchronize()
-    return out, kernel.launch_count, chord_k.launch_count, kernel.solves
+    return out, kernel.launch_count, chord_k.launch_count, flows_k.launch_count, kernel.solves
 
 
 def ppo_profile(run, n_iter=2):
@@ -2830,11 +2853,11 @@ def ppo_update_card_vs_cpu(VecEnv, run, task):
     return err
 
 
-def phase11_ppo(VecEnv, make_ieee33_multicap_task, kernel, chord_k):
+def phase11_ppo(VecEnv, make_ieee33_multicap_task, kernel, chord_k, flows_k):
     """PPO through ``python -m gym_anm_torch.scripts.train_ppo_online``'s
     ``main``: the timed base IEEE33 run, the documented multicap17 run, the
-    card against the CPU, nccl against no process group.  Returns the K3
-    and K2 launches and K1's solves inside K3 of the two runs."""
+    card against the CPU, nccl against no process group.  Returns the K3,
+    K2 and K6 launches and K1's solves inside K3 of the two runs."""
     import tempfile
 
     from gym_anm_torch.scripts.train_ppo_online import main as ppo_main
@@ -2843,7 +2866,7 @@ def phase11_ppo(VecEnv, make_ieee33_multicap_task, kernel, chord_k):
     log(f"== phase 11a: PPO on base IEEE33, f32, B={B_MAIN}, rollout 16, 10 iterations, every update under "
         f"set_sync_debug_mode('error')")
     t0 = time.perf_counter()
-    run, k3a, k2a, k1a = counted(kernel, chord_k, lambda: ppo_main(PPO_TIMED + ["--forbid-syncs"]))
+    run, k3a, k2a, k6a, k1a = counted(kernel, chord_k, flows_k, lambda: ppo_main(PPO_TIMED + ["--forbid-syncs"]))
     t_run = time.perf_counter() - t0
     losses = [m["loss"] for m in run["metrics"]]
     assert all(math.isfinite(x) for x in losses), "a non-finite PPO loss"
@@ -2851,8 +2874,8 @@ def phase11_ppo(VecEnv, make_ieee33_multicap_task, kernel, chord_k):
     log(f"PPO base IEEE33: {run['env_steps_per_s']:.1f} env-steps/s (train loop, iterations 1-9); an iteration "
         f"{iter_ms:.3f} ms on the card's timeline: rollout {run['rollout_ms']:.3f} ms "
         f"({run['rollout_ms'] / iter_ms:.3f}), update {run['update_ms']:.3f} ms ({run['update_ms'] / iter_ms:.3f}); "
-        f"K2 launches {k2a}, K3 launches {k3a} (K1 solves inside it {k1a}); the run took {t_run:.1f} s")
-    assert k2a > 0, "K2 never launched in the PPO rollout"
+        f"K2 launches {k2a}, K6 {k6a}, K3 launches {k3a} (K1 solves inside it {k1a}); the run took {t_run:.1f} s")
+    assert k2a > 0 and k6a > 0, "K2 or K6 never launched in the PPO rollout"
     t0 = time.perf_counter()
     ppo_profile(run)
     t1 = time.perf_counter()
@@ -2864,8 +2887,8 @@ def phase11_ppo(VecEnv, make_ieee33_multicap_task, kernel, chord_k):
         "minibatches, hidden 64, 150 iterations, --eval, --save")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        run, k3b, k2b, k1b = counted(kernel, chord_k,
-                                lambda: ppo_main(PPO_DOC + ["--eval", "--save", tmp, "--forbid-syncs"]))
+        run, k3b, k2b, k6b, k1b = counted(kernel, chord_k, flows_k,
+                                          lambda: ppo_main(PPO_DOC + ["--eval", "--save", tmp, "--forbid-syncs"]))
         ts = run["ts"]
         restored = restore_checkpoint(tmp, ts, step=len(run["metrics"]))
     same = (all(torch.equal(p, q) for p, q in zip(ts.params.parameters(), restored.params.parameters()))
@@ -2877,7 +2900,7 @@ def phase11_ppo(VecEnv, make_ieee33_multicap_task, kernel, chord_k):
     log(f"PPO multicap17 mean reward by iteration: {[float(f'{r:.4g}') for r in rewards]}")
     log(f"PPO multicap17: mean reward of iterations 0-9 {early:.4f}, of 140-149 {late:.4f}; "
         f"{run['env_steps_per_s']:.1f} env-steps/s; rollout {run['rollout_ms']:.3f} ms, update "
-        f"{run['update_ms']:.3f} ms an iteration; K2 launches {k2b}, K3 launches {k3b} (K1 solves inside it "
+        f"{run['update_ms']:.3f} ms an iteration; K2 launches {k2b}, K6 {k6b}, K3 launches {k3b} (K1 solves inside it "
         f"{k1b}); the run (150 iterations, eval, save and restore) took {time.perf_counter() - t0:.1f} s")
     log(f"PPO multicap17 eval (deterministic, 256 lanes x 50 steps, no autoreset): PPO {run['eval']['ppo']:+.4f}, "
         f"random {run['eval']['random']:+.4f} per step; checkpoint restored bit for bit: {same}")
@@ -2886,28 +2909,28 @@ def phase11_ppo(VecEnv, make_ieee33_multicap_task, kernel, chord_k):
     t0 = time.perf_counter()
     ppo_update_card_vs_cpu(VecEnv, run, make_ieee33_multicap_task())
     log(f"(card against CPU {time.perf_counter() - t0:.1f} s)")
-    return k3a + k3b, k2a + k2b, k1a + k1b
+    return k3a + k3b, k2a + k2b, k6a + k6b, k1a + k1b
 
 
-def phase12_cql(kernel, chord_k):
+def phase12_cql(kernel, chord_k, flows_k):
     """CQL through ``python -m gym_anm_torch.scripts.train_cql_offline``'s
     ``main`` (docs/distributed.md:79-83), every update under
     set_sync_debug_mode('error'), then one update of the card against the CPU
-    at float64.  Returns the K3 and K2 launches and K1's solves inside K3
-    of the run."""
+    at float64.  Returns the K3, K2 and K6 launches and K1's solves inside
+    K3 of the run."""
     from gym_anm_torch.parallel import cql
     from gym_anm_torch.scripts.train_cql_offline import main as cql_main
     from gym_anm_torch.utils import forbid_host_syncs
 
     log("== phase 12: CQL on multicap17: L0-L5 dataset 512 lanes x 50 steps x 6, 3000 updates of 512, "
         "CQLConfig(hidden=128, cql_weight=2.0)")
-    run, k3, k2, k1 = counted(kernel, chord_k, lambda: cql_main(CQL_DOC + ["--forbid-syncs"]))
+    run, k3, k2, k6, k1 = counted(kernel, chord_k, flows_k, lambda: cql_main(CQL_DOC + ["--forbid-syncs"]))
     m, ev = run["metrics"], run["eval"]
     assert run["transitions"] == 153_600
     assert all(math.isfinite(v) for v in m.values()), "a non-finite CQL metric"
     log(f"CQL: {run['transitions']} transitions collected in {run['collect_s']:.1f} s; {run['updates_per_s']:.1f} "
         f"updates/s ({run['train_s']:.1f} s for 3000); final loss {m['loss']:.4f}, bellman {m['bellman']:.4f}; "
-        f"K2 launches {k2}, K3 launches {k3} (K1 solves inside it {k1})")
+        f"K2 launches {k2}, K6 {k6}, K3 launches {k3} (K1 solves inside it {k1})")
     log(f"CQL eval (deterministic, 256 lanes x 50 steps, no autoreset): CQL {ev['cql']:+.4f}, random "
         f"{ev['random']:+.4f}, L5 {ev['L5']:+.4f} per step")
     assert ev["cql"] > ev["random"], "CQL does not beat random"
@@ -2934,7 +2957,7 @@ def phase12_cql(kernel, chord_k):
     log(f"CQL update at float64, card vs CPU (the trained networks, 512 rows of the dataset): parameters and "
         f"targets max rel err {err:.3e}, metrics {err_m:.3e}")
     assert err <= 1e-10 and err_m <= 1e-10
-    return k3, k2, k1
+    return k3, k2, k6, k1
 
 
 def simulator_inputs(sim, n_steps, seed, anm6):
@@ -3738,25 +3761,25 @@ def phase15c_scripts(smi_line):
     assert ok and not fails and n_pass == 15, "verify_h100 did not pass every probe"
 
 
-def phase15_render_examples_scripts(kernel, chord_k, admm_k, smi_line):
+def phase15_render_examples_scripts(kernel, chord_k, admm_k, flows_k, smi_line):
     """The renderer, the examples and the scripts on the card (15a-c); returns
-    the launches of K3, K2 and K5 in its runs on the card and K1's solves
+    the launches of K3, K2, K5 and K6 in its runs on the card and K1's solves
     inside K3."""
     log("== phase 15: the renderer, the examples and the scripts on the card, against the CPU")
     log(f"15 gymnasium: {gymnasium_module()}")
     op_base = count_ops(lambda: None)
     t_phase = time.perf_counter()
-    kernel.launch_count = chord_k.launch_count = admm_k.launch_count = 0
+    kernel.launch_count = chord_k.launch_count = admm_k.launch_count = flows_k.launch_count = 0
     dense0 = kernel.launches["dense"]
     for part in (lambda: phase15a_renderer(op_base), phase15b_examples, lambda: phase15c_scripts(smi_line)):
         t0 = time.perf_counter()
         part()
         log(f"15: part done in {time.perf_counter() - t0:.1f} s")
     torch.cuda.synchronize()
-    launches = (kernel.launch_count, chord_k.launch_count, admm_k.launch_count)
+    launches = (kernel.launch_count, chord_k.launch_count, admm_k.launch_count, flows_k.launch_count)
     solves = kernel.solves
     log(f"15: K3 launches {launches[0]} ({kernel.launches['dense'] - dense0} with the dense Y; K1 solves inside it "
-        f"{solves}), K2 {launches[1]}, K5 {launches[2]}; {time.perf_counter() - t_phase:.1f} s")
+        f"{solves}), K2 {launches[1]}, K5 {launches[2]}, K6 {launches[3]}; {time.perf_counter() - t_phase:.1f} s")
     assert all(n > 0 for n in launches) and solves > 0, f"a kernel of phase 15's path never launched: {launches}"
     return launches + (solves,)
 
@@ -3788,6 +3811,26 @@ def log_ptxas(report):
             name = None
 
 
+def phase16_flows():
+    """K6 beside its plain version at the cells' shapes, on the arguments of
+    one real step: ``flows_probe.measure`` first holds K6's outputs to the
+    plain version's (elementwise bit for bit, the values after a sum within
+    4 float32 ulps; a mismatch fails the run), then times both.  Returns the
+    rows, the IEEE33 shape's first.  The device ops a call come from
+    ``python -m gym_anm_torch.bench.flows_probe`` alone: after this run's
+    many profiler sessions a session loses its last events."""
+    from gym_anm_torch.bench import flows_probe
+
+    log("== phase 16: K6 against its plain version at the cells' shapes, then timed")
+    rows = flows_probe.measure(N_LAUNCH, count_ops=False)
+    for r in rows:
+        log(f"16 flows {r['shape']} B={r['lanes']}: K6 equals the plain version (largest gap after a sum "
+            f"{r['max_abs_err']:.3e}); K6 {r['k6_median_ms']:.4f} ms (readings "
+            f"{', '.join(f'{x:.4f}' for x in r['k6_ms'])}), plain {r['plain_median_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), K6 at {r['share']:.3f} of it")
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device is visible; it runs only on a card", file=sys.stderr)
@@ -3798,6 +3841,7 @@ def main():
     from gym_anm_torch.physics import power_flow as pf
     from gym_anm_torch.physics import ybus
     from gym_anm_torch.physics.chord_cuda import chord_solve_cuda
+    from gym_anm_torch.physics.flows_cuda import transition_flows_cuda
     from gym_anm_torch.physics.transition import transition
     from gym_anm_torch.specs.constants import STATE_VARIABLES
     from gym_anm_torch.vec import (VecEnv, make_anm6easy_task, make_ieee33_multicap_task, make_ieee33_renewable_task,
@@ -3834,19 +3878,21 @@ def main():
     k1 = run(phase1_kernel_vs_plain, lin, base)
     k2 = run(phase1b_chord_kernel, pf, chord_solve_cuda, VecEnv, make_ieee33_task, make_ieee33_multicap_task,
              make_anm6easy_task)
-    launches, chord_launches, solves = run(phase2_main_path, VecEnv, make_ieee33_task, kernel, chord_solve_cuda)
+    flows_k = transition_flows_cuda
+    launches, chord_launches, flows_launches, solves = run(phase2_main_path, VecEnv, make_ieee33_task, kernel,
+                                                           chord_solve_cuda, flows_k)
     run(phase3_fallback, VecEnv, make_ieee33_task, pf, ybus, kernel)
     k3 = run(phase3b_newton_kernel, pf, lin, nc, base, VecEnv, make_ieee33_task, make_anm6easy_task,
              ybus.LaneYbus)
     run(phase4_tf32, VecEnv, make_ieee33_task)
-    mc_launches, mc_chord_launches, mc_solves = run(phase5_multicap, VecEnv, make_ieee33_multicap_task, transition,
-                                                    kernel, chord_solve_cuda)
+    mc_launches, mc_chord_launches, mc_flows_launches, mc_solves = run(
+        phase5_multicap, VecEnv, make_ieee33_multicap_task, transition, kernel, chord_solve_cuda, flows_k)
     bare_rate = run(phase6_times, VecEnv, make_ieee33_task, make_ieee33_multicap_task)
-    col_launches, col_chord_launches, col_solves = run(phase7_collection, VecEnv, make_ieee33_multicap_task,
-                                                       transition, kernel, chord_solve_cuda, bare_rate)
-    a6_launches, a6_chord_launches, a6_rate, a6_solves = run(phase8_anm6easy, VecEnv, make_anm6easy_task,
-                                                             STATE_VARIABLES, ybus.build_ybus, kernel,
-                                                             chord_solve_cuda, base)
+    col_launches, col_chord_launches, col_flows_launches, col_solves = run(
+        phase7_collection, VecEnv, make_ieee33_multicap_task, transition, kernel, chord_solve_cuda, flows_k, bare_rate)
+    a6_launches, a6_chord_launches, a6_flows_launches, a6_rate, a6_solves = run(
+        phase8_anm6easy, VecEnv, make_anm6easy_task, STATE_VARIABLES, ybus.build_ybus, kernel, chord_solve_cuda,
+        flows_k, base)
     cold_set, k5 = run(phase9a_admm_kernel, mpc, solve_dcopf_cuda, VecEnv, make_anm6easy_task,
                        make_ieee33_renewable_task)
     run(phase9a_k5_routes, mpc, solve_dcopf_cuda, base, VecEnv, make_anm6easy_task, make_ieee33_renewable_task)
@@ -3855,12 +3901,15 @@ def main():
                                       chord_solve_cuda)
     run(phase9d_replay, mpc, VecEnv, make_anm6easy_task, farm_record)
     k2w, k1g, k1s, k3w = run(phase10_feeders, pf, lin, chord_solve_cuda, VecEnv, base, kernel, nc)
-    ppo_k3, ppo_k2, ppo_k1 = run(phase11_ppo, VecEnv, make_ieee33_multicap_task, kernel, chord_solve_cuda)
-    cql_k3, cql_k2, cql_k1 = run(phase12_cql, kernel, chord_solve_cuda)
+    ppo_k3, ppo_k2, ppo_k6, ppo_k1 = run(phase11_ppo, VecEnv, make_ieee33_multicap_task, kernel, chord_solve_cuda,
+                                         flows_k)
+    cql_k3, cql_k2, cql_k6, cql_k1 = run(phase12_cql, kernel, chord_solve_cuda, flows_k)
     sim_k3, _, sim_k1 = run(phase13_simulator, lin, kernel, base)
     host_k3, host_k1 = run(phase14_host_tier, kernel)
-    tail_k3, tail_k2, tail_k5, tail_k1 = run(phase15_render_examples_scripts, kernel, chord_solve_cuda,
-                                             solve_dcopf_cuda, smi_line)
+    tail_k3, tail_k2, tail_k5, tail_k6, tail_k1 = run(phase15_render_examples_scripts, kernel, chord_solve_cuda,
+                                                      solve_dcopf_cuda, flows_k, smi_line)
+    k6_rows = run(phase16_flows)
+    k6 = k6_rows[0]  # IEEE33 at 262,144 lanes
 
     # Launches: the runs of the base, multicap17, collection, ANM6Easy, the learners', the compat Simulator's, the
     # host tier's and phase 15's paths together.  On these paths (n <= 64) K1's register route runs inside K3, one
@@ -3966,7 +4015,20 @@ def main():
         "bound_ms": k3w[route]["bound_ms"],
         "bound_by": k3w[route]["bound_by"],
         "library_ms": None,  # no single PyTorch call runs the Newton loop
-    } for i, route in enumerate(("resident", "cluster", "blocked"))]}), flush=True)
+    } for i, route in enumerate(("resident", "cluster", "blocked"))] + [{
+        "name": "transition_flows",
+        "route": "cuda",
+        "source": "gym_anm_torch/csrc/transition_flows.cu",
+        "replaces": None,  # XLA fuses this work on the TPU; eager torch ran it as ~160 device ops
+        "launches": (flows_launches + mc_flows_launches + col_flows_launches + a6_flows_launches + ppo_k6 + cql_k6
+                     + tail_k6),
+        "max_abs_err": max(r["max_abs_err"] for r in k6_rows),  # the values after a sum; elementwise bit for bit
+        "ms": k6["k6_median_ms"],
+        "plain_ms": k6["plain_median_ms"],
+        "bound_ms": k6["bound_ms"],
+        "bound_by": k6["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes the flows
+    }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -80,6 +80,13 @@ _SIGNATURES = {
     "newton_wide_smem_bytes": [_I] * 4,
     "newton_wide_smem_limit": [],
     "newton_l2_bytes": [],
+    # (v_re, v_im, F, p_ns, q_ns, dff_re, dff_im, dft_re, dft_im, tap,
+    #  oltc_branch, p_pot, rates, br_f, br_t, series_re, series_im, shunt_im,
+    #  shift_cos, shift_sin, tap0, y0_re, y0_im, v_min, v_max, genload,
+    #  gen_pos, rer_mask, bus_p, bus_q, dev_p, dev_q, i_re, i_im, the nine
+    #  branch arrays, e_loss, penalty, reward, delta_t, lamb, rates_per_lane,
+    #  B, N, Ne, n_dev, K, G, t_bus, slack_bus, slack_dev, stream)
+    "transition_flows_f32": [_P] * 46 + [_F] * 2 + [_I] * 10 + [_P],
 }
 # Every other entry point returns an int.
 _RESTYPES = {"admm_scratch_bytes": ctypes.c_longlong, "newton_wide_smem_bytes": ctypes.c_longlong,

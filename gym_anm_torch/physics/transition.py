@@ -20,6 +20,7 @@ import torch
 from ..specs.network import NetworkSpec
 from ..utils import profiling
 from .complexops import cmatvec, matmul_full
+from .flows_cuda import transition_flows_cuda
 from .projection import make_box_slopes_projector
 from .power_flow import (
     ChordConst,
@@ -414,6 +415,131 @@ def branch_flows(tb: GridTables, v_re, v_im, tap_magn):
     )
 
 
+class Flows(NamedTuple):
+    """What the transition computes after the load flow (the
+    ``transition.flows`` span), under :class:`TransitionOut`'s field names;
+    every field batch-leading."""
+
+    bus_i_re: torch.Tensor         # [B, N]
+    bus_i_im: torch.Tensor
+    br_i_from_re: torch.Tensor     # [B, Ne] each
+    br_i_from_im: torch.Tensor
+    br_i_to_re: torch.Tensor
+    br_i_to_im: torch.Tensor
+    br_p_from: torch.Tensor
+    br_q_from: torch.Tensor
+    br_p_to: torch.Tensor
+    br_q_to: torch.Tensor
+    br_s_signed: torch.Tensor
+    e_loss: torch.Tensor           # [B]
+    penalty: torch.Tensor
+    reward: torch.Tensor
+
+
+def lane_taps(tb: GridTables, tap_new):
+    """[B, Ne] tap magnitudes: the nominal taps with each lane's OLTC taps
+    ``tap_new`` [B, n_oltc] written into their branches."""
+    tap_magn = tb.tap0.expand(tap_new.shape[0], -1).clone()
+    tap_magn[:, tb.oltc_branch] = tap_new
+    return tap_magn
+
+
+def flows_from_currents(tb: GridTables, v_re, v_im, i_re, i_im, tap_magn, bus_p, bus_q, dev_p, dev_q, p_pot, p_g,
+                        rates) -> Flows:
+    """The measured slack injection, the branch flows and the reward from the
+    bus currents ``i_re``, ``i_im`` [B, N] at the voltages ``v_re``,
+    ``v_im``.  Writes the slack injection into the slack columns of
+    ``bus_p``, ``bus_q`` [B, N] and ``dev_p``, ``dev_q`` [B, n_dev] in
+    place; ``p_pot``, ``p_g`` [B, n_gen] are the generators' potentials
+    and set-points, ``rates`` [Ne] or [B, Ne]."""
+    # 8. Measured slack injection (NaN → +inf, solve_load_flow.py:62-72).
+    s_sl_re = v_re[:, 0] * i_re[:, 0] + v_im[:, 0] * i_im[:, 0]
+    s_sl_im = v_im[:, 0] * i_re[:, 0] - v_re[:, 0] * i_im[:, 0]
+    inf = torch.full_like(s_sl_re, float("inf"))
+    s_sl_re = torch.where(torch.isnan(s_sl_re), inf, s_sl_re)
+    s_sl_im = torch.where(torch.isnan(s_sl_im), inf, s_sl_im)
+    bus_p[:, tb.slack_bus] = s_sl_re
+    bus_q[:, tb.slack_bus] = s_sl_im
+    dev_p[:, tb.slack_dev] = s_sl_re
+    dev_q[:, tb.slack_dev] = s_sl_im
+
+    # 9. Branch flows.
+    branches = branch_flows(tb, v_re, v_im, tap_magn)
+    s_signed = branches[-1]
+
+    # 10. Reward = −(energy loss + λ·constraint violations)
+    #     (simulator.py:700-745); genload = loads + generators + slack, plus
+    #     the renewables' curtailment p_pot − p_g.
+    e_loss = torch.sum(dev_p[:, tb.genload_pos], dim=1)
+    if tb.gen_project is not None:
+        e_loss = e_loss + torch.sum(torch.clamp(p_pot - p_g, min=0.0) * tb.gen_rer_mask, dim=1)
+    e_loss = e_loss * tb.delta_t
+
+    v_magn = torch.sqrt(v_re * v_re + v_im * v_im)
+    penalty = torch.sum(
+        torch.clamp(v_magn - tb.bus_v_max, min=0.0) + torch.clamp(tb.bus_v_min - v_magn, min=0.0),
+        dim=1,
+    )
+    penalty = penalty + torch.sum(torch.clamp(torch.abs(s_signed) - rates, min=0.0), dim=1)
+    penalty = penalty * tb.delta_t * tb.lamb
+
+    reward = -(e_loss + penalty)
+    return Flows(i_re, i_im, *branches, e_loss, penalty, reward)
+
+
+def transition_flows_plain(tb: GridTables, v_re, v_im, F, p_ns, q_ns, dy, tap_new, bus_p, bus_q, dev_p, dev_q,
+                           p_pot, rates) -> Flows:
+    """The chord tier's flows in plain torch ops (any device): the CPU route
+    and the plain version of the CUDA kernel K6
+    (:func:`~.flows_cuda.transition_flows_cuda`), which takes the same
+    arguments.
+
+    ``v_re``, ``v_im`` [B, N] are the solved voltages, ``F`` [B, 2(N−1)] the
+    solver's final mismatch, ``p_ns``, ``q_ns`` [B, N−1] the non-slack
+    injections, ``dy = (dff_re, dff_im, dft_re, dft_im)`` [B] each the
+    lane's ΔY terms of the slack row, ``tap_new`` [B, n_oltc] the OLTC taps
+    and ``p_pot`` [B, n_gen] the generators' potentials; the generators'
+    set-points are read from ``dev_p``.  The rest as
+    :func:`flows_from_currents`."""
+    dff_re, dff_im, dft_re, dft_im = dy
+    t_bus = tb.chord.t_bus
+    n_ns = tb.n_bus - 1
+    # Bus currents from the solver's final mismatch: S = (p + F_re) +
+    # j(q + F_im) at the returned voltages, and I = conj(S/V).
+    S_re = p_ns + F[:, :n_ns]
+    S_im = q_ns + F[:, n_ns:]
+    v_ns_re, v_ns_im = v_re[:, 1:], v_im[:, 1:]
+    vmag2 = v_ns_re * v_ns_re + v_ns_im * v_ns_im
+    i_ns_re = (S_re * v_ns_re + S_im * v_ns_im) / vmag2
+    i_ns_im = -(S_im * v_ns_re - S_re * v_ns_im) / vmag2
+    # Slack row: row-0 dot products + the ΔY row-0 terms
+    # (ΔY·V)_f = δff·V_f + δft·V_t with V_f = slack = 1+0j.
+    y0r, y0i = tb.chord_t.Y0re[0], tb.chord_t.Y0im[0]
+    i0_re = matmul_full(v_re, y0r) - matmul_full(v_im, y0i)
+    i0_im = matmul_full(v_re, y0i) + matmul_full(v_im, y0r)
+    vt_re, vt_im = v_re[:, t_bus], v_im[:, t_bus]
+    i0_re = i0_re + dff_re + dft_re * vt_re - dft_im * vt_im
+    i0_im = i0_im + dff_im + dft_re * vt_im + dft_im * vt_re
+    i_re = torch.cat([i0_re.unsqueeze(1), i_ns_re], dim=1)
+    i_im = torch.cat([i0_im.unsqueeze(1), i_ns_im], dim=1)
+    p_g = dev_p[:, tb.gen_pos] if tb.gen_project is not None else p_pot
+    return flows_from_currents(tb, v_re, v_im, i_re, i_im, lane_taps(tb, tap_new), bus_p, bus_q, dev_p, dev_q,
+                               p_pot, p_g, rates)
+
+
+def transition_flows(tb: GridTables, v_re, v_im, F, p_ns, q_ns, dy, tap_new, bus_p, bus_q, dev_p, dev_q, p_pot,
+                     rates) -> Flows:
+    """The chord tier's flows: the CUDA kernel K6 for CUDA tensors (float32
+    only), :func:`transition_flows_plain` for CPU tensors, with no fallback
+    between them (``chord_solve``'s rule).  Arguments as
+    :func:`transition_flows_plain`."""
+    if v_re.is_cuda:
+        return Flows(*transition_flows_cuda(tb, v_re, v_im, F, p_ns, q_ns, dy, tap_new, bus_p, bus_q, dev_p, dev_q,
+                                            p_pot, rates))
+    return transition_flows_plain(tb, v_re, v_im, F, p_ns, q_ns, dy, tap_new, bus_p, bus_q, dev_p, dev_q, p_pot,
+                                  rates)
+
+
 def transition(
     tb: GridTables,
     P_load,        # [B, n_load]  MW (loads, ID order)
@@ -473,8 +599,7 @@ def transition(
 
             # 5. OLTC: clip tap, write into the regulated branch (devices.py:622-626).
             tap_new = torch.clamp(tap_set, tb.oltc_tap_min, tb.oltc_tap_max)
-            tap_magn = tb.tap0.expand(B, -1).clone()
-            tap_magn[:, tb.oltc_branch] = tap_new
+            tap_magn = lane_taps(tb, tap_new)
 
             # 6. Bus injection totals (simulator.py:601-611); the slack device
             #    injects 0 until measured post-solve.
@@ -541,62 +666,12 @@ def transition(
 
         with profiling.span("transition.flows"):
             if chord_tier:
-                t_bus = tb.chord.t_bus
-                n_ns = tb.n_bus - 1
-                # Bus currents from the solver's final mismatch: S = (p + F_re) +
-                # j(q + F_im) at the returned voltages, and I = conj(S/V).
-                S_re = p_ns + nr.F[:, :n_ns]
-                S_im = q_ns + nr.F[:, n_ns:]
-                v_ns_re, v_ns_im = nr.v_re[:, 1:], nr.v_im[:, 1:]
-                vmag2 = v_ns_re * v_ns_re + v_ns_im * v_ns_im
-                i_ns_re = (S_re * v_ns_re + S_im * v_ns_im) / vmag2
-                i_ns_im = -(S_im * v_ns_re - S_re * v_ns_im) / vmag2
-                # Slack row: row-0 dot products + the ΔY row-0 terms
-                # (ΔY·V)_f = δff·V_f + δft·V_t with V_f = slack = 1+0j.
-                y0r, y0i = tb.chord_t.Y0re[0], tb.chord_t.Y0im[0]
-                i0_re = matmul_full(nr.v_re, y0r) - matmul_full(nr.v_im, y0i)
-                i0_im = matmul_full(nr.v_re, y0i) + matmul_full(nr.v_im, y0r)
-                vt_re, vt_im = nr.v_re[:, t_bus], nr.v_im[:, t_bus]
-                i0_re = i0_re + dff_re + dft_re * vt_re - dft_im * vt_im
-                i0_im = i0_im + dff_im + dft_re * vt_im + dft_im * vt_re
-                i_re = torch.cat([i0_re.unsqueeze(1), i_ns_re], dim=1)
-                i_im = torch.cat([i0_im.unsqueeze(1), i_ns_im], dim=1)
+                fl = transition_flows(tb, nr.v_re, nr.v_im, nr.F, p_ns, q_ns, (dff_re, dff_im, dft_re, dft_im),
+                                      tap_new, bus_p, bus_q, dev_p, dev_q, p_pot, rates)
             else:
                 i_re, i_im = cmatvec(Yre, Yim, nr.v_re, nr.v_im)
-
-            # 8. Measured slack injection (NaN → +inf, solve_load_flow.py:62-72).
-            s_sl_re = nr.v_re[:, 0] * i_re[:, 0] + nr.v_im[:, 0] * i_im[:, 0]
-            s_sl_im = nr.v_im[:, 0] * i_re[:, 0] - nr.v_re[:, 0] * i_im[:, 0]
-            inf = torch.full_like(s_sl_re, float("inf"))
-            s_sl_re = torch.where(torch.isnan(s_sl_re), inf, s_sl_re)
-            s_sl_im = torch.where(torch.isnan(s_sl_im), inf, s_sl_im)
-            bus_p[:, tb.slack_bus] = s_sl_re
-            bus_q[:, tb.slack_bus] = s_sl_im
-            dev_p[:, tb.slack_dev] = s_sl_re
-            dev_q[:, tb.slack_dev] = s_sl_im
-
-            # 9. Branch flows.
-            (ifr, ifi, itr, iti, p_from, q_from, p_to, q_to, s_signed) = branch_flows(
-                tb, nr.v_re, nr.v_im, tap_magn
-            )
-
-            # 10. Reward = −(energy loss + λ·constraint violations)
-            #     (simulator.py:700-745); genload = loads + generators + slack, plus
-            #     the renewables' curtailment p_pot − p_g.
-            e_loss = torch.sum(dev_p[:, tb.genload_pos], dim=1)
-            if tb.gen_project is not None:
-                e_loss = e_loss + torch.sum(torch.clamp(p_pot - p_g, min=0.0) * tb.gen_rer_mask, dim=1)
-            e_loss = e_loss * tb.delta_t
-
-            v_magn = torch.sqrt(nr.v_re * nr.v_re + nr.v_im * nr.v_im)
-            penalty = torch.sum(
-                torch.clamp(v_magn - tb.bus_v_max, min=0.0) + torch.clamp(tb.bus_v_min - v_magn, min=0.0),
-                dim=1,
-            )
-            penalty = penalty + torch.sum(torch.clamp(torch.abs(s_signed) - rates, min=0.0), dim=1)
-            penalty = penalty * tb.delta_t * tb.lamb
-
-            reward = -(e_loss + penalty)
+                fl = flows_from_currents(tb, nr.v_re, nr.v_im, i_re, i_im, tap_magn, bus_p, bus_q, dev_p, dev_q,
+                                         p_pot, p_g, rates)
 
             out = TransitionOut(
                 dev_p=dev_p,
@@ -606,25 +681,12 @@ def transition(
                 oltc_tap=tap_new,
                 bus_v_re=nr.v_re,
                 bus_v_im=nr.v_im,
-                bus_i_re=i_re,
-                bus_i_im=i_im,
                 bus_p=bus_p,
                 bus_q=bus_q,
-                br_p_from=p_from,
-                br_q_from=q_from,
-                br_p_to=p_to,
-                br_q_to=q_to,
-                br_i_from_re=ifr,
-                br_i_from_im=ifi,
-                br_i_to_re=itr,
-                br_i_to_im=iti,
-                br_s_signed=s_signed,
-                reward=reward,
-                e_loss=e_loss,
-                penalty=penalty,
                 stable=nr.stable,
                 n_iter=nr.n_iter,
                 diff=nr.diff,
+                **fl._asdict(),
             )
         profiling.count("loadflow.unstable_lanes", nr.stable, _unstable)
     return out

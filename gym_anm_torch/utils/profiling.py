@@ -57,6 +57,7 @@ KERNEL_WRAPPERS = (
     ("gym_anm_torch.physics.newton_cuda", "newton_fallback_cuda"),
     ("gym_anm_torch.physics.linsolve_cuda", "solve_gauss_jordan_cuda"),
     ("gym_anm_torch.vec.admm_cuda", "solve_dcopf_cuda"),
+    ("gym_anm_torch.physics.flows_cuda", "transition_flows_cuda"),
 )
 
 _NULL = contextlib.nullcontext()

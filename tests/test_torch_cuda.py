@@ -1,8 +1,8 @@
 """gym_anm_torch on a CUDA card: the Gauss-Jordan kernel (K1: its register,
 shared-memory and blocked routes, at their edges), the fused
 chord-Newton kernels (K2, and its wide kernel above 33 buses), the
-exact-Newton kernel (K3) and the ADMM kernel (K5) against their plain
-versions, 16 steps at B = 8192 without a host sync,
+exact-Newton kernel (K3), the ADMM kernel (K5) and the flows kernel (K6)
+against their plain versions, 16 steps at B = 8192 without a host sync,
 the float32 and float64 steps on the card against the CPU, random feeders
 above 33 buses among them, and the learners' updates (PPO, CQL) on the card
 against the CPU at float64, without a host sync, and under nccl, and the
@@ -1161,8 +1161,10 @@ def test_vec_env_steps_on_the_card_without_a_host_sync(cuda, task):
     the chord (K2) and the Newton loop (K3, or K3 wide on the random feeders
     of 48 and 130 buses; one launch a step) read no flag on the host and K1
     never launches on its own; the 9th step starts from bad-basin warm
-    starts, so the kernel runs Newton iterations."""
+    starts, so the kernel runs Newton iterations.  The flows run on K6, one
+    launch a step."""
     from gym_anm_torch.networks.random_feeder import feeder_vars, make_feeder_task, random_radial_network
+    from gym_anm_torch.physics.flows_cuda import transition_flows_cuda
     from gym_anm_torch.physics.newton_cuda import newton_fallback_cuda
     from gym_anm_torch.vec import make_anm6easy_task
 
@@ -1181,6 +1183,7 @@ def test_vec_env_steps_on_the_card_without_a_host_sync(cuda, task):
     bad = torch.cat([torch.full((B, n), 30.0, device=cuda), torch.ones(B, n, device=cuda)], dim=1)
     policy = env.random_policy()
     before, k1 = newton_fallback_cuda.launch_count, solve_gauss_jordan_cuda.launch_count
+    k6 = transition_flows_cuda.launch_count
     actions = [policy(g, obs, k) for k in range(16)]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -1193,6 +1196,7 @@ def test_vec_env_steps_on_the_card_without_a_host_sync(cuda, task):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert newton_fallback_cuda.launch_count == before + 16 and solve_gauss_jordan_cuda.launch_count == k1
+    assert transition_flows_cuda.launch_count == k6 + 16
     assert bool(torch.isfinite(obs).all())
 
 
@@ -1478,3 +1482,113 @@ def test_refused_cluster_launch_raises(cuda, monkeypatch):
     monkeypatch.setattr(pf, "_newton_loop", None)
     with pytest.raises(RuntimeError, match="launch failed .*route cluster"):
         pf.nr_solve_lazy(ybus, p, q, init=init)
+
+
+def _flows_task(task):
+    from gym_anm_torch.networks.random_feeder import feeder_vars, make_feeder_task, random_radial_network
+    from gym_anm_torch.vec import make_anm6easy_task, make_ieee33_multicap_task
+
+    if task == "feeder130":
+        rng = np.random.default_rng(130)
+        net = random_radial_network(rng, 130)
+        return make_feeder_task(net, feeder_vars(net, 0.15, 8, rng), name=task)
+    return {"ieee33": make_ieee33_task, "multicap17": make_ieee33_multicap_task,
+            "anm6easy": make_anm6easy_task}[task]()
+
+
+def _flows_inputs(cuda, task, B):
+    """The arguments of ``transition_flows`` at a real step of ``task`` on the
+    card (B lanes, random actions), copied; lanes 0 and 2 given a NaN voltage,
+    as a diverged solve leaves them, and lane 1 an inf one."""
+    from gym_anm_torch.bench import flows_probe
+
+    tb, args = flows_probe.step_inputs(lambda: _flows_task(task), B, seed=B)
+    args = list(args)
+    v_re, v_im = args[0], args[1]
+    for lane, col, val in ((0, 1, float("nan")), (1, 2, float("inf")), (2, -1, float("nan"))):
+        if lane < B:
+            (v_re if lane != 1 else v_im)[lane, col] = val
+    return tb, tuple(args)
+
+
+@pytest.mark.parametrize("task", ["ieee33", "multicap17", "anm6easy", "feeder130"])
+@pytest.mark.parametrize("size", ["one", "ragged", "65536"])
+def test_flows_kernel_matches_plain_version(cuda, task, size):
+    """K6 against its plain version on the same card inputs (a real step's,
+    with diverged lanes): every elementwise output (the non-slack currents,
+    the nine branch arrays, the columns it leaves alone) bit for bit; the
+    values that follow a reduction (the slack current, the four slack
+    columns, e_loss, penalty, reward), which K6 sums in float64 in its own
+    order and cuBLAS and torch.sum in theirs, within 4 float32 ulps of the
+    sum of their terms' magnitudes; the diverged lanes' slack injection +inf
+    in both; two launches bit for bit alike."""
+    B = {"one": 1, "ragged": 1009, "65536": 65536}[size]  # 1009 is prime: no tile (<= 128 lanes) divides it
+    tb, args = _flows_inputs(cuda, task, B)
+    _flows_kernel_against_plain(tb, args)
+
+
+def _flows_kernel_against_plain(tb, args):
+    """K6 and the plain version on copies of ``args`` (``flows_probe.compare``:
+    elementwise bit for bit, the values after a reduction within 4 float32
+    ulps of the sum of their terms' magnitudes), the NaN lanes 0 and 2's
+    slack injection +inf, and two launches bit for bit alike."""
+    from gym_anm_torch.bench import flows_probe
+    from gym_anm_torch.physics.flows_cuda import transition_flows_cuda
+    from gym_anm_torch.physics.transition import transition_flows_plain
+
+    ka, pa = flows_probe.copy_args(args), flows_probe.copy_args(args)
+    before = transition_flows_cuda.launch_count
+    k = transition_flows_cuda(tb, *ka)
+    p = transition_flows_plain(tb, *pa)
+    again = transition_flows_cuda(tb, *flows_probe.copy_args(args))
+    torch.cuda.synchronize()
+    assert transition_flows_cuda.launch_count == before + 2
+    for name, a, b in zip(p._fields, k, again):
+        assert bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all()), f"{name} differs between launches"
+    flows_probe.compare(tb, args, k, ka, p, pa, n_ulps=4)
+    for lane in (0, 2)[:args[0].shape[0]]:  # the NaN lanes
+        assert float(ka[7][lane, tb.slack_bus]) == float("inf") and float(ka[9][lane, tb.slack_dev]) == float("inf")
+    return p
+
+
+@pytest.mark.parametrize("task", ["ieee33", "multicap17"])
+def test_flows_kernel_matches_plain_version_with_per_lane_rates(cuda, task):
+    """K6's per-lane rates route ([B, Ne] rates, which ``transition`` takes)
+    against the plain version, as ``test_flows_kernel_matches_plain_version``
+    holds the shared route: 1009 lanes, each branch's rate its shared rate
+    scaled by a lane's own draw in [0.2, 1.2), so that some lanes' branches
+    run over their rate and their penalty is not 0."""
+    tb, args = _flows_inputs(cuda, task, 1009)
+    shared = args[12]
+    assert shared.shape == (tb.n_branch,)
+    g = torch.Generator(device=cuda).manual_seed(1009)
+    scale = 0.2 + torch.rand(1009, tb.n_branch, generator=g, device=cuda)
+    args = args[:12] + ((shared * scale).contiguous(),)
+    p = _flows_kernel_against_plain(tb, args)
+    over = (p.br_s_signed.abs() > args[12]) & torch.isfinite(p.br_s_signed)
+    assert int(over.sum()) > 0, "no branch runs over its rate: the rate penalty is not exercised"
+
+
+def test_flows_kernel_rejects_what_it_does_not_take(cuda):
+    """The wrapper refuses, naming the fault, tensors of another dtype or
+    device, non-contiguous or misshapen ones, more than one OLTC's taps and
+    an empty batch."""
+    from gym_anm_torch.bench import flows_probe
+    from gym_anm_torch.physics.flows_cuda import transition_flows_cuda
+
+    tb, args = _flows_inputs(cuda, "ieee33", 16)
+
+    def with_(i, t):
+        a = list(flows_probe.copy_args(args))
+        a[i] = t
+        return a
+
+    bad = [(with_(0, args[0].double()), "float32"), (with_(0, args[0].cpu()), "CUDA device"),
+           (with_(2, args[2].t().contiguous().t()), "contiguous"), (with_(3, args[3][:, :-1].contiguous()), "shape"),
+           (with_(6, args[6].expand(-1, 2).contiguous()), "shape")]
+    empty = [tuple(t[:0] for t in a) if isinstance(a, tuple) else a[:0] for a in flows_probe.copy_args(args)]
+    empty[12] = args[12]  # the rates [Ne] are not the lanes'
+    bad.append((empty, "non-empty"))
+    for a, match in bad:
+        with pytest.raises(ValueError, match=match):
+            transition_flows_cuda(tb, *a)
