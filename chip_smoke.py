@@ -10,10 +10,9 @@ non-zero at the first failure:
 1. the Gauss-Jordan kernel (K1) against its plain PyTorch version on the
    card: its register route bitwise in f32 and f64, n = 64 at B = 8192 and
    n = 10 at a ragged B = 1001, and a zero-pivot lane that must stay
-   non-finite in both; times of the kernel, of the one-block design of its
-   shared-memory route (``gym_anm_torch/bench/gauss_jordan_smem.cu``), of
-   the plain version and of ``torch.linalg.solve_ex`` (the yardstick; the
-   port never calls it), and the kernel's bound;
+   non-finite in both; times of the kernel, of the plain version and of
+   ``torch.linalg.solve_ex`` (the yardstick; the port never calls it), and
+   the kernel's bound;
 1b. the chord-Newton kernel (K2) against its plain version at B = 8192 on
    these input sets: base IEEE33 constants from flat and from warm starts,
    the multicap constants at their nominal-load point under diurnal loads,
@@ -41,10 +40,8 @@ non-zero at the first failure:
    zero-pivot lane (non-finite in both); (f) the tail: one lane of (a) among
    (d)'s accepted ones: stable and converged equal on every lane, n_iter on
    >= 99.5%, stable lanes' x within 1e-5 (float32) / 1e-10 (float64), the
-   bitwise-equal share, times of the kernel and of PR 13's design
-   (``bench/newton_fallback_pr13.cuh``, in turns, in this call, through the
-   wrapper's checks and allocations) and of the plain version, the lanes
-   that iterate (the 64-row body takes 4 threads a row where they fit the
+   bitwise-equal share, times of the kernel and of the plain version, the
+   lanes that iterate (the 64-row body takes 4 threads a row where they fit the
    card at once at that width, else 2), the slowest lane's iterations and
    µs an iteration, and the bound;
 4. TF32 allowed globally changes no step output, bit for bit;
@@ -80,15 +77,18 @@ non-zero at the first failure:
    plan's bounds moved; the first 8 steps of 256 lanes replayed through the
    float64 step on the CPU, before the clip, with per-entry tolerances from
    the load flow's accuracy and the entry's sensitivity to the voltages, and
-   two controls that must fail them; its env-steps/s, and the share of a
-   step spent in the Newton fallback (K3), beside the same steps with PR
-   13's design of K3 in its place (twice each, in turns);
+   two controls that must fail them; its env-steps/s, the share of a step
+   spent in the Newton fallback (K3) and K3's device time a step;
 9. the MPC farm (``bench.py`` workload 4) and its ADMM kernel K5:
    9a. K5 against its plain version at B = 8192 on the LPs of ANM6Easy reset
    states (N = 1 cold at max_iter 4000, the same lanes warm from their own
    solutions, N = 4 perfect forecast cold), IEEE33-renewable N = 1 cold, and
    1% of the lanes with a crossed bound row: flags equal on every lane,
    iterations on >= 99.5%, x within 1e-5; times of both and the bound;
+   then K5 on each side of its launch plan (staged: the farm's call;
+   streamed: ANM6Easy N = 4 and N = 8, IEEE33-renewable N = 1): the plan
+   equal to ``admm_cuda.stream_lanes``, the kernel's time and its share of
+   the bound, the N = 8 set against the plain version;
    9b. 64 lanes of the N = 1 cold set against scipy's HiGHS: objective within
    1e-3 relative and the stage-0 action within 2e-2 MW of the LP's optimal
    face on the lanes that exited by the strict rule;
@@ -103,19 +103,16 @@ non-zero at the first failure:
 10. networks above 33 buses: random radial feeders of 48, 64 and 130 buses
    (``gym_anm_torch.networks.random_feeder``) at B = 8192: the wide chord
    kernel against its plain version from flat, warm and bad-basin starts,
-   timed beside its block-per-lane design
-   (``gym_anm_torch/bench/chord_newton_wide_lane.cu``); K1's blocked route at
-   n = 258 (bitwise in float32 and float64) timed beside its device-memory
-   design (``bench/gauss_jordan_gmem.cu``) and ``torch.linalg.solve_ex``;
-   K1's routes bitwise at both sides of each route edge and at float32 n =
-   94, 126 and float64 n = 64, 126, the latter timed beside the one-block
-   design, the blocked route in device memory and ``solve_ex``; each
-   feeder's float32 ``VecEnv`` for 5 steps, the last from bad-basin warm
-   starts (the Newton fallback: K3 wide, resident in shared memory at 48
-   and 64 buses, its [J | F] in device memory at 130), every step under
-   ``set_sync_debug_mode("error")``, no standalone K1 launch, the bad-basin
-   step's peak device memory, held against the float64 tier on the card
-   (K3 wide too); then K3 wide against its plain version on each feeder's
+   and timed; K1's blocked route at n = 258 (bitwise in float32 and
+   float64) timed beside ``torch.linalg.solve_ex``; K1's routes bitwise at
+   both sides of each route edge and at float32 n = 94, 126 and float64
+   n = 64, 126, the latter timed beside the blocked route in device memory
+   and ``solve_ex``; each feeder's float32 ``VecEnv`` for 5 steps, the last
+   from bad-basin warm starts (the Newton fallback: K3 wide, resident in
+   shared memory at 48 and 64 buses, its [J | F] in device memory at 130),
+   every step under ``set_sync_debug_mode("error")``, no standalone K1
+   launch, the bad-basin step's peak device memory, held against the
+   float64 tier on the card (K3 wide too); then K3 wide against its plain version on each feeder's
    sets: (a) the bad-basin step's fallback inputs (float32, B = 8192, the
    LaneYbus), (c) float64 from the flat start with a dense Y at B = 1001 and
    B = 1, (d) no lane iterating, (f) one lane of (a) among accepted ones:
@@ -153,9 +150,8 @@ non-zero at the first failure:
    voltages, device P/Q, branch flows, reward, e_loss and penalty within
    1e-8, K3 launched with nr_solve's dense Y (float64, B = 1, n = 10 and
    64); ms per transition on both devices, GPU ops and host syncs of one
-   beside PR 10's (before K3); ms per transition on the card with PR 13's
-   design of K3 in its place (twice each, in turns); K1 at B = 1, n = 64 and
-   10, float64, timed beside ``torch.linalg.solve_ex`` and its bound.
+   beside PR 10's (before K3); K1 at B = 1, n = 64 and 10, float64, timed
+   beside ``torch.linalg.solve_ex`` and its bound.
 14. the host tier over the compat environments on the card (float64, one
    lane; ``gym_anm_torch.compat`` through gymnasium, or where the machine
    lacks it through this script's stand-in module: ``Env``, ``spaces.Box``,
@@ -246,7 +242,6 @@ report of every kernel first, a JSON line of the kernels next to last, and
 JAX.
 """
 
-import concurrent.futures
 import contextlib
 import dataclasses
 import importlib
@@ -324,13 +319,11 @@ def k1_bound(B, n, itemsize=4):
     return bound(flops, PEAK_F64 if itemsize == 8 else PEAK_F32, itemsize * B * (n * n + 2 * n))
 
 
-def phase1_kernel_vs_plain(lin, base):
+def phase1_kernel_vs_plain(lin):
     """K1's register route (n = 64 at B = 8192, n = 10 at B = 1001; float32
     and float64) against its plain version, bitwise, the zero-pivot lane
-    non-finite in both; each timed beside the one-block design (``base``), the
-    plain version and ``torch.linalg.solve_ex``, with its bound."""
-    from gym_anm_torch.bench.kernel_probes import one_block_solve
-
+    non-finite in both; each timed beside the plain version and
+    ``torch.linalg.solve_ex``, with its bound."""
     log("== phase 1: K1 against its plain version")
     result = {}
     errs = []
@@ -340,7 +333,6 @@ def phase1_kernel_vs_plain(lin, base):
         before = lin.solve_gauss_jordan_cuda.launches["regs"]
         xk = lin.solve_gauss_jordan_cuda(A, b)
         xp = lin.solve_gauss_jordan(A, b)
-        x1 = one_block_solve(base, A, b)
         torch.cuda.synchronize()
         assert lin.solve_gauss_jordan_cuda.launches["regs"] == before + 1, "K1's register route did not run"
         assert not torch.isfinite(xk[1]).all() and not torch.isfinite(xp[1]).all(), "zero pivot repaired"
@@ -352,23 +344,19 @@ def phase1_kernel_vs_plain(lin, base):
         log(f"K1 B={B} n={n} {dtype}: max_abs_err={err:.3e}; bitwise equal on {n_equal} of {B - 1} finite lanes")
         # The register route rounds every operation as the plain version does, in both types.
         assert torch.equal(xk[keep], xp[keep]), f"K1 {dtype} is not bitwise equal to its plain version"
-        assert torch.equal(x1[keep], xp[keep]), "the one-block design is not bitwise the plain version"
         errs.append(err)
         lin.solve_gauss_jordan_cuda(A, b)  # warm
         torch.linalg.solve_ex(A, b)
         t = {name: statistics.median(cuda_ms(fn, k) for _ in range(N_REPS)) for name, fn, k in (
             ("ms", lambda: lin.solve_gauss_jordan_cuda(A, b), N_LAUNCH),
-            ("one_block_ms", lambda: one_block_solve(base, A, b), N_LAUNCH),
             ("library_ms", lambda: torch.linalg.solve_ex(A, b), N_LAUNCH),
             ("plain_ms", lambda: lin.solve_gauss_jordan(A, b), 3))}
         bound_ms, bound_by = k1_bound(B, n, A.element_size())
         log(f"K1 time B={B} n={n} {dtype} (device time, {N_LAUNCH} launches per reading, median of {N_REPS}): "
-            f"kernel {t['ms']:.4f} ms, the one-block design {t['one_block_ms']:.4f} ms, torch.linalg.solve_ex "
-            f"{t['library_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), "
-            f"kernel at {bound_ms / t['ms']:.4f} of it")
+            f"kernel {t['ms']:.4f} ms, torch.linalg.solve_ex {t['library_ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), kernel at {bound_ms / t['ms']:.4f} of it")
         if (B, n, dtype) == (B_MAIN, 64, torch.float32):
             result = dict(t, bound_ms=bound_ms, bound_by=bound_by)
-            del result["one_block_ms"]
     result["max_abs_err"] = max(errs)
     return result
 
@@ -437,17 +425,15 @@ def k2_bound(ct, B, n_iter, x0):
     return bound(2 * macs, PEAK_F64_TC, n_bytes)
 
 
-def chord_vs_plain(pf, cuda_k, name, ct, args, x0, baseline=None):
+def chord_vs_plain(pf, cuda_k, name, ct, args, x0):
     """K2 and the plain chord on the same card inputs.  Both sum in the same
     order (the Anderson sums in the warp's butterfly order, the dot products
     in float64 and rounded once), so they agree bitwise but for a float64
     dot product whose other accumulation order moves a float32 rounding.
     Tolerance: the same accepted lanes; n_iter equal on all but 0.5% of
     lanes; x within 1e-5 (the solver's own scale is xtol = 1e-5 on the
-    residual); F and diff within 1e-4 (the acceptance band).  ``baseline``
-    (an earlier design on the same arguments) is held to the same limits
-    against the kernel and timed beside it.  Returns (max |dx|, kernel ms,
-    plain ms, bound ms, what bounds it, baseline ms or None)."""
+    residual); F and diff within 1e-4 (the acceptance band).  Returns
+    (max |dx|, kernel ms, plain ms, bound ms, what bounds it)."""
     before = cuda_k.launch_count
     xk, Fk, dk, ik, ak = cuda_k(*args, ct, x0=x0)
     torch.cuda.synchronize()
@@ -466,23 +452,13 @@ def chord_vs_plain(pf, cuda_k, name, ct, args, x0, baseline=None):
     assert torch.equal(ak, ap), "K2 and its plain version accept different lanes"
     assert n_diff <= B // 200, f"K2 n_iter differs on {n_diff} lanes"
     assert err <= 1e-5 and float((Fk - Fp).abs().max()) <= 1e-4 and float((dk - dp).abs().max()) <= 1e-4
-    t_b = None
-    if baseline is not None:
-        xb, Fb, db, ib, ab = baseline(*args, ct, x0=x0)
-        torch.cuda.synchronize()
-        nb = int((ib != ik).sum())
-        log(f"K2 {name}: the earlier design against the kernel: n_iter differs on {nb} lanes, max|dx| "
-            f"{float((xb - xk).abs().max()):.3e}, x bitwise equal on {int((xb == xk).all(1).sum())} of {B} lanes")
-        assert torch.equal(ab, ak) and nb <= B // 200 and float((xb - xk).abs().max()) <= 1e-5
-        t_b = statistics.median(cuda_ms(lambda: baseline(*args, ct, x0=x0)) for _ in range(N_REPS))
     t_k = statistics.median(cuda_ms(lambda: cuda_k(*args, ct, x0=x0)) for _ in range(N_REPS))
     t_p = statistics.median(cuda_ms(lambda: pf.chord_solve_plain(*args, ct, x0=x0), 3) for _ in range(N_REPS))
     bound_ms, bound_by = k2_bound(ct, B, ik, x0)
     log(f"K2 {name} time (device time, {N_LAUNCH} launches per reading, median of {N_REPS}): kernel {t_k:.4f} ms, "
-        + ("" if t_b is None else f"the earlier design {t_b:.4f} ms, ")
-        + f"plain {t_p:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}, {int(ik.sum())} lane-iterations), kernel at "
+        f"plain {t_p:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}, {int(ik.sum())} lane-iterations), kernel at "
         f"{bound_ms / t_k:.3f} of it")
-    return err, t_k, t_p, bound_ms, bound_by, t_b
+    return err, t_k, t_p, bound_ms, bound_by
 
 
 def multicap_injections(tb, B, g):
@@ -567,7 +543,7 @@ def phase1b_chord_kernel(pf, cuda_k, VecEnv, make_ieee33_task, make_ieee33_multi
     ):
         err, *times[name] = chord_vs_plain(pf, cuda_k, name, ct, args, x0)
         errs.append(err)
-    t_k, t_p, bound_ms, bound_by, _ = times["base IEEE33 warm starts"]
+    t_k, t_p, bound_ms, bound_by = times["base IEEE33 warm starts"]
     return dict(max_abs_err=max(errs), ms=t_k, plain_ms=t_p, bound_ms=bound_ms, bound_by=bound_by)
 
 
@@ -712,21 +688,16 @@ def bitwise_rows(a, b):
     return same.all(1) if same.dim() > 1 else same
 
 
-def k3_vs_plain(pf, lin, nc, base, name, args, ybus, plain_ybus, tol, xtol=1e-5, lim_iter=100):
+def k3_vs_plain(pf, lin, nc, name, args, ybus, plain_ybus, tol, xtol=1e-5, lim_iter=100):
     """K3 and its plain version (``power_flow._newton_loop`` with the plain
     Gauss-Jordan solve, no kernel in the oracle) on the same card inputs
     ``args`` = (x, F, diff, n_iter, accepted or None, p, q), their results
-    through the shared epilogue ``_nr_result``, and PR 13's design
-    (``base``, ``bench/newton_fallback_pr13.cuh``) on the same inputs.
-    Gates: ``stable`` and ``converged`` equal on every lane, ``n_iter``
-    equal on >= 99.5% of lanes, x within ``tol`` on the lanes stable in
-    both (PR 13's design's agreement is logged).  Returns a dict of the
-    readings (bitwise share, the slowest lane's iterations, times of the
-    kernel, of PR 13's design (timed in turns, in the same call, through
-    the wrapper's checks and allocations) and of the plain version, µs an
-    iteration of the slowest lane, the bound)."""
-    from gym_anm_torch.bench.kernel_probes import pr13_newton
-
+    through the shared epilogue ``_nr_result``.  Gates: ``stable`` and
+    ``converged`` equal on every lane, ``n_iter`` equal on >= 99.5% of
+    lanes, x within ``tol`` on the lanes stable in both.  Returns a dict of
+    the readings (bitwise share, the slowest lane's iterations, times of the
+    kernel and of the plain version, µs an iteration of the slowest lane,
+    the bound)."""
     x, F, diff, it, acc, p, q = args
     B, n = x.shape
     f32 = p.dtype == torch.float32
@@ -745,11 +716,8 @@ def k3_vs_plain(pf, lin, nc, base, name, args, ybus, plain_ybus, tol, xtol=1e-5,
     err = float((xk - xp)[both].abs().max()) if bool(both.any()) else 0.0
     n_it = int((ik == ip).sum())
 
-    def same(a, b):  # lanes equal bit for bit on every output
-        return (bitwise_rows(a[0], b[0]) & bitwise_rows(a[1], b[1]) & bitwise_rows(a[2], b[2]) & (a[3] == b[3])
-                & (a[4] == b[4]))
-
-    n_bit = int(same(out_k, (xp, Fp, dp, ip, sp)).sum())
+    n_bit = int((bitwise_rows(xk, xp) & bitwise_rows(Fk, Fp) & bitwise_rows(dk, dp) & (ik == ip)
+                 & (sk == sp)).sum())
     lane_iters = int((ik - it).sum())
     n_go = int(((ik - it) > 0).sum())
     max_it = int((ik - it).max())
@@ -763,14 +731,8 @@ def k3_vs_plain(pf, lin, nc, base, name, args, ybus, plain_ybus, tol, xtol=1e-5,
     assert torch.equal(rk.converged, rp.converged), "K3 and its plain version disagree on converged"
     assert n_it >= math.ceil(0.995 * B), f"K3 n_iter differs on {B - n_it} lanes"
     assert err <= tol, f"K3 x differs by {err:.3e} > {tol:.0e} on a stable lane"
-    pr13 = lambda: pr13_newton(base, x, F, diff, it, acc, p, q, ybus, xtol, lim_iter)  # noqa: E731
-    n_pr13 = int(same(pr13(), out_k).sum())
-    torch.cuda.synchronize()
-    t_new, t_pr13 = [], []
-    for _ in range(N_REPS):  # in turns, in this call
-        t_new.append(cuda_ms(lambda: nc(x, F, diff, it, acc, p, q, ybus, xtol, lim_iter)))
-        t_pr13.append(cuda_ms(pr13))
-    out["ms"], out["pr13_ms"] = statistics.median(t_new), statistics.median(t_pr13)
+    out["ms"] = statistics.median(
+        cuda_ms(lambda: nc(x, F, diff, it, acc, p, q, ybus, xtol, lim_iter)) for _ in range(N_REPS))
     out["plain_ms"] = statistics.median(
         cuda_ms(lambda: pf._newton_loop(x, F, diff, it, ~acc0, plain_ybus, p, q, xtol, lim_iter, f32,
                                         lin.solve_gauss_jordan), 3) for _ in range(N_REPS))
@@ -779,14 +741,11 @@ def k3_vs_plain(pf, lin, nc, base, name, args, ybus, plain_ybus, tol, xtol=1e-5,
     else:
         y_bytes = x.element_size() * sum(t.numel() for t in ybus)
     out["bound_ms"], out["bound_by"] = k3_bound(B, n, x.element_size(), lane_iters, y_bytes)
-    per_it = f"{1e3 * out['ms'] / max_it:.2f} µs (PR 13's {1e3 * out['pr13_ms'] / max_it:.2f})" if max_it else "-"
-    log(f"K3 {name} time (device time, {N_LAUNCH} launches per reading, median of {N_REPS}, in turns with PR 13's "
-        f"design): kernel {out['ms']:.4f} ms ({n_go} lanes iterate), PR 13's design {out['pr13_ms']:.4f} "
-        f"ms ({out['pr13_ms'] / out['ms']:.2f}x), plain {out['plain_ms']:.4f} ms; bound {out['bound_ms']:.4f} ms "
+    per_it = f"{1e3 * out['ms'] / max_it:.2f} µs" if max_it else "-"
+    log(f"K3 {name} time (device time, {N_LAUNCH} launches per reading, median of {N_REPS}): kernel "
+        f"{out['ms']:.4f} ms ({n_go} lanes iterate), plain {out['plain_ms']:.4f} ms; bound {out['bound_ms']:.4f} ms "
         f"({1e3 * out['bound_ms']:.4g} µs, {out['bound_by']}, {lane_iters} lane-iterations), kernel at "
-        f"{out['bound_ms'] / out['ms']:.4f} of it; "
-        f"slowest lane {max_it} iterations, {per_it} an iteration; PR 13's design bitwise the kernel on "
-        f"{n_pr13} of {B}")
+        f"{out['bound_ms'] / out['ms']:.4f} of it; slowest lane {max_it} iterations, {per_it} an iteration")
     return out
 
 
@@ -828,7 +787,7 @@ def dense_oracle(Yre, Yim):
     return (lambda idx: (Yre, Yim)) if Yre.dim() == 2 else (lambda idx: (Yre[idx], Yim[idx]))
 
 
-def phase3b_newton_kernel(pf, lin, nc, base, VecEnv, make_ieee33_task, make_anm6easy_task, LaneYbus):
+def phase3b_newton_kernel(pf, lin, nc, VecEnv, make_ieee33_task, make_anm6easy_task, LaneYbus):
     """K3 against its plain version on the card, sets (a)-(f): (a) IEEE33
     float32 after the chord from the bad-basin guesses (every lane
     unaccepted) under random loads, random taps through the LaneYbus; (b) ANM6Easy float32 (n =
@@ -837,8 +796,8 @@ def phase3b_newton_kernel(pf, lin, nc, base, VecEnv, make_ieee33_task, make_anm6
     B = 8192 and at B = 1; (d) a batch with no unaccepted lane (the launch's
     own time); (e) a ragged B = 1001 from the flat start with lane 1's Y
     zero (a zero pivot: non-finite in both); (f) the tail: one lane of (a)
-    among (d)'s accepted ones.  Each set is timed beside PR 13's design
-    (``base``).  Returns the (a) set's numbers for the kernels' line."""
+    among (d)'s accepted ones.  Returns the (a) set's numbers for the
+    kernels' line."""
     log(f"== phase 3b: K3 (the exact-Newton fallback) against its plain version, B={B_MAIN}")
     g = torch.Generator(device="cuda").manual_seed(31)
     env32 = VecEnv(make_ieee33_task(), dtype=torch.float32, device="cuda")
@@ -863,13 +822,13 @@ def phase3b_newton_kernel(pf, lin, nc, base, VecEnv, make_ieee33_task, make_anm6
     init = pf.chord_solve(p, q, di, dr, dr, di, tb.chord_t, x0=bad_guesses(B, n).to("cuda"))
     assert not bool(init[4].any()), "set (a): a lane was accepted by the chord"
     init_a = init
-    results["a"] = k3_vs_plain(pf, lin, nc, base, "(a) IEEE33 after the chord from bad-basin guesses", init + (p, q),
+    results["a"] = k3_vs_plain(pf, lin, nc, "(a) IEEE33 after the chord from bad-basin guesses", init + (p, q),
                                ybus, ybus, 1e-5)
 
     # (b) ANM6Easy at a real step's fallback inputs.
     a6_ybus, a6_p, a6_q, a6_init = task_newton_inputs(VecEnv, make_anm6easy_task(), 8, 12)
     log(f"K3 (b): {int((~a6_init[4]).sum())} of {B} ANM6Easy lanes unaccepted by the chord at step 8")
-    results["b"] = k3_vs_plain(pf, lin, nc, base, "(b) ANM6Easy at a step's injections", tuple(a6_init) + (a6_p, a6_q),
+    results["b"] = k3_vs_plain(pf, lin, nc, "(b) ANM6Easy at a step's injections", tuple(a6_init) + (a6_p, a6_q),
                                a6_ybus, a6_ybus, 1e-5)
 
     # (c) float64 from the flat start, dense Y, at B = 8192 and B = 1.
@@ -883,8 +842,8 @@ def phase3b_newton_kernel(pf, lin, nc, base, VecEnv, make_ieee33_task, make_anm6
             Y = (Yre[:BB].contiguous(), Yim[:BB].contiguous())
             start = flat_start(pf, *Y, p64[:BB].contiguous(), q64[:BB].contiguous())
             results[f"c {net} {BB}"] = k3_vs_plain(
-                pf, lin, nc, base, f"(c) {net} float64 from the flat start", start + (None, p64[:BB].contiguous(),
-                                                                                 q64[:BB].contiguous()),
+                pf, lin, nc, f"(c) {net} float64 from the flat start", start + (None, p64[:BB].contiguous(),
+                                                                           q64[:BB].contiguous()),
                 Y, dense_oracle(*Y), 1e-10)
 
     # ROADMAP D2: the float64 tier on the card (K3, Y V in the fold's order)
@@ -901,13 +860,13 @@ def phase3b_newton_kernel(pf, lin, nc, base, VecEnv, make_ieee33_task, make_anm6
     xk, Fk, dk, ik, sk = nc(*init, p, q, ybus)
     assert torch.equal(xk, init[0]) and torch.equal(Fk, init[1]) and torch.equal(dk, init[2]) and \
         torch.equal(ik, init[3]) and not bool(sk.any()), "set (d): a lane that does not iterate moved"
-    results["d"] = k3_vs_plain(pf, lin, nc, base, "(d) no lane unaccepted", init + (p, q), ybus, ybus, 1e-5)
+    results["d"] = k3_vs_plain(pf, lin, nc, "(d) no lane unaccepted", init + (p, q), ybus, ybus, 1e-5)
 
     # (f) the tail: (a)'s lane 1 (the vm < 0 guess) among (d)'s accepted lanes.
     tail = torch.zeros(B, dtype=torch.bool, device="cuda")
     tail[1] = True
     init_f = tuple(torch.where(tail.view(-1, *[1] * (a.dim() - 1)), a, d).contiguous() for a, d in zip(init_a, init))
-    results["f"] = k3_vs_plain(pf, lin, nc, base, "(f) the tail: one lane of (a) among accepted ones",
+    results["f"] = k3_vs_plain(pf, lin, nc, "(f) the tail: one lane of (a) among accepted ones",
                                init_f + (p, q), ybus, ybus, 1e-5)
 
     # (e) ragged B with a zero pivot: lane 1's Y is zero, its Jacobian too.
@@ -919,11 +878,11 @@ def phase3b_newton_kernel(pf, lin, nc, base, VecEnv, make_ieee33_task, make_anm6
     xp = pf._newton_loop(*start, torch.ones(Be, dtype=torch.bool, device="cuda"), dense_oracle(Yre, Yim),
                          p[:Be], q[:Be], 1e-5, 100, True, lin.solve_gauss_jordan)[0]
     assert not bool(torch.isfinite(xk[1]).all()) and not bool(torch.isfinite(xp[1]).all()), "zero pivot repaired"
-    results["e"] = k3_vs_plain(pf, lin, nc, base, "(e) ragged B with a zero-pivot lane",
+    results["e"] = k3_vs_plain(pf, lin, nc, "(e) ragged B with a zero-pivot lane",
                                start + (None, p[:Be].contiguous(), q[:Be].contiguous()), (Yre, Yim),
                                dense_oracle(Yre, Yim), 1e-5)
     log("K3 sets: " + ", ".join(f"{k}: bitwise {v['bitwise']:.4f}, n_iter equal {v['n_iter_equal']:.4f}, "
-                                f"{v['ms']:.4f} ms (PR 13's design {v['pr13_ms']:.4f}, plain {v['plain_ms']:.4f}; "
+                                f"{v['ms']:.4f} ms (plain {v['plain_ms']:.4f}; "
                                 f"bound {v['bound_ms']:.4f}, {v['bound_by']}; slowest lane {v['max_it']} iterations"
                                 + (f", {1e3 * v['ms'] / v['max_it']:.2f} µs an iteration)" if v["max_it"] else ")")
                                 for k, v in results.items()))
@@ -1580,7 +1539,7 @@ def replay_anm6easy(VecEnv, make_anm6easy_task, plan, build_ybus, record):
     assert worst_r_c1 > 1, "reward: control C1 passes its tolerance"
 
 
-def phase8_anm6easy(VecEnv, make_anm6easy_task, STATE_VARIABLES, build_ybus, kernel, chord_k, flows_k, base):
+def phase8_anm6easy(VecEnv, make_anm6easy_task, STATE_VARIABLES, build_ybus, kernel, chord_k, flows_k):
     from gym_anm_torch.vec.core import tree_map
 
     B, T = B_MAIN, 96
@@ -1652,11 +1611,8 @@ def phase8_anm6easy(VecEnv, make_anm6easy_task, STATE_VARIABLES, build_ybus, ker
     # Where a step's time goes: wall time inside the Newton fallback (the
     # step's and the resets'; the card synchronized at its entry and exit:
     # one K3 launch a call) against the whole step, and the fallback's Newton
-    # iterations (K1's solves inside K3) per step; the same steps from the
-    # same state with PR 13's design of K3 in its place, in turns.
+    # iterations (K1's solves inside K3) per step.
     # (by import_module: the package's ``transition`` attribute is the function)
-    from gym_anm_torch.bench.kernel_probes import pr13_newton
-
     transition_module = importlib.import_module("gym_anm_torch.physics.transition")
     real_nr, in_nr = transition_module.nr_solve_lazy, [0.0]
 
@@ -1668,65 +1624,39 @@ def phase8_anm6easy(VecEnv, make_anm6easy_task, STATE_VARIABLES, build_ybus, ker
         in_nr[0] += time.perf_counter() - t0
         return out
 
-    pr13_calls = []
-
-    def pr13_fallback(x, F, diff, n_iter, accepted, p, q, ybus, xtol=1e-5, lim_iter=100):
-        # As K3Counts around K3: through the wrapper's checks and allocations, the outputs kept.
-        out = pr13_newton(base, x, F, diff, n_iter, accepted, p, q, ybus, xtol, lim_iter)
-        pr13_calls.append((n_iter, out[3]))
-        return out
-
-    pf = importlib.import_module("gym_anm_torch.physics.power_flow")
-    n_split, splits = 32, {"K3": [], "PR 13's design": []}
-    for design in ("K3", "PR 13's design", "K3", "PR 13's design"):
-        g_split = torch.Generator(device="cuda").manual_seed(88)
-        state, _ = env.reset(B, g_split)
-        transition_module.nr_solve_lazy = timed_nr
-        if design != "K3":
-            pf.newton_fallback_cuda = pr13_fallback
-        in_nr[0] = 0.0
-        try:
-            kernel.launch_count = 0
-            pr13_calls.clear()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(n_split):
-                state, *_ = env.step_autoreset_batch(state, uniform_actions(env, B, g_split), g_split)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / n_split
-        finally:
-            transition_module.nr_solve_lazy = real_nr
-            pf.newton_fallback_cuda = kernel
-        splits[design].append((wall, in_nr[0] / n_split))
-        if design == "K3":
-            k3_launches, k3_solves = kernel.launch_count, kernel.solves
-    (wall, nr), (wall13, nr13) = ([statistics.mean(v) for v in zip(*splits[k])] for k in splits)
-    # The kernels' own device time on the same steps (torch.profiler): the
-    # host clock above also holds the wrapper's Python and the syncs.
+    n_split = 32
+    g_split = torch.Generator(device="cuda").manual_seed(88)
+    state, _ = env.reset(B, g_split)
+    transition_module.nr_solve_lazy = timed_nr
+    try:
+        kernel.launch_count = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_split):
+            state, *_ = env.step_autoreset_batch(state, uniform_actions(env, B, g_split), g_split)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n_split
+    finally:
+        transition_module.nr_solve_lazy = real_nr
+    nr = in_nr[0] / n_split
+    k3_launches, k3_solves = kernel.launch_count, kernel.solves
+    # K3's own device time on the same steps (torch.profiler): the host clock
+    # above also holds the wrapper's Python and the syncs.
     from torch.profiler import ProfilerActivity, profile
 
-    k3_us, pr13 = {}, "PR 13's design"
-    for design in splits:
-        g_split = torch.Generator(device="cuda").manual_seed(88)
-        state, _ = env.reset(B, g_split)
-        if design != "K3":
-            pf.newton_fallback_cuda = pr13_fallback
-        try:
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(n_split):
-                    state, *_ = env.step_autoreset_batch(state, uniform_actions(env, B, g_split), g_split)
-                torch.cuda.synchronize()
-        finally:
-            pf.newton_fallback_cuda = kernel
-        k3_us[design] = sum(e.time_range.end - e.time_range.start for e in prof.events()
-                            if e.device_type == torch.autograd.DeviceType.CUDA and "newton_kernel" in e.name) / n_split
-    log(f"ANM6Easy step split ({n_split} steps, twice each in turns): wall {1e3 * wall:.3f} ms/step, of which the "
-        f"Newton fallback (K3) {1e3 * nr:.3f} ms ({nr / wall:.3f}); with PR 13's design of K3 in its place "
-        f"{1e3 * wall13:.3f} ms/step, the fallback {1e3 * nr13:.3f} ms ({nr13 / wall13:.3f}); K3's device time "
-        f"(torch.profiler, the same steps) {k3_us['K3']:.2f} µs a step, PR 13's design's {k3_us[pr13]:.2f}; "
-        f"{k3_launches / n_split:.2f} K3 launches and {k3_solves / n_split:.2f} lane-iterations of Newton (K1's "
-        f"solves inside K3) per step")
+    g_split = torch.Generator(device="cuda").manual_seed(88)
+    state, _ = env.reset(B, g_split)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_split):
+            state, *_ = env.step_autoreset_batch(state, uniform_actions(env, B, g_split), g_split)
+        torch.cuda.synchronize()
+    k3_us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA and "newton_kernel" in e.name) / n_split
+    log(f"ANM6Easy step split ({n_split} steps): wall {1e3 * wall:.3f} ms/step, of which the Newton fallback (K3) "
+        f"{1e3 * nr:.3f} ms ({nr / wall:.3f}); K3's device time (torch.profiler, the same steps) {k3_us:.2f} µs a "
+        f"step; {k3_launches / n_split:.2f} K3 launches and {k3_solves / n_split:.2f} lane-iterations of Newton "
+        f"(K1's solves inside K3) per step")
     return launches, chord_launches, flows_launches, rate, solves
 
 
@@ -1745,15 +1675,12 @@ def feeder_env_task(n_bus, scale, n_steps=8):
     return make_feeder_task(net, feeder_vars(net, scale, n_steps, rng), name=f"feeder{n_bus}")
 
 
-def phase10_feeders(pf, lin, cuda_k, VecEnv, base, kernel, nc):
+def phase10_feeders(pf, lin, cuda_k, VecEnv, kernel, nc):
     """Networks above 33 buses (ROADMAP F3): random radial feeders of 48, 64
     and 130 buses at B = 8192.  The wide chord kernel against its plain
     version on a real step's injections from flat, warm and bad-basin
-    starts, and timed beside its block-per-lane design (``base``, the
-    library of ``gym_anm_torch/bench/kernel_probes.BASELINE_SOURCES``); K1's
-    blocked route (n = 258) against its plain version, bitwise in float32
-    and float64, timed beside its device-memory design and
-    ``torch.linalg.solve_ex``; K1's routes at their edges and the feeders'
+    starts; K1's blocked route (n = 258) against its plain version, bitwise
+    in float32 and float64, timed beside ``torch.linalg.solve_ex``; K1's routes at their edges and the feeders'
     other sizes (``phase10_k1_routes``); then the feeders' path: a float32
     VecEnv, 4 steps of uniform-random actions and one from bad-basin warm
     starts (the Newton fallback: K3 wide at n = 94, 126 and 258), each step
@@ -1771,8 +1698,6 @@ def phase10_feeders(pf, lin, cuda_k, VecEnv, base, kernel, nc):
     wide's numbers for the kernels' line, their launches those of the
     float32 path alone (K1's: its solves inside K3 wide on each route), K3
     wide's device-memory route's those of the 194-bus float64 step."""
-    from gym_anm_torch.bench.kernel_probes import gmem_solve, lane_chord
-
     log(f"== phase 10: random radial feeders above 33 buses, B={B_MAIN}")
     wide, blocked = {"errs": []}, {}
     for n_bus, scale in FEEDERS:
@@ -1781,14 +1706,9 @@ def phase10_feeders(pf, lin, cuda_k, VecEnv, base, kernel, nc):
         n = ct.n
         for name, x0 in (("flat start", None), ("warm starts of a step", warm),
                          ("bad-basin guesses", bad_guesses(B_MAIN, n).to("cuda"))):
-            err, t_k, t_p, bound_ms, bound_by, t_b = chord_vs_plain(
-                pf, cuda_k, f"wide, {n_bus}-bus feeder, {name}", ct, args, x0,
-                baseline=lambda *a, **kw: lane_chord(base, *a, **kw))
+            err, t_k, t_p, bound_ms, bound_by = chord_vs_plain(
+                pf, cuda_k, f"wide, {n_bus}-bus feeder, {name}", ct, args, x0)
             wide["errs"].append(err)
-            if x0 is warm:
-                log(f"K2 wide, {n_bus}-bus feeder, warm starts: this kernel {t_k:.4f} ms, the block-per-lane design "
-                    f"{t_b:.4f} ms "
-                    f"in this call ({t_b / t_k:.2f}x)")
             if n_bus == 130 and x0 is warm:
                 wide.update(ms=t_k, plain_ms=t_p, bound_ms=bound_ms, bound_by=bound_by)
 
@@ -1799,7 +1719,6 @@ def phase10_feeders(pf, lin, cuda_k, VecEnv, base, kernel, nc):
         before = lin.solve_gauss_jordan_cuda.launches["blocked"]
         xk = lin.solve_gauss_jordan_cuda(A, b)
         xp = lin.solve_gauss_jordan(A, b)
-        xg = gmem_solve(base, A, b)
         torch.cuda.synchronize()
         assert lin.solve_gauss_jordan_cuda.launches["blocked"] == before + 1, "K1's blocked route did not run"
         assert not torch.isfinite(xk[1]).all() and not torch.isfinite(xp[1]).all(), "zero pivot repaired"
@@ -1808,8 +1727,7 @@ def phase10_feeders(pf, lin, cuda_k, VecEnv, base, kernel, nc):
         err = float((xk[keep] - xp[keep]).abs().max())
         rel = err / float(xp[keep].abs().max())
         log(f"K1 blocked B={B} n={n} {dtype}: max_abs_err={err:.3e} rel={rel:.3e}; bitwise equal on "
-            f"{int((xk[keep] == xp[keep]).all(1).sum())} of {B - 1} finite lanes (the device-memory design: on "
-            f"{int((xg[keep] == xp[keep]).all(1).sum())})")
+            f"{int((xk[keep] == xp[keep]).all(1).sum())} of {B - 1} finite lanes")
         assert torch.equal(xk[keep], xp[keep]), f"K1 {dtype} blocked is not bitwise equal to its plain version"
         if dtype == torch.float64:
             continue
@@ -1817,17 +1735,14 @@ def phase10_feeders(pf, lin, cuda_k, VecEnv, base, kernel, nc):
         t = {key: statistics.median(cuda_ms(fn, k) for _ in range(r)) for key, fn, k, r in (
             ("ms", lambda: lin.solve_gauss_jordan_cuda(A, b), 5, 3),
             ("library_ms", lambda: torch.linalg.solve_ex(A, b), 5, 3),
-            ("gmem_ms", lambda: gmem_solve(base, A, b), 1, 1),
             ("plain_ms", lambda: lin.solve_gauss_jordan(A, b), 1, 1))}
         bound_ms, bound_by = k1_bound(B, n)
         log(f"K1 blocked time B={B} n={n} f32 (device time; kernel and solve_ex 5 launches a reading, median "
-            f"of 3; the device-memory design and plain 1 launch): kernel "
-            f"{t['ms']:.4f} ms, the device-memory design {t['gmem_ms']:.4f} ms, torch.linalg.solve_ex {t['library_ms']:.4f} ms, plain "
+            f"of 3; plain 1 launch): kernel {t['ms']:.4f} ms, torch.linalg.solve_ex {t['library_ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), kernel at {bound_ms / t['ms']:.4f} of it")
-        del t["gmem_ms"]
         blocked = dict(t, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
 
-    resident = phase10_k1_routes(lin, base)
+    resident = phase10_k1_routes(lin)
 
     # The feeders' path, the float32 tier: the counts zeroed just before each
     # of its calls and read just after, so that the float64 tier that checks
@@ -1956,7 +1871,7 @@ def phase10_feeders(pf, lin, cuda_k, VecEnv, base, kernel, nc):
     assert route == "blocked" and blk["blocked"] == 1 and blk["blocked_solves"] > 0 and blk["k1"] == 0, \
         f"the {n_bus}-bus float64 step did not run K3 wide's device-memory route once"
     wide["max_abs_err"] = max(wide.pop("errs"))
-    k3w = phase10_newton_wide(pf, lin, nc, base, fallback_inputs, tuple(t.contiguous() for t in seen[-1]))
+    k3w = phase10_newton_wide(pf, lin, nc, fallback_inputs, tuple(t.contiguous() for t in seen[-1]))
     k3w["peak_step"] = wide_peak
     return (dict(wide, launches=counts["wide"]), dict(blocked, launches=counts["blocked_solves"]),
             dict(resident, launches=counts["smem_solves"]), dict(k3w, launches=counts["k3w"] + blk["k3w"],
@@ -1982,38 +1897,18 @@ def timed(fn, budget_ms=200.0):
     return statistics.median(cuda_ms(fn, k) for _ in range(3 if t1 > 10.0 else N_REPS))
 
 
-def timed_pair(fa, fb, budget_ms=200.0):
-    """Device ms of ``fa`` and ``fb`` (``cuda_ms``) read in turns, a, b, b,
-    a, ...: as many launches a reading as fit ``budget_ms`` (1 to
-    N_LAUNCH), the median of N_REPS readings each, 3 where a call takes
-    over 10 ms."""
-    t1 = max(cuda_ms(fa, 1), cuda_ms(fb, 1))
-    k = max(1, min(N_LAUNCH, int(budget_ms / max(t1, 1e-3))))
-    ta, tb = [], []
-    for r in range(3 if t1 > 10.0 else N_REPS):
-        for f, t in ((fa, ta), (fb, tb)) if r % 2 == 0 else ((fb, tb), (fa, ta)):
-            t.append(cuda_ms(f, k))
-    return statistics.median(ta), statistics.median(tb)
-
-
-def k3_wide_vs_plain(pf, lin, nc, base, name, args, ybus, plain_ybus, route, xtol=1e-5, lim_iter=100,
-                     memory=False):
+def k3_wide_vs_plain(pf, lin, nc, name, args, ybus, plain_ybus, route, xtol=1e-5, lim_iter=100, memory=False):
     """K3 wide and its plain version (``_newton_loop`` with the plain
     Gauss-Jordan solve) on the same card inputs ``args`` = (x, F, diff,
     n_iter, accepted or None, p, q): one launch on ``route``, every lane
-    bitwise (x, F, diff, n_iter, stall).  Times the kernel and PR 15's
-    design (``base``, ``bench/newton_fallback_wide_pr15.cuh``, through PR
-    15's wrapper steps) in turns, the plain version once, with the bound;
-    ``memory``: the peak device memory of a call of each, above what was
-    held before it."""
-    from gym_anm_torch.bench.kernel_probes import pr15_newton_wide
-
+    bitwise (x, F, diff, n_iter, stall).  Times the kernel, the plain
+    version once, with the bound; ``memory``: the peak device memory of a
+    call, above what was held before it."""
     x, F, diff, it, acc, p, q = args
     B, n = x.shape
     f32 = p.dtype == torch.float32
     acc0 = torch.zeros(B, dtype=torch.bool, device="cuda") if acc is None else acc
     call = lambda: nc(x, F, diff, it, acc, p, q, ybus, xtol, lim_iter)  # noqa: E731
-    pr15 = lambda: pr15_newton_wide(base, x, F, diff, it, acc, p, q, ybus, xtol, lim_iter)[0]  # noqa: E731
     before = nc.launches_by_route[route]
     out_k = call()
     torch.cuda.synchronize()
@@ -2022,47 +1917,37 @@ def k3_wide_vs_plain(pf, lin, nc, base, name, args, ybus, plain_ybus, route, xto
     plain_ms = cuda_ms(lambda: plain.append(pf._newton_loop(x, F, diff, it, ~acc0, plain_ybus, p, q, xtol, lim_iter,
                                                             f32, lin.solve_gauss_jordan)), 1)
 
-    def same(a, b):  # lanes equal bit for bit on every output
-        return (bitwise_rows(a[0], b[0]) & bitwise_rows(a[1], b[1]) & bitwise_rows(a[2], b[2]) & (a[3] == b[3])
-                & (a[4] == b[4]))
-
-    n_bit = int(same(out_k, plain[0]).sum())
-    out15, route15 = pr15_newton_wide(base, x, F, diff, it, acc, p, q, ybus, xtol, lim_iter)
-    n_bit15 = int(same(out15, plain[0]).sum())
+    n_bit = int((bitwise_rows(out_k[0], plain[0][0]) & bitwise_rows(out_k[1], plain[0][1])
+                 & bitwise_rows(out_k[2], plain[0][2]) & (out_k[3] == plain[0][3]) & (out_k[4] == plain[0][4])).sum())
     rk = pf._nr_result(*out_k, acc0, xtol, f32)
     lane_iters = int((out_k[3] - it).sum())
     n_go = int(((out_k[3] - it) > 0).sum())
     max_it = int((out_k[3] - it).max())
-    log(f"K3 wide {name} B={B} n={n} {p.dtype} (route {route}; PR 15's design: {route15}): {n_go} lanes iterated, "
+    log(f"K3 wide {name} B={B} n={n} {p.dtype} (route {route}): {n_go} lanes iterated, "
         f"{lane_iters} lane-iterations (max {max_it}); stable {int(rk.stable.sum())}, converged "
         f"{int(rk.converged.sum())}; bitwise equal to the plain version (x, F, diff, n_iter, stall) on {n_bit} of "
-        f"{B} lanes (PR 15's design: {n_bit15})")
+        f"{B} lanes")
     assert n_bit == B, f"K3 wide differs from its plain version on {B - n_bit} lanes"
     out = dict(max_abs_err=0.0, lane_iters=lane_iters, max_it=max_it, plain_ms=plain_ms,  # bitwise, asserted
                out=out_k)
     if memory:
-        for key, fn in (("peak_kernel", call), ("peak_pr15", pr15)):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            held = torch.cuda.memory_allocated()
-            fn()
-            torch.cuda.synchronize()
-            out[key] = torch.cuda.max_memory_allocated() - held
-    out["ms"], out["pr15_ms"] = timed_pair(call, pr15, budget_ms=50.0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        call()
+        torch.cuda.synchronize()
+        out["peak_kernel"] = torch.cuda.max_memory_allocated() - held
+    out["ms"] = timed(call, budget_ms=50.0)
     if hasattr(ybus, "tap_magn"):  # a LaneYbus: the taps and the branch tables
         y_bytes = x.element_size() * (ybus.tap_magn.numel() + 5 * ybus.f.numel()) + 16 * ybus.f.numel()
     else:
         y_bytes = x.element_size() * sum(t.numel() for t in ybus)
     out["bound_ms"], out["bound_by"] = k3_bound(B, n, x.element_size(), lane_iters, y_bytes)
-    per_it = (f"{1e3 * out['ms'] / max_it:.2f} µs an iteration of the slowest lane (PR 15's "
-              f"{1e3 * out['pr15_ms'] / max_it:.2f})" if max_it else "no lane iterates")
-    log(f"K3 wide {name} time (device time, in turns with PR 15's design, median of {N_REPS} readings, 3 above 10 "
-        f"ms a call): kernel {out['ms']:.4f} ms, PR 15's design {out['pr15_ms']:.4f} ms "
-        f"({out['pr15_ms'] / out['ms']:.2f}x), plain {plain_ms:.4f} ms (one call); bound {out['bound_ms']:.4f} ms "
-        f"({out['bound_by']}, {lane_iters} lane-iterations), kernel at {out['bound_ms'] / out['ms']:.4f} of it "
-        f"(PR 15's {out['bound_ms'] / out['pr15_ms']:.4f}); {per_it}"
-        + (f"; peak device memory of a call: kernel {out['peak_kernel'] / 2**20:.1f} MiB, PR 15's design "
-           f"{out['peak_pr15'] / 2**20:.1f} MiB" if memory else ""))
+    per_it = f"{1e3 * out['ms'] / max_it:.2f} µs an iteration of the slowest lane" if max_it else "no lane iterates"
+    log(f"K3 wide {name} time (device time, median of {N_REPS} readings, 3 above 10 ms a call): kernel "
+        f"{out['ms']:.4f} ms, plain {plain_ms:.4f} ms (one call); bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_by']}, {lane_iters} lane-iterations), kernel at {out['bound_ms'] / out['ms']:.4f} of it; "
+        f"{per_it}" + (f"; peak device memory of a call {out['peak_kernel'] / 2**20:.1f} MiB" if memory else ""))
     return out
 
 
@@ -2135,10 +2020,9 @@ def d2_card_vs_cpu(pf, name, ybus64, p, q, init, share=1e-3, tol=1e-10):
     return n_conv, n_stab, dv, n_own
 
 
-def phase10_newton_wide(pf, lin, nc, base, fallback_inputs, blocked_inputs):
+def phase10_newton_wide(pf, lin, nc, fallback_inputs, blocked_inputs):
     """K3 wide against its plain version on each feeder's sets, in float32
-    and float64, each on the route ``wide_route`` gives its batch and timed
-    beside PR 15's design in turns: (a) the float32 bad-basin step's
+    and float64, each on the route ``wide_route`` gives its batch: (a) the float32 bad-basin step's
     fallback inputs (B = 8192, the LaneYbus; in float64 the same inputs
     widened, Y from the float64 tables at (a)'s taps), (d) (a)'s lanes all
     accepted (no lane iterates), (f) the tail: one lane of (a) that iterates
@@ -2164,22 +2048,22 @@ def phase10_newton_wide(pf, lin, nc, base, fallback_inputs, blocked_inputs):
         init64 = tuple((t.double() if t.is_floating_point() else t).contiguous() for t in init)
         for dtype, yb, pp, qq, ini in ((torch.float32, ybus, p, q, init), (torch.float64, ybus64, p64, q64, init64)):
             route, tag = wide_route(n, dtype, B), "" if dtype == torch.float32 else " f64"
-            res["a" + tag] = k3_wide_vs_plain(pf, lin, nc, base, f"(a){tag} {n_bus}-bus feeder, the bad-basin "
+            res["a" + tag] = k3_wide_vs_plain(pf, lin, nc, f"(a){tag} {n_bus}-bus feeder, the bad-basin "
                                               f"step's fallback", ini + (pp, qq), yb, yb, route,
                                               memory=n_bus == 130 and dtype == torch.float32)
             accepted = torch.ones_like(ini[4])
-            res["d" + tag] = k3_wide_vs_plain(pf, lin, nc, base, f"(d){tag} {n_bus}-bus feeder, no lane iterating",
+            res["d" + tag] = k3_wide_vs_plain(pf, lin, nc, f"(d){tag} {n_bus}-bus feeder, no lane iterating",
                                               ini[:4] + (accepted, pp, qq), yb, yb, route)
             go = int(torch.nonzero((ini[2] > 1e-5) & (ini[3] < 100) & ~ini[4])[0])
             tail = accepted.clone()
             tail[go] = False
-            res["f" + tag] = k3_wide_vs_plain(pf, lin, nc, base, f"(f){tag} {n_bus}-bus feeder, one lane among "
+            res["f" + tag] = k3_wide_vs_plain(pf, lin, nc, f"(f){tag} {n_bus}-bus feeder, one lane among "
                                               f"accepted ones", ini[:4] + (tail, pp, qq), yb, yb, route)
         Yre, Yim = ybus64(slice(0, 1001))
         for BB in (1001, 1):
             Y = (Yre[:BB].contiguous(), Yim[:BB].contiguous())
             pc, qc = p64[:BB].contiguous(), q64[:BB].contiguous()
-            res[f"c {BB}"] = k3_wide_vs_plain(pf, lin, nc, base, f"(c) {n_bus}-bus feeder, float64 from the flat "
+            res[f"c {BB}"] = k3_wide_vs_plain(pf, lin, nc, f"(c) {n_bus}-bus feeder, float64 from the flat "
                                               f"start", flat_start(pf, *Y, pc, qc) + (None, pc, qc), Y,
                                               dense_oracle(*Y), wide_route(n, torch.float64, BB, False))
         if n_bus in D2_FEEDERS:
@@ -2194,16 +2078,14 @@ def phase10_newton_wide(pf, lin, nc, base, fallback_inputs, blocked_inputs):
     Yre, Yim, p, q = blocked_inputs
     B, n = p.shape[0], 2 * p.shape[1]
     results[BLOCKED_FEEDER[0]] = {"a f64": k3_wide_vs_plain(
-        pf, lin, nc, base, f"(a) f64 {BLOCKED_FEEDER[0]}-bus feeder, the float64 tier's step", flat_start(
+        pf, lin, nc, f"(a) f64 {BLOCKED_FEEDER[0]}-bus feeder, the float64 tier's step", flat_start(
             pf, Yre, Yim, p, q) + (None, p, q), (Yre, Yim), dense_oracle(Yre, Yim), wide_route(n, p.dtype, B, False))}
     log("K3 wide sets (all bitwise): " + "; ".join(
-        f"{n_bus} buses {k}: {v['ms']:.4f} ms (PR 15's design {v['pr15_ms']:.4f}, {v['pr15_ms'] / v['ms']:.2f}x; "
-        f"plain {v['plain_ms']:.4f}; bound {v['bound_ms']:.4f}, {v['bound_by']}, at {v['bound_ms'] / v['ms']:.4f}; "
+        f"{n_bus} buses {k}: {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}; bound {v['bound_ms']:.4f}, {v['bound_by']}, at {v['bound_ms'] / v['ms']:.4f}; "
         f"slowest lane {v['max_it']} iterations)"
         for n_bus, sets in results.items() for k, v in sets.items() if k != "d2"))
     a130 = results[130]["a"]
-    log(f"K3 wide, the 130-bus bad-basin fallback: peak device memory of a call {a130['peak_kernel'] / 2**20:.1f} MiB "
-        f"against PR 15's design's {a130['peak_pr15'] / 2**20:.1f} MiB")
+    log(f"K3 wide, the 130-bus bad-basin fallback: peak device memory of a call {a130['peak_kernel'] / 2**20:.1f} MiB")
     for sets in results.values():
         for v in sets.values():
             if isinstance(v, dict):
@@ -2266,7 +2148,7 @@ def admm_vs_plain(mpc, cuda_k, name, dc, l, u, warm, n_launch=N_LAUNCH, plain_la
     log(f"K5 {name} time (device time, {n_launch} launches per reading, median of {reps}): kernel {t_k:.4f} ms, "
         f"plain {t_p:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}, {sweeps} lane-sweeps), kernel at "
         f"{bound_ms / t_k:.3f} of it; matrix fragments {where}, {l2_bytes_per_lane_sweep(dc.n, dc.m, lanes)} L2 "
-        f"bytes per lane-sweep (PR 5's design: {4 * (dc.m * dc.n + dc.n * (dc.n + dc.m))})")
+        f"bytes per lane-sweep")
     return sk, (err, t_k, t_p, bound_ms, bound_by)
 
 
@@ -2368,24 +2250,20 @@ def phase9a_admm_kernel(mpc, cuda_k, VecEnv, make_anm6easy_task, make_ieee33_ren
                                                    bound_by=bound_by)
 
 
-def phase9a_k5_routes(mpc, cuda_k, base, VecEnv, make_anm6easy_task, make_ieee33_renewable_task):
-    """K5 beside its tile design (``bench/admm_dcopf_pr6.cu``: a warp a tile
-    of 8 lanes, the fragments from L2 where they do not fit in shared
-    memory) in turns (tile design, this kernel, this kernel, tile design;
-    each a median of 3 readings), on the staged route's shape (ANM6Easy N = 1, the farm's call
-    at B = 8192) and on the streamed route's: ANM6Easy N = 4 cold (400
-    sweeps), N = 8 at B = 16384 and the MPC cell's budget of 48 sweeps, and
-    IEEE33-renewable N = 1 cold (400).  For each: device ms of both, the
-    lanes on which they agree bit for bit (x, the warm start, iterations,
-    residuals, flags), the L2 fragment bytes a lane-sweep of each and the
-    share of the bound.  The staged route is the tile design's code: within
-    2% of its time.  The N = 8 set is also held against the plain version."""
+def phase9a_k5_routes(mpc, cuda_k, VecEnv, make_anm6easy_task, make_ieee33_renewable_task):
+    """K5 on each side of its plan (``admm_stream_lanes``): the staged
+    route's shape (ANM6Easy N = 1, the farm's call at B = 8192) and the
+    streamed route's: ANM6Easy N = 4 cold (400 sweeps), N = 8 at B = 16384
+    and the MPC cell's budget of 48 sweeps, and IEEE33-renewable N = 1 cold
+    (400).  For each: the kernel's plan equal to ``admm_cuda.stream_lanes``,
+    device ms (a median of 3 readings), the L2 fragment bytes a lane-sweep
+    and the share of the bound.  The N = 8 set is also held against the
+    plain version (``phase9a_admm_kernel`` holds the others)."""
     from gym_anm_torch._build import load_library
     from gym_anm_torch.agents.mpc import build_dcopf_structure
-    from gym_anm_torch.bench.kernel_probes import pr6_solve
-    from gym_anm_torch.vec.admm_cuda import frag_count, l2_bytes_per_lane_sweep, stream_lanes
+    from gym_anm_torch.vec.admm_cuda import l2_bytes_per_lane_sweep, stream_lanes
 
-    log("== phase 9a (routes): K5 beside its tile design, in turns")
+    log("== phase 9a (routes): K5 on each side of its plan")
     lib = load_library()
     props = torch.cuda.get_device_properties(0)
     g = torch.Generator(device="cuda").manual_seed(93)
@@ -2421,31 +2299,14 @@ def phase9a_k5_routes(mpc, cuda_k, base, VecEnv, make_anm6easy_task, make_ieee33
         assert lanes == stream_lanes(B, n, m, props.multi_processor_count, lib.gj_smem_limit_bytes()), \
             f"admm_cuda.stream_lanes disagrees with the kernel's plan on this card: {lanes}"
         sk = cuda_k(dc, l, u, warm)
-        s6 = pr6_solve(base, dc, l, u, warm)
-        torch.cuda.synchronize()
-        same = torch.ones(B, dtype=torch.bool, device="cuda")
-        for a, b in zip((sk.x, *sk.warm), (s6.x, *s6.warm)):
-            same &= (a == b).all(1)
-        for f in ("iterations", "r_prim", "r_dual", "converged", "bounds_ok", "feasible"):
-            a, b = getattr(sk, f), getattr(s6, f)
-            same &= (a == b) | (a.isnan() & b.isnan()) if a.is_floating_point() else a == b
         k = 20 if dc.max_iter <= 48 and n < 100 else 3
-        reading = {"pr6": lambda: pr6_solve(base, dc, l, u, warm), "new": lambda: cuda_k(dc, l, u, warm)}
-        t = {"pr6": [], "new": []}
-        for who in ("pr6", "new", "new", "pr6"):
-            t[who].append(statistics.median(cuda_ms(reading[who], k) for _ in range(3)))
-        t6, tk = statistics.mean(t["pr6"]), statistics.mean(t["new"])
+        tk = statistics.median(cuda_ms(lambda: cuda_k(dc, l, u, warm), k) for _ in range(3))
         bound_ms, bound_by, sweeps = admm_bound(dc, B, sk.iterations)
         route = f"streamed, {lanes} lanes a block" if lanes else "staged"
-        log(f"K5 {name} B={B} (n={n}, m={m}): this kernel {tk:.4f} ms ({', '.join(f'{x:.4f}' for x in t['new'])}), "
-            f"the tile design {t6:.4f} ms ({', '.join(f'{x:.4f}' for x in t['pr6'])}): {t6 / tk:.3f}x; bit for bit "
-            f"equal on {int(same.sum())} of {B} lanes; route {route}; L2 fragment bytes a lane-sweep "
-            f"{l2_bytes_per_lane_sweep(n, m, lanes)} (tile design: {2 * frag_count(n, m) if lanes else 0}); bound "
-            f"{bound_ms:.4f} ms ({bound_by}, {sweeps} lane-sweeps): this kernel at {bound_ms / tk:.3f} of it, the tile "
-            f"design at {bound_ms / t6:.3f}")
-        out[name] = (tk, t6)
-        if not lanes:
-            assert tk <= 1.02 * t6, f"the staged route ({tk:.4f} ms) is over 2% slower than its tile design's ({t6:.4f} ms)"
+        log(f"K5 {name} B={B} (n={n}, m={m}): this kernel {tk:.4f} ms; route {route}; L2 fragment bytes a "
+            f"lane-sweep {l2_bytes_per_lane_sweep(n, m, lanes)}; bound {bound_ms:.4f} ms ({bound_by}, {sweeps} "
+            f"lane-sweeps): this kernel at {bound_ms / tk:.3f} of it")
+        out[name] = tk
         if n == 168:
             admm_vs_plain(mpc, cuda_k, name, dc, l, u, warm, 3, 1, 3)
     return out
@@ -2664,18 +2525,18 @@ def phase9d_replay(mpc, VecEnv, make_anm6easy_task, record):
         f"equal on {n_it} of {n} lane-steps")
 
 
-def phase10_k1_routes(lin, base):
+def phase10_k1_routes(lin):
     """K1's routes at the feeders' sizes (float32 n = 94, 126; float64 n =
     64, 126; B = 8192) and at both sides of each route edge (B = 1001): the
     route ``k1_route`` picks runs, and is bitwise equal to the plain version
     with the zero-pivot lane (and, at the edges, a lane with an inf entry)
     non-finite in both.  At the feeders' sizes each is timed beside the
-    one-block design (``base``), the blocked route in device memory and
+    blocked route in device memory (bitwise the plain version too) and
     ``torch.linalg.solve_ex``, each with its share of the bound.  Returns the
     shared-memory route's numbers at float32 n = 126 (the 64-bus feeder's
     fallback) for the kernels' line."""
     from gym_anm_torch._build import load_library
-    from gym_anm_torch.bench.kernel_probes import panel_solve, one_block_solve
+    from gym_anm_torch.bench.kernel_probes import panel_solve
 
     k1 = lin.solve_gauss_jordan_cuda
     limit = load_library().gj_smem_limit_bytes()
@@ -2718,24 +2579,19 @@ def phase10_k1_routes(lin, base):
         blocked_panel = next(bp for bp in lin.BLOCKED_PANELS[itemsize]
                              if lin.panel_smem_bytes(n, itemsize, bp, False) <= limit)
         keep = torch.arange(B_MAIN, device="cuda") != 1
-        x1 = one_block_solve(base, A, b)
         xb = panel_solve(load_library(), A, b, blocked_panel, False)
         torch.cuda.synchronize()
-        assert torch.equal(x1[keep], xp[keep]) and torch.equal(xb[keep], xp[keep]), "a baseline is not bitwise"
-        slow = n > 100  # the one-block design takes up to ~80 ms a call there: 2 launches a reading
+        assert torch.equal(xb[keep], xp[keep]), "the blocked route is not bitwise the plain version"
         t = {key: statistics.median(cuda_ms(fn, k) for _ in range(r)) for key, fn, k, r in (
             ("ms", lambda: k1(A, b), N_LAUNCH, 3),
-            ("one_block_ms", lambda: one_block_solve(base, A, b), 2 if slow else N_LAUNCH, 3),
             ("blocked_ms", lambda: panel_solve(load_library(), A, b, blocked_panel, False), N_LAUNCH, 3),
             ("library_ms", lambda: torch.linalg.solve_ex(A, b), N_LAUNCH, 3))}
         bound_ms, bound_by = k1_bound(B_MAIN, n, itemsize)
         log(f"K1 B={B_MAIN} n={n} {dtype}, route {route} (panel {panel}): kernel {t['ms']:.4f} ms "
-            f"({bound_ms / t['ms']:.4f} of the bound), the one-block design {t['one_block_ms']:.4f} ms "
-            f"({bound_ms / t['one_block_ms']:.4f}), blocked route in device memory (panel {blocked_panel}) "
+            f"({bound_ms / t['ms']:.4f} of the bound), blocked route in device memory (panel {blocked_panel}) "
             f"{t['blocked_ms']:.4f} ms ({bound_ms / t['blocked_ms']:.4f}), torch.linalg.solve_ex "
             f"{t['library_ms']:.4f} ms ({bound_ms / t['library_ms']:.4f}); bound {bound_ms:.4f} ms ({bound_by}); "
-            f"device time, median of 3 readings of {N_LAUNCH} launches ({2 if slow else N_LAUNCH} for the one-block "
-            "design)")
+            f"device time, median of 3 readings of {N_LAUNCH} launches")
         if (n, dtype) == (126, torch.float32):
             assert route == "smem", "float32 n = 126 is off the shared-memory route"
             t_plain = statistics.median(cuda_ms(lambda: lin.solve_gauss_jordan(A, b), 1) for _ in range(3))
@@ -3020,15 +2876,11 @@ def run_simulator(sim, s0, steps):
 PR10_TRANSITION = {"ANM6": (1340, 7), "IEEE33": (630, 7)}
 
 
-def phase13_simulator(lin, kernel, base):
+def phase13_simulator(lin, kernel):
     """The compat ``Simulator`` (float64, one lane) on the card against the
     CPU, its GPU ops and host syncs per transition (its Newton loop one K3
-    launch with the dense Y of ``nr_solve``), the same transitions with PR
-    13's design of K3 in its place (``base``; in turns, both designs through
-    the wrapper's checks and allocations and a list of their outputs), and
-    K1 at B = 1, float64 (the size of its solves inside K3), beside
-    ``solve_ex``."""
-    from gym_anm_torch.bench.kernel_probes import pr13_newton
+    launch with the dense Y of ``nr_solve``), and K1 at B = 1, float64 (the
+    size of its solves inside K3), beside ``solve_ex``."""
     from gym_anm_torch.env import Simulator
     from gym_anm_torch.networks import anm6_network, ieee33_network
 
@@ -3073,32 +2925,6 @@ def phase13_simulator(lin, kernel, base):
         ops, syncs = count_ops(lambda: card.transition(*steps[-1]), count_ops(lambda: None))
         log(f"13a {name}: GPU ops {ops} and host syncs {syncs} in one transition on the card (before K3, PR 10: "
             f"{PR10_TRANSITION[name][0]} ops, {PR10_TRANSITION[name][1]} syncs)")
-
-        # The host clock's A/B of K3 and PR 13's design at B = 1: the same
-        # transitions, K3 (through K3Counts) and PR 13's design (through the
-        # same checks, allocations and a list of its outputs) in turns.
-        pf = importlib.import_module("gym_anm_torch.physics.power_flow")
-        pr13 = "PR 13's design"
-        pr13_calls, ab = [], {"K3": [], pr13: []}
-
-        def pr13_fallback(x, F, diff, n_iter, accepted, p, q, ybus, xtol=1e-5, lim_iter=100):
-            out = pr13_newton(base, x, F, diff, n_iter, accepted, p, q, ybus, xtol, lim_iter)
-            pr13_calls.append((n_iter, out[3]))
-            return out
-
-        for design in ("K3", pr13) * 2:
-            kernel.launch_count = 0
-            pr13_calls.clear()
-            pf.newton_fallback_cuda = kernel if design == "K3" else pr13_fallback
-            try:
-                out_ab, ms_ab, _ = run_simulator(card, s0, steps)
-            finally:
-                pf.newton_fallback_cuda = kernel
-            assert all(a[4] == b[4] for a, b in zip(out_ab, out_card)), f"{name}: {design} moved a flag"
-            ab[design].append(ms_ab)
-        log(f"13a {name}: ms per transition with K3 / with PR 13's design in its place (host clock, {T} steps, "
-            f"twice each in turns): {', '.join(f'{t:.3f}' for t in ab['K3'])} / "
-            f"{', '.join(f'{t:.3f}' for t in ab[pr13])}")
 
     for n in (64, 10):
         g = torch.Generator(device="cuda").manual_seed(n)
@@ -3836,7 +3662,6 @@ def main():
         print("chip_smoke.py: no CUDA device is visible; it runs only on a card", file=sys.stderr)
         return 1
     from gym_anm_torch import _build
-    from gym_anm_torch.bench.kernel_probes import load_baselines
     from gym_anm_torch.physics import linsolve_cuda as lin
     from gym_anm_torch.physics import power_flow as pf
     from gym_anm_torch.physics import ybus
@@ -3856,14 +3681,8 @@ def main():
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     lib_path = _build.library_path()
-    # The earlier designs of K1's large route and of the wide K2 (phase 10's
-    # baselines) build beside the kernels.
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        base = pool.submit(load_baselines)
-        lib = _build.load_library()
-        base = base.result()
-    log(f"K1, K2 (tile and wide), K3, K5 and the baselines built/loaded in {time.perf_counter() - t0:.1f} s: "
-        f"{lib_path.name}")
+    _build.load_library()
+    log(f"K1, K2 (tile and wide), K3, K5 and K6 built/loaded in {time.perf_counter() - t0:.1f} s: {lib_path.name}")
     log_ptxas(_build.ptxas_report())
 
     nc = pf.newton_fallback_cuda
@@ -3875,15 +3694,14 @@ def main():
         log(f"-- {phase.__name__} done, {time.perf_counter() - t_run:.1f} s since the build")
         return out
 
-    k1 = run(phase1_kernel_vs_plain, lin, base)
+    k1 = run(phase1_kernel_vs_plain, lin)
     k2 = run(phase1b_chord_kernel, pf, chord_solve_cuda, VecEnv, make_ieee33_task, make_ieee33_multicap_task,
              make_anm6easy_task)
     flows_k = transition_flows_cuda
     launches, chord_launches, flows_launches, solves = run(phase2_main_path, VecEnv, make_ieee33_task, kernel,
                                                            chord_solve_cuda, flows_k)
     run(phase3_fallback, VecEnv, make_ieee33_task, pf, ybus, kernel)
-    k3 = run(phase3b_newton_kernel, pf, lin, nc, base, VecEnv, make_ieee33_task, make_anm6easy_task,
-             ybus.LaneYbus)
+    k3 = run(phase3b_newton_kernel, pf, lin, nc, VecEnv, make_ieee33_task, make_anm6easy_task, ybus.LaneYbus)
     run(phase4_tf32, VecEnv, make_ieee33_task)
     mc_launches, mc_chord_launches, mc_flows_launches, mc_solves = run(
         phase5_multicap, VecEnv, make_ieee33_multicap_task, transition, kernel, chord_solve_cuda, flows_k)
@@ -3892,19 +3710,19 @@ def main():
         phase7_collection, VecEnv, make_ieee33_multicap_task, transition, kernel, chord_solve_cuda, flows_k, bare_rate)
     a6_launches, a6_chord_launches, a6_flows_launches, a6_rate, a6_solves = run(
         phase8_anm6easy, VecEnv, make_anm6easy_task, STATE_VARIABLES, ybus.build_ybus, kernel, chord_solve_cuda,
-        flows_k, base)
+        flows_k)
     cold_set, k5 = run(phase9a_admm_kernel, mpc, solve_dcopf_cuda, VecEnv, make_anm6easy_task,
                        make_ieee33_renewable_task)
-    run(phase9a_k5_routes, mpc, solve_dcopf_cuda, base, VecEnv, make_anm6easy_task, make_ieee33_renewable_task)
+    run(phase9a_k5_routes, mpc, solve_dcopf_cuda, VecEnv, make_anm6easy_task, make_ieee33_renewable_task)
     run(phase9b_highs, mpc, cold_set)
     k5_launches, farm_record, _ = run(phase9c_farm, mpc, solve_dcopf_cuda, VecEnv, make_anm6easy_task, kernel,
                                       chord_solve_cuda)
     run(phase9d_replay, mpc, VecEnv, make_anm6easy_task, farm_record)
-    k2w, k1g, k1s, k3w = run(phase10_feeders, pf, lin, chord_solve_cuda, VecEnv, base, kernel, nc)
+    k2w, k1g, k1s, k3w = run(phase10_feeders, pf, lin, chord_solve_cuda, VecEnv, kernel, nc)
     ppo_k3, ppo_k2, ppo_k6, ppo_k1 = run(phase11_ppo, VecEnv, make_ieee33_multicap_task, kernel, chord_solve_cuda,
                                          flows_k)
     cql_k3, cql_k2, cql_k6, cql_k1 = run(phase12_cql, kernel, chord_solve_cuda, flows_k)
-    sim_k3, _, sim_k1 = run(phase13_simulator, lin, kernel, base)
+    sim_k3, _, sim_k1 = run(phase13_simulator, lin, kernel)
     host_k3, host_k1 = run(phase14_host_tier, kernel)
     tail_k3, tail_k2, tail_k5, tail_k6, tail_k1 = run(phase15_render_examples_scripts, kernel, chord_solve_cuda,
                                                       solve_dcopf_cuda, flows_k, smi_line)

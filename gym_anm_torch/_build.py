@@ -106,13 +106,11 @@ def _nvcc():
 
 def library_path(sources=None, stem="libgym_anm_kernels", build_dir=None):
     """Path of the shared library for ``sources`` (default: every
-    ``csrc/*.cu``), the headers beside them and in ``csrc/`` (which the
-    baselines include) and the flags, under ``build_dir`` (default
-    ``BUILD_DIR``)."""
+    ``csrc/*.cu``), the headers beside them and the flags, under
+    ``build_dir`` (default ``BUILD_DIR``)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     sources = sorted(sources or CSRC_DIR.glob("*.cu"))
-    headers = sorted({hdr for src in sources for hdr in Path(src).parent.glob("*.cuh")}
-                     | set(CSRC_DIR.glob("*.cuh")))
+    headers = sorted({hdr for src in sources for hdr in Path(src).parent.glob("*.cuh")})
     for src in sources + headers:
         h.update(src.name.encode())
         h.update(src.read_bytes())

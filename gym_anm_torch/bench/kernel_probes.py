@@ -10,39 +10,29 @@
 3. K1's register route (``csrc/gauss_jordan.cuh``): a copy with ``clock64``
    around the sweeps of the float32 64-row body, at B = 8192 and at few enough systems that every
    scheduler holds one warp: cycles per sweep of a warp.
-4. K5 (``csrc/admm_dcopf.cu``) beside PR 5's design, kept in
-   ``admm_dcopf_pr5.cu`` (one block per lane, float32 matrices, every
-   multiply-add converting both operands to float64), and that design built
-   with ``-DADMM_F64`` (float64 matrices, the lane's vectors staged once as
-   float64: no conversion in the k-loops), on ``chip_smoke.py`` phase 9a's
-   five sets at B = 8192, in one call: the conversions' share of PR 5's time
-   is (PR 5 − its float64 build) / PR 5.  A copy of K5 with ``clock64``
-   counters gives its staged route's cycles per warp-sweep by step at the
-   farm's call.  (K5's tile design, ``admm_dcopf_pr6.cu``, is a baseline of
-   ``chip_smoke.py`` phase 9a, :func:`pr6_solve`.)
-
+4. K5 (``csrc/admm_dcopf.cu``): a copy with ``clock64`` counters (lane 0
+   of every warp) gives its staged route's cycles per warp-sweep by step at
+   the farm's call (``chip_smoke.py`` phase 9a's set, B = 8192).
 5. The wide K2 (``csrc/chord_newton_wide.cu``): a copy with ``clock64``
    counters around the five steps of a round (thread 0 of every block), on
    the 130-bus feeder's warm starts at B = 8192 (``chip_smoke.py`` phase
    10's set): rounds per block and cycles per round by step, beside the
-   block-per-lane design.
+   kernel's own time.
 6. K1's blocked route (``gj_panels`` in device memory) at n = 258, float32,
-   B = 8192 with panels of 8, 16 and 32 pivots, beside the device-memory
-   design (``gauss_jordan_gmem.cu``: the matrix read and written in device
-   memory every sweep) and ``torch.linalg.solve_ex``.
+   B = 8192 with panels of 8, 16 and 32 pivots, each bitwise the plain
+   version, beside ``torch.linalg.solve_ex``.
 7. K1's shared-memory route (``gj_panels`` with the matrix resident in
    shared memory) at float32 n = 94, 126 and float64 n = 64, 126, B = 8192,
    at each panel width that fits, beside the blocked route on the same
-   systems, the one-block design (``gauss_jordan_smem.cu``), ``solve_ex``
-   and, at float64 n = 48 and 64, the register route's float64 bodies.
+   systems, ``solve_ex`` and, at float64 n = 48 and 64, the register
+   route's float64 bodies.
 8. K3 (``csrc/newton_fallback.cuh``): copies with ``clock64`` counters, one
    a variant of the source (:data:`NEWTON_VARIANTS`: as built, the 64-row
    body held at 2 or at 4 threads a row whatever the worklist's length, zero
    dividends divided), on ``chip_smoke.py`` phase 3b's sets (a), (c) at
-   B = 1 and (f): cycles of a lane's start and,
-   by lane-iteration, of the Jacobian, the sweeps, x with the vectors and F
-   with the max, a block's triage and barrier, and each copy's time beside
-   PR 13's design (``newton_fallback_pr13.cuh``).
+   B = 1 and (f): cycles of a lane's start and, by lane-iteration, of the
+   Jacobian, the sweeps, x with the vectors and F with the max, a block's
+   triage and barrier, and each copy's time beside the kernel's own.
 9. K3 wide's cluster route (``csrc/newton_fallback_wide.cuh``), alone with
    ``python -m gym_anm_torch.bench.kernel_probes newton_wide``: an
    instrumented copy's cycles a lane-iteration by step (the Jacobian,
@@ -56,22 +46,6 @@
    blocked route held in turns on the same lanes, beside the rule's choice
    (``newton_cuda.batch_route``), at float64 64 buses from 1 to 8192 lanes
    and float32 82 and 130 buses at 264 and 1001.
-
-The earlier designs of K1's shared-memory route (the one-block design: a
-block per system, two block barriers a sweep) and of its route above the
-card's shared memory (the matrix swept in device memory), of the wide chord
-kernel (one block per lane) and of K3 (PR 13's: a lane slot per system of
-K1's register route, lanes claimed one at a time) stay in
-``gauss_jordan_smem.cu``, ``gauss_jordan_gmem.cu``,
-``chord_newton_wide_lane.cu`` and ``newton_fallback_pr13.cuh`` (entry points
-in ``newton_fallback_pr13_f32.cu`` and ``_f64.cu``, the high halves of its
-bodies in ``_f32_high.cu`` and ``_f64_high.cu``), and of K3 wide (PR 15's: a
-block of 256 a lane, [J | F] resident in shared memory or in device memory)
-in ``newton_fallback_wide_pr15.cuh`` (units ``newton_fallback_wide_pr15_f32.cu``
-and ``_f64.cu``), as the baselines of probes 5 to 8 and of
-``chip_smoke.py`` phases 1, 3b and 10 (:func:`load_baselines`,
-:func:`one_block_solve`, :func:`gmem_solve`, :func:`lane_chord`,
-:func:`pr13_newton`, :func:`pr15_newton_wide`).
 
 The copies are built into ``build/kernels/probe/``; the counters cost
 registers, so the instrumented K2 runs ~15% slower than the kernel itself
@@ -324,9 +298,11 @@ def probe_newton(variants=NEWTON_VARIANTS):
     """K3 by step (instrumented copies, one a variant of the source): cycles
     of a lane-iteration in the Jacobian, the sweeps, x with the vectors, and
     F with the max, and of a lane's start and a block's triage, on phase
-    3b's sets (a), (c) at B = 1 and (f); each copy's time beside PR 13's
-    design's."""
+    3b's sets (a), (c) at B = 1 and (f); each copy's time beside the
+    kernel's own."""
     import concurrent.futures
+
+    from ..physics.newton_cuda import newton_fallback_cuda
 
     src = (_build.CSRC_DIR / "newton_fallback.cuh").read_text()
     assert all(edit(src) != src for name, edit in variants.items() if name != "as built"), "K3's layout changed"
@@ -337,10 +313,9 @@ def probe_newton(variants=NEWTON_VARIANTS):
         lib.k3_probe.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                                                        ctypes.c_double] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         lib.k3_probe.restype = ctypes.c_int
-    base = load_baselines()
     for name, (args, ybus) in probe_newton_sets().items():
-        ref = pr13_newton(base, *args, ybus)
-        t_pr13 = statistics.median(device_ms(lambda: pr13_newton(base, *args, ybus)) for _ in range(5))
+        ref = newton_fallback_cuda(*args, ybus)
+        t_k3 = statistics.median(device_ms(lambda: newton_fallback_cuda(*args, ybus)) for _ in range(5))
         for variant, lib in libs.items():
             lib.probe_zero()
             out = newton_probe_call(lib, args, ybus)
@@ -350,7 +325,7 @@ def probe_newton(variants=NEWTON_VARIANTS):
             its, lanes = max(T[5], 1), max(T[6], 1)
             t_new = statistics.median(device_ms(lambda: newton_probe_call(lib, args, ybus)) for _ in range(5))
             steps = ", ".join(f"{s} {T[q] / (lanes if q == 0 else its):.0f}" for q, s in enumerate(NEWTON_STEPS))
-            print(f"K3 {name} ({variant}, instrumented): {t_new:.4f} ms (PR 13's design {t_pr13:.4f}); cycles a "
+            print(f"K3 {name} ({variant}, instrumented): {t_new:.4f} ms (the kernel {t_k3:.4f}); cycles a "
                   f"lane ({int(T[6])} lanes) / a lane-iteration ({int(T[5])}): {steps}; a block's triage and "
                   f"barrier {T[8] / max(T[9], 1):.0f}", flush=True)
 
@@ -702,150 +677,6 @@ def probe_gj():
         print(f"K1 n=64 B={B}: {ms:.4f} ms (instrumented copy); {cyc / warps / 64:.0f} cycles per sweep of a warp")
 
 
-# The baselines: K1 with the matrix in device memory, the wide chord kernel
-# with one block per lane, PR 13's K3 (a lane slot per system of K1's
-# register route, lanes claimed one at a time) and PR 15's K3 wide (a block
-# of 256 a lane, [J | F] resident or in device memory).  K5's tile design (a
-# warp a tile of 8 lanes, the fragments from L2 where they do not fit in
-# shared memory) is one too.
-BASELINE_SOURCES = ("gauss_jordan_smem.cu", "gauss_jordan_gmem.cu", "chord_newton_wide_lane.cu",
-                    "newton_fallback_pr13_f32.cu", "newton_fallback_pr13_f32_high.cu", "newton_fallback_pr13_f64.cu",
-                    "newton_fallback_pr13_f64_high.cu", "newton_fallback_wide_pr15_f32.cu",
-                    "newton_fallback_wide_pr15_f64.cu", "admm_dcopf_pr6.cu")
-_P, _I, _F, _D, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double, ctypes.c_longlong
-# PR 13's newton_fallback_f32/_f64: (x_in, F_in, diff_in, it_in, accepted, p,
-# q, Yre, Yim, y_stride, br_f, br_t, series_re, series_im, shunt_im,
-# shift_cos, shift_sin, tap_magn, n_branch, xtol, lim_iter, x, F, diff,
-# n_iter, stall, next_lane, B, nb, stream)
-_PR13_ARGS = [_P] * 9 + [_L] + [_P] * 8 + [_I, _D, _I] + [_P] * 6 + [_I, _I, _P]
-# PR 15's newton_fallback_wide_f32/_f64: K3's arguments to nb, then (panel,
-# resident, slots, slot, grid, stream)
-_PR15_ARGS = [_P] * 9 + [_L] + [_P] * 8 + [_I, _D, _I] + [_P] * 7 + [_I] * 4 + [_P, _L, _I, _P]
-BASELINE_SIGNATURES = {
-    "gj_solve_f32_one_block": [_P, _P, _P, _I, _I, _P],  # (A, b, x, B, n, stream)
-    "gj_solve_f64_one_block": [_P, _P, _P, _I, _I, _P],
-    "gj_solve_f32_gmem": [_P, _P, _P, _P, _I, _I, _P],  # (A, b, x, scratch, B, n, stream)
-    "gj_solve_f64_gmem": [_P, _P, _P, _P, _I, _I, _P],
-    # chord_newton_f32's arguments without next_lane
-    "chord_newton_wide_lane_f32": [_P] * 16 + [_F] * 6 + [_I] + [_P] * 5 + [_I, _I, _P],
-    "newton_fallback_pr13_f32": _PR13_ARGS,
-    "newton_fallback_pr13_f64": _PR13_ARGS,
-    "newton_fallback_wide_pr15_f32": _PR15_ARGS,
-    "newton_fallback_wide_pr15_f64": _PR15_ARGS,
-    "newton_wide_pr15_f32_grid": [_I] * 4,  # (n, panel, resident, lane_ybus) -> blocks
-    "newton_wide_pr15_f64_grid": [_I] * 4,
-    # admm_dcopf_f32's arguments (A_frag and P_frag as the fragments)
-    "admm_dcopf_pr6_f32": [_P] * 28 + [_F] * 10 + [_I] * 6 + [_P],
-}
-
-
-def load_baselines():
-    """Build (if needed) and load the baselines as one library."""
-    here = Path(__file__).parent
-    lib = ctypes.CDLL(str(_build.build_library([here / f for f in BASELINE_SOURCES], "libgym_anm_baselines")))
-    for name, argtypes in BASELINE_SIGNATURES.items():
-        getattr(lib, name).argtypes = argtypes
-        getattr(lib, name).restype = ctypes.c_int
-    lib.admm_pr6_scratch_bytes.argtypes = [_I] * 3  # (B, n, m) -> bytes, as admm_scratch_bytes
-    lib.admm_pr6_scratch_bytes.restype = ctypes.c_longlong
-    return lib
-
-
-def pr6_solve(lib, dc, l, u, warm):
-    """One launch of K5's tile design (``admm_dcopf_pr6.cu``) on the arguments of
-    :func:`~gym_anm_torch.vec.admm_cuda.solve_dcopf_cuda`, through what that
-    wrapper does around its launch; returns the
-    :class:`~gym_anm_torch.vec.mpc.DCOPFSolution`."""
-    from ..vec.mpc import DCOPFSolution
-
-    B, n, m = l.shape[0], dc.n, dc.m
-    scratch_bytes = lib.admm_pr6_scratch_bytes(B, n, m)
-    assert scratch_bytes >= 0, (n, m)
-    empty = lambda *shape, dtype=torch.float32: torch.empty(*shape, dtype=dtype, device=l.device)  # noqa: E731
-    x, xw, yw, zw, Axw = empty(B, n), empty(B, n), empty(B, m), empty(B, m), empty(B, m)
-    it, rp, rd = empty(B, dtype=torch.int32), empty(B), empty(B)
-    flags = [empty(B, dtype=torch.bool) for _ in range(3)]
-    nxt = torch.zeros(1, dtype=torch.int32, device=l.device)
-    scratch = empty(scratch_bytes, dtype=torch.uint8) if scratch_bytes else None
-    K = dc.check_every
-    rc = lib.admm_dcopf_pr6_f32(
-        *(t.data_ptr() for t in (dc.A_frag, dc.P_frag, dc.q_bar, dc.rho, dc.inv_rho, dc.D, dc.D_inv, dc.E, dc.E_inv,
-                                 l, u, *warm, x, xw, yw, zw, Axw, it, rp, rd, *flags, nxt)),
-        None if scratch is None else scratch.data_ptr(), dc.sigma, dc.alpha, 1.0 - dc.alpha, dc.c_scale_value,
-        dc.q_ref, dc.eps_abs, dc.eps_rel, 1.0 - 1e-3 * K, dc.dual_plateau_cap, dc.feas_band_factor, dc.max_iter, K,
-        -(-dc.dual_stall_limit // K), B, n, m, torch.cuda.current_stream().cuda_stream)
-    assert rc == 0, f"K5's tile design failed with CUDA error {rc}"
-    return DCOPFSolution(x=x, warm=(xw, yw, zw, Axw), iterations=it, r_prim=rp, r_dual=rd, converged=flags[0],
-                         bounds_ok=flags[1], feasible=flags[2])
-
-
-def one_block_solve(lib, A, b):
-    """x = A^-1 b by the one-block design of K1's shared-memory route."""
-    B, n = b.shape
-    x = torch.empty_like(b)
-    fn = lib.gj_solve_f64_one_block if A.dtype == torch.float64 else lib.gj_solve_f32_one_block
-    rc = fn(A.data_ptr(), b.data_ptr(), x.data_ptr(), B, n, torch.cuda.current_stream().cuda_stream)
-    assert rc == 0, f"the one-block design failed with CUDA error {rc}"
-    return x
-
-
-def pr13_newton(lib, x, F, diff, n_iter, accepted, p, q, ybus, xtol=1e-5, lim_iter=100):
-    """PR 13's K3 on the arguments of
-    :func:`~gym_anm_torch.physics.newton_cuda.newton_fallback_cuda` (tensors
-    on the card, contiguous), through what that wrapper does around its
-    launch (its checks and outputs, ``k3_arguments``; the device's context;
-    one fill of the design's work counter), so that the two designs also
-    compare on the host clock: (x, F, diff, n_iter, stall)."""
-    from ..physics.newton_cuda import k3_arguments
-
-    kind, args, outs = k3_arguments(x, F, diff, n_iter, accepted, p, q, ybus)
-    B, nb = p.shape
-    fn = lib.newton_fallback_pr13_f64 if p.dtype == torch.float64 else lib.newton_fallback_pr13_f32
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
-        next_lane = torch.zeros(1, dtype=torch.int32, device=p.device)
-        rc = fn(*args, float(xtol), int(lim_iter), *(t.data_ptr() for t in outs), next_lane.data_ptr(), B, nb,
-                stream)
-    if rc != 0:
-        raise RuntimeError(f"PR 13's K3 failed with CUDA error {rc} (B={B}, n={2 * nb}, {p.dtype}, {kind})")
-    return outs
-
-
-def pr15_newton_wide(lib, x, F, diff, n_iter, accepted, p, q, ybus, xtol=1e-5, lim_iter=100):
-    """PR 15's K3 wide on the arguments of
-    :func:`~gym_anm_torch.physics.newton_cuda.newton_fallback_cuda` (n > 64,
-    tensors on the card), through what that wrapper did around its launch
-    in PR 15: its checks and outputs (``k3_arguments``), the route and panel
-    by ``k1_route`` with the lane's vectors counted, a grid of the card's
-    capacity or B blocks, one slot each, and one fill of the counters:
-    ((x, F, diff, n_iter, stall), route)."""
-    from ..physics.linsolve_cuda import k1_route
-    from ..physics.newton_cuda import k3_arguments, wide_lane_bytes
-
-    kind, args, outs = k3_arguments(x, F, diff, n_iter, accepted, p, q, ybus)
-    B, nb = p.shape
-    n, f64, lane_y = 2 * nb, p.dtype == torch.float64, kind == "lane_ybus"
-    route, panel = k1_route(n, p.dtype, _build.load_library().newton_wide_smem_limit(),
-                            wide_lane_bytes(n, p.dtype.itemsize))
-    grid_of = lib.newton_wide_pr15_f64_grid if f64 else lib.newton_wide_pr15_f32_grid
-    cap = grid_of(n, panel, int(route == "smem"), int(lane_y))
-    if cap <= 0:
-        raise RuntimeError(f"PR 15's K3 wide has no kernel for n = {n} ({p.dtype}, route {route}): CUDA error {-cap}")
-    grid = min(cap, B)
-    slot = (0 if route == "smem" else n * (n + 1)) + (2 * (nb + 1) ** 2 if lane_y else 0)
-    fn = lib.newton_fallback_wide_pr15_f64 if f64 else lib.newton_fallback_wide_pr15_f32
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
-        scratch = torch.zeros(3 + B, dtype=torch.int32, device=p.device)
-        slots = torch.empty(max(grid * slot, 1), dtype=p.dtype, device=p.device)
-        rc = fn(*args, float(xtol), int(lim_iter), *(t.data_ptr() for t in outs), scratch.data_ptr(),
-                scratch.data_ptr() + 3 * scratch.element_size(), B, nb, panel, int(route == "smem"),
-                slots.data_ptr(), slot, grid, stream)
-    if rc != 0:
-        raise RuntimeError(f"PR 15's K3 wide failed with CUDA error {rc} (B={B}, n={n}, {p.dtype}, {kind})")
-    return outs, route
-
-
 def panel_solve(lib, A, b, panel, resident):
     """x = A^-1 b by K1's panel kernel at a given panel width, the matrix
     resident in shared memory or in a device scratch buffer."""
@@ -861,35 +692,6 @@ def panel_solve(lib, A, b, panel, resident):
         rc = fn(A.data_ptr(), b.data_ptr(), x.data_ptr(), scratch.data_ptr(), B, n, panel, stream)
     assert rc == 0, f"K1's panel kernel (panel {panel}, resident {resident}) failed with CUDA error {rc}"
     return x
-
-
-def gmem_solve(lib, A, b):
-    """x = A^-1 b by K1's device-memory design (A [B, n, n], b [B, n] on the card)."""
-    B, n = b.shape
-    x, scratch = torch.empty_like(b), torch.empty(B, n, n + 1, dtype=A.dtype, device=A.device)
-    fn = lib.gj_solve_f64_gmem if A.dtype == torch.float64 else lib.gj_solve_f32_gmem
-    rc = fn(A.data_ptr(), b.data_ptr(), x.data_ptr(), scratch.data_ptr(), B, n, torch.cuda.current_stream().cuda_stream)
-    assert rc == 0, f"K1's device-memory design failed with CUDA error {rc}"
-    return x
-
-
-def lane_chord(lib, p, q, w_a, w_b, dtf_re, dtf_im, ct, xtol=1e-5, lim_iter=48, stall_tol_factor=10.0, x0=None):
-    """The block-per-lane wide chord kernel on chord_solve_cuda's arguments; returns
-    (x, F, diff, n_iter, accepted)."""
-    B, n = p.shape
-    consts = (ct.W_pack, ct.invJ0_T, ct.H_T, ct.g_col0, ct.g_col1, ct.c, ct.e_t, ct.rs_re, ct.rs_im)
-    x = torch.empty(B, 2 * n, device=p.device)
-    F, diff = torch.empty_like(x), torch.empty(B, device=p.device)
-    n_iter = torch.empty(B, dtype=torch.int32, device=p.device)
-    accepted = torch.empty(B, dtype=torch.bool, device=p.device)
-    va, vb = float(ct.vstar_re), float(ct.vstar_im)
-    rc = lib.chord_newton_wide_lane_f32(
-        *(t.data_ptr() for t in (p, q, w_a, w_b, dtf_re, dtf_im)), None if x0 is None else x0.data_ptr(),
-        *(t.data_ptr() for t in consts), va, vb, 1.0 / math.hypot(va, vb), xtol, stall_tol_factor * xtol,
-        100.0 * xtol, int(lim_iter), *(t.data_ptr() for t in (x, F, diff, n_iter, accepted)), B, n,
-        torch.cuda.current_stream().cuda_stream)
-    assert rc == 0, f"the block-per-lane wide chord kernel failed with CUDA error {rc}"
-    return x, F, diff, n_iter, accepted
 
 
 WIDE_STEPS = ["(1) refill, stage F", "(2) update product", "(3) direction, AA, stage V", "(4) mismatch product",
@@ -949,10 +751,7 @@ def feeder_chord_inputs(n_bus=130, scale=0.15, n_steps=4):
 def probe_wide():
     ct, args, warm = feeder_chord_inputs()
     B, n = args[0].shape
-    base = load_baselines()
-    t = {key: statistics.median(device_ms(fn) for _ in range(5)) for key, fn in (
-        ("kernel", lambda: chord_solve_cuda(*args, ct, x0=warm)),
-        ("lane", lambda: lane_chord(base, *args, ct, x0=warm)))}
+    kernel_ms = statistics.median(device_ms(lambda: chord_solve_cuda(*args, ct, x0=warm)) for _ in range(5))
     lib = load(instrument_wide((_build.CSRC_DIR / "chord_newton_wide.cu").read_text()), "wide_probe")
     consts = (ct.W_pack_f32, ct.invJ0_T_f32, ct.H_T, ct.g_col0, ct.g_col1, ct.c, ct.e_t, ct.rs_re, ct.rs_im)
     x, scratch = torch.empty(B, 2 * n, device="cuda"), torch.empty(B, 4 * n, device="cuda")
@@ -970,8 +769,8 @@ def probe_wide():
     torch.cuda.synchronize()
     T = read(lib)
     rounds, blocks = T[5], T[6]
-    print(f"K2 wide, 130-bus feeder warm starts B={B} (n={n}): kernel {t['kernel']:.4f} ms, block-per-lane design "
-          f"{t['lane']:.4f} ms; {int(it.sum())} lane-iterations, {blocks} blocks, {rounds / blocks:.1f} rounds a block, "
+    print(f"K2 wide, 130-bus feeder warm starts B={B} (n={n}): kernel {kernel_ms:.4f} ms; "
+          f"{int(it.sum())} lane-iterations, {blocks} blocks, {rounds / blocks:.1f} rounds a block, "
           f"{sum(T[:5]) / rounds:.0f} cycles a round (block thread 0): "
           + ", ".join(f"{name} {T[i] / rounds:.0f}" for i, name in enumerate(WIDE_STEPS)))
 
@@ -1028,28 +827,27 @@ def probe_blocked():
     g = torch.Generator(device="cuda").manual_seed(n)
     A = torch.randn(B, n, n, generator=g, device="cuda") + n * torch.eye(n, device="cuda")
     b = torch.randn(B, n, generator=g, device="cuda")
-    lib, base = _build.load_library(), load_baselines()
-    xp = gmem_solve(base, A, b)  # bitwise the plain version (its card tests)
+    lib = _build.load_library()
+    xp = solve_gauss_jordan(A, b)
     line = []
     for panel in (8, 16, 32):
         x = panel_solve(lib, A, b, panel, False)
         torch.cuda.synchronize()
-        assert torch.equal(x, xp), f"panel {panel} is not bitwise the device-memory design"
+        assert torch.equal(x, xp), f"panel {panel} is not bitwise the plain version"
         t = statistics.median(device_ms(lambda: panel_solve(lib, A, b, panel, False)) for _ in range(5))
         line.append(f"panel {panel} {t:.4f}")
     t_ex = statistics.median(device_ms(lambda: torch.linalg.solve_ex(A, b)) for _ in range(3))
-    t_gmem = statistics.median(device_ms(lambda: gmem_solve(base, A, b), 2) for _ in range(3))
     print(f"K1 blocked B={B} n={n} f32 (device ms, median of 5 readings of 20 launches; the route takes panel "
           f"{k1_route(n, torch.float32, lib.gj_smem_limit_bytes())[1]}): " + ", ".join(line)
-          + f"; device-memory design {t_gmem:.4f} (2 launches, median of 3); torch.linalg.solve_ex {t_ex:.4f}")
+          + f"; torch.linalg.solve_ex {t_ex:.4f}")
 
 
 def probe_resident():
     """K1's shared-memory route by panel width at the feeders' sizes, B =
-    8192, beside the blocked route, the one-block design and ``solve_ex``;
-    and the register route's float64 bodies at n = 48 and 64 beside it.  Every
-    variant is checked bitwise against the plain version first."""
-    lib, base = _build.load_library(), load_baselines()
+    8192, beside the blocked route and ``solve_ex``; and the register
+    route's float64 bodies at n = 48 and 64 beside it.  Every variant is
+    checked bitwise against the plain version first."""
+    lib = _build.load_library()
     limit = lib.gj_smem_limit_bytes()
     B = 8192
     for n, dtype in ((94, torch.float32), (126, torch.float32), (48, torch.float64), (64, torch.float64),
@@ -1062,32 +860,27 @@ def probe_resident():
         keep = torch.ones(B, dtype=torch.bool, device="cuda")
         keep[1] = False
         itemsize = A.element_size()
-        variants = {f"resident BP={bp}": (lambda bp=bp: panel_solve(lib, A, b, bp, True), 20)
+        variants = {f"resident BP={bp}": lambda bp=bp: panel_solve(lib, A, b, bp, True)
                     for bp in (8, 16) if panel_smem_bytes(n, itemsize, bp, True) <= limit}
         blocked_bp = next(bp for bp in BLOCKED_PANELS[itemsize] if panel_smem_bytes(n, itemsize, bp, False) <= limit)
-        variants[f"blocked BP={blocked_bp}"] = (lambda: panel_solve(lib, A, b, blocked_bp, False), 20)
+        variants[f"blocked BP={blocked_bp}"] = lambda: panel_solve(lib, A, b, blocked_bp, False)
         if dtype == torch.float64 and n <= 64:
             def regs():
                 x = torch.empty_like(b)
                 assert lib.gj_solve_f64_regs(A.data_ptr(), b.data_ptr(), x.data_ptr(), B, n,
                                              torch.cuda.current_stream().cuda_stream) == 0
                 return x
-            variants["regs f64"] = (regs, 20)
-        variants["one-block design"] = (lambda: one_block_solve(base, A, b), 2 if n > 100 else 20)
+            variants["regs f64"] = regs
         line = []
-        for name, (fn, k) in variants.items():
+        for name, fn in variants.items():
             x = fn()
             torch.cuda.synchronize()
             assert not torch.isfinite(x[1]).all(), f"{name}: the zero pivot was repaired"
             assert torch.equal(x[keep], xp[keep]), f"{name} at n={n} {dtype} is not bitwise the plain version"
-            line.append(f"{name} {statistics.median(device_ms(fn, k) for _ in range(3)):.4f}")
+            line.append(f"{name} {statistics.median(device_ms(fn) for _ in range(3)):.4f}")
         t_ex = statistics.median(device_ms(lambda: torch.linalg.solve_ex(A, b)) for _ in range(3))
         print(f"K1 n={n} {dtype} B={B} (device ms, median of 3 readings; the route: "
               f"{k1_route(n, dtype, limit)}): " + ", ".join(line) + f", torch.linalg.solve_ex {t_ex:.4f}", flush=True)
-
-
-# PR 5's admm_dcopf_f32 arguments (admm_dcopf_pr5.cu's admm_probe_f32).
-PR5_ARGS = [ctypes.c_void_p] * 26 + [ctypes.c_float] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def admm_sets(B=8192, seed=90):
@@ -1129,26 +922,6 @@ def admm_sets(B=8192, seed=90):
     }
 
 
-def pr5_solve(lib, f64, dc, l, u, warm):
-    """One launch of PR 5's K5 (``admm_dcopf_pr5.cu``, built with or without
-    ``-DADMM_F64``); returns (iterations, converged, x)."""
-    B, n, m = l.shape[0], dc.n, dc.m
-    A, PT = (dc.A_bar.double(), dc.P_pack_T.double()) if f64 else (dc.A_bar, dc.P_pack_T)
-    empty = lambda *shape, dtype=torch.float32: torch.empty(*shape, dtype=dtype, device="cuda")  # noqa: E731
-    x, xw, yw, zw, Axw = empty(B, n), empty(B, n), empty(B, m), empty(B, m), empty(B, m)
-    it, rp, rd = empty(B, dtype=torch.int32), empty(B), empty(B)
-    flags = [empty(B, dtype=torch.bool) for _ in range(3)]
-    K = dc.check_every
-    consts = (A, PT, dc.q_bar, dc.rho, dc.inv_rho, dc.D, dc.D_inv, dc.E, dc.E_inv)
-    rc = lib.admm_probe_f32(*(t.data_ptr() for t in consts + (l, u) + tuple(warm)),
-                            *(t.data_ptr() for t in (x, xw, yw, zw, Axw, it, rp, rd, *flags)),
-                            dc.sigma, dc.alpha, 1.0 - dc.alpha, dc.c_scale_value, dc.q_ref, dc.eps_abs, dc.eps_rel,
-                            1.0 - 1e-3 * K, dc.dual_plateau_cap, dc.feas_band_factor, dc.max_iter, K,
-                            -(-dc.dual_stall_limit // K), B, n, m, torch.cuda.current_stream().cuda_stream)
-    assert rc == 0, rc
-    return it, flags[0], x
-
-
 def probe_admm_cycles():
     """Cycles per warp-sweep of each step of K5's staged route (an
     instrumented copy) at the farm's call."""
@@ -1179,40 +952,6 @@ def probe_admm_cycles():
           f"{loop - a - b:.0f}; per check, {ADMM_STEPS[3]} {chk:.0f}")
 
 
-def probe_admm():
-    from ..vec.admm_cuda import frag_count, solve_dcopf_cuda
-
-    src = Path(__file__).with_name("admm_dcopf_pr5.cu")
-    libs = {}
-    for f64 in (False, True):
-        name = "admm_pr5_f64" if f64 else "admm_pr5"
-        lib = ctypes.CDLL(str(nvcc(src, OUT / f"{name}.so", "-shared", *(["-DADMM_F64"] if f64 else []))))
-        lib.admm_probe_f32.argtypes = PR5_ARGS
-        lib.admm_probe_f32.restype = ctypes.c_int
-        libs[f64] = lib
-    for name, (dc, l, u, warm) in admm_sets().items():
-        sol = solve_dcopf_cuda(dc, l, u, warm)
-        its = {}
-        for f64, lib in libs.items():
-            it, conv, x = pr5_solve(lib, f64, dc, l, u, warm)
-            torch.cuda.synchronize()
-            same = it == sol.iterations
-            its[f64] = (int(same.sum()), int((conv == sol.converged).sum()),
-                        float((x - sol.x)[same].abs().max()) if same.any() else 0.0)
-        k = 3 if dc.max_iter > 48 else 20
-        t = {key: statistics.median(device_ms(fn, k) for _ in range(3)) for key, fn in (
-            ("new", lambda: solve_dcopf_cuda(dc, l, u, warm)),
-            ("pr5", lambda: pr5_solve(libs[False], False, dc, l, u, warm)),
-            ("pr5_f64", lambda: pr5_solve(libs[True], True, dc, l, u, warm)))}
-        n, m = dc.n, dc.m
-        print(f"K5 {name} B={l.shape[0]} (n={n}, m={m}): this kernel {t['new']:.4f} ms; PR 5's design "
-              f"{t['pr5']:.4f} ms, its float64 build {t['pr5_f64']:.4f} ms (the conversions' share "
-              f"{(t['pr5'] - t['pr5_f64']) / t['pr5']:.3f}); mean {float(sol.iterations.float().mean()):.2f} sweeps "
-              f"a lane; PR 5's design / its float64 build against this kernel: (iterations equal, converged "
-              f"equal, max|dx| where iterations are equal) {its[False]} / {its[True]} of {l.shape[0]} lanes; "
-              f"this kernel's fragments {16 * frag_count(n, m)} bytes")
-
-
 if __name__ == "__main__":
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -1228,7 +967,6 @@ if __name__ == "__main__":
     probe_resident()
     probe_wide()
     probe_blocked()
-    probe_admm()
     probe_admm_cycles()
     probe_dmma()
     probe_chord()

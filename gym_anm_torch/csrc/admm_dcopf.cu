@@ -55,9 +55,8 @@
 // gets its parallelism from 4 row tiles at once.  Two routes, by whether the
 // fragments fit in shared memory (admm_scratch_bytes owns the choice):
 //
-// Staged (namespace staged; the tile design, whose whole kernel is kept in
-// gym_anm_torch/bench/admm_dcopf_pr6.cu, and the one-block-per-lane design
-// before it in admm_dcopf_pr5.cu).  A warp is a tile of 8 lane slots.  Where the two
+// Staged (namespace staged; the tile design, which replaced a design of one
+// block per lane).  A warp is a tile of 8 lane slots.  Where the two
 // copies (VecDCOPF.A_frag / P_frag, [rt][kc][32]) fit beside two warps'
 // state (2,079 multiply-adds: 22.5 KB padded, at the farm's shape), the
 // block stages them in shared memory once and its warps share them; the

@@ -39,9 +39,9 @@
 // smoke counts them): 0.21 ms at the 67 TFLOP/s of the FP64 tensor cores at
 // the feeder's warm starts.  Device memory sees p, q, x0, x, F and a few
 // scalars per lane once, and the constants (invJ0^T 532 KB, W_pack 270 KB)
-// once: it is bound by operations.  A design with one block per lane
-// (bench/chord_newton_wide_lane.cu) reads the constants from L2 for every
-// lane-iteration, 38 GB a call at the warm starts, and is bound by that.
+// once: it is bound by operations.  A design with one block per lane (this
+// kernel's predecessor) read the constants from L2 for every
+// lane-iteration, 38 GB a call at the warm starts, and was bound by that.
 //
 // Design: lane tiles on the FP64 tensor cores, as chord_newton.cu for
 // n <= 32, with the constants streamed through shared memory.  A block holds

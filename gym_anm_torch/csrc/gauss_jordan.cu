@@ -83,9 +83,8 @@
 // non-finite (tests/test_torch_blocked_gj.py emulates this order on the
 // CPU).  The first panel reads A and b in place of the matrix's home, and the
 // last panel updates only the diagonal and column n and writes x.  Three
-// block barriers a panel, where the one-block design
-// (bench/gauss_jordan_smem.cu) took two a pivot and read and wrote the
-// whole matrix in shared memory at each.  The grid is persistent (SMs x resident blocks by the occupancy
+// block barriers a panel, where the earlier one-block design took two a
+// pivot and read and wrote the whole matrix in shared memory at each.  The grid is persistent (SMs x resident blocks by the occupancy
 // query), a block walking over systems.
 //
 // Resident ("smem"): shared memory holds the matrix and the panels.  The

@@ -37,8 +37,8 @@ struct WideParams {
 // float32 resident, K1's four (64 registers a thread) at panels of 16, three
 // (80) at panels of 8, which K1's rule takes where the shared memory holds
 // three (the 64-bus feeder); two of every other body (128).  At 64
-// registers the panel-16 bodies still spill 40 bytes (the block-a-lane
-// baseline in bench/ spilled 16-68 there); at 80 they would lose the
+// registers the panel-16 bodies still spill 40 bytes (the earlier
+// block-a-lane design spilled 16-68 there); at 80 they would lose the
 // fourth block.  The kernel holds little else across the sweeps
 // (WideBlock, thread_x).
 template <typename T, int BP, bool kResident>

@@ -226,9 +226,8 @@ def test_fold_sum_follows_the_kernels_tree(n):
 
 @pytest.mark.parametrize("n", [34, 48, 64, 65, 130, 256])
 def test_wide_kernels_depth_first_walk_is_the_fold_tree(n):
-    """The depth-first walk of the fold tree at a run-time N (PR 15's K3
-    wide summed a row so, ``bench/newton_fallback_wide_pr15.cuh:dot_tree``;
-    ``newton_fallback_wide.cuh:dot_fold_warp`` walks a lane's leaves so):
+    """The depth-first walk of the fold tree at a run-time N
+    (``newton_fallback_wide.cuh:dot_fold_warp`` walks a lane's leaves so):
     leaf i of the depth-first order is bit-reversed i over L = ceil(log2 N)
     bits, and a finished subtree's sum waits at its level for its sibling's;
     bit for bit the fold, negative zeros included."""
@@ -468,9 +467,9 @@ def _wrapper_args(dtype=torch.float32):
     ("Y type", "in the lanes' type"), ("LaneYbus buses", "LaneYbus does not match"),
     ("LaneYbus taps", "LaneYbus does not match")])
 def test_card_wrapper_checks_its_arguments(monkeypatch, fault, message):
-    """``k3_arguments`` (the checks K3's wrapper and PR 13's design, timed
-    beside it, share) refuses each malformed argument before the library is
-    loaded and before any tensor is read on a device."""
+    """``k3_arguments`` (K3's wrapper's checks) refuses each malformed
+    argument before the library is loaded and before any tensor is read on
+    a device."""
     from gym_anm_torch.physics.newton_cuda import k3_arguments
 
     def no_build():
@@ -501,14 +500,3 @@ def test_card_wrapper_checks_its_arguments(monkeypatch, fault, message):
         k3_arguments(*args, ybus)
     with pytest.raises(ValueError, match=message):
         newton_fallback_cuda(*args, ybus)
-
-
-def test_pr13_baseline_goes_through_the_wrappers_checks(monkeypatch):
-    """PR 13's design, timed beside K3 on the host clock, takes its
-    arguments through the same checks and allocations as K3's wrapper: it
-    refuses CPU tensors as the wrapper does, before reading its library."""
-    from gym_anm_torch.bench.kernel_probes import pr13_newton
-
-    tb, taps, args = _wrapper_args(torch.float64)
-    with pytest.raises(ValueError, match="CUDA device"):
-        pr13_newton(None, *args, _lane_ybus(tb, taps))
