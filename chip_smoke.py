@@ -19,7 +19,10 @@ non-zero at the first failure:
    the bad-basin guesses, and ANM6Easy (n = 5) at the injections of a real
    step from the flat start, from the step's warm starts (collapsing lanes
    among them) and from the bad-basin guesses; times of both and the
-   kernel's bound from the set's iteration count;
+   kernel's bound from the set's iteration count; then the warm starts'
+   first 1 and 1001 lanes, checked and timed the same way (the 8-slot
+   route at n = 32, where B = 8192 takes the 16-slot one), each set failing
+   unless its launch took the route the wrapper's rule gives it;
 2. the base path: the base IEEE33 ``VecEnv`` at float32, reset at B = 8192
    and 128 steps of uniform-random actions, then one step from warm starts
    in a bad basin (a restored state whose guesses are far off), which sends
@@ -433,18 +436,26 @@ def chord_vs_plain(pf, cuda_k, name, ct, args, x0):
     Tolerance: the same accepted lanes; n_iter equal on all but 0.5% of
     lanes; x within 1e-5 (the solver's own scale is xtol = 1e-5 on the
     residual); F and diff within 1e-4 (the acceptance band).  Returns
-    (max |dx|, kernel ms, plain ms, bound ms, what bounds it)."""
-    before = cuda_k.launch_count
+    (max |dx|, kernel ms, plain ms, bound ms, what bounds it).  Fails unless
+    the launch took the route the wrapper's rule gives the set: the wide
+    kernel above TILE_MAX_N, else the tile kernel at ``tile_slots`` slots a
+    block."""
+    from gym_anm_torch.physics.chord_cuda import TILE_MAX_N, tile_slots
+
+    B = args[0].shape[0]
+    n_sm = torch.cuda.get_device_properties(args[0].device).multi_processor_count
+    route = "wide" if ct.n > TILE_MAX_N else f"tile{tile_slots(B, ct.n, n_sm)}"
+    before, before_route = cuda_k.launch_count, cuda_k.launches[route]
     xk, Fk, dk, ik, ak = cuda_k(*args, ct, x0=x0)
     torch.cuda.synchronize()
     xp, Fp, dp, ip, ap = pf.chord_solve_plain(*args, ct, x0=x0)
     torch.cuda.synchronize()
     assert cuda_k.launch_count == before + 1
-    B = xk.shape[0]
+    assert cuda_k.launches[route] == before_route + 1, f"K2 {name} B={B} did not take the {route} route"
     err = float((xk - xp).abs().max())
     n_diff = int((ik != ip).sum())
     mean_it = float(ik.float().mean())
-    log(f"K2 {name} B={B}: accepted {int(ak.sum())} / plain {int(ap.sum())}; n_iter differs on {n_diff} lanes "
+    log(f"K2 {name} B={B} ({route}): accepted {int(ak.sum())} / plain {int(ap.sum())}; n_iter differs on {n_diff} lanes "
         f"(max {int((ik - ip).abs().max())}), mean {mean_it:.3f}, worst {int(ik.max())}; "
         f"max|dx| {err:.3e}, max|dF| {float((Fk - Fp).abs().max()):.3e}, "
         f"max|ddiff| {float((dk - dp).abs().max()):.3e}, x bitwise equal on {int((xk == xp).all(1).sum())} of "
@@ -484,34 +495,9 @@ def multicap_injections(tb, B, g):
     return p_ns, q_ns, dtf_im, dtf_re, dtf_re, dtf_im
 
 
-def task_chord_inputs(VecEnv, task, n_steps, seed):
-    """The chord solve's inputs at the last of ``n_steps`` steps of ``task``
-    at B_MAIN lanes on the card (uniform-random actions through
-    ``step_autoreset_batch``), taken at the call: (constants, injections,
-    warm starts).  Lanes that collapse under the step's actions are among
-    them (on ANM6Easy)."""
-    tm = importlib.import_module("gym_anm_torch.physics.transition")
-    env = VecEnv(task, dtype=torch.float32, device="cuda")
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    state, _ = env.reset(B_MAIN, g)
-    real, seen = tm.chord_solve, []
-
-    def capture(*args, x0=None):
-        if x0 is not None:  # the step's solve (a reset's starts flat)
-            seen.append((args, x0))
-        return real(*args, x0=x0)
-
-    tm.chord_solve = capture
-    try:
-        for _ in range(n_steps):
-            state, *_ = env.step_autoreset_batch(state, uniform_actions(env, B_MAIN, g), g)
-    finally:
-        tm.chord_solve = real
-    args, x0 = seen[-1]
-    return args[-1], tuple(a.contiguous() for a in args[:-1]), x0.contiguous()
-
-
 def phase1b_chord_kernel(pf, cuda_k, VecEnv, make_ieee33_task, make_ieee33_multicap_task, make_anm6easy_task):
+    from gym_anm_torch.bench.kernel_probes import step_chord_inputs
+
     log(f"== phase 1b: K2 against its plain version, B={B_MAIN}")
     g = torch.Generator(device="cuda").manual_seed(11)
     tb = VecEnv(make_ieee33_task(), dtype=torch.float32, device="cuda").tables
@@ -529,7 +515,7 @@ def phase1b_chord_kernel(pf, cuda_k, VecEnv, make_ieee33_task, make_ieee33_multi
     # ANM6Easy (n = 5: 27 of the warp's threads idle) at a real step's
     # injections: from the flat start, from the step's warm starts (its
     # collapsing lanes are not accepted), and from the bad-basin guesses.
-    a6_ct, a6_args, a6_warm = task_chord_inputs(VecEnv, make_anm6easy_task(), 8, 12)
+    a6_ct, a6_args, a6_warm = step_chord_inputs(make_anm6easy_task(), B_MAIN, 8, 12)
     errs, times = [], {}
     for name, ct, args, x0 in (
         ("base IEEE33 flat start", tb.chord_t, base, None),
@@ -544,7 +530,19 @@ def phase1b_chord_kernel(pf, cuda_k, VecEnv, make_ieee33_task, make_ieee33_multi
         err, *times[name] = chord_vs_plain(pf, cuda_k, name, ct, args, x0)
         errs.append(err)
     t_k, t_p, bound_ms, bound_by = times["base IEEE33 warm starts"]
-    return dict(max_abs_err=max(errs), ms=t_k, plain_ms=t_p, bound_ms=bound_ms, bound_by=bound_by)
+    # Small batches (the compat Simulator's B = 1, a ragged 1001), which take
+    # the 8-slot route at n = 32 where B_MAIN takes the 16-slot one: the
+    # first lanes of the warm-start set, checked and timed beside B_MAIN's.
+    small = {}
+    for k in (1, 1001):
+        sub = tuple(a[:k].contiguous() for a in base)
+        err, small[k], *_ = chord_vs_plain(pf, cuda_k, f"base IEEE33 warm starts, first {k} lanes", tb.chord_t, sub,
+                                           warm[:k].contiguous())
+        errs.append(err)
+    log(f"K2 base IEEE33 warm starts, device time by batch: B=1 {small[1]:.4f} ms, B=1001 {small[1001]:.4f} ms, "
+        f"B={B_MAIN} {t_k:.4f} ms")
+    return dict(max_abs_err=max(errs), ms=t_k, plain_ms=t_p, bound_ms=bound_ms, bound_by=bound_by, ms_b1=small[1],
+                ms_b1001=small[1001])
 
 
 def uniform_actions(env, B, g):
@@ -1698,11 +1696,13 @@ def phase10_feeders(pf, lin, cuda_k, VecEnv, kernel, nc):
     wide's numbers for the kernels' line, their launches those of the
     float32 path alone (K1's: its solves inside K3 wide on each route), K3
     wide's device-memory route's those of the 194-bus float64 step."""
+    from gym_anm_torch.bench.kernel_probes import step_chord_inputs
+
     log(f"== phase 10: random radial feeders above 33 buses, B={B_MAIN}")
     wide, blocked = {"errs": []}, {}
     for n_bus, scale in FEEDERS:
         task = feeder_env_task(n_bus, scale)
-        ct, args, warm = task_chord_inputs(VecEnv, task, 4, n_bus)
+        ct, args, warm = step_chord_inputs(task, B_MAIN, 4, n_bus)
         n = ct.n
         for name, x0 in (("flat start", None), ("warm starts of a step", warm),
                          ("bad-basin guesses", bad_guesses(B_MAIN, n).to("cuda"))):
@@ -3770,6 +3770,8 @@ def main():
         "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"],
+        "ms_b1": k2["ms_b1"],
+        "ms_b1001": k2["ms_b1001"],
         "library_ms": None,  # no single PyTorch call runs the chord iteration
     }, {
         "name": "admm_dcopf",

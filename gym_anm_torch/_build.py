@@ -41,10 +41,11 @@ _SIGNATURES = {
     "gj_smem_limit_bytes": [],
     # (p, q, w_a, w_b, dtf_re, dtf_im, x0, W_pack, invJ0_T, H_T, g_col0,
     #  g_col1, C, e_t, rs_re, rs_im, va, vb, inv_vmag, xtol, band, aa_gate,
-    #  lim_iter, x, F, diff, n_iter, accepted, next_lane, B, n, stream)
-    "chord_newton_f32": [_P] * 16 + [_F] * 6 + [_I] + [_P] * 6 + [_I, _I, _P],
-    # as chord_newton_f32 with the float32 W_pack and invJ0_T, then scratch
-    # after next_lane and their row strides (w_ld, u_ld) after n
+    #  lim_iter, x, F, diff, n_iter, accepted, next_lane, B, n, slots, stream)
+    "chord_newton_f32": [_P] * 16 + [_F] * 6 + [_I] + [_P] * 6 + [_I, _I, _I, _P],
+    # as chord_newton_f32 without slots, with the float32 W_pack and
+    # invJ0_T, then scratch after next_lane and their row strides (w_ld,
+    # u_ld) after n
     "chord_newton_wide_f32": [_P] * 16 + [_F] * 6 + [_I] + [_P] * 7 + [_I] * 4 + [_P],
     # (A_frag, P_frag, q_bar, rho, inv_rho, D, D_inv, E, E_inv, l, u, x0, y0,
     #  z0, Ax0, x, xw, yw, zw, Axw, iterations, r_prim, r_dual, converged,

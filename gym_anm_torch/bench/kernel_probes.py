@@ -3,10 +3,15 @@
     python -m gym_anm_torch.bench.kernel_probes
 
 1. ``dmma_shapes.cu``: the float64 tensor-core rate by mma shape.
-2. K2 (``csrc/chord_newton.cu``): a copy with ``clock64`` counters around the
-   five steps of a round (read by thread 0 of every block), on the base
-   IEEE33 constants from warm starts at B = 8192 (``chip_smoke.py`` phase
-   1b's set): rounds per block and cycles per round by step.
+2. K2 (``csrc/chord_newton.cu``), alone with ``python -m
+   gym_anm_torch.bench.kernel_probes chord``: a copy with ``clock64``
+   counters around the five steps of a round and the barrier after each
+   (thread 0 of every block, read once a block), on the base IEEE33
+   constants from warm starts at B = 8192 (``chip_smoke.py`` phase 1b's
+   set) and on the chord inputs of a step of each IEEE33 cell (262,144 and
+   524,288 lanes), at 8 and 16 slots a block: rounds per block, lanes a
+   round, cycles per round by step, beside the kernel's own time at each
+   width.
 3. K1's register route (``csrc/gauss_jordan.cuh``): a copy with ``clock64``
    around the sweeps of the float32 64-row body, at B = 8192 and at few enough systems that every
    scheduler holds one warp: cycles per sweep of a warp.
@@ -54,7 +59,6 @@ registers, so the instrumented K2 runs ~15% slower than the kernel itself
 
 import ctypes
 import importlib
-import math
 import re
 import statistics
 import subprocess
@@ -65,9 +69,11 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..physics import chord_cuda
 from ..physics.chord_cuda import chord_solve_cuda
 from ..physics.linsolve_cuda import BLOCKED_PANELS, k1_route, panel_smem_bytes, solve_gauss_jordan
-from ..vec import VecEnv, make_anm6easy_task, make_ieee33_renewable_task, make_ieee33_task
+from ..vec import (VecEnv, make_anm6easy_task, make_ieee33_multicap_task, make_ieee33_renewable_task,
+                   make_ieee33_task)
 
 OUT = _build.BUILD_DIR / "probe"
 # The counters and their read-out, added to an instrumented copy.
@@ -76,8 +82,8 @@ READOUT = ('\nextern "C" int probe_read(unsigned long long* out) {\n'
            '  return (int)cudaMemcpyFromSymbol(out, g_probe, sizeof(g_probe));\n}\n'
            'extern "C" int probe_zero() {\n  unsigned long long z[16] = {};\n'
            '  return (int)cudaMemcpyToSymbol(g_probe, z, sizeof(z));\n}\n')
-STEPS = ["(1) refill / stage F", "barrier", "(2) update product", "barrier", "(3) direction, AA, stage V",
-         "barrier", "(4) mismatch product", "barrier", "(5) mismatch, exit test"]
+CHORD_STEPS = ["(1) refill, stage F", "barrier", "(2) update product", "barrier", "(3) direction, AA, stage V",
+               "barrier", "(4) mismatch product", "barrier", "(5) mismatch, exit test"]
 
 
 def nvcc(src, out, *flags):
@@ -103,29 +109,35 @@ def device_ms(fn, n=20):
 
 
 def instrument_chord(src):
-    """chord_newton.cu with cycle counters around each step of a round."""
-    lines, out, n_bar, in_loop = src.split("\n"), [], 0, False
-    for line in lines:
-        if line.strip() == "while (true) {" and not in_loop:
-            in_loop = True
-            out += ["  long long T[9] = {}; int rounds = 0;", line, "    long long ta = clock64(); ++rounds;"]
-        elif in_loop and line.strip() == "__syncthreads();":
-            n_bar += 1
-            out += [f"    long long tb{n_bar} = clock64();", line, f"    long long ta{n_bar} = clock64();"]
-        else:
-            out.append(line)
-    s = "\n".join(out)
-    end = "        phase = kEmpty;\n      }\n    }\n"
-    tail = "  }\n}\n\n}  // namespace"
-    assert n_bar == 4 and s.count(end) == 1 and s.count(tail) == 1, "the round's layout changed"
-    s = s.replace(end, end + "    { const long long te = clock64();\n"
-                  "      long long t[10] = {ta, tb1, ta1, tb2, ta2, tb3, ta3, tb4, ta4, te};\n"
-                  "      for (int i = 0; i < 9; ++i) T[i] += t[i + 1] - t[i]; }\n")
-    s = s.replace(tail, "  }\n  if (threadIdx.x == 0) {\n"
-                  "    for (int i = 0; i < 9; ++i)\n"
-                  "      atomicAdd(&g_probe[i], (unsigned long long)T[i]);\n"
-                  "    atomicAdd(&g_probe[9], (unsigned long long)rounds);\n"
-                  "    atomicAdd(&g_probe[10], 1ull);\n  }\n}\n\n}  // namespace")
+    """chord_newton.cu with cycle counters: thread 0 of every block times each
+    step of a round and the barrier after it (:data:`CHORD_STEPS`), counts
+    its rounds and the slots that held a lane in each, and adds its sums to
+    ``g_probe`` once, when its block is done: [0..8] cycles by step, [9]
+    rounds, [10] blocks, [11] slot-rounds with a lane.  The round's first
+    barrier, an AND of the warps' all-done votes, becomes a count of the
+    block's live slots (the first ``live`` lanes of a warp with ``live``
+    slots vote), which gives both the exit and the count."""
+    head = "  while (true) {\n"
+    first = ("    bool done = true;\n#pragma unroll\n    for (int t = 0; t < LW; ++t) done &= s[t].phase == kDone;\n"
+             "    if (__syncthreads_and(done)) break;\n")
+    tail = "  }\n}\n\ntemplate <int KC1, int KH2, int LW, bool FR, int NN>\ncudaError_t launch("  # the loop's and kernel's end
+    bar = "\n    __syncthreads();\n"
+    assert all(src.count(m) == 1 for m in (head, first, tail)) and src.count(bar) == 3, "the round's layout changed"
+    s = src.replace(head, "  long long T_[9] = {}, rounds_ = 0, live_ = 0;\n" + head
+                    + "    const long long ta0 = clock64();\n")
+    s = s.replace(first, "    int nlive_ = 0;\n#pragma unroll\n    for (int t = 0; t < LW; ++t) nlive_ += s[t].phase == kPro || "
+                  "s[t].phase == kIter;\n    const long long tb1 = clock64();\n"
+                  "    const int live_now_ = __syncthreads_count(lane < nlive_);\n    const long long ta1 = clock64();\n"
+                  "    if (live_now_ == 0) break;\n    live_ += live_now_;\n")
+    parts = s.split(bar)
+    s = parts[0] + "".join(f"\n    const long long tb{i + 1} = clock64();\n    __syncthreads();\n"
+                           f"    const long long ta{i + 1} = clock64();\n" + parts[i] for i in range(1, 4))
+    s = s.replace(tail, "    const long long t[10] = {ta0, tb1, ta1, tb2, ta2, tb3, ta3, tb4, ta4, clock64()};\n"
+                  "    for (int i = 0; i < 9; ++i) T_[i] += t[i + 1] - t[i];\n    ++rounds_;\n"
+                  "  }\n  if (threadIdx.x == 0) {\n    for (int i = 0; i < 9; ++i) atomicAdd(&g_probe[i], "
+                  "(unsigned long long)T_[i]);\n    atomicAdd(&g_probe[9], (unsigned long long)rounds_);\n"
+                  "    atomicAdd(&g_probe[10], 1ull);\n    atomicAdd(&g_probe[11], (unsigned long long)live_);\n  }\n"
+                  + tail[len("  }\n"):], 1)
     return s.replace("namespace {\n", COUNTERS, 1) + READOUT
 
 
@@ -610,47 +622,78 @@ def probe_dmma():
     print(subprocess.run([str(exe)], capture_output=True, text=True, check=True).stdout, end="")
 
 
+def chord_call(lib, args, ct, x0, slots):
+    """One launch of K2's ``chord_newton_f32`` from ``lib`` (the kernel or an
+    instrumented copy) at ``slots`` slots a block, on ``chord_solve_cuda``'s
+    arguments; returns n_iter."""
+    B, n = args[0].shape
+    outs = chord_cuda.kernel_outputs(B, n, "cuda")
+    nxt = torch.zeros(1, dtype=torch.int32, device="cuda")
+    rc = lib.chord_newton_f32(*chord_cuda.kernel_args(args, ct, x0, outs), nxt.data_ptr(), B, n, slots,
+                              torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, rc
+    return outs[3]
+
+
+def step_chord_inputs(task, B, n_steps, seed, device="cuda"):
+    """The chord solve's inputs of the last of ``n_steps`` steps of ``task``
+    at ``B`` lanes on ``device`` (a seeded reset, then uniform actions
+    through ``step_autoreset_batch``), taken at the call: (constants,
+    injections, warm starts).  Lanes that collapse under the step's actions
+    are among them (on ANM6Easy)."""
+    tm = importlib.import_module("gym_anm_torch.physics.transition")
+    env = VecEnv(task, dtype=torch.float32, device=device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    state, _ = env.reset(B, g)
+    real, seen = tm.chord_solve, []
+
+    def capture(*args, x0=None):
+        if x0 is not None:  # the step's solve (a reset's starts flat)
+            seen.append((args, x0))
+        return real(*args, x0=x0)
+
+    tm.chord_solve = capture
+    try:
+        for _ in range(n_steps):
+            u = torch.rand(B, env.n_action, generator=g, device=env.device, dtype=env.dtype)
+            state, *_ = env.step_autoreset_batch(state, env.action_low + u * (env.action_high - env.action_low), g)
+    finally:
+        tm.chord_solve = real
+    args, x0 = seen[-1]
+    return args[-1], tuple(a.contiguous() for a in args[:-1]), x0.contiguous()
+
+
 def probe_chord():
-    B = 8192
     g = torch.Generator(device="cuda").manual_seed(11)
     tb = VecEnv(make_ieee33_task(), dtype=torch.float32).tables
-    ct, n = tb.chord_t, tb.n_bus - 1
+    ct, n, B = tb.chord_t, tb.n_bus - 1, 8192
     qc = torch.rand(B, 2, generator=g, device="cuda")
     q = torch.zeros(B, n, device="cuda")
     q[:, 7], q[:, 24] = qc[:, 0], qc[:, 1]
     a = 0.9 + 0.2 * torch.rand(B, generator=g, device="cuda")
     inv_da = 1.0 / a - 1.0 / tb.chord_a0
     dr, di = (-tb.chord_y_re * inv_da).contiguous(), (-tb.chord_y_im * inv_da).contiguous()
-    args = (torch.zeros(B, n, device="cuda"), q, di, dr, dr, di)
     warm = (ct.flat + 0.01 * torch.randn(B, 2 * n, generator=g, device="cuda")).contiguous()
     warm[3] = float("nan")
-    kernel_ms = statistics.median(device_ms(lambda: chord_solve_cuda(*args, ct, x0=warm)) for _ in range(5))
+    sets = [("base warm starts B=8192", ct, (torch.zeros(B, n, device="cuda"), q, di, dr, dr, di), warm),
+            ("ieee33 cell step B=262144", *step_chord_inputs(make_ieee33_task(), 262144, 2, 12)),
+            ("multicap17 cell step B=524288", *step_chord_inputs(make_ieee33_multicap_task(), 524288, 2, 13))]
+    kernel = _build.load_library()
     lib = load(instrument_chord((_build.CSRC_DIR / "chord_newton.cu").read_text()), "chord_probe")
-    consts = (ct.W_pack, ct.invJ0_T, ct.H_T, ct.g_col0, ct.g_col1, ct.c, ct.e_t, ct.rs_re, ct.rs_im)
-
-    def call():
-        x = torch.empty(B, 2 * n, device="cuda")
-        F, diff = torch.empty_like(x), torch.empty(B, device="cuda")
-        it, acc = torch.empty(B, dtype=torch.int32, device="cuda"), torch.empty(B, dtype=torch.bool, device="cuda")
-        nxt = torch.zeros(1, dtype=torch.int32, device="cuda")
-        va, vb = ct.vstar_re, ct.vstar_im
-        rc = lib.chord_newton_f32(*(t.data_ptr() for t in args), warm.data_ptr(), *(t.data_ptr() for t in consts),
-                                  va, vb, 1.0 / math.hypot(va, vb), 1e-5, 1e-4, 1e-3, 48, x.data_ptr(), F.data_ptr(),
-                                  diff.data_ptr(), it.data_ptr(), acc.data_ptr(), nxt.data_ptr(), B, n,
-                                  torch.cuda.current_stream().cuda_stream)
-        assert rc == 0, rc
-        return it
-
-    probe_ms = statistics.median(device_ms(call) for _ in range(5))
-    lib.probe_zero()
-    it = call()
-    torch.cuda.synchronize()
-    T = read(lib)
-    rounds, blocks = T[9], T[10]
-    print(f"K2 base warm starts B={B}: kernel {kernel_ms:.4f} ms, instrumented copy {probe_ms:.4f} ms; "
-          f"{int(it.sum())} lane-iterations, {blocks} blocks, {rounds / blocks:.1f} rounds per block, "
-          f"{sum(T[:9]) / rounds:.0f} cycles per round (block thread 0): "
-          + ", ".join(f"{name} {T[i] / rounds:.0f}" for i, name in enumerate(STEPS)))
+    for name, ct, args, x0 in sets:
+        for slots in (8, 16):
+            kernel_ms = statistics.median(device_ms(lambda: chord_call(kernel, args, ct, x0, slots), 5)
+                                          for _ in range(5))
+            probe_ms = statistics.median(device_ms(lambda: chord_call(lib, args, ct, x0, slots), 5) for _ in range(5))
+            lib.probe_zero()
+            it = chord_call(lib, args, ct, x0, slots)
+            torch.cuda.synchronize()
+            T = read(lib)
+            rounds, blocks, live = T[9], T[10], T[11]
+            print(f"K2 {name}, {slots} slots a block: kernel {kernel_ms:.4f} ms, instrumented copy {probe_ms:.4f} ms; "
+                  f"{int(it.sum())} lane-iterations, {blocks} blocks, {rounds / blocks:.1f} rounds a block, "
+                  f"{live / rounds:.2f} of {slots} slots with a lane a round, {sum(T[:9]) / rounds:.0f} cycles a "
+                  "round (block thread 0): " + ", ".join(f"{s} {T[i] / rounds:.0f}" for i, s in enumerate(CHORD_STEPS)))
 
 
 def probe_gj():
@@ -724,28 +767,10 @@ def feeder_chord_inputs(n_bus=130, scale=0.15, n_steps=4):
     inputs at step ``n_steps`` of the seeded random feeder at B = 8192."""
     from ..networks.random_feeder import feeder_vars, make_feeder_task, random_radial_network
 
-    tm = importlib.import_module("gym_anm_torch.physics.transition")
     rng = np.random.default_rng(n_bus)
     net = random_radial_network(rng, n_bus)
-    env = VecEnv(make_feeder_task(net, feeder_vars(net, scale, 8, rng), name=f"feeder{n_bus}"), dtype=torch.float32)
-    g = torch.Generator(device="cuda").manual_seed(n_bus)
-    state, _ = env.reset(8192, g)
-    real, seen = tm.chord_solve, []
-
-    def capture(*args, x0=None):
-        if x0 is not None:
-            seen.append((args, x0))
-        return real(*args, x0=x0)
-
-    tm.chord_solve = capture
-    try:
-        for _ in range(n_steps):
-            u = torch.rand(8192, env.n_action, generator=g, device="cuda")
-            state, *_ = env.step_autoreset_batch(state, env.action_low + u * (env.action_high - env.action_low), g)
-    finally:
-        tm.chord_solve = real
-    args, x0 = seen[-1]
-    return args[-1], tuple(a.contiguous() for a in args[:-1]), x0.contiguous()
+    task = make_feeder_task(net, feeder_vars(net, scale, 8, rng), name=f"feeder{n_bus}")
+    return step_chord_inputs(task, 8192, n_steps, n_bus)
 
 
 def probe_wide():
@@ -753,24 +778,20 @@ def probe_wide():
     B, n = args[0].shape
     kernel_ms = statistics.median(device_ms(lambda: chord_solve_cuda(*args, ct, x0=warm)) for _ in range(5))
     lib = load(instrument_wide((_build.CSRC_DIR / "chord_newton_wide.cu").read_text()), "wide_probe")
-    consts = (ct.W_pack_f32, ct.invJ0_T_f32, ct.H_T, ct.g_col0, ct.g_col1, ct.c, ct.e_t, ct.rs_re, ct.rs_im)
-    x, scratch = torch.empty(B, 2 * n, device="cuda"), torch.empty(B, 4 * n, device="cuda")
-    F, diff = torch.empty_like(x), torch.empty(B, device="cuda")
-    it, acc = torch.empty(B, dtype=torch.int32, device="cuda"), torch.empty(B, dtype=torch.bool, device="cuda")
+    outs = chord_cuda.kernel_outputs(B, n, "cuda")
+    wide_args = list(chord_cuda.kernel_args(args, ct, warm, outs))
+    wide_args[7], wide_args[8] = ct.W_pack_f32.data_ptr(), ct.invJ0_T_f32.data_ptr()
+    scratch = torch.empty(B, 4 * n, device="cuda")
     nxt = torch.zeros(1, dtype=torch.int32, device="cuda")
-    va, vb = float(ct.vstar_re), float(ct.vstar_im)
     lib.probe_zero()
-    rc = lib.chord_newton_wide_f32(*(a.data_ptr() for a in args), warm.data_ptr(), *(c.data_ptr() for c in consts),
-                                   va, vb, 1.0 / math.hypot(va, vb), 1e-5, 1e-4, 1e-3, 48, x.data_ptr(), F.data_ptr(),
-                                   diff.data_ptr(), it.data_ptr(), acc.data_ptr(), nxt.data_ptr(), scratch.data_ptr(),
-                                   B, n, ct.W_pack_f32.shape[1], ct.invJ0_T_f32.shape[1],
-                                   torch.cuda.current_stream().cuda_stream)
+    rc = lib.chord_newton_wide_f32(*wide_args, nxt.data_ptr(), scratch.data_ptr(), B, n, ct.W_pack_f32.shape[1],
+                                   ct.invJ0_T_f32.shape[1], torch.cuda.current_stream().cuda_stream)
     assert rc == 0, rc
     torch.cuda.synchronize()
     T = read(lib)
     rounds, blocks = T[5], T[6]
     print(f"K2 wide, 130-bus feeder warm starts B={B} (n={n}): kernel {kernel_ms:.4f} ms; "
-          f"{int(it.sum())} lane-iterations, {blocks} blocks, {rounds / blocks:.1f} rounds a block, "
+          f"{int(outs[3].sum())} lane-iterations, {blocks} blocks, {rounds / blocks:.1f} rounds a block, "
           f"{sum(T[:5]) / rounds:.0f} cycles a round (block thread 0): "
           + ", ".join(f"{name} {T[i] / rounds:.0f}" for i, name in enumerate(WIDE_STEPS)))
 
@@ -961,6 +982,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:] == ["wide_routes"]:  # python -m gym_anm_torch.bench.kernel_probes wide_routes
         probe_wide_routes()
+        sys.exit(0)
+    if sys.argv[1:] == ["chord"]:  # python -m gym_anm_torch.bench.kernel_probes chord
+        probe_chord()
         sys.exit(0)
     probe_newton()
     probe_newton_wide()

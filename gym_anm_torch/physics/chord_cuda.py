@@ -10,14 +10,64 @@ Its plain version is :func:`~gym_anm_torch.physics.power_flow.chord_solve_plain`
 the tensors' device alone.
 """
 
+import functools
+
 import numpy as np
 import torch
+
+from ..utils import profiling
 
 # Largest n = N_bus − 1 of the tile kernel (one warp thread per non-slack
 # bus: IEEE33, n = 32, and ANM6, n = 5) and of the wide kernel (up to 16
 # buses per thread of a lane's warp: networks up to 513 buses).
 TILE_MAX_N = 32
 MAX_N = 512
+# Lanes in flight on an SM of the tile kernel's 16-slot route (two lanes a
+# warp, two blocks an SM).
+TILE16_LANES_PER_SM = 32
+
+
+def tile_slots(B, n, n_sm):
+    """Lane slots a block of the tile kernel takes for ``B`` lanes of ``n``
+    non-slack buses (``1 <= n <= TILE_MAX_N``) on a card of ``n_sm`` SMs:
+    16 (two lanes a warp, each constant fragment read for two lane tiles)
+    at the tile's full width, n = ``TILE_MAX_N`` (IEEE33), where the batch
+    fills every slot the 16-slot route holds on the card,
+    ``TILE16_LANES_PER_SM`` an SM; else 8 (a lane a warp), whose smaller
+    blocks spread a small batch over more SMs instead of multiplying empty
+    slots.  (At n <= 8 three blocks of 8 slots fit an SM and beat two of 16
+    at every batch; between, the 16-slot kernel would spill.)  Both routes
+    give the same bits."""
+    if not 1 <= n <= TILE_MAX_N:
+        raise ValueError(f"the tile kernel takes 1 <= n <= {TILE_MAX_N}, got n={n}")
+    return 16 if n == TILE_MAX_N and B >= TILE16_LANES_PER_SM * n_sm else 8
+
+
+def kernel_outputs(B, n, device):
+    """Empty ``(x, F, diff, n_iter, accepted)`` for ``B`` lanes of ``n``
+    non-slack buses on ``device``, as the C entries write them."""
+    x = torch.empty(B, 2 * n, dtype=torch.float32, device=device)
+    return (x, torch.empty_like(x), torch.empty(B, dtype=torch.float32, device=device),
+            torch.empty(B, dtype=torch.int32, device=device), torch.empty(B, dtype=torch.bool, device=device))
+
+
+def kernel_args(lane_inputs, ct, x0, outs, xtol=1e-5, lim_iter=48, stall_tol_factor=10.0):
+    """The arguments of the C entries ``chord_newton_f32`` and
+    ``chord_newton_wide_f32`` before the work counter: the pointers of
+    ``lane_inputs`` (p, q, w_a, w_b, dtf_re, dtf_im), of ``x0`` (None for a
+    flat start) and of ``ct``'s constants, the solver's scalars, and the
+    pointers of ``outs`` (:func:`kernel_outputs`).  The wide entry takes the
+    float32 copies of W_pack and invJ0_T in places 7 and 8."""
+    consts = (ct.W_pack, ct.invJ0_T, ct.H_T, ct.g_col0, ct.g_col1, ct.c, ct.e_t, ct.rs_re, ct.rs_im)
+    va, vb = float(ct.vstar_re), float(ct.vstar_im)
+    return (*(t.data_ptr() for t in lane_inputs), None if x0 is None else x0.data_ptr(),
+            *(t.data_ptr() for t in consts), va, vb, 1.0 / float(np.hypot(va, vb)), xtol, stall_tol_factor * xtol,
+            100.0 * xtol, int(lim_iter), *(t.data_ptr() for t in outs))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def chord_solve_cuda(p, q, w_a, w_b, dtf_re, dtf_im, ct, xtol=1e-5, lim_iter=48,
@@ -28,12 +78,14 @@ def chord_solve_cuda(p, q, w_a, w_b, dtf_re, dtf_im, ct, xtol=1e-5, lim_iter=48,
     takes, as contiguous float32 tensors on one CUDA device with ``ct`` a
     :class:`~gym_anm_torch.physics.power_flow.ChordTensors` on that device,
     and returns the same ``(x, F, diff, n_iter, accepted)``.  Picks the tile
-    kernel at n <= ``TILE_MAX_N`` and the wide kernel above, by n alone.
+    kernel at n <= ``TILE_MAX_N`` and the wide kernel above, by n alone, and
+    the tile kernel's slots a block by :func:`tile_slots`.
     Launches on the current stream and raises on anything else (n above
     ``MAX_N`` included) or on a failed launch.  Adds one to
     ``chord_solve_cuda.launch_count`` per launch, and to
-    ``chord_solve_cuda.launches["tile"]`` or ``["wide"]`` for the kernel that
-    ran.
+    ``chord_solve_cuda.launches[route]`` for the route that ran ("tile8",
+    "tile16" or "wide"), and counts the lanes of the route as the tracer's
+    ``chord.<route>_lanes``.
     """
     lane_vecs = (p, q, w_a, w_b, dtf_re, dtf_im) + (() if x0 is None else (x0,))
     consts = (ct.W_pack, ct.invJ0_T, ct.H_T, ct.g_col0, ct.g_col1, ct.c, ct.e_t, ct.rs_re, ct.rs_im)
@@ -62,22 +114,15 @@ def chord_solve_cuda(p, q, w_a, w_b, dtf_re, dtf_im, ct, xtol=1e-5, lim_iter=48,
     from .._build import load_library
 
     lib = load_library()
-    x = torch.empty(B, 2 * n, dtype=torch.float32, device=device)
-    F = torch.empty_like(x)
-    diff = torch.empty(B, dtype=torch.float32, device=device)
-    n_iter = torch.empty(B, dtype=torch.int32, device=device)
-    accepted = torch.empty(B, dtype=torch.bool, device=device)
-    va, vb = float(ct.vstar_re), float(ct.vstar_im)
-    args = (p.data_ptr(), q.data_ptr(), w_a.data_ptr(), w_b.data_ptr(), dtf_re.data_ptr(), dtf_im.data_ptr(),
-            None if x0 is None else x0.data_ptr(), *(t.data_ptr() for t in consts),
-            va, vb, 1.0 / float(np.hypot(va, vb)), xtol, stall_tol_factor * xtol, 100.0 * xtol, int(lim_iter),
-            x.data_ptr(), F.data_ptr(), diff.data_ptr(), n_iter.data_ptr(), accepted.data_ptr())
+    outs = kernel_outputs(B, n, device)
+    args = kernel_args(lane_vecs[:6], ct, x0, outs, xtol, lim_iter, stall_tol_factor)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         next_lane = torch.zeros(1, dtype=torch.int32, device=device)  # the kernels' work counter
         if n <= TILE_MAX_N:
-            kind = "tile"
-            rc = lib.chord_newton_f32(*args, next_lane.data_ptr(), B, n, stream)
+            slots = tile_slots(B, n, _sm_count(device.index))
+            kind = f"tile{slots}"
+            rc = lib.chord_newton_f32(*args, next_lane.data_ptr(), B, n, slots, stream)
         else:
             kind = "wide"
             W32, J32 = ct.W_pack_f32, ct.invJ0_T_f32  # the float32 copies it streams
@@ -93,8 +138,9 @@ def chord_solve_cuda(p, q, w_a, w_b, dtf_re, dtf_im, ct, xtol=1e-5, lim_iter=48,
         raise RuntimeError(f"chord_newton ({kind}) kernel launch failed with CUDA error {rc} (B={B}, n={n})")
     chord_solve_cuda.launch_count += 1
     chord_solve_cuda.launches[kind] += 1
-    return x, F, diff, n_iter, accepted
+    profiling.count(f"chord.{kind}_lanes", B)
+    return outs
 
 
 chord_solve_cuda.launch_count = 0
-chord_solve_cuda.launches = {"tile": 0, "wide": 0}
+chord_solve_cuda.launches = {"tile8": 0, "tile16": 0, "wide": 0}

@@ -9,7 +9,7 @@ from gym_anm_torch.bench import kernel_probes
 
 def test_probes_instrument_the_current_kernel_sources():
     chord = kernel_probes.instrument_chord((_build.CSRC_DIR / "chord_newton.cu").read_text())
-    assert chord.count("clock64()") == 10 and "g_probe[10]" in chord and 'extern "C" int probe_read' in chord
+    assert chord.count("clock64()") == 10 and "g_probe[11]" in chord and 'extern "C" int probe_read' in chord
     gj = kernel_probes.instrument_gj(
         kernel_probes.gj_source("gauss_jordan_regs_f32.cu", "gauss_jordan_regs_f32_high.cu"))
     assert gj.count("clock64()") == 2 and "g_probe[1]" in gj

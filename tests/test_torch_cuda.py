@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from gym_anm_torch.networks import anm6_network, ieee33_network
-from gym_anm_torch.physics import power_flow as pf
+from gym_anm_torch.physics import chord_cuda, power_flow as pf
 from gym_anm_torch.physics.chord_cuda import chord_solve_cuda
 from gym_anm_torch.physics.linsolve_cuda import batched_solve, solve_gauss_jordan, solve_gauss_jordan_cuda
 from gym_anm_torch.physics.transition import make_tables
@@ -191,20 +191,41 @@ def _chord_problem(net, delta_t, B, seed, device):
     return tb.chord_t, (t(p), t(q), t(d[:, 1]), t(d[:, 0]), t(d[:, 0]), t(d[:, 1]), t(x0))
 
 
+def _chord_batch(B, cuda):
+    """A batch size, or one named against the tile kernel's routes on this
+    card: "switch-1", "switch", "switch+1" about the 16-slot route's first
+    batch (``chord_cuda.TILE16_LANES_PER_SM`` lanes on every SM), "card*k"
+    k times that (every slot refills about k times)."""
+    if isinstance(B, int):
+        return B
+    full = chord_cuda.TILE16_LANES_PER_SM * torch.cuda.get_device_properties(cuda).multi_processor_count
+    if B.startswith("card*"):
+        return full * int(B[5:])
+    return full + {"switch-1": -1, "switch": 0, "switch+1": 1}[B]
+
+
+def _tile_route(B, n, cuda):
+    """The launch counter of the tile route the wrapper takes for B lanes."""
+    return f"tile{chord_cuda.tile_slots(B, n, torch.cuda.get_device_properties(cuda).multi_processor_count)}"
+
+
 @pytest.mark.parametrize("net,delta_t", [(ieee33_network, 1.0), (anm6_network, 0.25)], ids=["ieee33", "anm6"])
-@pytest.mark.parametrize("B", [7, 33, 1001])
+@pytest.mark.parametrize("B", [7, 31, 32, 33, 1001, "switch-1", "switch", "switch+1"])
 def test_chord_kernel_matches_plain_version(cuda, net, delta_t, B):
     """K2 against the plain chord on the same card inputs: the same accepted
     lanes, n_iter equal on all but a rare lane (a float64 dot product summed
     in another order can move a float32 rounding, and a plateau exit by an
     iteration), x within the solver's own scale (2e-5), F and diff within the
-    acceptance band."""
+    acceptance band; on each side of a block's slots and of the route
+    switch, through the route the wrapper picks."""
+    B = _chord_batch(B, cuda)
     ct, args = _chord_problem(net, delta_t, B, B, cuda)
-    before = chord_solve_cuda.launch_count
+    route = _tile_route(B, ct.n, cuda)
+    before, on_route = chord_solve_cuda.launch_count, chord_solve_cuda.launches[route]
     xk, Fk, dk, ik, ak = pf.chord_solve(*args[:6], ct, x0=args[6])
     xp, Fp, dp, ip, ap = pf.chord_solve_plain(*args[:6], ct, x0=args[6])
     torch.cuda.synchronize()
-    assert chord_solve_cuda.launch_count == before + 1
+    assert chord_solve_cuda.launch_count == before + 1 and chord_solve_cuda.launches[route] == on_route + 1
     assert torch.equal(ak, ap) and bool(ak.all())
     assert int((ik != ip).sum()) <= max(1, B // 500)
     torch.testing.assert_close(xk, xp, rtol=0, atol=2e-5)
@@ -216,13 +237,16 @@ def test_chord_kernel_matches_plain_version(cuda, net, delta_t, B):
 
 
 @pytest.mark.parametrize("net,delta_t", [(ieee33_network, 1.0), (anm6_network, 0.25)], ids=["ieee33", "anm6"])
-@pytest.mark.parametrize("B", [1, 7, 33, 1001])
+@pytest.mark.parametrize("B", [1, 7, 31, 32, 33, 1001, "switch-1", "switch", "switch+1", "card*4"])
 def test_chord_kernel_on_mixed_starts(cuda, net, delta_t, B):
     """Flat (a NaN guess), warm and bad-basin starts mixed lane by lane, at
-    fewer lanes than a block's slots and at enough to refill every slot
-    many times: the same accepted lanes as the plain chord, n_iter equal on
-    all but a rare lane, x within 2e-5, F and diff within the acceptance
-    band; the reset lanes leave exactly flat."""
+    fewer lanes than a block's slots, on each side of a block's slots and of
+    the route switch, and at enough to refill every slot of the card many
+    times (four times the 16-slot route's lanes on the card): the same
+    accepted lanes as the plain chord, n_iter equal on all but a rare lane,
+    x within 2e-5, F and diff within the acceptance band; the reset lanes
+    leave exactly flat."""
+    B = _chord_batch(B, cuda)
     ct, args = _chord_problem(net, delta_t, B, 3 * B + 1, cuda)
     n = ct.n
     rng = np.random.default_rng(B)
@@ -231,11 +255,12 @@ def test_chord_kernel_on_mixed_starts(cuda, net, delta_t, B):
                         [0.0] * n + [1e15] * n], device=cuda)[torch.as_tensor(rng.integers(0, 4, B), device=cuda)]
     x0 = torch.where((kind == 0)[:, None], torch.full_like(args[6], float("nan")), args[6])
     x0 = torch.where((kind == 2)[:, None], bad, x0).contiguous()
-    before = chord_solve_cuda.launch_count
+    route = _tile_route(B, n, cuda)
+    before, on_route = chord_solve_cuda.launch_count, chord_solve_cuda.launches[route]
     xk, Fk, dk, ik, ak = pf.chord_solve(*args[:6], ct, x0=x0)
     xp, Fp, dp, ip, ap = pf.chord_solve_plain(*args[:6], ct, x0=x0)
     torch.cuda.synchronize()
-    assert chord_solve_cuda.launch_count == before + 1
+    assert chord_solve_cuda.launch_count == before + 1 and chord_solve_cuda.launches[route] == on_route + 1
     assert torch.equal(ak, ap)
     assert int((ik != ip).sum()) <= max(1, B // 500)
     torch.testing.assert_close(xk, xp, rtol=0, atol=2e-5)
